@@ -26,6 +26,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running tiers excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips without one (the PyTorch port's "
+        "kernel tests, run on the GPU machine)")
 
 
 import pytest  # noqa: E402
