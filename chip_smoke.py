@@ -9,20 +9,29 @@ Phases (any failure exits non-zero):
 1. build every kernel of ``dcos_commons_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print the card;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (paged flash-decode: Llama-3-8B heads, B=8
-   ragged streams, page sizes 64 and 128, bf16 and int8 pages) and time
-   the kernel, the plain version, one library call as a yardstick, and
-   the card's bound for the same work;
+   shapes of the main paths and time the kernel, the plain version, one
+   library call as a yardstick, and the card's bound for the same work:
+   paged flash-decode (Llama-3-8B heads, B=8 ragged streams, page sizes
+   64 and 128, bf16 and int8 pages); flash-attention forward, dK/dV and
+   dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6, D=128, and
+   Llama-3-8B heads B=2, S=2048, H=32, KV=8);
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
    seed) through ``PagedServer``: about a dozen requests, two sharing a
    long prefix, decode windows 1 and 8; launch counts are zeroed just
    before and read just after; then one decode step through the kernel
-   is held against the same step through the dense gather.
+   is held against the same step through the dense gather;
+4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
+   batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
+   one warm-up step, then 10 timed steps on the same batch with the
+   flash-attention launch counts zeroed just before and read just after;
+   then one loss forward and backward through the kernels is held
+   against the same through the dense attention path.
 
-Output: the ``serving`` line, the ``kernels`` line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Without CUDA, or
-without the rest of the repository beside it, it exits non-zero and
-prints no result. Imports nothing of JAX.
+Output: the ``serving`` line, the ``training`` line, the ``kernels``
+line, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Without CUDA, or without the rest of the repository
+beside it, it exits non-zero and prints no result. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -38,10 +47,23 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 SEED = 0
+# about 25 ms of SM clock: longer than the host takes to queue a timing run
+SLEEP_CYCLES = 50_000_000
 
 # kernel vs plain version: both accumulate in fp32 and round once to
 # bf16, so they differ by at most about one bf16 ulp (2^-7 relative)
 KERNEL_RTOL, KERNEL_ATOL = 1e-2, 1e-3
+# flash attention, kernel vs plain version: both accumulate in fp32 and
+# round each output once to bf16, but the kernels round P (and dS) to bf16
+# before their products, as the TPU kernel does, so an output may flip its
+# last bf16 bits and the error scales with the tensor's largest value:
+# rtol 2e-2 plus 1e-2 of max|want|; lse is fp32 on both sides
+FA_RTOL, FA_SCALED_ATOL, LSE_ATOL = 2e-2, 1e-2, 1e-3
+# the train step, one loss forward + backward through the kernels vs the
+# dense path, both bf16 over 8 layers: loss within 2e-2 (about 3 bf16
+# ulps of the ~10.4 loss, carried by bf16 rounding flips in attention);
+# each gradient leaf within 5e-2 relative in norm
+LOSS_ATOL, GRAD_RTOL = 2e-2, 5e-2
 # one decode step, kernel vs dense gather, over 32 bf16 layers: attention
 # outputs differ by bf16 rounding flips, which the residual stream carries
 # to the bf16-rounded logits (ulp 2^-7 near 1): allow 16 ulps there
@@ -62,13 +84,16 @@ def card_line() -> str:
 
 def timed_ms(fn, iters: int, flush) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush (the decode step reads a different layer's pages each call,
-    so the main path finds them cold)."""
+    L2 flush (the main paths find their inputs cold). A sleep kernel
+    first holds the card while the host queues every launch, so the
+    events time the device, not the host's gaps between launches."""
     import torch
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     for i in range(iters):
         flush.zero_()
         starts[i].record()
@@ -76,6 +101,16 @@ def timed_ms(fn, iters: int, flush) -> float:
         ends[i].record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time for the work: bytes over the memory rate or bf16
+    operations over the tensor-core peak, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
 
 
 # --------------------------------------------------------------- phase 1
@@ -158,24 +193,131 @@ def flash_decode_case(ps: int, int8: bool, flush) -> dict:
     elem = 1 if int8 else 2
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * mp * 4 + b * 4
-    n_bytes = kv_bytes + io_bytes
-    n_ops = 4 * live * h * d
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_OPS_PER_S * 1e3
     return {"page_size": ps, "pages": "int8" if int8 else "bf16",
             "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "ops": n_ops}
+            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
 
 
-def phase_kernels(flush) -> list:
+# (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
+FA_SHAPES = (("llama_400m_train", 16, 511, 12, 6, 128),
+             ("llama3_8b_heads", 2, 2048, 32, 8, 128))
+
+
+def _fa_check(name: str, got, want) -> float:
+    """Max abs error of a kernel output against its plain version; raises
+    outside the stated tolerance or on a non-finite value."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = FA_SCALED_ATOL * float(w.abs().max()) + FA_RTOL * w.abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(g).all()):
+        raise RuntimeError(f"{name}: {int((err > tol).sum())} elements off "
+                           f"(max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def flash_attention_case(shape, flush) -> dict:
+    """Kernels 3-5 vs their plain versions at one shape, with times, the
+    bounds and SDPA (forward; backward for dK/dV and dQ together) as the
+    library yardstick, timed here only and never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+
+    label, b, s, h, kv, d = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + s)
+
+    def r(*dims):
+        return torch.randn(dims, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = r(b, s, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, s, h, d)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    delta = fa.attention_delta(o_ref, do)
+    bwd_in = (q, k, v, do, lse_ref, delta)
+    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_in)
+    dq = fa.flash_attention_bwd_dq(*bwd_in)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in)
+    torch.cuda.synchronize()
+    err = {"fwd": _fa_check(f"flash_attention_fwd {label}", o, o_ref),
+           "dkdv": max(_fa_check(f"flash_attention_bwd_dkdv {label} dk",
+                                 dk, dk_ref),
+                       _fa_check(f"flash_attention_bwd_dkdv {label} dv",
+                                 dv, dv_ref)),
+           "dq": _fa_check(f"flash_attention_bwd_dq {label}", dq, dq_ref)}
+    lse_err = float((lse - lse_ref).abs().max())
+    if lse_err > LSE_ATOL:
+        raise RuntimeError(f"flash_attention_fwd {label}: lse off by "
+                           f"{lse_err:.3e}")
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_out = library_fwd()
+    lib_err = float((lib_out.detach().transpose(1, 2).float()
+                     - o_ref.float()).abs().max())
+    do_t = do.transpose(1, 2)
+
+    def library_bwd():
+        return torch.autograd.grad(lib_out, leaves, do_t, retain_graph=True)
+
+    iters = 20
+    times = {
+        "fwd": (timed_ms(lambda: fa.flash_attention_fwd(q, k, v), iters,
+                         flush),
+                timed_ms(lambda: fa.flash_attention_reference(q, k, v), 5,
+                         flush)),
+        "dkdv": (timed_ms(lambda: fa.flash_attention_bwd_dkdv(*bwd_in),
+                          iters, flush),
+                 timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(
+                     *bwd_in), 5, flush)),
+        "dq": (timed_ms(lambda: fa.flash_attention_bwd_dq(*bwd_in), iters,
+                        flush),
+               timed_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                   *bwd_in), 5, flush)),
+    }
+    library = {"fwd": timed_ms(library_fwd, iters, flush)}
+    library["dkdv"] = library["dq"] = timed_ms(library_bwd, iters, flush)
+
+    # live (query, key) pairs of the causal mask, each row i sees i + 1
+    pairs = b * h * s * (s + 1) // 2
+    q_bytes = b * s * h * d * 2                     # q, o, dO, dq (bf16)
+    kv_bytes = b * s * kv * d * 2                   # k, v, dk, dv (bf16)
+    row_bytes = b * h * s * 4                       # lse, delta (fp32)
+    work = {"fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * d * pairs),
+            "dkdv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+                     8 * d * pairs),
+            "dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+                   6 * d * pairs)}
+    out = {}
+    for kern in ("fwd", "dkdv", "dq"):
+        ms, plain_ms = times[kern]
+        out[kern] = {"shape": label, "b": b, "s": s, "h": h, "kv": kv,
+                     "d": d, "max_abs_err": err[kern], "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library[kern],
+                     **bound(*work[kern])}
+    out["fwd"]["lse_max_abs_err"] = lse_err
+    out["fwd"]["library_max_abs_err"] = lib_err
+    return out
+
+
+def phase_kernels(flush):
     cases = [flash_decode_case(ps, int8, flush)
              for ps in (64, 128) for int8 in (False, True)]
     for c in cases:
         log(f"[kernel] flash_decode_paged {json.dumps(c)}")
-    return cases
+    fa_cases = [flash_attention_case(shape, flush) for shape in FA_SHAPES]
+    for c in fa_cases:
+        for kern, case in c.items():
+            log(f"[kernel] flash_attention_{kern} {json.dumps(case)}")
+    return cases, fa_cases
 
 
 # --------------------------------------------------------------- phase 3
@@ -311,6 +453,131 @@ def phase_serve(card: str) -> dict:
         "card": card}}, launches
 
 
+# --------------------------------------------------------------- phase 4
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
+FA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+              "flash_attention_bwd_dq")
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def phase_train(card: str):
+    """bench.py's headline llama line through the port: llama_400m at
+    full width and depth, batch 16 x 512, fused CE, AdamW warmup 10."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import llama, train
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama_400m(max_seq=TRAIN_SEQ, remat=False)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    named = list(_named(params))
+    n_params = sum(t.numel() for _, t in named)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    opt = train.make_optimizer(lr=3e-4, warmup=10, decay_steps=1000)
+    state = train.init_opt_state(opt, params)
+    step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b), opt)
+
+    t0 = time.perf_counter()
+    params, state, out = step(params, state, toks)          # warm-up
+    losses = [out["loss"]]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = [getattr(fa, name) for name in FA_KERNELS]
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, state, out = step(params, state, toks)
+        losses.append(out["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {name: c.launches for name, c in zip(FA_KERNELS, counters)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in torch.stack(losses).float().cpu()]
+    log(f"[train] warm-up step {warm_s:.2f} s, {step_s * 1e3:.2f} ms a "
+        f"step, losses {losses}, launches {launches}")
+
+    # one loss forward + backward through the kernels vs the dense path
+    grads, loss = {}, {}
+    leaves = [t for _, t in named]
+    for mode in ("auto", "dense"):
+        for t in leaves:
+            t.requires_grad_(True)
+        l_mode, _ = llama.loss_fn(dataclasses.replace(cfg, attn_impl=mode),
+                                  params, toks)
+        grads[mode] = torch.autograd.grad(l_mode, leaves)
+        loss[mode] = float(l_mode.detach())
+        for t in leaves:
+            t.requires_grad_(False)
+    rel = {name: float((gk.float() - gd.float()).norm()
+                       / gd.float().norm().clamp_min(1e-30))
+           for (name, _), gk, gd in zip(named, grads["auto"], grads["dense"])}
+    worst = max(rel, key=rel.get)
+    loss_diff = abs(loss["auto"] - loss["dense"])
+
+    problems = []
+    want = cfg.n_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        problems.append(f"launches {launches}, expected {want} of each")
+    if not all(np.isfinite(losses)):
+        problems.append(f"non-finite loss: {losses}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall: {losses}")
+    if loss_diff > LOSS_ATOL or rel[worst] > GRAD_RTOL:
+        problems.append(f"kernel vs dense: loss diff {loss_diff:.3e} (tol "
+                        f"{LOSS_ATOL}), worst grad {worst} {rel[worst]:.3e} "
+                        f"(tol {GRAD_RTOL})")
+    if problems:
+        raise RuntimeError("training phase: " + "; ".join(problems))
+
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ - 1)  # next-token loss
+    flops_per_step = 6.0 * n_params * tokens_per_step
+    return {"training": {
+        "model": "llama_400m", "layers": cfg.n_layers, "dim": cfg.dim,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "params": n_params, "dtype": "bf16", "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "tokens_per_step": tokens_per_step,
+        "grad_accum": 1, "fused_ce": cfg.fused_ce, "remat": cfg.remat,
+        "attn_impl": cfg.attn_impl, "steps_timed": TRAIN_STEPS,
+        "warmup_step_s": warm_s, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens_per_step / step_s,
+        "mfu": flops_per_step / step_s / BF16_OPS_PER_S,
+        "bound_step_ms": flops_per_step / BF16_OPS_PER_S * 1e3,
+        "peak_mem_gb": peak_gb, "loss_first": losses[0],
+        "loss_last": losses[-1], "losses": losses,
+        "launches_per_step": {k: n / TRAIN_STEPS
+                              for k, n in launches.items()},
+        "kernel_vs_dense": {
+            "loss_kernel": loss["auto"], "loss_dense": loss["dense"],
+            "loss_abs_diff": loss_diff, "loss_tol": LOSS_ATOL,
+            "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
+            "grad_tol": GRAD_RTOL},
+        "card": card}}, launches
+
+
+def _kernel_entry(name, source, replaces, launches, cases, tolerance):
+    head = cases[0]                        # the main path's shape
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "tolerance": tolerance,
+            "cases": cases}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -322,22 +589,40 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    cases = phase_kernels(flush)
+    decode_cases, fa_cases = phase_kernels(flush)
     del flush
-    serving_line, launches = phase_serve(card)
-    head = cases[0]                      # the main path: ps 64, bf16
-    kernels = [{
-        "name": "flash_decode_paged", "route": "cuda",
-        "source": "dcos_commons_tpu_torch/csrc/flash_decode_paged.cu",
-        "replaces": "dcos_commons_tpu/ops/flash_decode.py:263",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
-        "cases": cases}]
+    serving_line, decode_launches = phase_serve(card)
+    torch.cuda.empty_cache()
+    training_line, fa_launches = phase_train(card)
+    fa_tol = {"rtol": FA_RTOL, "atol": f"{FA_SCALED_ATOL} * max|plain|",
+              "lse_atol": LSE_ATOL}
+    csrc = "dcos_commons_tpu_torch/csrc/"
+    kernels = [
+        _kernel_entry("flash_decode_paged", csrc + "flash_decode_paged.cu",
+                      "dcos_commons_tpu/ops/flash_decode.py:263",
+                      decode_launches, decode_cases,
+                      {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}),
+        _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
+                      "dcos_commons_tpu/ops/flash_attention.py:62",
+                      fa_launches["flash_attention_fwd"],
+                      [c["fwd"] for c in fa_cases], fa_tol),
+        _kernel_entry("flash_attention_bwd_dkdv",
+                      csrc + "flash_attention_bwd.cu",
+                      "dcos_commons_tpu/ops/flash_attention.py:214",
+                      fa_launches["flash_attention_bwd_dkdv"],
+                      [c["dkdv"] for c in fa_cases], fa_tol),
+        _kernel_entry("flash_attention_bwd_dq",
+                      csrc + "flash_attention_bwd.cu",
+                      "dcos_commons_tpu/ops/flash_attention.py:256",
+                      fa_launches["flash_attention_bwd_dq"],
+                      [c["dq"] for c in fa_cases], fa_tol),
+    ]
+    for k in kernels[1:]:
+        k["library"] = ("scaled_dot_product_attention(is_causal, enable_gqa)"
+                        + (" forward" if k["name"].endswith("fwd") else
+                           " backward: dq, dk and dv together"))
     print(json.dumps(serving_line), flush=True)
+    print(json.dumps(training_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

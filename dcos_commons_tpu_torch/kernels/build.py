@@ -58,7 +58,10 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its digest covers the source, every shared
+    header of ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.blake2s(src + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"

@@ -1,4 +1,5 @@
-"""Carry JAX-side trees into the port: parameters and page pools.
+"""Carry JAX-side trees into the port: parameters, page pools and the
+optimizer state.
 
 Inputs are trees of numpy arrays (``jax.device_get`` of a parameter
 pytree or a page pool): dicts, arrays, and quantized leaves with ``q``
@@ -51,3 +52,36 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
 def pool_from_jax(pool: Any, device: DeviceLike = "cuda") -> Any:
     """A JAX page pool ``{"k", "v"}`` (as numpy) as the port's pool."""
     return _convert(pool, resolve_device(device))
+
+
+def opt_state_from_jax(state: Any, device: DeviceLike = "cuda"):
+    """The reference optimizer's optax chain state (as numpy, e.g.
+    ``jax.device_get(opt_state)``) as the port's
+    :class:`~dcos_commons_tpu_torch.models.train.OptState`: Adam's
+    ``count``, ``mu`` and ``nu`` (in their stored dtypes) and the
+    learning-rate schedule's ``count``. The chain is searched by field
+    name (the states are named tuples), so the empty states around them
+    do not matter."""
+    from .train import OptState
+
+    found = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", ())
+        if "mu" in fields and "nu" in fields:
+            found["adam"] = node
+        elif fields == ("count",):
+            found["sched"] = node
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(state)
+    if "adam" not in found or "sched" not in found:
+        raise ValueError("opt_state_from_jax: expected an optax chain with "
+                         "a ScaleByAdamState and a ScaleByScheduleState")
+    dev = resolve_device(device)
+    adam = found["adam"]
+    return OptState(count=int(np.asarray(adam.count)),
+                    mu=_convert(adam.mu, dev), nu=_convert(adam.nu, dev),
+                    sched_count=int(np.asarray(found["sched"].count)))

@@ -1,10 +1,14 @@
-"""Llama decoder, serving subset (port of ``dcos_commons_tpu/models/llama.py``).
+"""Llama decoder (port of ``dcos_commons_tpu/models/llama.py``): the
+serving subset and the train forward.
 
-What the block-paged engine runs: the config presets, parameter init,
-the page pool, and the two paged forwards, ``decode_step_paged`` and
-``prefill_chunk_paged``. Parameters are a plain dict of tensors with the
-JAX pytree's keys and its stacked ``[L, ...]`` ``x @ W`` layout; the
-reference's ``lax.scan`` over layers is a Python loop. bf16 weights and
+Serving: the config presets, parameter init, the page pool, and the two
+paged forwards, ``decode_step_paged`` and ``prefill_chunk_paged``.
+Training: ``forward`` (full sequences, causal attention through the
+flash-attention kernels or the dense path, optional per-layer remat)
+and ``loss_fn`` (next-token loss, fused linear cross-entropy by
+default). Parameters are a plain dict of tensors with the JAX pytree's
+keys and its stacked ``[L, ...]`` ``x @ W`` layout; the reference's
+``lax.scan`` over layers is a Python loop. bf16 weights and
 activations, fp32 softmax, norms and logits, with the casts where the
 reference places them.
 
@@ -20,13 +24,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import gqa_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_paged, supports_decode_paged
+from ..ops.losses import fused_linear_cross_entropy, softmax_cross_entropy
 from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
-from ..ops.rotary import apply_rope_at, apply_rope_positions, rope_frequencies
+from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_positions,
+                          rope_frequencies)
 
 Params = Dict[str, Any]
 Pool = Dict[str, QArray]
@@ -43,7 +51,16 @@ class LlamaConfig:
     max_seq: int = 8192
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    # train attention: auto | dense | flash (ring | ulysses raise until
+    # ported). auto = the flash-attention kernels on a CUDA device (a
+    # shape or dtype outside their gate raises), the dense path on the
+    # CPU; flash forces the kernel wrapper (its plain version on CPU)
+    attn_impl: str = "auto"
     dtype: torch.dtype = torch.bfloat16
+    # recompute each layer's activations in the backward (full remat);
+    # a selective remat_policy is not ported yet
+    remat: bool = True
+    remat_policy: Optional[str] = None
     # int8 KV pages (per-position, per-head scales)
     kv_quant: bool = False
     # paged decode attention: auto | dense | flash. auto = the CUDA
@@ -51,6 +68,11 @@ class LlamaConfig:
     # gather + gqa_attention on the CPU; flash forces the kernel wrapper
     # (which runs its plain version on CPU tensors)
     decode_attn: str = "auto"
+    # fused linear cross-entropy on the train loss head (ops/losses.py):
+    # the [B, S, V] fp32 logits never materialize
+    fused_ce: bool = True
+    # sequence chunk of the fused loss (S need not divide it)
+    fused_ce_block: int = 512
 
     @property
     def head_dim(self) -> int:
@@ -65,7 +87,7 @@ class LlamaConfig:
         """The mid-size bench/operator preset (~306M params)."""
         defaults = dict(vocab_size=32000, dim=1536, n_layers=8,
                         n_heads=12, n_kv_heads=6, ffn_dim=4096,
-                        max_seq=512)
+                        max_seq=512, remat=False)
         defaults.update(kw)
         return cls(**defaults)
 
@@ -73,7 +95,7 @@ class LlamaConfig:
     def tiny(cls, **kw) -> "LlamaConfig":
         """4-layer toy config for tests."""
         defaults = dict(vocab_size=256, dim=64, n_layers=4, n_heads=8,
-                        n_kv_heads=4, ffn_dim=128, max_seq=128)
+                        n_kv_heads=4, ffn_dim=128, max_seq=128, remat=False)
         defaults.update(kw)
         return cls(**defaults)
 
@@ -220,11 +242,7 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
         cache_write(v_cache, v)
         o = attn(q, k_cache, v_cache)
         x = x + qmm(o.reshape(b, s, -1), lp["wo"])
-        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        # SwiGLU: silu in fp32 on the matmul output, as the reference
-        gate = F.silu(qmm(h, lp["w_gate"]).float())
-        up = qmm(h, lp["w_up"]).float()
-        x = x + qmm((gate * up).to(cfg.dtype), lp["w_down"])
+        x = ffn_block(cfg, x, lp)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     x = x[:, -1, :] if logit_index is None else x[:, logit_index, :]
     return qmm(x, params["lm_head"]).float()
@@ -328,3 +346,99 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
         rope_fn=lambda t: apply_rope_positions(t, rope, rope_pos),
         cache_write=cache_write, attn=attn, logit_index=logit_index)
     return logits, pool
+
+
+# ---------------------------------------------------------------------------
+# train forward
+
+
+def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
+    """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal.
+
+    ``auto`` takes the flash-attention kernels on a CUDA device and the
+    dense path on the CPU; ``flash`` forces the kernel wrapper; ``dense``
+    the dense path. Unlike the reference, a shape or dtype the kernels do
+    not take raises on CUDA instead of going dense (``supports`` is the
+    kernels' gate, not a router)."""
+    impl = cfg.attn_impl
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    if impl not in ("auto", "dense", "flash"):
+        raise ValueError(f"attn_impl={impl!r}: expected one of 'auto', "
+                         "'dense', 'flash'")
+    if impl == "flash" or (impl == "auto" and device.type == "cuda"):
+        return lambda q, k, v: flash_attention(q, k, v, causal=True)
+    return lambda q, k, v: gqa_attention(q, k, v, causal=True)
+
+
+def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
+                    rope: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
+    """Pre-norm attention residual step on x [B, S, D]."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = qmm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = qmm(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = qmm(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, rope)
+    k = apply_rope(k, rope)
+    o = attn_fn(q, k, v)             # GQA expansion is the impl's business
+    return x + qmm(o.reshape(b, s, -1), lp["wo"])
+
+
+def ffn_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params) -> torch.Tensor:
+    """Pre-norm SwiGLU residual step on x [B, S, D]; silu in fp32 on the
+    matmul output, as the reference."""
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    gate = F.silu(qmm(h, lp["w_gate"]).float())
+    up = qmm(h, lp["w_up"]).float()
+    return x + qmm((gate * up).to(cfg.dtype), lp["w_down"])
+
+
+def apply_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
+                rope: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
+    """One decoder layer on activations x [B, S, D]."""
+    return ffn_block(cfg, attention_block(cfg, x, lp, rope, attn_fn), lp)
+
+
+def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, V] fp32, or with
+    ``return_hidden`` the final-norm hidden states [B, S, D] (the fused
+    loss's input). ``cfg.remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    if cfg.remat and cfg.remat_policy:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=tokens.device)
+    attn_fn = _make_attn_fn(cfg, tokens.device)
+    layers = params["layers"]
+    x = qtake(params["embed"], tokens, cfg.dtype)
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                apply_layer, cfg, x, lp, rope, attn_fn, use_reentrant=False)
+        else:
+            x = apply_layer(cfg, x, lp, rope, attn_fn)
+    x = rms_norm(x, params["norm"], cfg.norm_eps)
+    if return_hidden:
+        return x
+    return qmm(x, params["lm_head"]).float()
+
+
+def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token LM loss over tokens [B, S] -> (loss, accuracy), with
+    z-loss 1e-4. ``cfg.fused_ce`` (the default) runs the lm_head inside
+    ``fused_linear_cross_entropy``'s sequence-blocked loop."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.fused_ce:
+        x = forward(cfg, params, inputs, return_hidden=True)
+        return fused_linear_cross_entropy(
+            x, params["lm_head"], targets, z_loss=1e-4,
+            block_size=cfg.fused_ce_block)
+    logits = forward(cfg, params, inputs)
+    return softmax_cross_entropy(logits, targets, z_loss=1e-4)

@@ -1,2 +1,3 @@
-"""Tensor ops of the port: quant, norms, rotary, attention, sampling and
-the paged flash-decode kernel wrapper."""
+"""Tensor ops of the port: quant, norms, rotary, attention, sampling,
+the loss heads, and the paged flash-decode and flash-attention kernel
+wrappers."""

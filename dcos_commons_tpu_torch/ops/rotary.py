@@ -30,6 +30,23 @@ def _lookup(table: torch.Tensor, pos: torch.Tensor):
     return table[0][pos], table[1][pos]
 
 
+def apply_rope(x: torch.Tensor, table: torch.Tensor,
+               offset: int = 0) -> torch.Tensor:
+    """Rotate [B, S, H, D] by positions ``offset..offset+S`` (the full-
+    sequence path of the train forward). As the reference's
+    ``lax.dynamic_slice``, a window that would run off the table keeps its
+    length and moves its START back to fit (clamped to
+    ``[0, max_seq - S]``); a window longer than the table raises."""
+    seq, n = x.shape[1], table.shape[1]
+    if seq > n:
+        raise ValueError(f"apply_rope: {seq} positions exceed the rope "
+                         f"table's {n}")
+    start = min(max(int(offset), 0), n - seq)
+    cos = table[0, start:start + seq][None, :, None, :]
+    sin = table[1, start:start + seq][None, :, None, :]
+    return _rotate(x, cos, sin, x.shape[-1] // 2)
+
+
 def apply_rope_positions(x: torch.Tensor, table: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
     """Rotate [B, S, H, D] at explicit positions ``pos`` [S] shared by

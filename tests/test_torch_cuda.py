@@ -1,6 +1,9 @@
 """Port tests that need the card: the paged flash-decode CUDA kernel
 against its plain PyTorch version across shapes, page sizes and int8
-pages, and the paged engine running through it.
+pages, and the paged engine running through it; the flash-attention
+forward, dK/dV and dQ kernels against their plain versions (the smoke
+run's two shapes, a ragged and a negative-offset case, head_dim 256),
+their refusals, and the train step running through them.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -14,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from dcos_commons_tpu_torch.models import llama, serving
+from dcos_commons_tpu_torch.models import llama, serving, train
+from dcos_commons_tpu_torch.ops import flash_attention as fa
 from dcos_commons_tpu_torch.ops import flash_decode as fd
 from dcos_commons_tpu_torch.ops.quant import QTensor, quantize
 
@@ -164,3 +168,160 @@ def test_paged_server_runs_through_the_kernel(dev):
         r["request_id"]: r["max_new"] for r in reqs}
     assert srv.ledger_violations() == []
     assert srv.page_stats()["prefix_hits"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernels 3 (forward), 4 (dK/dV) and 5 (dQ)
+
+# Both sides accumulate in fp32 and round each output once to bf16, but
+# the kernels round P (and dS) to bf16 before their products, as the TPU
+# kernel does, and the plain version keeps them fp32: an output may flip
+# its last bf16 bits, and the error scales with the tensor's largest
+# magnitude. rtol 2e-2 plus 1e-2 of max|want|; lse (fp32 on both sides)
+# within 1e-3.
+FA_RTOL, FA_SCALED_ATOL, LSE_ATOL = 2e-2, 1e-2, 1e-3
+
+FA_CASES = [
+    # b, sq, sk, h, kv, d, causal, q_offset
+    (16, 511, 511, 12, 6, 128, True, 0),       # the Llama-400m train step
+    (2, 2048, 2048, 32, 8, 128, True, 0),      # Llama-3-8B heads
+    (3, 77, 200, 4, 1, 64, True, 123),         # ragged, rectangular
+    (2, 100, 100, 4, 2, 128, True, -37),       # rows with no live key
+    (1, 130, 70, 2, 2, 256, False, 0),         # head_dim 256, full
+]
+
+
+def _fa_case(dev, b, sq, sk, h, kv, d, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    return r(b, sq, h, d), r(b, sk, kv, d), r(b, sk, kv, d), r(b, sq, h, d)
+
+
+def _fa_close(got, want):
+    atol = FA_SCALED_ATOL * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_RTOL,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,off", FA_CASES)
+def test_flash_attention_kernels_match_plain_versions(dev, b, sq, sk, h, kv,
+                                                      d, causal, off):
+    q, k, v, do = _fa_case(dev, b, sq, sk, h, kv, d)
+    kw = dict(causal=causal, q_offset=off)
+    n0 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkdv.launches,
+          fa.flash_attention_bwd_dq.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.shape == (b, h, sq)
+    _fa_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=LSE_ATOL)
+    delta = fa.attention_delta(o_ref, do)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse_ref, delta, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(
+        q, k, v, do, lse_ref, delta, **kw)
+    dq_ref = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta,
+                                                 **kw)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert bool(torch.isfinite(got.float()).all())
+        _fa_close(got, want)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dkdv.launches,
+            fa.flash_attention_bwd_dq.launches) == tuple(n + 1 for n in n0)
+    if off < 0:
+        dead = -off
+        assert bool((o[:, :dead] == 0).all()) and bool((dq[:, :dead] == 0).all())
+        assert bool((lse[:, :, :dead] == -1e30).all())
+
+
+def test_flash_attention_autograd_matches_dense_on_card(dev):
+    from dcos_commons_tpu_torch.ops.attention import gqa_attention
+    q, k, v, do = _fa_case(dev, 2, 300, 300, 8, 2, 128, seed=1)
+    grads = {}
+    for name, fn in (("flash", fa.flash_attention), ("dense", gqa_attention)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do)
+        grads[name] = [out.detach()] + [t.grad for t in leaves]
+    for got, want in zip(grads["flash"], grads["dense"]):
+        _fa_close(got, want)
+
+
+def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):
+    q, k, v, _ = _fa_case(dev, 1, 64, 64, 4, 2, 128)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float())
+    bad = torch.zeros((1, 64, 4, 96), dtype=torch.bfloat16, device=dev)
+    bad_kv = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(bad, bad_kv, bad_kv)
+    q6 = torch.zeros((1, 64, 6, 128), dtype=torch.bfloat16, device=dev)
+    k4 = torch.zeros((1, 64, 4, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q6, k4, k4)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, attn_impl="flash",
+                                 n_layers=1)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.zeros((1, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        llama.loss_fn(cfg, params, toks)
+
+
+def _train_cfg(**kw):
+    # head_dim 64: inside the kernels' gate
+    return llama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  n_layers=2, max_seq=128, **kw)
+
+
+def test_train_step_runs_through_the_three_kernels(dev):
+    cfg = _train_cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = train.make_optimizer(lr=1e-3, warmup=1, decay_steps=100)
+    state = train.init_opt_state(opt, params)
+    step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b), opt)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 97)).astype(np.int32)).to(dev)
+    n0 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkdv.launches,
+          fa.flash_attention_bwd_dq.launches)
+    losses = []
+    for _ in range(3):
+        params, state, out = step(params, state, toks)
+        losses.append(float(out["loss"]))
+    assert (fa.flash_attention_fwd.launches - n0[0],
+            fa.flash_attention_bwd_dkdv.launches - n0[1],
+            fa.flash_attention_bwd_dq.launches - n0[2]) == (6, 6, 6)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert state.mu["layers"]["wq"].dtype == torch.bfloat16
+
+
+def test_loss_kernel_matches_dense_on_card(dev):
+    cfg = _train_cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 97)).astype(np.int32)).to(dev)
+    res = {}
+    for mode in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=mode)
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in params["layers"].items()}
+        p = dict(params, layers=leaves)
+        loss, _ = llama.loss_fn(c, p, toks)
+        loss.backward()
+        res[mode] = (float(loss.detach()),
+                     {k: v.grad.float() for k, v in leaves.items()})
+    assert abs(res["flash"][0] - res["dense"][0]) < 1e-2
+    for name, g in res["flash"][1].items():
+        want = res["dense"][1][name]
+        rel = float((g - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel < 5e-2, (name, rel)

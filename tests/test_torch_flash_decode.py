@@ -176,17 +176,22 @@ def test_supports_decode_paged_gate(d, h, kv, ps, sq, ok):
 
 def test_kernel_build_bookkeeping():
     """One library per ``csrc/*.cu``, under ``build/torch_kernels`` (a
-    gitignored directory), named by a digest of source and flags; the
-    source names the TPU kernel it replaces and its bound."""
-    assert build.sources() == ["flash_decode_paged"]
-    lib = build.library_path("flash_decode_paged")
-    assert lib.parent == build.BUILD_DIR
+    gitignored directory), named by a digest of source, shared headers
+    and flags; each source names the TPU kernels it replaces and its
+    bound."""
+    replaces = {"flash_attention_bwd": ("_bwd_dkdv_kernel", "_bwd_dq_kernel"),
+                "flash_attention_fwd": ("_fwd_kernel",),
+                "flash_decode_paged": ("_paged_kernel",)}
+    assert build.sources() == sorted(replaces)
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
-    assert lib.name.startswith("libflash_decode_paged-")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
-    src = (build.CSRC / "flash_decode_paged.cu").read_text()
-    assert "_paged_kernel" in src and "3.35 TB/s" in src
-    assert "torch/extension.h" not in src
+    for name, kernels in replaces.items():
+        lib = build.library_path(name)
+        assert lib.parent == build.BUILD_DIR
+        assert lib.name.startswith(f"lib{name}-")
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert all(k in src for k in kernels) and "3.35 TB/s" in src
+        assert "torch/extension.h" not in src
 
 
 def test_nvcc_missing_is_a_clear_error(monkeypatch):
