@@ -12,14 +12,24 @@ Phases (any failure exits non-zero):
    shapes of the main paths and time the kernel, the plain version, one
    library call as a yardstick, and the card's bound for the same work:
    paged flash-decode (Llama-3-8B heads, B=8 ragged streams, page sizes
-   64 and 128, bf16 and int8 pages); flash-attention forward, dK/dV and
-   dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6, D=128, and
-   Llama-3-8B heads B=2, S=2048, H=32, KV=8);
+   64 and 128, bf16 and int8 pages); slot-cache flash-decode (Llama-3-8B
+   heads, B=8 slots of a 2048-position cache, bf16 and int8, one case
+   with a slot past the cache and one empty); flash-attention forward,
+   dK/dV and dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6,
+   D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8);
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
    seed) through ``PagedServer``: about a dozen requests, two sharing a
    long prefix, decode windows 1 and 8; launch counts are zeroed just
    before and read just after; then one decode step through the kernel
    is held against the same step through the dense gather;
+5. (run right after phase 3, on its weights) serve Llama-3-8B through
+   ``SlotServer(slots=8)`` behind the HTTP front door
+   (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
+   concurrent ``POST /v1/generate`` requests, two of them streamed, then
+   ``/v1/healthz`` and ``/v1/stats``, and one solo ``generate_chunked``;
+   launch counts are zeroed just before and read just after; then one
+   ``decode_step_slots`` through the kernel is held against the dense
+   step on the live cache, and 16 steady decode steps at B=8 are timed;
 4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
    batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
    one warm-up step, then 10 timed steps on the same batch with the
@@ -27,8 +37,8 @@ Phases (any failure exits non-zero):
    then one loss forward and backward through the kernels is held
    against the same through the dense attention path.
 
-Output: the ``serving`` line, the ``training`` line, the ``kernels``
-line, the card's name and power limit, and last ``{"ok": true,
+Output: the ``serving``, ``serving_slots`` and ``training`` lines, the
+``kernels`` line, the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
 JAX.
@@ -37,10 +47,13 @@ JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16
 # tensor cores 989 TFLOP/s
@@ -183,8 +196,8 @@ def flash_decode_case(ps: int, int8: bool, flush) -> dict:
     lib_err = float((library().transpose(1, 2).float()
                      - want.float()).abs().max())
     iters = 50
-    ms = timed_ms(lambda: fd._launch(q, k, v, table, kv_len, d ** -0.5),
-                  iters, flush)
+    ms = timed_ms(lambda: fd._launch_paged(q, k, v, table, kv_len,
+                                           d ** -0.5), iters, flush)
     plain_ms = timed_ms(lambda: fd.flash_decode_paged_reference(
         q, k, v, table, kv_len), 10, flush)
     library_ms = timed_ms(library, iters, flush)
@@ -194,6 +207,73 @@ def flash_decode_case(ps: int, int8: bool, flush) -> dict:
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * mp * 4 + b * 4
     return {"page_size": ps, "pages": "int8" if int8 else "bf16",
+            "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
+
+
+# slot lengths of the edge case: one past the cache, one empty
+EDGE_LENS = (4096, 0, 64, 65, 700, 2047, 1500, 333)
+
+
+def slot_decode_case(int8: bool, kv_lens, flush) -> dict:
+    """Kernel 2 vs its plain version at the 8B slot shape: H=32, KV=8,
+    D=128, B=8 slots of a 2048-position cache read in place."""
+    import torch
+    import torch.nn.functional as F
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    from dcos_commons_tpu_torch.ops.quant import dequantize, quantize
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7 + int8)
+    b, h, kv, d, s = 8, 32, 8, 128, 2048
+    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
+    if int8:
+        k, v = quantize(k, axis=-1), quantize(v, axis=-1)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+
+    got = fd.flash_decode(q, k, v, kv_len)
+    want = fd.flash_decode_reference(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    dead = [i for i, n in enumerate(kv_lens) if n <= 0]
+    if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()) \
+            or any(bool((got[i] != 0).any()) for i in dead):
+        raise RuntimeError(
+            f"flash_decode int8={int8} lens={kv_lens}: {int(bad.sum())} "
+            f"elements off (max abs err {float(err.max()):.3e})")
+
+    # yardstick: SDPA over the (dequantized) cache masked at kv_len; timed
+    # here only, never called by the port
+    kd = dequantize(k, torch.bfloat16) if int8 else k
+    vd = dequantize(v, torch.bfloat16) if int8 else v
+    kt, vt, qt = kd.transpose(1, 2), vd.transpose(1, 2), q.transpose(1, 2)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    live_rows = [i for i, n in enumerate(kv_lens) if n > 0]
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float())[live_rows].abs().max())
+    lens = fd._lengths(kv_len, b, q.device)
+    iters = 50
+    ms = timed_ms(lambda: fd._launch_slots(q, k, v, lens, d ** -0.5), iters,
+                  flush)
+    plain_ms = timed_ms(lambda: fd.flash_decode_reference(q, k, v, kv_len),
+                        10, flush)
+    library_ms = timed_ms(library, iters, flush)
+
+    live = sum(min(max(n, 0), s) for n in kv_lens)
+    elem = 1 if int8 else 2
+    kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
+    io_bytes = 2 * b * h * d * 2 + b * 4
+    return {"cache": "int8" if int8 else "bf16", "kv_len": list(kv_lens),
             "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             **bound(kv_bytes + io_bytes, 4 * live * h * d)}
@@ -313,11 +393,16 @@ def phase_kernels(flush):
              for ps in (64, 128) for int8 in (False, True)]
     for c in cases:
         log(f"[kernel] flash_decode_paged {json.dumps(c)}")
+    slot_cases = [slot_decode_case(int8, lens, flush)
+                  for int8, lens in ((False, KV_LENS), (True, KV_LENS),
+                                     (True, EDGE_LENS))]
+    for c in slot_cases:
+        log(f"[kernel] flash_decode {json.dumps(c)}")
     fa_cases = [flash_attention_case(shape, flush) for shape in FA_SHAPES]
     for c in fa_cases:
         for kern, case in c.items():
             log(f"[kernel] flash_attention_{kern} {json.dumps(case)}")
-    return cases, fa_cases
+    return cases, slot_cases, fa_cases
 
 
 # --------------------------------------------------------------- phase 3
@@ -421,16 +506,7 @@ def phase_serve(card: str) -> dict:
             dataclasses.replace(cfg, decode_attn=mode), params, pool, tbl,
             srv.lengths, srv.cur_tok, rope=srv._rope)
         del pool
-    lf, ld = logits["flash"], logits["dense"]
-    diff = float((lf - ld).abs().max())
-    top2 = torch.topk(ld, 2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
-    agree = (lf.argmax(-1) == ld.argmax(-1)) | ~decided
-    if diff > LOGIT_ATOL or not bool(agree.all()) \
-            or not bool(torch.isfinite(lf).all()):
-        raise RuntimeError(f"decode step kernel vs dense: max |dlogit| "
-                           f"{diff:.4f} (tol {LOGIT_ATOL}), argmax agree "
-                           f"{agree.tolist()}")
+    diff, decided = _kernel_vs_dense(logits["flash"], logits["dense"])
     steps = 16
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -448,6 +524,173 @@ def phase_serve(card: str) -> dict:
         "decode_tok_s_b8": 8 * steps / decode_s,
         "decode_step_ms_b8": decode_s / steps * 1e3,
         "peak_mem_gb": peak_gb, "page_stats": stats,
+        "flash_vs_dense_max_abs_logit": diff,
+        "flash_vs_dense_argmax_decided": int(decided.sum()),
+        "card": card}}, launches, params
+
+
+def _kernel_vs_dense(lf, ld):
+    """Max |logit difference| of a decode step through the kernel vs the
+    dense read, and how many rows have a decided argmax (top two apart by
+    more than the tolerance); raises if they disagree."""
+    import torch
+    diff = float((lf - ld).abs().max())
+    top2 = torch.topk(ld, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+    agree = (lf.argmax(-1) == ld.argmax(-1)) | ~decided
+    if diff > LOGIT_ATOL or not bool(agree.all()) \
+            or not bool(torch.isfinite(lf).all()):
+        raise RuntimeError(f"decode step kernel vs dense: max |dlogit| "
+                           f"{diff:.4f} (tol {LOGIT_ATOL}), argmax agree "
+                           f"{agree.tolist()}")
+    return diff, decided
+
+
+# --------------------------------------------------------------- phase 5
+
+SLOT_LENS = (64, 1500, 300, 777, 128, 1024, 95, 640, 1200, 411, 256, 900)
+STREAMED = (1, 6)          # request indices sent with "stream": true
+
+
+def _http_generate(port: int, body: dict) -> dict:
+    """One ``POST /v1/generate``; a streamed reply is read line by line
+    and folded into the unary reply's shape."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            return json.loads(r.read())
+        lines = [json.loads(raw) for raw in r]
+    done = lines[-1]
+    if not done.get("done") or "error" in done:
+        raise RuntimeError(f"stream ended badly: {done}")
+    return {"tokens": [e["token"] for e in lines if "token" in e], **done}
+
+
+def _http_get(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_serve_slots(card: str, params):
+    """The worker's default engine: Llama-3-8B (max_seq 2048) in
+    ``SlotServer(slots=8)`` behind ``ServingFrontend``."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.models.ingress import ServingFrontend
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    v = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 2)
+    bodies = [{"prompt": _prompt(rng, n, v), "max_new": 32,
+               "stream": i in STREAMED} for i, n in enumerate(SLOT_LENS)]
+    solo_prompt = _prompt(rng, 256, v)
+    srv = serving.SlotServer(cfg, params, slots=8, device=dev)
+    fe = ServingFrontend(srv, port=0, host="127.0.0.1", decode_window=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.flash_decode.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    fe.start()
+    try:
+        replies = [None] * len(bodies)
+        errors = []
+
+        def hit(i):
+            try:
+                replies[i] = _http_generate(fe.port, bodies[i])
+            except Exception as e:          # reported below, all at once
+                errors.append(f"request {i}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        health = _http_get(fe.port, "/v1/healthz")
+        stats = _http_get(fe.port, "/v1/stats")
+    finally:
+        fe.stop()
+    solo = llama.generate_chunked(
+        cfg, params, torch.tensor([solo_prompt], dtype=torch.int32,
+                                  device=dev), 32, chunk=16)
+    torch.cuda.synchronize()
+    launches = {"flash_decode": fd.flash_decode.launches,
+                "flash_attention_fwd": fa.flash_attention_fwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    problems = list(errors)
+    if any(t.is_alive() for t in threads):
+        problems.append("a request thread did not finish")
+    for i, r in enumerate(replies):
+        toks = (r or {}).get("tokens", [])
+        if len(toks) != 32 or not all(0 <= t < v for t in toks):
+            problems.append(f"request {i}: {len(toks)} tokens, in vocab "
+                            f"{all(0 <= t < v for t in toks)}")
+    if stats["requests"] != len(bodies) or stats["tokens"] != 32 * len(
+            bodies):
+        problems.append(f"/v1/stats counts {stats['requests']} requests, "
+                        f"{stats['tokens']} tokens")
+    if not health["ok"] or health["free"] != 8:
+        problems.append(f"/v1/healthz {health}")
+    if tuple(solo.shape) != (1, 32) or not bool(
+            ((solo >= 0) & (solo < v)).all()):
+        problems.append(f"solo generate_chunked gave {tuple(solo.shape)}")
+    for name, n in launches.items():
+        if n < 1:
+            problems.append(f"{name} never launched on the main path")
+    if problems:
+        raise RuntimeError("slot serving phase: " + "; ".join(problems))
+    n_tok = sum(len(r["tokens"]) for r in replies)
+    log(f"[slots] {len(replies)} requests, {n_tok} tokens in {wall:.1f} s, "
+        f"launches {launches}, stats {stats}")
+
+    # one step through the kernel vs the dense read on a live cache of 8
+    # slots, then steady decode at B=8
+    rng = np.random.default_rng(SEED + 3)
+    srv.submit_many([{"prompt": _prompt(rng, n, v), "max_new": 200,
+                      "request_id": i} for i, n in enumerate(
+                          (1, 63, 64, 65, 700, 1500, 1300, 333))])
+    srv.step()
+    if len(srv.free_slots()) != 0:
+        raise RuntimeError(f"expected 8 live slots, free {srv.free_slots()}")
+    logits = {}
+    for mode in ("flash", "dense"):
+        cache = {side: c.clone() for side, c in srv.cache.items()}
+        logits[mode], _ = llama.decode_step_slots(
+            dataclasses.replace(cfg, decode_attn=mode), params, cache,
+            srv.lengths, srv.cur_tok, rope=srv._rope)
+        del cache
+    diff, decided = _kernel_vs_dense(logits["flash"], logits["dense"])
+    steps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        srv.step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"serving_slots": {
+        "model": "llama3_8b", "max_seq": cfg.max_seq, "layers": cfg.n_layers,
+        "dtype": "bf16", "engine": "SlotServer", "slots": 8,
+        "front_door": "ServingFrontend", "decode_window": 8,
+        "requests": len(replies), "streamed": len(STREAMED),
+        "tokens_out": n_tok, "wall_s": wall, "output_tok_s": n_tok / wall,
+        "ttft_p50_ms": stats["ttft_ms"]["p50"],
+        "tpot_p50_ms": stats["tpot_ms"]["p50"],
+        "decode_tok_s_b8": 8 * steps / decode_s,
+        "decode_step_ms_b8": decode_s / steps * 1e3,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "solo_generate_chunked": {"batch": 1, "chunk": 16, "steps": 32},
         "flash_vs_dense_max_abs_logit": diff,
         "flash_vs_dense_argmax_decided": int(decided.sum()),
         "card": card}}, launches
@@ -568,9 +811,11 @@ def phase_train(card: str):
 
 
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
+    """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -589,39 +834,55 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    decode_cases, fa_cases = phase_kernels(flush)
+    decode_cases, slot_cases, fa_cases = phase_kernels(flush)
     del flush
-    serving_line, decode_launches = phase_serve(card)
+    serving_line, decode_launches, params = phase_serve(card)
+    torch.cuda.empty_cache()
+    slots_line, slot_launches = phase_serve_slots(card, params)
+    del params
+    # the front door's handler closes over the front door, a cycle that
+    # holds the engine (and the 8B weights) until the collector runs
+    gc.collect()
     torch.cuda.empty_cache()
     training_line, fa_launches = phase_train(card)
     fa_tol = {"rtol": FA_RTOL, "atol": f"{FA_SCALED_ATOL} * max|plain|",
               "lse_atol": LSE_ATOL}
     csrc = "dcos_commons_tpu_torch/csrc/"
+    decode_tol = {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}
     kernels = [
         _kernel_entry("flash_decode_paged", csrc + "flash_decode_paged.cu",
                       "dcos_commons_tpu/ops/flash_decode.py:263",
-                      decode_launches, decode_cases,
-                      {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}),
+                      {"serving": decode_launches}, decode_cases,
+                      decode_tol),
+        _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
+                      "dcos_commons_tpu/ops/flash_decode.py:55",
+                      {"serving_slots": slot_launches["flash_decode"]},
+                      slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
-                      fa_launches["flash_attention_fwd"],
+                      {"serving_slots": slot_launches["flash_attention_fwd"],
+                       "training": fa_launches["flash_attention_fwd"]},
                       [c["fwd"] for c in fa_cases], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:214",
-                      fa_launches["flash_attention_bwd_dkdv"],
+                      {"training": fa_launches["flash_attention_bwd_dkdv"]},
                       [c["dkdv"] for c in fa_cases], fa_tol),
         _kernel_entry("flash_attention_bwd_dq",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:256",
-                      fa_launches["flash_attention_bwd_dq"],
+                      {"training": fa_launches["flash_attention_bwd_dq"]},
                       [c["dq"] for c in fa_cases], fa_tol),
     ]
-    for k in kernels[1:]:
+    sdpa = "scaled_dot_product_attention(attn_mask=kv_len, enable_gqa) over "
+    kernels[0]["library"] = sdpa + "pre-gathered (dequantized) pages"
+    kernels[1]["library"] = sdpa + "the (dequantized) slot cache"
+    for k in kernels[2:]:
         k["library"] = ("scaled_dot_product_attention(is_causal, enable_gqa)"
                         + (" forward" if k["name"].endswith("fwd") else
                            " backward: dq, dk and dv together"))
     print(json.dumps(serving_line), flush=True)
+    print(json.dumps(slots_line), flush=True)
     print(json.dumps(training_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,5 @@
-"""Carry JAX-side trees into the port: parameters, page pools and the
-optimizer state.
+"""Carry JAX-side trees into the port: parameters, slot caches, page
+pools and the optimizer state.
 
 Inputs are trees of numpy arrays (``jax.device_get`` of a parameter
 pytree or a page pool): dicts, arrays, and quantized leaves with ``q``
@@ -52,6 +52,12 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
 def pool_from_jax(pool: Any, device: DeviceLike = "cuda") -> Any:
     """A JAX page pool ``{"k", "v"}`` (as numpy) as the port's pool."""
     return _convert(pool, resolve_device(device))
+
+
+def cache_from_jax(cache: Any, device: DeviceLike = "cuda") -> Any:
+    """A JAX slot cache ``{"k", "v"}`` [L, B, S, KV, D] (as numpy) as the
+    port's cache."""
+    return _convert(cache, resolve_device(device))
 
 
 def opt_state_from_jax(state: Any, device: DeviceLike = "cuda"):

@@ -1,8 +1,17 @@
 """Llama decoder (port of ``dcos_commons_tpu/models/llama.py``): the
 serving subset and the train forward.
 
-Serving: the config presets, parameter init, the page pool, and the two
-paged forwards, ``decode_step_paged`` and ``prefill_chunk_paged``.
+Serving: the config presets, parameter init and int8 weights
+(``quantize_params``), and two caches.
+
+* The padded slot cache [L, B, max_seq, KV, D] (``init_kv_cache``):
+  ``prefill`` / ``prefill_trunk`` write a prompt's K/V, ``decode_step``
+  decodes every row at one position, ``decode_step_slots`` each row at
+  its own; ``generate``, ``generate_stepwise``, ``generate_chunked`` and
+  ``decode_chunk`` drive solo decode.
+* The page pool (``init_page_pool``) with ``decode_step_paged`` and
+  ``prefill_chunk_paged``.
+
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
 and ``loss_fn`` (next-token loss, fused linear cross-entropy by
@@ -12,9 +21,12 @@ keys and its stacked ``[L, ...]`` ``x @ W`` layout; the reference's
 activations, fp32 softmax, norms and logits, with the casts where the
 reference places them.
 
-Unlike the reference, whose arrays are immutable, the paged forwards
-write K/V into the pool IN PLACE (the pool dominates device memory) and
-return the same pool object.
+Unlike the reference, whose arrays are immutable, the cache-consuming
+forwards write K/V into the cache or pool IN PLACE (it dominates device
+memory) and return the same object. The reference's silent index rules
+are written out: a solo write past the cache's end clamps onto the last
+rows (``dynamic_update_slice``), a per-slot write at a length >= max_seq
+is dropped (``.at[].set``), and rope lookups past the table clamp.
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ import torch.utils.checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import gqa_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.flash_decode import flash_decode_paged, supports_decode_paged
+from ..ops.flash_decode import (flash_decode, flash_decode_paged,
+                                supports_decode, supports_decode_paged)
 from ..ops.losses import fused_linear_cross_entropy, softmax_cross_entropy
 from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
@@ -38,6 +51,8 @@ from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_positions,
 
 Params = Dict[str, Any]
 Pool = Dict[str, QArray]
+Cache = Dict[str, QArray]
+Sampler = Callable[[Optional[torch.Generator], torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,12 +76,14 @@ class LlamaConfig:
     # a selective remat_policy is not ported yet
     remat: bool = True
     remat_policy: Optional[str] = None
-    # int8 KV pages (per-position, per-head scales)
+    # int8 KV cache and pages (per-position, per-head scales)
     kv_quant: bool = False
-    # paged decode attention: auto | dense | flash. auto = the CUDA
-    # kernel on a CUDA device (a shape outside its gate raises), dense
-    # gather + gqa_attention on the CPU; flash forces the kernel wrapper
-    # (which runs its plain version on CPU tensors)
+    # decode attention (slot cache and paged pool): auto | dense | flash.
+    # auto = the CUDA kernel on a CUDA device (a shape outside its gate
+    # raises), the dense read + gqa_attention on the CPU; flash forces
+    # the kernel wrapper (which runs its plain version on CPU tensors).
+    # It also routes slot prefill's attention: the flash-attention
+    # forward kernel where decode takes the kernel, dense elsewhere
     decode_attn: str = "auto"
     # fused linear cross-entropy on the train loss head (ops/losses.py):
     # the [B, S, V] fp32 logits never materialize
@@ -149,17 +166,34 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
+def quantize_params(params: Params) -> Params:
+    """Weight-only int8 (``ops.quant``) for the dense decoder's serving
+    path: matmul weights per out-channel (reduction axis -2), the
+    embedding table per row; the norm gains stay as they are. MoE trees
+    are refused, as in the reference."""
+    if "router" in params["layers"]:
+        raise ValueError(
+            "quantize_params supports the dense decoder only; "
+            "MoE expert banks are not quantizable (parallel.moe)")
+    keep = ("attn_norm", "ffn_norm")
+    layers = {k: (v if k in keep else quantize(v, axis=-2))
+              for k, v in params["layers"].items()}
+    return {"embed": quantize(params["embed"], axis=-1),
+            "layers": layers,
+            "norm": params["norm"],
+            "lm_head": quantize(params["lm_head"], axis=-2)}
+
+
 # ---------------------------------------------------------------------------
-# block-paged KV: a fixed pool of pages + per-stream page tables
+# KV storage: the padded slot cache and the block-paged pool
 
 
-def init_page_pool(cfg: LlamaConfig, pages: int, page_size: int,
-                   device: DeviceLike = "cuda") -> Pool:
-    """KV page pool [L, pages, page_size, KV, D] (int8 payload +
-    per-position bf16 scales under ``cfg.kv_quant``). Who owns which
-    page is host bookkeeping (``models.paging.PagePool``)."""
+def _kv_zeros(cfg: LlamaConfig, rows: int, length: int,
+              device: DeviceLike) -> Cache:
+    """Zeroed K and V [L, rows, length, KV, D] (int8 payload +
+    per-position bf16 scales under ``cfg.kv_quant``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, rows, length, cfg.n_kv_heads, cfg.head_dim)
     if cfg.kv_quant:
         sshape = shape[:-1] + (1,)
         return {side: QTensor(torch.zeros(shape, dtype=torch.int8,
@@ -169,6 +203,73 @@ def init_page_pool(cfg: LlamaConfig, pages: int, page_size: int,
                 for side in ("k", "v")}
     return {side: torch.zeros(shape, dtype=cfg.dtype, device=dev)
             for side in ("k", "v")}
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+                  device: DeviceLike = "cuda") -> Cache:
+    """The padded slot cache [L, batch, max_seq, KV, D]."""
+    return _kv_zeros(cfg, batch, max_seq, device)
+
+
+def init_page_pool(cfg: LlamaConfig, pages: int, page_size: int,
+                   device: DeviceLike = "cuda") -> Pool:
+    """KV page pool [L, pages, page_size, KV, D]. Who owns which page is
+    host bookkeeping (``models.paging.PagePool``)."""
+    return _kv_zeros(cfg, pages, page_size, device)
+
+
+def _dense(cache: QArray, dtype: torch.dtype) -> torch.Tensor:
+    """The attention-readable view of a cache: int8 dequantizes to
+    ``dtype`` BEFORE attention, as the reference's dense read does."""
+    return dequantize(cache, dtype) if isinstance(cache, QTensor) else cache
+
+
+def _cache_update(cache: QArray, new: torch.Tensor, pos: int,
+                  axis: int) -> None:
+    """Write K or V rows ``new`` into ``cache`` at ``pos`` along ``axis``
+    in place, quantizing when the cache is int8. As the reference's
+    ``dynamic_update_slice``, a start that would run off the end moves
+    back to fit: it clamps to ``[0, size - n]`` (``generate_chunked``'s
+    overshoot relies on it)."""
+    n = new.shape[axis]
+    start = min(max(int(pos), 0), cache.shape[axis] - n)
+    if isinstance(cache, QTensor):
+        nq = quantize(new, axis=-1)
+        cache.q.narrow(axis, start, n).copy_(nq.q)
+        cache.s.narrow(axis, start, n).copy_(nq.s)
+    else:
+        cache.narrow(axis, start, n).copy_(new)
+
+
+def _slot_targets(lengths: torch.Tensor, size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where :func:`_cache_update_slots` writes each slot's row: (slot
+    indices, clamped positions, [B, 1, 1] mask of the writes that land).
+    Built once a step and shared by every layer."""
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    idx = lengths.long().clamp(0, size - 1)
+    return rows, idx, (lengths < size)[:, None, None]
+
+
+def _cache_update_slots(cache: QArray, new: torch.Tensor,
+                        targets: Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]) -> None:
+    """Per-slot write in place: row b of ``new`` [B, 1, KV, D] lands at
+    position ``lengths[b]`` of a per-layer cache [B, S, KV, D]
+    (``targets`` from :func:`_slot_targets`). The reference's
+    ``.at[rows, lengths].set`` DROPS a row whose length is >= S (a slot
+    retired mid-window keeps advancing); here such a row writes back what
+    its clamped target already holds, so no index leaves the cache and
+    nothing waits for the host."""
+    rows, idx, keep = targets
+    if isinstance(cache, QTensor):
+        nq = quantize(new[:, 0], axis=-1)
+        cache.q[rows, idx] = torch.where(keep, nq.q, cache.q[rows, idx])
+        cache.s[rows, idx] = torch.where(keep, nq.s.to(cache.s.dtype),
+                                         cache.s[rows, idx])
+    else:
+        cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
 
 
 def _gather_pages(cache: QArray, table: torch.Tensor,
@@ -201,10 +302,11 @@ def _page_write(cache: QArray, rows: torch.Tensor, phys: torch.Tensor,
         cache.index_put_(idx, rows.to(cache.dtype))
 
 
-def _use_flash_decode_paged(cfg: LlamaConfig, device: torch.device) -> bool:
-    """Route the paged decode step's attention: ``auto`` takes the CUDA
-    kernel on a CUDA device and the dense gather on the CPU; ``flash``
-    forces the kernel wrapper; ``dense`` the gather."""
+def _use_flash_decode(cfg: LlamaConfig, device: torch.device) -> bool:
+    """Route decode attention (slot cache and paged pool): ``auto`` takes
+    the CUDA kernel on a CUDA device and the dense read on the CPU;
+    ``flash`` forces the kernel wrapper; ``dense`` the dense read. The
+    reference's lane-128 conditions do not carry over."""
     mode = cfg.decode_attn
     if mode not in ("auto", "dense", "flash"):
         # a typo'd mode must not silently measure the dense path
@@ -219,10 +321,11 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
                  tokens: torch.Tensor, rope_fn: Callable, cache_write,
                  attn: Callable, logit_index: Optional[int] = None
                  ) -> torch.Tensor:
-    """The cache-consuming forward shared by the paged decode step and
-    the paged prefill chunk: they differ only in how rope is applied,
-    where K/V rows land (``cache_write(pool_layer, rows)``) and the
-    attention read (``attn(q, k_pool_layer, v_pool_layer)``).
+    """The cache-consuming forward shared by the decode steps (solo, per
+    slot, paged) and the paged prefill chunk: they differ only in how
+    rope is applied, where K/V rows land (``cache_write(cache_layer,
+    rows)``) and the attention read (``attn(q, k_cache_layer,
+    v_cache_layer)``).
 
     ``tokens`` [B, S]; returns fp32 logits [B, V] at the last position,
     or at ``logit_index`` (a padded prefill chunk's last live token)."""
@@ -248,11 +351,6 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
     return qmm(x, params["lm_head"]).float()
 
 
-def _pool_page_size(pool: Pool) -> int:
-    k = pool["k"]
-    return (k.q if isinstance(k, QTensor) else k).shape[2]
-
-
 def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                       table: torch.Tensor, lengths: torch.Tensor,
                       tokens: torch.Tensor,
@@ -264,13 +362,11 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     stream's logical page to a physical pool page. Stream b's new K/V
     row lands at (table[b, lengths[b] // ps], lengths[b] % ps) and it
     attends to ``lengths[b] + 1`` positions, through the CUDA kernel or
-    the dense gather (:func:`_use_flash_decode_paged`). Inactive
+    the dense gather (:func:`_use_flash_decode`). Inactive
     streams point their table rows at a scratch page. Returns (logits
     [B, V] fp32, pool updated in place)."""
-    if rope is None:
-        rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=tokens.device)
-    ps = _pool_page_size(pool)
+    rope = _rope_table(cfg, rope, tokens.device)
+    ps = pool["k"].shape[2]
     mp = table.shape[1]
     # clip: a stream retired mid-window keeps advancing past its table;
     # its row is all scratch, so the clipped write lands there
@@ -278,7 +374,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     phys = torch.gather(table, 1, page_idx[:, None])[:, 0]
     offs = lengths % ps
     kv_len = (lengths + 1).to(torch.int32)
-    flash = _use_flash_decode_paged(cfg, tokens.device)
+    flash = _use_flash_decode(cfg, tokens.device)
 
     def cache_write(cache, new):
         _page_write(cache, new[:, 0], phys, offs)
@@ -286,11 +382,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     def attn(q, k_cache, v_cache):
         if flash:
             if not supports_decode_paged(q, k_cache, ps):
-                raise ValueError(
-                    f"decode_attn={cfg.decode_attn!r}: the paged decode "
-                    f"kernel does not take head_dim {cfg.head_dim} with "
-                    f"{cfg.n_heads // cfg.n_kv_heads} query heads per KV "
-                    "head; use decode_attn='dense'")
+                raise ValueError(_outside_gate(cfg, "paged decode"))
             return flash_decode_paged(q, k_cache, v_cache, table, kv_len)
         k_read = _gather_pages(k_cache, table, cfg.dtype)
         v_read = _gather_pages(v_cache, table, cfg.dtype)
@@ -300,6 +392,82 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                           rope_fn=lambda t: apply_rope_at(t, rope, lengths),
                           cache_write=cache_write, attn=attn)
     return logits, pool
+
+
+def _outside_gate(cfg: LlamaConfig, kernel: str) -> str:
+    return (f"decode_attn={cfg.decode_attn!r}: the {kernel} kernel does "
+            f"not take head_dim {cfg.head_dim} with "
+            f"{cfg.n_heads // cfg.n_kv_heads} query heads per KV head; use "
+            "decode_attn='dense'")
+
+
+def _slot_attn(cfg: LlamaConfig, device: torch.device, kv_len) -> Callable:
+    """The decode read of the slot cache: the slot kernel (through
+    :func:`_use_flash_decode`) or the dense read of the whole cache,
+    masked at ``kv_len`` [B]."""
+    flash = _use_flash_decode(cfg, device)
+
+    def attn(q, k_cache, v_cache):
+        if flash:
+            if not supports_decode(q, k_cache):
+                raise ValueError(_outside_gate(cfg, "slot decode"))
+            return flash_decode(q, k_cache, v_cache, kv_len)
+        return gqa_attention(q, _dense(k_cache, cfg.dtype),
+                             _dense(v_cache, cfg.dtype), causal=False,
+                             kv_len=kv_len)
+
+    return attn
+
+
+def _rope_table(cfg: LlamaConfig, rope: Optional[torch.Tensor],
+                device: torch.device) -> torch.Tensor:
+    if rope is not None:
+        return rope
+    return rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=device)
+
+
+def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
+                token: torch.Tensor, rope: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step of every row at position ``pos`` (a host int, the
+    current length): ``token`` [B] int32 lands at ``pos`` and every row
+    attends to ``pos + 1`` positions. A ``pos`` past the cache writes
+    onto its last row and attends to all of it, as the reference's
+    clamping update does. Returns (logits [B, V] fp32, the cache updated
+    in place)."""
+    rope = _rope_table(cfg, rope, token.device)
+    # one [B] length for every layer's read, filled on the device
+    kv_len = torch.full(token.shape, pos + 1, dtype=torch.int32,
+                        device=token.device)
+    logits = _decode_body(
+        cfg, params, cache, token[:, None],
+        rope_fn=lambda t: apply_rope(t, rope, pos),
+        cache_write=lambda c, new: _cache_update(c, new, pos, 1),
+        attn=_slot_attn(cfg, token.device, kv_len))
+    return logits, cache
+
+
+def decode_step_slots(cfg: LlamaConfig, params: Params, cache: Cache,
+                      lengths: torch.Tensor, tokens: torch.Tensor,
+                      rope: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step with PER-SLOT positions, the step of
+    :class:`~dcos_commons_tpu_torch.models.serving.SlotServer`.
+
+    ``tokens``/``lengths`` [B] int32: slot b's new K/V row lands at
+    ``lengths[b]`` (dropped when that is >= max_seq) and it attends to
+    ``lengths[b] + 1`` positions. Per row the math of
+    :func:`decode_step`. Returns (logits [B, V] fp32, the cache updated
+    in place)."""
+    rope = _rope_table(cfg, rope, tokens.device)
+    targets = _slot_targets(lengths, cache["k"].shape[2])
+    logits = _decode_body(
+        cfg, params, cache, tokens[:, None],
+        rope_fn=lambda t: apply_rope_at(t, rope, lengths),
+        cache_write=lambda c, new: _cache_update_slots(c, new, targets),
+        attn=_slot_attn(cfg, tokens.device, lengths + 1))
+    return logits, cache
 
 
 def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
@@ -314,10 +482,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     pool updated in place). Padded positions at/after ``true_len`` write
     to ``scratch_page``; attention gathers the stream's pages in logical
     order, causal from ``start``."""
-    if rope is None:
-        rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=tokens.device)
-    ps = _pool_page_size(pool)
+    rope = _rope_table(cfg, rope, tokens.device)
+    ps = pool["k"].shape[2]
     mp = table.shape[0]
     c = tokens.shape[1]
     dev = tokens.device
@@ -373,8 +539,11 @@ def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
 
 
 def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
-                    rope: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
-    """Pre-norm attention residual step on x [B, S, D]."""
+                    rope: torch.Tensor, attn_fn: Callable,
+                    return_kv: bool = False):
+    """Pre-norm attention residual step on x [B, S, D]. With
+    ``return_kv`` also returns the rope'd K/V (the prefill cache
+    contract, what ``decode_step`` writes)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = qmm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -383,7 +552,8 @@ def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
     o = attn_fn(q, k, v)             # GQA expansion is the impl's business
-    return x + qmm(o.reshape(b, s, -1), lp["wo"])
+    out = x + qmm(o.reshape(b, s, -1), lp["wo"])
+    return (out, k, v) if return_kv else out
 
 
 def ffn_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params) -> torch.Tensor:
@@ -442,3 +612,157 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor
             block_size=cfg.fused_ce_block)
     logits = forward(cfg, params, inputs)
     return softmax_cross_entropy(logits, targets, z_loss=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# prefill and solo generation on the slot cache
+
+
+def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
+                  rope: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prefill forward shared by :func:`prefill` and the engine's
+    bucketed slot prefill: (normed hidden states [B, S, D], ks/vs
+    [L, B, S, KV, D]); callers pick the logits position and where the
+    K/V land. Causal attention takes the flash-attention forward kernel
+    where decode takes its kernel (:func:`_use_flash_decode`: on a CUDA
+    device, any S, a shape outside its gate raises) and the dense path
+    elsewhere; the reference's ``S % 128`` gate does not carry over."""
+    if _use_flash_decode(cfg, prompt.device):
+        def attn_fn(q, k, v):
+            return flash_attention(q, k, v, causal=True)
+    else:
+        def attn_fn(q, k, v):
+            return gqa_attention(q, k, v, causal=True)
+    layers = params["layers"]
+    x = qtake(params["embed"], prompt, cfg.dtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x, k, v = attention_block(cfg, x, lp, rope, attn_fn, return_kv=True)
+        x = ffn_block(cfg, x, lp)
+        ks.append(k)
+        vs.append(v)
+    return (rms_norm(x, params["norm"], cfg.norm_eps), torch.stack(ks),
+            torch.stack(vs))
+
+
+def prefill(cfg: LlamaConfig, params: Params, cache: Cache,
+            prompt: torch.Tensor, rope: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+    """One forward over the whole prompt [B, S], every layer's K/V
+    written into the cache at positions [0, S) in place. Returns
+    (last-position logits [B, V] fp32, cache)."""
+    rope = _rope_table(cfg, rope, prompt.device)
+    x, ks, vs = prefill_trunk(cfg, params, prompt, rope)
+    logits = qmm(x[:, -1, :], params["lm_head"]).float()
+    _cache_update(cache["k"], ks, 0, 2)
+    _cache_update(cache["v"], vs, 0, 2)
+    return logits, cache
+
+
+def _check_capacity(cfg: LlamaConfig, prompt_len: int, steps: int) -> None:
+    """Refuse a request that would write past the cache: the clamping
+    update would smear its tail onto the last row instead of failing."""
+    if prompt_len + steps > cfg.max_seq:
+        raise ValueError(
+            f"prompt {prompt_len} + steps {steps} exceeds the cache "
+            f"({cfg.max_seq}); raise max_seq or shrink the ask")
+
+
+def _select(sampler: Optional[Sampler], generator: Optional[torch.Generator],
+            logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Next token from logits: the sampler (``ops/sampling.py``) when
+    given, else greedy argmax."""
+    if sampler is None:
+        return torch.argmax(logits, dim=-1).to(dtype)
+    return sampler(generator, logits).to(dtype)
+
+
+def generate(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
+             steps: int) -> torch.Tensor:
+    """Greedy generation: prefill, then ``steps`` decode steps; returns
+    [B, steps] (the first token from the prefill logits). The fused
+    program and the host-driven loop of the reference are one loop
+    here, so :func:`generate_stepwise` is this function."""
+    b, s = prompt.shape
+    _check_capacity(cfg, s, steps)
+    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
+    rope = _rope_table(cfg, None, prompt.device)
+    logits, cache = prefill(cfg, params, cache, prompt, rope=rope)
+    toks = []
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
+        logits, cache = decode_step(cfg, params, cache, s + i, tok, rope=rope)
+        toks.append(tok)
+    if not toks:
+        return torch.zeros((b, 0), dtype=prompt.dtype, device=prompt.device)
+    return torch.stack(toks, dim=1)
+
+
+generate_stepwise = generate
+
+
+def decode_chunk_logits(cfg: LlamaConfig, params: Params, cache: Cache,
+                        pos: int, token: torch.Tensor, steps: int,
+                        rope: Optional[torch.Tensor] = None,
+                        sampler: Optional[Sampler] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """``steps`` decode steps from ``token`` [B] at position ``pos``:
+    (toks [B, steps], every step's logits [B, steps, V], cache). Greedy
+    unless ``sampler`` (drawing from ``generator``) is given."""
+    rope = _rope_table(cfg, rope, token.device)
+    toks, logits_all = [], []
+    tok = token
+    for i in range(steps):
+        logits, cache = decode_step(cfg, params, cache, pos + i, tok,
+                                    rope=rope)
+        tok = _select(sampler, generator, logits, token.dtype)
+        toks.append(tok)
+        logits_all.append(logits)
+    return torch.stack(toks, dim=1), torch.stack(logits_all, dim=1), cache
+
+
+def decode_chunk(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
+                 token: torch.Tensor, steps: int,
+                 rope: Optional[torch.Tensor] = None,
+                 sampler: Optional[Sampler] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Cache]:
+    """:func:`decode_chunk_logits` without the logits: (toks [B, steps],
+    cache)."""
+    toks, _, cache = decode_chunk_logits(cfg, params, cache, pos, token,
+                                         steps, rope=rope, sampler=sampler,
+                                         generator=generator)
+    return toks, cache
+
+
+def generate_chunked(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
+                     steps: int, chunk: int = 16,
+                     sampler: Optional[Sampler] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Generation in chunks of ``chunk`` decode steps (the worker's solo
+    decode): the first token from the prefill logits, then whole chunks,
+    trimmed to [B, steps]. Greedy unless ``sampler`` is given. The last
+    chunk may run past ``steps`` and past the cache: its writes clamp
+    onto the last row after every kept token was computed, as in the
+    reference."""
+    b, s = prompt.shape
+    _check_capacity(cfg, s, steps)
+    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
+    rope = _rope_table(cfg, None, prompt.device)
+    logits, cache = prefill(cfg, params, cache, prompt, rope=rope)
+    tok = _select(sampler, generator, logits, prompt.dtype)
+    out = [tok[:, None]]
+    emitted, pos = 1, s
+    while emitted < steps:
+        toks, cache = decode_chunk(cfg, params, cache, pos, tok, chunk,
+                                   rope=rope, sampler=sampler,
+                                   generator=generator)
+        out.append(toks)
+        tok = toks[:, -1]
+        emitted += chunk
+        pos += chunk
+    return torch.cat(out, dim=1)[:, :steps]

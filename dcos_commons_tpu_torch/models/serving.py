@@ -1,23 +1,29 @@
-"""Block-paged continuous batching (port of ``PagedServer`` in
+"""Continuous batching (port of ``SlotServer`` and ``PagedServer`` in
 ``dcos_commons_tpu/models/serving.py``).
 
-One device pool of fixed ``(page_size, KV, D)`` K/V pages (+ one scratch
-page) serves every stream through a per-stream page table; admission is
-gated on pages free (the host ledger, ``models.paging.PagePool``); full
-prompt-prefix pages are shared through a radix with an eager
-copy-on-write of the boundary page; prompts prefill in fixed chunks, one
-chunk per decode step, interleaved with decode.
+* :class:`SlotServer`: a fixed pool of B slots shares one padded cache
+  [L, B, max_seq, KV, D]; admission prefills a power-of-two bucket of
+  prompts in one forward and scatters their K/V into free slots; one
+  ``decode_step_slots`` advances every slot at its own length.
+* :class:`PagedServer`: one device pool of fixed ``(page_size, KV, D)``
+  K/V pages (+ one scratch page) serves every stream through a
+  per-stream page table; admission is gated on pages free (the host
+  ledger, ``models.paging.PagePool``); full prompt-prefix pages are
+  shared through a radix with an eager copy-on-write of the boundary
+  page; prompts prefill in fixed chunks, one chunk per decode step,
+  interleaved with decode.
 
 Differences from the reference, all mechanical:
 
-* the ``lax.scan`` decode window is a Python loop of
-  ``llama.decode_step_paged`` calls; tokens stay on the device and the
-  window ends with ONE host transfer;
-* the pool is updated in place;
-* not ported yet, and refused by the constructor (no such parameter):
-  KV tiers, the prefix directory, disaggregation, migration,
-  speculative decoding, MoE, ring prefill, the AOT compile cache and
-  tensor-parallel meshes.
+* the ``lax.scan`` decode window is a Python loop of decode steps;
+  tokens stay on the device and the window ends with ONE host transfer;
+* the cache and the pool are updated in place;
+* a sampler draws from a ``torch.Generator`` (``generator=``), not a JAX
+  key;
+* not ported yet, and refused by the constructors (no such parameter):
+  tensor-parallel meshes and, for the paged engine, KV tiers, the prefix
+  directory, disaggregation, migration, speculative decoding, MoE, ring
+  prefill and the AOT compile cache.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..ops.quant import QTensor
+from ..ops.quant import QArray, QTensor, qmm, quantize
 from ..ops.rotary import rope_frequencies
 from ..ops.sampling import Sampler
 from . import llama
@@ -45,6 +51,339 @@ class _Request:
     tokens: List[int]
 
 
+def _bucket(n: int, lo: int = 8) -> int:
+    """The power of two >= ``n`` (at least ``lo``) a prompt pads to."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _prefill_bucket_many(cfg: llama.LlamaConfig, params, prompts, true_lens,
+                         rope):
+    """[N, P] causal forward for N admitted prompts: (logits [N, V] fp32
+    at each row's last live position ``true_lens - 1``, ks/vs
+    [L, N, P, KV, D]). Positions past a row's length are causally
+    downstream of its live ones and change nothing they read."""
+    x, ks, vs = llama.prefill_trunk(cfg, params, prompts, rope)
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = x[rows, true_lens.long() - 1]
+    return qmm(last, params["lm_head"]).float(), ks, vs
+
+
+def _scatter_rows(cache: QArray, new: torch.Tensor,
+                  slots: torch.Tensor) -> None:
+    """Write prefill K/V [L, N, P, KV, D] into cache rows
+    ``[:, slots[i], :P]`` in place, quantizing when the cache is int8.
+    The slots are distinct free slots: no duplicate-index hazard."""
+    p = new.shape[2]
+    idx = slots.long()
+    if isinstance(cache, QTensor):
+        nq = quantize(new, axis=-1)
+        cache.q[:, idx, :p] = nq.q
+        cache.s[:, idx, :p] = nq.s.to(cache.s.dtype)
+    else:
+        cache[:, idx, :p] = new.to(cache.dtype)
+
+
+class _Engine:
+    """What both engines share: the slot seams, token selection, the
+    host side of a decode window and ``drain``. A subclass holds
+    ``requests`` (None for a free slot), ``finished``, ``sampler`` and
+    ``generator``, and defines ``submit_many``, ``step_many`` and
+    ``_maybe_retire``."""
+
+    # set by the front door (``models.ingress.ServingFrontend``); the
+    # engines record no spans of their own yet
+    tracer = None
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.requests) if r is None]
+
+    def requests_active(self) -> bool:
+        return any(r is not None for r in self.requests)
+
+    def _select(self, logits: torch.Tensor) -> torch.Tensor:
+        return llama._select(self.sampler, self.generator, logits,
+                             torch.int32)
+
+    def _emit(self, host: np.ndarray, active: List[int]
+              ) -> Dict[int, List[int]]:
+        """Append a window's tokens ``host`` [k, slots] to the active
+        requests, each cut at its retirement: a slot retired mid-window
+        decoded the rest of it as dead compute."""
+        out: Dict[int, List[int]] = {}
+        for i in active:
+            emitted: List[int] = []
+            r = self.requests[i]
+            for t in host[:, i]:
+                emitted.append(int(t))
+                r.tokens.append(int(t))
+                self._maybe_retire(i)
+                if self.requests[i] is None:
+                    break
+            out[i] = emitted
+        return out
+
+    def drain(self, queue: List[Dict[str, Any]],
+              decode_window: int = 1) -> Dict[Any, List[int]]:
+        """Serve a whole workload: submit as slots free up, step until
+        every request finishes. Each queue item: {"prompt": [...],
+        "max_new": int, "request_id": any}. ``decode_window > 1``
+        amortizes the host round trip over a window of steps."""
+        pending = list(queue)
+        while pending or self.requests_active():
+            placed = self.submit_many(pending)
+            pending = pending[len(placed):]
+            self.step_many(decode_window)
+        return dict(self.finished)
+
+
+def _check_params_device(params, device: torch.device) -> None:
+    embed = params["embed"]
+    params_dev = (embed.q if isinstance(embed, QTensor) else embed).device
+    if params_dev.type != device.type:
+        raise ValueError(f"params live on {params_dev}, the engine on "
+                         f"{device}")
+
+
+class SlotServer(_Engine):
+    """Fixed-slot continuous batching over one resident weight set.
+
+    ``submit`` / ``submit_many`` place requests in free slots (bucketed
+    prefill + first token); ``step`` advances every active slot by one
+    token, ``step_many(k)`` by a window of ``k``; ``drain`` serves a
+    whole queue. Greedy by default; pass ``sampler``
+    (``ops.sampling.make_sampler``) and optionally ``generator`` for
+    stochastic decoding.
+
+    * **Deferred first token.** The prefill's first token stays on the
+      device until the next engine entry point brings every such token
+      over in ONE transfer (``_flush_pending``).
+    * **Frozen retirees.** Retirement is host bookkeeping (budget, EOS or
+      a full cache). Inside a window a retired slot's length and token
+      stop advancing; its step rewrites one dead row (dropped once the
+      length reaches ``max_seq``) that nothing reads until a prefill
+      rewrites the slot.
+
+    ``params`` must live on ``device``.
+    """
+
+    def __init__(self, cfg: llama.LlamaConfig, params, slots: int = 8,
+                 sampler: Optional[Sampler] = None,
+                 generator: Optional[torch.Generator] = None,
+                 eos_id: Optional[int] = None, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        _check_params_device(params, self.device)
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.sampler = sampler
+        if sampler is not None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = generator
+        self.eos_id = eos_id
+        self._rope = rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                      cfg.rope_theta, device=self.device)
+        self.cache: Optional[llama.Cache] = None
+        self.finished: Dict[Any, List[int]] = {}
+        self.reset()
+
+    def reset(self) -> None:
+        """Rebuild device state and the slot bookkeeping (a failed step
+        may leave the cache half-written); weights survive."""
+        self.cache = None                 # free the old cache first
+        self.cache = llama.init_kv_cache(self.cfg, self.slots,
+                                         self.cfg.max_seq,
+                                         device=self.device)
+        self.lengths = torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=self.device)
+        self.cur_tok = torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=self.device)
+        self.requests: List[Optional[_Request]] = [None] * self.slots
+        self.finished.clear()
+        # slot -> device scalar of the prefill's first token, awaiting
+        # ONE batched host transfer (see _flush_pending)
+        self._pending_first: Dict[int, torch.Tensor] = {}
+
+    # ------------------------------------------------------------ intake
+
+    def submit(self, prompt: List[int], max_new: int = 32,
+               request_id: Any = None) -> Optional[int]:
+        """Prefill ``prompt`` into a free slot; returns the slot, or None
+        when every slot is taken (the caller retries after a step)."""
+        if not prompt:
+            # must not alias the pool-full None: drain() would retry the
+            # same item forever
+            raise ValueError("empty prompt")
+        self._flush_pending()
+        free = self.free_slots()
+        if not free:
+            return None
+        item = {"prompt": prompt, "max_new": max_new,
+                "request_id": request_id}
+        reason = self._validate_item(item)
+        if reason is not None:
+            raise ValueError(reason)
+        # the reference's one-prompt prefill and scatter are the N=1 case
+        # of the batched ones
+        return self._submit_batch([item], free[:1])[0][0]
+
+    def _validate_item(self, item: Dict[str, Any]) -> Optional[str]:
+        """None when admissible, else the rejection reason: the one copy
+        of the admission predicate."""
+        prompt = item["prompt"]
+        max_new = item.get("max_new", 32)
+        if not prompt:
+            return "empty prompt"
+        if len(prompt) + max_new > self.cfg.max_seq:
+            return (f"prompt {len(prompt)} + max_new {max_new} exceeds "
+                    f"the cache ({self.cfg.max_seq}); raise max_seq or "
+                    "shrink the ask")
+        return None
+
+    def submit_many(self, items: List[Dict[str, Any]],
+                    on_invalid=None) -> List[Tuple[int, Any]]:
+        """Admit up to ``len(free_slots())`` of ``items`` in power-of-two
+        batches (largest first), each prefilled as ONE [N, P] forward
+        whose K/V scatter into N distinct slots. Each item: {"prompt":
+        [...], "max_new": int, "request_id": any}. Returns [(slot,
+        request_id), ...] for what was admitted. Invalid items fail
+        alone with ``on_invalid(item, reason)``; without it the first
+        invalid item raises before any prefill."""
+        admissible = []
+        for item in items:
+            reason = self._validate_item(item)
+            if reason is None:
+                admissible.append(item)
+            elif on_invalid is not None:
+                on_invalid(item, reason)
+            else:
+                raise ValueError(reason)
+        self._flush_pending()
+        placed: List[Tuple[int, Any]] = []
+        remaining = admissible
+        while remaining:
+            free = self.free_slots()
+            if not free:
+                break
+            n = min(len(remaining), len(free))
+            k = 1 << (n.bit_length() - 1)          # largest pow2 <= n
+            batch, remaining = remaining[:k], remaining[k:]
+            placed.extend(self._submit_batch(batch, free[:k]))
+        return placed
+
+    def _submit_batch(self, batch: List[Dict[str, Any]],
+                      slots: List[int]) -> List[Tuple[int, Any]]:
+        k = len(batch)
+        lens = [len(item["prompt"]) for item in batch]
+        bucket = min(_bucket(max(lens)), self.cfg.max_seq)
+        arr = np.zeros((k, bucket), np.int32)      # assembled on the host
+        for i, item in enumerate(batch):
+            arr[i, :lens[i]] = item["prompt"]
+        dev = self.device
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        logits, ks, vs = _prefill_bucket_many(
+            self.cfg, self.params, torch.from_numpy(arr).to(dev), lens_t,
+            self._rope)
+        slot_t = torch.tensor(slots, device=dev)
+        _scatter_rows(self.cache["k"], ks, slot_t)
+        _scatter_rows(self.cache["v"], vs, slot_t)
+        toks = self._select(logits)
+        self.lengths[slot_t] = lens_t
+        self.cur_tok[slot_t] = toks
+        placed = []
+        for i, item in enumerate(batch):
+            slot = slots[i]
+            rid = item.get("request_id")
+            rid = rid if rid is not None else object()
+            self.requests[slot] = _Request(rid, lens[i],
+                                           item.get("max_new", 32), [])
+            self._pending_first[slot] = toks[i]
+            placed.append((slot, rid))
+        return placed
+
+    def _flush_pending(self) -> None:
+        """Bring every deferred first token to the host in ONE transfer
+        and run the retirement checks that waited on it. Called at the
+        top of every engine-thread entry point that may observe request
+        state, never from ``free_slots`` / ``requests_active`` (the HTTP
+        health thread reads those)."""
+        if not self._pending_first:
+            return
+        items = sorted(self._pending_first.items())
+        self._pending_first.clear()
+        vals = torch.stack([t for _, t in items]).tolist()
+        for (slot, _), tok in zip(items, vals):
+            r = self.requests[slot]
+            if r is None:
+                continue                       # aborted before flush
+            r.tokens.append(int(tok))
+            self._maybe_retire(slot)
+
+    # ------------------------------------------------------------- decode
+
+    def _active(self) -> List[int]:
+        return [i for i, r in enumerate(self.requests) if r is not None]
+
+    def step(self) -> Dict[int, int]:
+        """Advance every active slot one token; returns {slot: token}."""
+        return {slot: toks[0] for slot, toks in self._decode(1).items()}
+
+    def step_many(self, k: int) -> Dict[int, List[int]]:
+        """Advance every active slot ``k`` tokens, with ONE host transfer
+        for the window; returns {slot: [tokens...]}, each cut at the
+        slot's retirement. ``k <= 1`` is :meth:`step`."""
+        return self._decode(max(k, 1))
+
+    def _decode(self, k: int) -> Dict[int, List[int]]:
+        self._flush_pending()
+        active = self._active()
+        if not active:
+            return {}
+        mask = torch.zeros((self.slots,), dtype=torch.bool,
+                           device=self.device)
+        mask[active] = True
+        ln, tok = self.lengths, self.cur_tok
+        window = []
+        for _ in range(k):
+            logits, self.cache = llama.decode_step_slots(
+                self.cfg, self.params, self.cache, ln, tok, rope=self._rope)
+            nxt = torch.where(mask, self._select(logits), tok)
+            ln = torch.where(mask, ln + 1, ln)
+            tok = nxt
+            window.append(nxt)
+        self.lengths, self.cur_tok = ln, tok
+        host = torch.stack(window).cpu().numpy()        # ONE transfer
+        return self._emit(host, active)
+
+    # --------------------------------------------------------- retirement
+
+    def _maybe_retire(self, slot: int) -> None:
+        r = self.requests[slot]
+        if r is None:
+            return
+        done = (len(r.tokens) >= r.budget
+                or (self.eos_id is not None
+                    and r.tokens[-1] == self.eos_id)
+                or r.prompt_len + len(r.tokens) >= self.cfg.max_seq)
+        if done:
+            self.finished[r.request_id] = r.tokens
+            self.requests[slot] = None
+
+    def abort_active(self) -> int:
+        """Drop every in-flight request without recording results;
+        returns how many were dropped. Their cache rows need no cleanup:
+        lengths mask them and the next prefill rewrites them."""
+        dropped = 0
+        for i, r in enumerate(self.requests):
+            if r is not None:
+                self.requests[i] = None
+                dropped += 1
+        self._pending_first.clear()
+        return dropped
+
+
 def _copy_page(cache, src: int, dst: int) -> None:
     """Copy pool page ``src`` -> ``dst`` across every layer (payload +
     scales for int8 pools), in place: the eager copy-on-write of a
@@ -56,7 +395,7 @@ def _copy_page(cache, src: int, dst: int) -> None:
         cache[:, dst] = cache[:, src]
 
 
-class PagedServer:
+class PagedServer(_Engine):
     """Block-paged, prefix-shared continuous batching.
 
     Drive surface: ``submit`` / ``submit_many`` / ``step`` /
@@ -95,11 +434,7 @@ class PagedServer:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
-        embed = params["embed"]
-        params_dev = (embed.q if isinstance(embed, QTensor) else embed).device
-        if params_dev.type != self.device.type:
-            raise ValueError(f"params live on {params_dev}, the engine on "
-                             f"{self.device}")
+        _check_params_device(params, self.device)
         self.cfg = cfg
         self.params = params
         self.slots = slots                     # concurrent stream cap
@@ -152,12 +487,6 @@ class PagedServer:
         self._decoding = [False] * self.slots  # prefill finished?
 
     # ------------------------------------------------------------ intake
-
-    def free_slots(self) -> List[int]:
-        return [i for i, r in enumerate(self.requests) if r is None]
-
-    def requests_active(self) -> bool:
-        return any(r is not None for r in self.requests)
 
     def pages_free(self) -> int:
         return self.ledger.free_count()
@@ -275,11 +604,6 @@ class PagedServer:
 
     # ------------------------------------------------------------- decode
 
-    def _select(self, logits: torch.Tensor) -> torch.Tensor:
-        if self.sampler is None:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        return self.sampler(self.generator, logits).to(torch.int32)
-
     def _flush_pending(self) -> None:
         """Bring every deferred first token to the host in ONE transfer,
         append it, and turn its stream decode-active. Called at the top
@@ -396,31 +720,7 @@ class PagedServer:
             window.append(nxt)
         self.lengths, self.cur_tok = ln, tok
         host = torch.stack(window).cpu().numpy()        # ONE transfer
-        out: Dict[int, List[int]] = {}
-        for i in active:
-            emitted: List[int] = []
-            r = self.requests[i]
-            for t in host[:, i]:
-                emitted.append(int(t))
-                r.tokens.append(int(t))
-                self._maybe_retire(i)
-                if self.requests[i] is None:
-                    break   # retired mid-window: the rest is dead compute
-            out[i] = emitted
-        return out
-
-    def drain(self, queue: List[Dict[str, Any]],
-              decode_window: int = 1) -> Dict[Any, List[int]]:
-        """Serve a whole workload: submit as streams free up, step until
-        every request finishes. Each queue item: {"prompt": [...],
-        "max_new": int, "request_id": any}. ``decode_window > 1``
-        amortizes the host round trip over a window of steps."""
-        pending = list(queue)
-        while pending or self.requests_active():
-            placed = self.submit_many(pending)
-            pending = pending[len(placed):]
-            self.step_many(decode_window)
-        return dict(self.finished)
+        return self._emit(host, active)
 
     # --------------------------------------------------------- retirement
 

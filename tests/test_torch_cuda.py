@@ -1,6 +1,9 @@
 """Port tests that need the card: the paged flash-decode CUDA kernel
 against its plain PyTorch version across shapes, page sizes and int8
-pages, and the paged engine running through it; the flash-attention
+pages, and the paged engine running through it; the slot-cache
+flash-decode kernel against its plain version (int8, kv_len 0 and past
+the cache, head_dim 64/128/256), its refusals, and ``SlotServer`` and
+solo decode running through it; the flash-attention
 forward, dK/dV and dQ kernels against their plain versions (the smoke
 run's two shapes, a ragged and a negative-offset case, head_dim 256),
 their refusals, and the train step running through them.
@@ -168,6 +171,148 @@ def test_paged_server_runs_through_the_kernel(dev):
         r["request_id"]: r["max_new"] for r in reqs}
     assert srv.ledger_violations() == []
     assert srv.page_stats()["prefix_hits"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# slot-cache flash-decode: kernel 2
+
+
+def _slot_case(dev, b, h, kv, d, s, int8, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
+    if int8:
+        k, v = quantize(k, axis=-1), quantize(v, axis=-1)
+    return q, k, v
+
+
+SLOT_CASES = [
+    # b, h, kv, d, s, kv_len, int8
+    (8, 32, 8, 128, 2048, (1, 63, 64, 65, 700, 2047, 1500, 333), False),
+    (8, 32, 8, 128, 2048, (1, 63, 64, 65, 700, 2047, 1500, 333), True),
+    (8, 32, 8, 128, 2048, (2048, 0, 5000, 129, 1, 77, 1024, 9), True),
+    (3, 8, 8, 64, 100, (100, 0, 37), False),             # group 1, ragged S
+    (2, 16, 2, 256, 300, (301, 17), True),               # group 8, past S
+    (4, 12, 6, 128, 7, (3, 7, 1, 0), False),             # tiny cache
+    (2, 4, 1, 64, 1000, 513, False),                     # a scalar kv_len
+]
+
+
+@pytest.mark.parametrize("b,h,kv,d,s,kv_len,int8", SLOT_CASES)
+def test_slot_kernel_matches_plain_version(dev, b, h, kv, d, s, kv_len,
+                                           int8):
+    q, k, v = _slot_case(dev, b, h, kv, d, s, int8)
+    lens = (kv_len if isinstance(kv_len, int) else
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
+    before = fd.flash_decode.launches
+    got = fd.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    want = fd.flash_decode_reference(q, k, v, lens)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=RTOL,
+                               atol=ATOL)
+    per_row = [kv_len] * b if isinstance(kv_len, int) else kv_len
+    for i, n in enumerate(per_row):
+        if n == 0:
+            assert bool((got[i] == 0).all())
+
+
+def test_slot_kernel_reads_a_layer_of_the_cache_in_place(dev):
+    """A layer view of the [L, B, S, KV, D] cache goes in as it is, and
+    rows past kv_len are never read: NaN there changes nothing."""
+    cfg = llama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                 n_layers=2, max_seq=96, kv_quant=True)
+    cache = llama.init_kv_cache(cfg, 3, cfg.max_seq, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    raw = torch.randn(cache["k"].q.shape, generator=g, device=dev)
+    qt = quantize(raw, axis=-1)
+    cache["k"].q.copy_(qt.q)
+    cache["k"].s.copy_(qt.s)
+    cache["v"].q.copy_(qt.q.flip(0))
+    cache["v"].s.copy_(qt.s.flip(0))
+    lens = torch.tensor([40, 96, 3], dtype=torch.int32, device=dev)
+    q = torch.randn((3, 1, 4, 64), generator=g, device=dev).to(torch.bfloat16)
+    want = fd.flash_decode_reference(q, cache["k"][1], cache["v"][1], lens)
+    cache["k"].s[1, 0, 40:] = float("nan")
+    cache["v"].s[1, 2, 3:] = float("nan")
+    got = fd.flash_decode(q, cache["k"][1], cache["v"][1], lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_slot_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _slot_case(dev, 2, 8, 2, 128, 64, False)
+    lens = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q.float(), k, v, lens)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q, k, v, lens.long())
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k, v, lens.cpu())
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                        v, lens)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k[:1], v[:1], lens)
+    bad_d = torch.zeros((2, 1, 8, 96), dtype=torch.bfloat16, device=dev)
+    bad_kv = torch.zeros((2, 64, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fd.flash_decode(bad_d, bad_kv, bad_kv, lens)
+    q18 = torch.zeros((2, 1, 18, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q18, k, v, lens)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_decode_step_slots_kernel_matches_dense(dev, kv_quant):
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 50)).astype(np.int32)).to(dev)
+    lengths = torch.tensor([50, 20, 3], dtype=torch.int32, device=dev)
+    tokens = torch.tensor([5, 6, 7], dtype=torch.int32, device=dev)
+    cache = llama.init_kv_cache(cfg, 3, cfg.max_seq, device=dev)
+    _, cache = llama.prefill(cfg, params, cache, prompt)
+    out = {}
+    for mode in ("auto", "dense"):
+        c = {side: (QTensor(x.q.clone(), x.s.clone())
+                    if isinstance(x, QTensor) else x.clone())
+             for side, x in cache.items()}
+        out[mode], _ = llama.decode_step_slots(
+            dataclasses.replace(cfg, decode_attn=mode), params, c, lengths,
+            tokens)
+    torch.testing.assert_close(out["auto"], out["dense"], rtol=0,
+                               atol=5e-2)
+
+
+def test_slot_server_runs_through_the_kernels(dev):
+    """``SlotServer.step`` launches the slot kernel once a layer, and
+    bucketed prefill launches the flash-attention forward."""
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+             "max_new": m, "request_id": i}
+            for i, (n, m) in enumerate([(8, 6), (33, 9), (90, 20)])]
+    srv = serving.SlotServer(cfg, params, slots=2, device=dev)
+    n_fwd = fa.flash_attention_fwd.launches
+    srv.submit_many([dict(r) for r in reqs[:2]])
+    assert fa.flash_attention_fwd.launches == n_fwd + cfg.n_layers
+    before = fd.flash_decode.launches
+    srv.step()
+    assert fd.flash_decode.launches == before + cfg.n_layers
+    got = srv.drain([dict(r) for r in reqs[2:]], decode_window=4)
+    assert {k: len(t) for k, t in got.items()} == {
+        r["request_id"]: r["max_new"] for r in reqs}
+    solo = llama.generate_chunked(
+        cfg, params, torch.tensor([reqs[0]["prompt"]], device=dev), 6,
+        chunk=4)
+    assert solo.shape == (1, 6)
 
 
 # ---------------------------------------------------------------------------

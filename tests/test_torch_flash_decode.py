@@ -181,7 +181,8 @@ def test_kernel_build_bookkeeping():
     bound."""
     replaces = {"flash_attention_bwd": ("_bwd_dkdv_kernel", "_bwd_dq_kernel"),
                 "flash_attention_fwd": ("_fwd_kernel",),
-                "flash_decode_paged": ("_paged_kernel",)}
+                "flash_decode_paged": ("_paged_kernel",),
+                "flash_decode_slots": ("_decode_kernel",)}
     assert build.sources() == sorted(replaces)
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -55,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
     assert f"IMPORTED {len(mods)}" in out.stdout
     assert "dcos_commons_tpu_torch.models.serving" in mods
     assert "dcos_commons_tpu_torch.ops.flash_decode" in mods
-    for name in ("ops.flash_attention", "ops.losses", "models.train"):
+    for name in ("ops.flash_attention", "ops.losses", "models.train",
+                 "models.ingress", "metrics", "tracing", "utils.stats"):
         assert f"dcos_commons_tpu_torch.{name}" in mods
 
 

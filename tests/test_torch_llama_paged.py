@@ -265,14 +265,14 @@ def test_decode_step_past_max_seq_matches_jax():
 def test_decode_attn_routing():
     _, tcfg = _cfgs()
     cpu = torch.device("cpu")
-    assert not tl._use_flash_decode_paged(tcfg, cpu)              # auto
-    assert tl._use_flash_decode_paged(tcfg, torch.device("cuda"))
+    assert not tl._use_flash_decode(tcfg, cpu)              # auto
+    assert tl._use_flash_decode(tcfg, torch.device("cuda"))
     flash = dataclasses.replace(tcfg, decode_attn="flash")
-    assert tl._use_flash_decode_paged(flash, cpu)
+    assert tl._use_flash_decode(flash, cpu)
     dense = dataclasses.replace(tcfg, decode_attn="dense")
-    assert not tl._use_flash_decode_paged(dense, torch.device("cuda"))
+    assert not tl._use_flash_decode(dense, torch.device("cuda"))
     with pytest.raises(ValueError, match="decode_attn"):
-        tl._use_flash_decode_paged(
+        tl._use_flash_decode(
             dataclasses.replace(tcfg, decode_attn="pallas"), cpu)
 
 

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch port's paged engine spends its time
+"""Where a decode step of one of the PyTorch port's engines spends its time
 on the GPU.
 
-    python3 tools/torch_profile_decode.py
+    python3 tools/torch_profile_decode.py [--engine paged|slots]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, ``max_seq`` 2048),
 prefills 8 streams of ragged length through ``PagedServer(slots=8,
-page_size=64, prefill_chunk=64)``, then runs 8 decode steps
+page_size=64, prefill_chunk=64)`` (``--engine paged``, the default) or
+``SlotServer(slots=8)`` (``--engine slots``), then runs 8 decode steps
 (window 1) under ``torch.profiler`` and prints one JSON line: the host
 wall time per step, the device busy time per step (the sum of the kernel
-and copy time the profiler saw), the device idle share, and the kernels
-that take the most device time. If the profiler records no device time,
+and copy time the profiler saw), the device idle share, the kernels
+that take the most device time and the host ops that take the most host
+time. If the profiler records no device time,
 the device numbers are null. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -38,6 +41,9 @@ def _device_us(event) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", choices=("paged", "slots"), default="paged")
+    args = ap.parse_args()
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -51,14 +57,17 @@ def main() -> int:
     cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
-                              prefill_chunk=64, device=dev)
+    if args.engine == "paged":
+        srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                                  prefill_chunk=64, device=dev)
+    else:
+        srv = serving.SlotServer(cfg, params, slots=8, device=dev)
     rng = np.random.default_rng(1)
     srv.submit_many([
         {"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
          "max_new": 200, "request_id": i}
         for i, n in enumerate((1, 63, 64, 65, 700, 1500, 1300, 333))])
-    while srv._prefill_q or srv._pending_first:
+    while getattr(srv, "_prefill_q", None) or srv._pending_first:
         srv.step()
     for _ in range(2):                                  # warm
         srv.step()
@@ -73,6 +82,8 @@ def main() -> int:
     events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:12]
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:12]
     step_ms = wall / STEPS * 1e3
     busy_ms = busy_us / STEPS / 1e3 if busy_us else None
     card = subprocess.run(
@@ -80,7 +91,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "profile": "paged decode step", "layers": cfg.n_layers,
+        "profile": f"{args.engine} decode step", "layers": cfg.n_layers,
         "batch": 8, "steps": STEPS, "wall_ms_per_step": step_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
@@ -89,6 +100,9 @@ def main() -> int:
         "top_device": [{"name": e.key[:80], "count": e.count,
                         "ms_per_step": _device_us(e) / STEPS / 1e3}
                        for e in top if _device_us(e)],
+        "top_host": [{"name": e.key[:80], "count": e.count,
+                      "self_ms_per_step": e.self_cpu_time_total / STEPS / 1e3}
+                     for e in top_host],
         "card": card}))
     return 0
 
