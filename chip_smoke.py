@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    heads, B=8 slots of a 2048-position cache, bf16 and int8, one case
    with a slot past the cache and one empty); flash-attention forward,
    dK/dV and dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6,
-   D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8);
+   D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8), and the forward
+   alone at the slot-prefill bucket (B=8, S=2048, Llama-3-8B heads), each
+   forward case with its share of the bound;
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
    seed) through ``PagedServer``: about a dozen requests, two sharing a
    long prefix, decode windows 1 and 8; launch counts are zeroed just
@@ -69,8 +71,9 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-2, 1e-3
 # flash attention, kernel vs plain version: both accumulate in fp32 and
 # round each output once to bf16, but the kernels round P (and dS) to bf16
 # before their products, as the TPU kernel does, so an output may flip its
-# last bf16 bits and the error scales with the tensor's largest value:
-# rtol 2e-2 plus 1e-2 of max|want|; lse is fp32 on both sides
+# last bf16 bits and the error scales with the largest value: rtol 2e-2
+# plus 1e-2 of max|want| over each row of a head for O, over the tensor
+# for a gradient (fa_check); lse is fp32 on both sides
 FA_RTOL, FA_SCALED_ATOL, LSE_ATOL = 2e-2, 1e-2, 1e-3
 # the train step, one loss forward + backward through the kernels vs the
 # dense path, both bf16 over 8 layers: loss within 2e-2 (about 3 bf16
@@ -137,7 +140,8 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for name in libs:
         for line in build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -282,90 +286,46 @@ def slot_decode_case(int8: bool, kv_lens, flush) -> dict:
 # (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
 FA_SHAPES = (("llama_400m_train", 16, 511, 12, 6, 128),
              ("llama3_8b_heads", 2, 2048, 32, 8, 128))
+# forward only: the slot-prefill bucket that serving runs ([8, 2048])
+FA_FWD_SHAPES = (("llama3_8b_prefill_b8", 8, 2048, 32, 8, 128),)
 
 
-def _fa_check(name: str, got, want) -> float:
-    """Max abs error of a kernel output against its plain version; raises
-    outside the stated tolerance or on a non-finite value."""
+def fa_check(name: str, got, want, rows: bool = True) -> tuple:
+    """(max abs error, worst error as a share of its limit) of a
+    flash-attention output against its plain version: FA_RTOL plus
+    FA_SCALED_ATOL of max|want|, taken over each row of a head (``rows``,
+    for O: under a causal mask an early row, |o| near 4, would otherwise
+    set the limit for a late one, |o| near 0.04) or over the tensor (for
+    a gradient, whose rows can cancel to 0: dQ of a row that sees only
+    its own key). Raises outside the limit or on a non-finite value."""
     import torch
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    tol = FA_SCALED_ATOL * float(w.abs().max()) + FA_RTOL * w.abs()
-    if bool((err > tol).any()) or not bool(torch.isfinite(g).all()):
+    scale = w.abs().amax(dim=-1, keepdim=True) if rows else w.abs().max()
+    tol = FA_SCALED_ATOL * scale + FA_RTOL * w.abs()
+    share = float((err / tol.clamp_min(1e-30)).max())
+    if share > 1.0 or not bool(torch.isfinite(g).all()):
         raise RuntimeError(f"{name}: {int((err > tol).sum())} elements off "
-                           f"(max abs err {float(err.max()):.3e})")
-    return float(err.max())
+                           f"(max abs err {float(err.max()):.3e}, worst "
+                           f"error {share:.3g} x its limit)")
+    return float(err.max()), share
 
 
-def flash_attention_case(shape, flush) -> dict:
-    """Kernels 3-5 vs their plain versions at one shape, with times, the
-    bounds and SDPA (forward; backward for dK/dV and dQ together) as the
-    library yardstick, timed here only and never called by the port."""
+def fa_inputs(shape):
+    """q, k, v and dO at one shape, from the seed."""
     import torch
-    import torch.nn.functional as F
-    from dcos_commons_tpu_torch.ops import flash_attention as fa
-
-    label, b, s, h, kv, d = shape
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + s)
+    _, b, s, h, kv, d = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + s)
 
     def r(*dims):
-        return torch.randn(dims, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(dims, generator=g, device="cuda").to(torch.bfloat16)
 
-    q, k, v, do = r(b, s, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, s, h, d)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
-    delta = fa.attention_delta(o_ref, do)
-    bwd_in = (q, k, v, do, lse_ref, delta)
-    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_in)
-    dq = fa.flash_attention_bwd_dq(*bwd_in)
-    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in)
-    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in)
-    torch.cuda.synchronize()
-    err = {"fwd": _fa_check(f"flash_attention_fwd {label}", o, o_ref),
-           "dkdv": max(_fa_check(f"flash_attention_bwd_dkdv {label} dk",
-                                 dk, dk_ref),
-                       _fa_check(f"flash_attention_bwd_dkdv {label} dv",
-                                 dv, dv_ref)),
-           "dq": _fa_check(f"flash_attention_bwd_dq {label}", dq, dq_ref)}
-    lse_err = float((lse - lse_ref).abs().max())
-    if lse_err > LSE_ATOL:
-        raise RuntimeError(f"flash_attention_fwd {label}: lse off by "
-                           f"{lse_err:.3e}")
+    return r(b, s, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, s, h, d)
 
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
 
-    def library_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    lib_out = library_fwd()
-    lib_err = float((lib_out.detach().transpose(1, 2).float()
-                     - o_ref.float()).abs().max())
-    do_t = do.transpose(1, 2)
-
-    def library_bwd():
-        return torch.autograd.grad(lib_out, leaves, do_t, retain_graph=True)
-
-    iters = 20
-    times = {
-        "fwd": (timed_ms(lambda: fa.flash_attention_fwd(q, k, v), iters,
-                         flush),
-                timed_ms(lambda: fa.flash_attention_reference(q, k, v), 5,
-                         flush)),
-        "dkdv": (timed_ms(lambda: fa.flash_attention_bwd_dkdv(*bwd_in),
-                          iters, flush),
-                 timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(
-                     *bwd_in), 5, flush)),
-        "dq": (timed_ms(lambda: fa.flash_attention_bwd_dq(*bwd_in), iters,
-                        flush),
-               timed_ms(lambda: fa.flash_attention_bwd_dq_reference(
-                   *bwd_in), 5, flush)),
-    }
-    library = {"fwd": timed_ms(library_fwd, iters, flush)}
-    library["dkdv"] = library["dq"] = timed_ms(library_bwd, iters, flush)
-
+def fa_entry(shape, kern, checked, ms, plain_ms, library_ms) -> dict:
+    """One case of kernel ``kern`` (fwd, dkdv or dq) with its bound."""
+    label, b, s, h, kv, d = shape
     # live (query, key) pairs of the causal mask, each row i sees i + 1
     pairs = b * h * s * (s + 1) // 2
     q_bytes = b * s * h * d * 2                     # q, o, dO, dq (bf16)
@@ -375,17 +335,99 @@ def flash_attention_case(shape, flush) -> dict:
             "dkdv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
                      8 * d * pairs),
             "dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
-                   6 * d * pairs)}
-    out = {}
-    for kern in ("fwd", "dkdv", "dq"):
-        ms, plain_ms = times[kern]
-        out[kern] = {"shape": label, "b": b, "s": s, "h": h, "kv": kv,
-                     "d": d, "max_abs_err": err[kern], "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library[kern],
-                     **bound(*work[kern])}
-    out["fwd"]["lse_max_abs_err"] = lse_err
-    out["fwd"]["library_max_abs_err"] = lib_err
+                   6 * d * pairs)}[kern]
+    err, share = checked
+    return {"shape": label, "b": b, "s": s, "h": h, "kv": kv, "d": d,
+            "max_abs_err": err, "err_share_of_limit": share, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound(*work)}
+
+
+def flash_attention_fwd_case(shape, flush) -> dict:
+    """Kernel 3 vs its plain version at one shape, with its time, its
+    bound and its share of it, and SDPA's forward as the library
+    yardstick, timed here only and never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+
+    label = shape[0]
+    q, k, v, _ = fa_inputs(shape)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    checked = fa_check(f"flash_attention_fwd {label}", o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    if lse_err > LSE_ATOL:
+        raise RuntimeError(f"flash_attention_fwd {label}: lse off by "
+                           f"{lse_err:.3e}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float()
+                     - o_ref.float()).abs().max())
+    iters = 20
+    out = fa_entry(
+        shape, "fwd", checked,
+        timed_ms(lambda: fa.flash_attention_fwd(q, k, v), iters, flush),
+        timed_ms(lambda: fa.flash_attention_reference(q, k, v), 3, flush),
+        timed_ms(library, iters, flush))
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["lse_max_abs_err"] = lse_err
+    out["library_max_abs_err"] = lib_err
     return out
+
+
+def flash_attention_bwd_case(shape, flush) -> tuple:
+    """Kernels 4 and 5 vs their plain versions at one shape, from the
+    plain forward's lse, with their times and bounds, and SDPA's backward
+    (dQ, dK and dV together) as the library yardstick of both."""
+    import torch
+    import torch.nn.functional as F
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+
+    label = shape[0]
+    q, k, v, do = fa_inputs(shape)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    delta = fa.attention_delta(o_ref, do)
+    bwd_in = (q, k, v, do, lse_ref, delta)
+    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_in)
+    dq = fa.flash_attention_bwd_dq(*bwd_in)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in)
+    torch.cuda.synchronize()
+    checked_dkdv = max(
+        fa_check(f"flash_attention_bwd_dkdv {label} dk", dk, dk_ref,
+                 rows=False),
+        fa_check(f"flash_attention_bwd_dkdv {label} dv", dv, dv_ref,
+                 rows=False))
+    checked_dq = fa_check(f"flash_attention_bwd_dq {label}", dq, dq_ref,
+                          rows=False)
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    do_t = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, leaves, do_t, retain_graph=True)
+
+    iters = 20
+    lib_ms = timed_ms(library, iters, flush)
+    dkdv = fa_entry(
+        shape, "dkdv", checked_dkdv,
+        timed_ms(lambda: fa.flash_attention_bwd_dkdv(*bwd_in), iters, flush),
+        timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_in), 5,
+                 flush), lib_ms)
+    dq = fa_entry(
+        shape, "dq", checked_dq,
+        timed_ms(lambda: fa.flash_attention_bwd_dq(*bwd_in), iters, flush),
+        timed_ms(lambda: fa.flash_attention_bwd_dq_reference(*bwd_in), 5,
+                 flush), lib_ms)
+    return dkdv, dq
 
 
 def phase_kernels(flush):
@@ -398,10 +440,16 @@ def phase_kernels(flush):
                                      (True, EDGE_LENS))]
     for c in slot_cases:
         log(f"[kernel] flash_decode {json.dumps(c)}")
-    fa_cases = [flash_attention_case(shape, flush) for shape in FA_SHAPES]
-    for c in fa_cases:
-        for kern, case in c.items():
-            log(f"[kernel] flash_attention_{kern} {json.dumps(case)}")
+    fa_cases = {"fwd": [flash_attention_fwd_case(shape, flush)
+                        for shape in FA_SHAPES + FA_FWD_SHAPES],
+                "dkdv": [], "dq": []}
+    for shape in FA_SHAPES:
+        dkdv, dq = flash_attention_bwd_case(shape, flush)
+        fa_cases["dkdv"].append(dkdv)
+        fa_cases["dq"].append(dq)
+    for kern, kern_cases in fa_cases.items():
+        for c in kern_cases:
+            log(f"[kernel] flash_attention_{kern} {json.dumps(c)}")
     return cases, slot_cases, fa_cases
 
 
@@ -845,7 +893,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     training_line, fa_launches = phase_train(card)
-    fa_tol = {"rtol": FA_RTOL, "atol": f"{FA_SCALED_ATOL} * max|plain|",
+    fa_tol = {"rtol": FA_RTOL,
+              "atol": f"{FA_SCALED_ATOL} * max|plain| of each row of a head "
+                      "(O) or of the tensor (gradients)",
               "lse_atol": LSE_ATOL}
     csrc = "dcos_commons_tpu_torch/csrc/"
     decode_tol = {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}
@@ -862,17 +912,17 @@ def main() -> int:
                       "dcos_commons_tpu/ops/flash_attention.py:62",
                       {"serving_slots": slot_launches["flash_attention_fwd"],
                        "training": fa_launches["flash_attention_fwd"]},
-                      [c["fwd"] for c in fa_cases], fa_tol),
+                      fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:214",
                       {"training": fa_launches["flash_attention_bwd_dkdv"]},
-                      [c["dkdv"] for c in fa_cases], fa_tol),
+                      fa_cases["dkdv"], fa_tol),
         _kernel_entry("flash_attention_bwd_dq",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:256",
                       {"training": fa_launches["flash_attention_bwd_dq"]},
-                      [c["dq"] for c in fa_cases], fa_tol),
+                      fa_cases["dq"], fa_tol),
     ]
     sdpa = "scaled_dot_product_attention(attn_mask=kv_len, enable_gqa) over "
     kernels[0]["library"] = sdpa + "pre-gathered (dequantized) pages"

@@ -6,7 +6,9 @@ minutes) under ``build/torch_kernels/`` at the repository root. The file
 name carries a digest of the source and flags, so an edited source
 rebuilds and an unchanged one is reused. :func:`build_all` starts one
 ``nvcc`` per source at once; :func:`load` builds a library on first use
-and returns it with its C signatures set.
+and returns it with its C signatures set. A name is a source of
+``csrc/`` or a path to another ``.cu`` file that includes the same
+headers (an earlier or a candidate version of a kernel).
 
 Only the machine with the card has ``nvcc``; nothing here runs when a
 module is imported.
@@ -57,20 +59,26 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``name`` itself where it names a ``.cu``."""
+    return Path(name) if name.endswith(".cu") else CSRC / f"{name}.cu"
+
+
 def library_path(name: str) -> Path:
     """The library's path; its digest covers the source, every shared
     header of ``csrc/`` and the flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.blake2s(src + " ".join(NVCC_FLAGS).encode()
+    src = source_path(name)
+    text = src.read_bytes()
+    text += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.blake2s(text + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def log_path(name: str) -> Path:
-    """The compiler's output of the last build (ptxas register and
+    """The compiler's output of the library's build (ptxas register and
     shared-memory report included)."""
-    return BUILD_DIR / f"{name}.log"
+    return library_path(name).with_suffix(".log")
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
@@ -85,7 +93,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if lib.is_file():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(source_path(name))]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -104,7 +113,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def load(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    """The loaded library of ``name``'s source, built on first use, with
     ``restype``/``argtypes`` set from ``signatures``."""
     with _LOCK:
         lib = _LOADED.get(name)

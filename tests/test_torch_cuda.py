@@ -5,8 +5,11 @@ flash-decode kernel against its plain version (int8, kv_len 0 and past
 the cache, head_dim 64/128/256), its refusals, and ``SlotServer`` and
 solo decode running through it; the flash-attention
 forward, dK/dV and dQ kernels against their plain versions (the smoke
-run's two shapes, a ragged and a negative-offset case, head_dim 256),
-their refusals, and the train step running through them.
+run's shapes, ragged and negative-offset cases, one query row, Sq
+around the forward's 128-row tile, head_dim 64 and 256, the B=8
+slot-prefill bucket), the forward's run-to-run determinism and any
+softmax scale, their refusals, and the train step running through
+them.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -321,9 +324,12 @@ def test_slot_server_runs_through_the_kernels(dev):
 # Both sides accumulate in fp32 and round each output once to bf16, but
 # the kernels round P (and dS) to bf16 before their products, as the TPU
 # kernel does, and the plain version keeps them fp32: an output may flip
-# its last bf16 bits, and the error scales with the tensor's largest
-# magnitude. rtol 2e-2 plus 1e-2 of max|want|; lse (fp32 on both sides)
-# within 1e-3.
+# its last bf16 bits, and the error scales with the largest magnitude.
+# rtol 2e-2 plus 1e-2 of max|want|, over each row of a head for O (under
+# a causal mask an early row's |o| is near 4, a late one's near 0.04, so
+# one scale for the tensor would let a late row go unchecked) and over
+# the tensor for a gradient (a row can cancel to 0: dQ of a row that
+# sees only its own key); lse (fp32 on both sides) within 1e-3.
 FA_RTOL, FA_SCALED_ATOL, LSE_ATOL = 2e-2, 1e-2, 1e-3
 
 FA_CASES = [
@@ -333,6 +339,18 @@ FA_CASES = [
     (3, 77, 200, 4, 1, 64, True, 123),         # ragged, rectangular
     (2, 100, 100, 4, 2, 128, True, -37),       # rows with no live key
     (1, 130, 70, 2, 2, 256, False, 0),         # head_dim 256, full
+    # the forward's 128-row q tile and K/V ring: one query row, Sq around
+    # the tile against ragged Sk, a causal offset off the tile grid,
+    # head_dim 64 and 256 causal, and enough (B, H) blocks for many waves
+    (2, 1, 300, 8, 2, 128, True, 299),
+    (2, 1, 64, 4, 4, 64, False, 0),
+    (1, 129, 127, 4, 2, 128, True, -2),
+    (1, 129, 129, 4, 2, 128, True, 0),
+    (1, 129, 257, 4, 2, 128, True, 128),
+    (2, 300, 500, 8, 4, 128, True, 77),
+    (2, 300, 300, 8, 2, 64, True, 0),
+    (2, 300, 300, 4, 4, 256, True, 0),
+    (8, 2048, 2048, 32, 8, 128, True, 0),      # the slot-prefill bucket
 ]
 
 
@@ -345,10 +363,16 @@ def _fa_case(dev, b, sq, sk, h, kv, d, seed=0):
     return r(b, sq, h, d), r(b, sk, kv, d), r(b, sk, kv, d), r(b, sq, h, d)
 
 
-def _fa_close(got, want):
-    atol = FA_SCALED_ATOL * float(want.float().abs().max())
-    torch.testing.assert_close(got.float(), want.float(), rtol=FA_RTOL,
-                               atol=atol)
+def _fa_close(got, want, rows=True):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    scale = w.abs().amax(dim=-1, keepdim=True) if rows else w.abs().max()
+    tol = FA_SCALED_ATOL * scale + FA_RTOL * w.abs()
+    assert bool(torch.isfinite(g).all())
+    assert not bool((err > tol).any()), (
+        f"{int((err > tol).sum())} elements off, max abs err "
+        f"{float(err.max()):.3e}, worst error "
+        f"{float((err / tol.clamp_min(1e-30)).max()):.3g} x its limit")
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,off", FA_CASES)
@@ -374,7 +398,7 @@ def test_flash_attention_kernels_match_plain_versions(dev, b, sq, sk, h, kv,
                                                  **kw)
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert bool(torch.isfinite(got.float()).all())
-        _fa_close(got, want)
+        _fa_close(got, want, rows=False)
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd_dkdv.launches,
             fa.flash_attention_bwd_dq.launches) == tuple(n + 1 for n in n0)
@@ -382,6 +406,30 @@ def test_flash_attention_kernels_match_plain_versions(dev, b, sq, sk, h, kv,
         dead = -off
         assert bool((o[:, :dead] == 0).all()) and bool((dq[:, :dead] == 0).all())
         assert bool((lse[:, :, :dead] == -1e30).all())
+
+
+def test_flash_attention_forward_is_deterministic(dev):
+    """50 launches on the same inputs give bitwise-equal O and lse: a K/V
+    stage handed back to the producer before its last reader completed
+    would show up as run-to-run differences."""
+    q, k, v, _ = _fa_case(dev, 16, 511, 511, 12, 6, 128, seed=3)
+    o0, lse0 = fa.flash_attention_fwd(q, k, v)
+    for _ in range(49):
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        assert torch.equal(o, o0) and torch.equal(lse, lse0)
+
+
+@pytest.mark.parametrize("sm_scale", [0.3, 0.0, -0.2])
+def test_flash_attention_forward_takes_any_scale(dev, sm_scale):
+    """A positive scale folds into the kernel's exponent; zero and
+    negative scales take the plain product, as the reference allows."""
+    q, k, v, _ = _fa_case(dev, 2, 200, 300, 8, 2, 128, seed=5)
+    kw = dict(causal=True, q_offset=60, sm_scale=sm_scale)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _fa_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=LSE_ATOL)
 
 
 def test_flash_attention_autograd_matches_dense_on_card(dev):
@@ -393,8 +441,9 @@ def test_flash_attention_autograd_matches_dense_on_card(dev):
         out = fn(*leaves, causal=True)
         out.backward(do)
         grads[name] = [out.detach()] + [t.grad for t in leaves]
-    for got, want in zip(grads["flash"], grads["dense"]):
-        _fa_close(got, want)
+    _fa_close(grads["flash"][0], grads["dense"][0])
+    for got, want in zip(grads["flash"][1:], grads["dense"][1:]):
+        _fa_close(got, want, rows=False)
 
 
 def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):

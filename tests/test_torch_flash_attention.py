@@ -11,7 +11,11 @@ compares o, lse (row 0 of the TPU kernel's 8 copies) and dq/dk/dv.
 
 Tolerance: fp32 within 2e-5 (both compute in fp32; sums run in another
 order). The ragged S=511 case, which the JAX kernel refuses, is held
-against JAX ``gqa_attention`` and its gradient.
+against JAX ``gqa_attention`` and its gradient, as are the edges of the
+card kernel's tiles that the JAX kernel refuses (one query row, Sq=129
+against Sk of 127, 129 and 257, a causal offset off the tile grid,
+head_dim 64 and 256 at ragged lengths), with lse against a logsumexp in
+JAX.
 """
 
 import jax
@@ -80,6 +84,11 @@ CASES = {
     "rectangular_causal_offset": (1, 128, 256, 4, 2, 32, True, 64, 64, 64),
     "backward_multiblock_negative_offset":
         (1, 128, 256, 4, 4, 32, True, -32, 64, 64),
+    # the card kernel's edges inside the Pallas gate: a causal offset off
+    # its 128-row tile grid, and head_dim 64 / 256 causal
+    "causal_offset_off_tile": (1, 128, 384, 4, 2, 128, True, 77, 128, 128),
+    "head_dim_64_causal_gqa4": (2, 128, 256, 8, 2, 64, True, 128, 64, 128),
+    "head_dim_256_causal": (1, 128, 128, 2, 1, 256, True, 0, 64, 128),
 }
 
 
@@ -128,6 +137,63 @@ def test_ragged_lengths_match_dense_jax(sq, sk, kv):
                           [got[0]] + got[2:], [o, *grads]):
         err = float(np.abs(a - np.asarray(b)).max())
         assert err < TOL, (name, err)
+
+
+# Edges of the card kernel's 128-row q tile and its K/V tiles that the
+# Pallas gate refuses (Sq % 8, Sk % 128): the plain versions the card
+# compares the kernel with are held against JAX's dense attention and its
+# gradient, and lse against a logsumexp computed in JAX.
+EDGE_CASES = {
+    # b, sq, sk, h, kv, d, causal, q_offset
+    "one_query_row_causal": (2, 1, 300, 8, 2, 128, True, 299),
+    "one_query_row_full": (2, 1, 64, 4, 4, 64, False, 0),
+    "sq129_sk127_two_dead_rows": (1, 129, 127, 4, 2, 128, True, -2),
+    "sq129_sk129": (1, 129, 129, 4, 2, 128, True, 0),
+    "sq129_sk257_causal": (1, 129, 257, 4, 2, 128, True, 128),
+    "sq129_sk257_full": (1, 129, 257, 4, 2, 128, False, 0),
+    "rectangular_offset_off_tile": (2, 300, 500, 8, 4, 128, True, 77),
+    "head_dim_64_causal_ragged": (2, 300, 300, 8, 2, 64, True, 0),
+    "head_dim_256_causal_ragged": (1, 300, 300, 4, 4, 256, True, 0),
+}
+
+
+def _jax_lse(q, k, causal, off):
+    """[B, H, Sq] logsumexp of the scaled scores in JAX; -1e30 where a row
+    sees no key."""
+    with jax.default_matmul_precision("highest"):
+        n_rep = q.shape[2] // k.shape[2]
+        kk = jnp.repeat(jnp.asarray(k), n_rep, axis=2)
+        s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kk) \
+            * q.shape[-1] ** -0.5
+        if causal:
+            live = (off + jnp.arange(q.shape[1]))[:, None] \
+                >= jnp.arange(k.shape[1])[None, :]
+            s = jnp.where(live, s, -jnp.inf)
+        lse = jax.nn.logsumexp(s, axis=-1)
+    return np.asarray(jnp.where(jnp.isinf(lse), -1e30, lse))
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_kernel_edge_shapes_match_dense_jax(case):
+    b, sq, sk, h, kv, d, causal, off = EDGE_CASES[case]
+    q, k, v, g = _inputs(b, sq, sk, h, kv, d, seed=7)
+    assert not jfa.supports(jnp.asarray(q), jnp.asarray(k))
+    # dense attention spreads a row that sees no key evenly over the keys;
+    # the kernels give it 0: compare live rows, with no gradient from the
+    # dead ones (dO 0 there), and pin the dead rows to 0 and -1e30
+    dead = max(0, min(-off, sq)) if causal else 0
+    g[:, :dead] = 0.0
+    got = _port(q, k, v, g, causal=causal, q_offset=off)
+    with jax.default_matmul_precision("highest"):
+        o, vjp = jax.vjp(lambda q_, k_, v_: gqa_attention(
+            q_, k_, v_, causal=causal, q_offset=off), q, k, v)
+        grads = vjp(jnp.asarray(g))
+    want = [np.asarray(x) for x in (o, _jax_lse(q, k, causal, off), *grads)]
+    o_dead = got[0][:, :dead]
+    got[0], want[0] = got[0][:, dead:], want[0][:, dead:]
+    _assert_all_close(got, want)
+    assert not o_dead.any()
+    assert np.all(got[1][:, :, :dead] == np.float32(-1e30))
 
 
 def test_backward_reference_matches_autograd_of_the_forward_reference():

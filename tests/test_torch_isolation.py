@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: ``dcos_commons_tpu_torch`` and
-``chip_smoke.py`` import neither JAX nor any module of the JAX package
-(not even its jax-free ones), and ``chip_smoke.py`` refuses to report a
+"""The PyTorch port stands alone: ``dcos_commons_tpu_torch``,
+``chip_smoke.py`` and the port's tools import neither JAX nor any module
+of the JAX package (not even its jax-free ones), and ``chip_smoke.py`` refuses to report a
 result where it cannot run."""
 
 import ast
@@ -62,9 +62,11 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_source_names_jax_or_the_jax_package():
     """Static check over every import statement, including imports
-    inside functions (triton and the kernel build load lazily)."""
+    inside functions (triton and the kernel build load lazily), of the
+    port, ``chip_smoke.py`` and the port's tools (``tools/torch_*.py``)."""
     offenders = []
-    for path in list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in (list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                 + sorted((ROOT / "tools").glob("torch_*.py"))):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
