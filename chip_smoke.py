@@ -18,7 +18,8 @@ Phases (any failure exits non-zero):
    dK/dV and dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6,
    D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8), and the forward
    alone at the slot-prefill bucket (B=8, S=2048, Llama-3-8B heads), each
-   forward case with its share of the bound;
+   flash-attention case with its share of the bound, and the port's
+   whole backward (rowsum pass and both kernels) beside SDPA's;
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
    seed) through ``PagedServer``: about a dozen requests, two sharing a
    long prefix, decode windows 1 and 8; launch counts are zeroed just
@@ -380,21 +381,29 @@ def flash_attention_fwd_case(shape, flush) -> dict:
     return out
 
 
-def flash_attention_bwd_case(shape, flush) -> tuple:
+def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
+                             plain: bool = True) -> tuple:
     """Kernels 4 and 5 vs their plain versions at one shape, from the
-    plain forward's lse, with their times and bounds, and SDPA's backward
-    (dQ, dK and dV together) as the library yardstick of both."""
+    plain forward's lse, with their times, bounds and shares of them;
+    SDPA's backward (dQ, dK and dV together, its rowsum pass included) as
+    the library yardstick of both, and beside it the port's whole
+    backward (``attention_delta`` and both kernels, as ``_FlashAttention``
+    runs it). ``dkdv``/``dq`` default to the wrappers; another launcher of
+    the same signature (a variant's source) can stand in, and ``plain``
+    False skips timing the plain versions."""
     import torch
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.ops import flash_attention as fa
 
+    run_dkdv = dkdv or fa.flash_attention_bwd_dkdv
+    run_dq = dq or fa.flash_attention_bwd_dq
     label = shape[0]
     q, k, v, do = fa_inputs(shape)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
     delta = fa.attention_delta(o_ref, do)
     bwd_in = (q, k, v, do, lse_ref, delta)
-    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_in)
-    dq = fa.flash_attention_bwd_dq(*bwd_in)
+    dk, dv = run_dkdv(*bwd_in)
+    dq_out = run_dq(*bwd_in)
     dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in)
     dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in)
     torch.cuda.synchronize()
@@ -403,7 +412,7 @@ def flash_attention_bwd_case(shape, flush) -> tuple:
                  rows=False),
         fa_check(f"flash_attention_bwd_dkdv {label} dv", dv, dv_ref,
                  rows=False))
-    checked_dq = fa_check(f"flash_attention_bwd_dq {label}", dq, dq_ref,
+    checked_dq = fa_check(f"flash_attention_bwd_dq {label}", dq_out, dq_ref,
                           rows=False)
 
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -415,19 +424,28 @@ def flash_attention_bwd_case(shape, flush) -> tuple:
     def library():
         return torch.autograd.grad(lib_out, leaves, do_t, retain_graph=True)
 
+    def port_backward():
+        d = fa.attention_delta(o_ref, do)
+        return run_dkdv(q, k, v, do, lse_ref, d), run_dq(q, k, v, do,
+                                                          lse_ref, d)
+
     iters = 20
     lib_ms = timed_ms(library, iters, flush)
-    dkdv = fa_entry(
+    whole_ms = timed_ms(port_backward, iters, flush)
+    dkdv_entry = fa_entry(
         shape, "dkdv", checked_dkdv,
-        timed_ms(lambda: fa.flash_attention_bwd_dkdv(*bwd_in), iters, flush),
+        timed_ms(lambda: run_dkdv(*bwd_in), iters, flush),
         timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_in), 5,
-                 flush), lib_ms)
-    dq = fa_entry(
+                 flush) if plain else None, lib_ms)
+    dq_entry = fa_entry(
         shape, "dq", checked_dq,
-        timed_ms(lambda: fa.flash_attention_bwd_dq(*bwd_in), iters, flush),
+        timed_ms(lambda: run_dq(*bwd_in), iters, flush),
         timed_ms(lambda: fa.flash_attention_bwd_dq_reference(*bwd_in), 5,
-                 flush), lib_ms)
-    return dkdv, dq
+                 flush) if plain else None, lib_ms)
+    for entry in (dkdv_entry, dq_entry):
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        entry["port_backward_ms"] = whole_ms
+    return dkdv_entry, dq_entry
 
 
 def phase_kernels(flush):

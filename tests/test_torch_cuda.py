@@ -7,9 +7,9 @@ solo decode running through it; the flash-attention
 forward, dK/dV and dQ kernels against their plain versions (the smoke
 run's shapes, ragged and negative-offset cases, one query row, Sq
 around the forward's 128-row tile, head_dim 64 and 256, the B=8
-slot-prefill bucket), the forward's run-to-run determinism and any
-softmax scale, their refusals, and the train step running through
-them.
+slot-prefill bucket, and the edges of the backward's tiles), the run-to-
+run determinism and any softmax scale of the forward and of the
+backward, their refusals, and the train step running through them.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -351,6 +351,13 @@ FA_CASES = [
     (2, 300, 300, 8, 2, 64, True, 0),
     (2, 300, 300, 4, 4, 256, True, 0),
     (8, 2048, 2048, 32, 8, 128, True, 0),      # the slot-prefill bucket
+    # the backward's tiles (dQ: 128 q rows, 64-key stages; dK/dV: 128 keys,
+    # 64-row q stages over the GQA group): a group of 4 with ragged Sk, Sk
+    # one past a key tile against one q tile, and enough (KV, B) key tiles
+    # for several rounds of the persistent grid
+    (1, 257, 385, 8, 2, 128, True, 128),
+    (1, 64, 129, 4, 2, 128, False, 0),
+    (8, 1024, 1024, 16, 4, 128, True, 0),
 ]
 
 
@@ -430,6 +437,39 @@ def test_flash_attention_forward_takes_any_scale(dev, sm_scale):
     torch.cuda.synchronize()
     _fa_close(o, o_ref)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=LSE_ATOL)
+
+
+def test_flash_attention_backward_is_deterministic(dev):
+    """50 launches of each backward kernel on the same inputs give
+    bitwise-equal dq, dk and dv: a Q/dO or K/V stage handed back to the
+    producer before its last reader completed, or a sum whose order
+    changes between runs, would show up here."""
+    q, k, v, do = _fa_case(dev, 16, 511, 511, 12, 6, 128, seed=4)
+    o, lse = fa.flash_attention_reference(q, k, v)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do))
+    dq0 = fa.flash_attention_bwd_dq(*args)
+    dk0, dv0 = fa.flash_attention_bwd_dkdv(*args)
+    for _ in range(49):
+        assert torch.equal(fa.flash_attention_bwd_dq(*args), dq0)
+        dk, dv = fa.flash_attention_bwd_dkdv(*args)
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+
+
+@pytest.mark.parametrize("sm_scale", [0.3, 0.0, -0.2])
+def test_flash_attention_backward_takes_any_scale(dev, sm_scale):
+    """The backward kernels at any softmax scale, zero and negative too,
+    against their plain versions from the plain forward's lse."""
+    q, k, v, do = _fa_case(dev, 2, 200, 300, 8, 2, 128, seed=5)
+    kw = dict(causal=True, q_offset=60, sm_scale=sm_scale)
+    o, lse = fa.flash_attention_reference(q, k, v, **kw)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do))
+    dk, dv = fa.flash_attention_bwd_dkdv(*args, **kw)
+    dq = fa.flash_attention_bwd_dq(*args, **kw)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*args, **kw)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*args, **kw)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _fa_close(got, want, rows=False)
 
 
 def test_flash_attention_autograd_matches_dense_on_card(dev):

@@ -14,8 +14,8 @@ order). The ragged S=511 case, which the JAX kernel refuses, is held
 against JAX ``gqa_attention`` and its gradient, as are the edges of the
 card kernel's tiles that the JAX kernel refuses (one query row, Sq=129
 against Sk of 127, 129 and 257, a causal offset off the tile grid,
-head_dim 64 and 256 at ragged lengths), with lse against a logsumexp in
-JAX.
+head_dim 64 and 256 at ragged lengths, a GQA group of 4 with ragged Sk,
+Sk one past a key tile), with lse against a logsumexp in JAX.
 """
 
 import jax
@@ -154,6 +154,10 @@ EDGE_CASES = {
     "rectangular_offset_off_tile": (2, 300, 500, 8, 4, 128, True, 77),
     "head_dim_64_causal_ragged": (2, 300, 300, 8, 2, 64, True, 0),
     "head_dim_256_causal_ragged": (1, 300, 300, 4, 4, 256, True, 0),
+    # the backward's tiles: a GQA group of 4 with ragged Sk, and Sk one
+    # past a 128-key tile against one 64-row q tile
+    "gqa4_ragged_sk": (1, 257, 385, 8, 2, 128, True, 128),
+    "sk_one_past_key_tile": (1, 64, 129, 4, 2, 128, False, 0),
 }
 
 
