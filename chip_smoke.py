@@ -12,9 +12,12 @@ Phases (any failure exits non-zero):
    shapes of the main paths and time the kernel, the plain version, one
    library call as a yardstick, and the card's bound for the same work:
    paged flash-decode (Llama-3-8B heads, B=8 ragged streams, page sizes
-   64 and 128, bf16 and int8 pages); slot-cache flash-decode (Llama-3-8B
-   heads, B=8 slots of a 2048-position cache, bf16 and int8, one case
-   with a slot past the cache and one empty); flash-attention forward,
+   64 and 128, bf16 and int8 pages, and 16 in bf16); slot-cache
+   flash-decode (Llama-3-8B heads, B=8 slots of a 2048-position cache,
+   bf16 and int8, and a case in each with a slot past the cache and one
+   empty), each decode case with its share of the bound, a second call on
+   other inputs and 20 more launches that must give the first call's
+   bits; flash-attention forward,
    dK/dV and dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6,
    D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8), and the forward
    alone at the slot-prefill bucket (B=8, S=2048, Llama-3-8B heads), each
@@ -149,41 +152,99 @@ def phase_build() -> None:
 # --------------------------------------------------------------- phase 2
 
 KV_LENS = (1, 63, 64, 65, 700, 2047, 1500, 333)
+# slot lengths of the edge case: one past the cache, one empty
+EDGE_LENS = (4096, 0, 64, 65, 700, 2047, 1500, 333)
+# the other inputs of the second-call check: other lengths, one empty
+OTHER_LENS = (2048, 5, 129, 1000, 0, 77, 1024, 9)
+# launches that must give the same bits
+REPEATS = 20
 
 
-def flash_decode_case(ps: int, int8: bool, flush) -> dict:
-    """Kernel vs plain version at the 8B decode shape: H=32, KV=8,
-    D=128, B=8 streams of ragged length, shuffled page table."""
+def decode_inputs(kind: str, int8: bool, lens, seed: int, ps: int = 64):
+    """Kernel inputs at the 8B decode shape (H=32, KV=8, D=128, B=8):
+    paged, (q, k, v, table, kv_len) over a shuffled table of a
+    2048-position span; slots, (q, k, v, kv_len) over a 2048-position
+    cache read in place."""
     import torch
-    import torch.nn.functional as F
-    from dcos_commons_tpu_torch.models.llama import _gather_pages
-    from dcos_commons_tpu_torch.ops import flash_decode as fd
     from dcos_commons_tpu_torch.ops.quant import quantize
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + ps + int8)
-    b, h, kv, d, max_seq = 8, 32, 8, 128, 2048
-    mp = max_seq // ps
-    pages = b * mp + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, kv, d, span = 8, 32, 8, 128, 2048
     q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
-    shape = (pages, ps, kv, d)
+    if kind == "paged":
+        mp = span // ps
+        pages = b * mp + 1
+        shape = (pages, ps, kv, d)
+    else:
+        shape = (b, span, kv, d)
     k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     if int8:
         k, v = quantize(k, axis=-1), quantize(v, axis=-1)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if kind == "slots":
+        return q, k, v, kv_len
     perm = torch.randperm(pages - 1, generator=g, device=dev)
     table = perm.reshape(b, mp).to(torch.int32).contiguous()
-    kv_len = torch.tensor(KV_LENS, dtype=torch.int32, device=dev)
+    return q, k, v, table, kv_len
 
-    got = fd.flash_decode_paged(q, k, v, table, kv_len)
-    want = fd.flash_decode_paged_reference(q, k, v, table, kv_len)
-    torch.cuda.synchronize()
+
+def decode_check(name: str, got, want, lens) -> float:
+    """Max abs error of a decode output against its plain version; raises
+    outside KERNEL_RTOL/KERNEL_ATOL, on a non-finite value, or on a
+    stream with no live position whose output is not exactly 0."""
+    import torch
     err = (got.float() - want.float()).abs()
     bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
-    if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()):
-        raise RuntimeError(
-            f"flash_decode_paged ps={ps} int8={int8}: {int(bad.sum())} "
-            f"elements off (max abs err {float(err.max()):.3e})")
+    dead = [i for i, n in enumerate(lens) if n <= 0]
+    if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()) \
+            or any(bool((got[i] != 0).any()) for i in dead):
+        raise RuntimeError(f"{name}: {int(bad.sum())} elements off (max abs "
+                           f"err {float(err.max()):.3e}), dead streams "
+                           f"{dead}")
+    return float(err.max())
+
+
+def decode_repeat_check(name: str, run, args, other_args, plain) -> None:
+    """The second-call and determinism checks: a call on other inputs
+    (other lengths, one stream empty) is right, the next call on the first
+    inputs gives the first call's bits, and so do REPEATS more."""
+    first = run(*args)
+    other = run(*other_args)
+    decode_check(f"{name} second call", other, plain(*other_args),
+                 OTHER_LENS)
+    for i in range(REPEATS + 1):
+        if not bool((run(*args) == first).all()):
+            raise RuntimeError(f"{name}: launch {i + 2} on the same inputs "
+                               "differs from the first")
+
+
+def flash_decode_case(ps: int, int8: bool, flush, run=None,
+                      plain: bool = True) -> dict:
+    """Kernel 1 vs its plain version at the 8B decode shape: ragged
+    streams over a shuffled page table; ``run(q, k, v, table, kv_len)``
+    defaults to the wrapper's launch (another version of the source can
+    stand in), ``plain`` False skips timing the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from dcos_commons_tpu_torch.models.llama import _gather_pages
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    b, h, kv, d, mp = 8, 32, 8, 128, 2048 // ps
+    q, k, v, table, kv_len = decode_inputs("paged", int8, KV_LENS,
+                                           SEED + ps + int8, ps)
+    run = run or (lambda *a: fd._launch_paged(*a, d ** -0.5))
+    name = f"flash_decode_paged ps={ps} int8={int8}"
+    got = run(q, k, v, table, kv_len)
+    want = fd.flash_decode_paged_reference(q, k, v, table, kv_len)
+    torch.cuda.synchronize()
+    max_err = decode_check(name, got, want, KV_LENS)
+    decode_repeat_check(
+        name, run, (q, k, v, table, kv_len),
+        decode_inputs("paged", int8, OTHER_LENS, SEED + 100 + ps, ps),
+        fd.flash_decode_paged_reference)
 
     # yardstick: SDPA over pre-gathered (dequantized) pages, masked at
     # kv_len; timed here only, never called by the port
@@ -201,55 +262,46 @@ def flash_decode_case(ps: int, int8: bool, flush) -> dict:
     lib_err = float((library().transpose(1, 2).float()
                      - want.float()).abs().max())
     iters = 50
-    ms = timed_ms(lambda: fd._launch_paged(q, k, v, table, kv_len,
-                                           d ** -0.5), iters, flush)
+    ms = timed_ms(lambda: run(q, k, v, table, kv_len), iters, flush)
     plain_ms = timed_ms(lambda: fd.flash_decode_paged_reference(
-        q, k, v, table, kv_len), 10, flush)
+        q, k, v, table, kv_len), 10, flush) if plain else None
     library_ms = timed_ms(library, iters, flush)
 
     live = sum(min(n, span) for n in KV_LENS)
     elem = 1 if int8 else 2
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * mp * 4 + b * 4
-    return {"page_size": ps, "pages": "int8" if int8 else "bf16",
-            "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_max_abs_err": lib_err,
-            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
+    out = {"page_size": ps, "pages": "int8" if int8 else "bf16",
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_max_abs_err": lib_err,
+           "bitwise_equal_launches": REPEATS + 2, "second_call": "ok",
+           **bound(kv_bytes + io_bytes, 4 * live * h * d)}
+    out["bound_share"] = out["bound_ms"] / ms
+    return out
 
 
-# slot lengths of the edge case: one past the cache, one empty
-EDGE_LENS = (4096, 0, 64, 65, 700, 2047, 1500, 333)
-
-
-def slot_decode_case(int8: bool, kv_lens, flush) -> dict:
-    """Kernel 2 vs its plain version at the 8B slot shape: H=32, KV=8,
-    D=128, B=8 slots of a 2048-position cache read in place."""
+def slot_decode_case(int8: bool, kv_lens, flush, run=None,
+                     plain: bool = True) -> dict:
+    """Kernel 2 vs its plain version at the 8B slot shape: B=8 slots of a
+    2048-position cache read in place; ``run(q, k, v, kv_len)`` and
+    ``plain`` as for ``flash_decode_case``."""
     import torch
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.ops import flash_decode as fd
-    from dcos_commons_tpu_torch.ops.quant import dequantize, quantize
+    from dcos_commons_tpu_torch.ops.quant import dequantize
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + 7 + int8)
     b, h, kv, d, s = 8, 32, 8, 128, 2048
-    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, s, kv, d), generator=g, device=dev).to(torch.bfloat16)
-    if int8:
-        k, v = quantize(k, axis=-1), quantize(v, axis=-1)
-    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-
-    got = fd.flash_decode(q, k, v, kv_len)
+    q, k, v, kv_len = decode_inputs("slots", int8, kv_lens, SEED + 7 + int8)
+    run = run or (lambda *a: fd._launch_slots(*a, d ** -0.5))
+    name = f"flash_decode int8={int8} lens={kv_lens}"
+    got = run(q, k, v, kv_len)
     want = fd.flash_decode_reference(q, k, v, kv_len)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
-    dead = [i for i, n in enumerate(kv_lens) if n <= 0]
-    if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()) \
-            or any(bool((got[i] != 0).any()) for i in dead):
-        raise RuntimeError(
-            f"flash_decode int8={int8} lens={kv_lens}: {int(bad.sum())} "
-            f"elements off (max abs err {float(err.max()):.3e})")
+    max_err = decode_check(name, got, want, kv_lens)
+    decode_repeat_check(name, run, (q, k, v, kv_len),
+                        decode_inputs("slots", int8, OTHER_LENS, SEED + 107),
+                        fd.flash_decode_reference)
 
     # yardstick: SDPA over the (dequantized) cache masked at kv_len; timed
     # here only, never called by the port
@@ -266,22 +318,30 @@ def slot_decode_case(int8: bool, kv_lens, flush) -> dict:
     live_rows = [i for i, n in enumerate(kv_lens) if n > 0]
     lib_err = float((library().transpose(1, 2).float()
                      - want.float())[live_rows].abs().max())
-    lens = fd._lengths(kv_len, b, q.device)
     iters = 50
-    ms = timed_ms(lambda: fd._launch_slots(q, k, v, lens, d ** -0.5), iters,
-                  flush)
+    ms = timed_ms(lambda: run(q, k, v, kv_len), iters, flush)
     plain_ms = timed_ms(lambda: fd.flash_decode_reference(q, k, v, kv_len),
-                        10, flush)
+                        10, flush) if plain else None
     library_ms = timed_ms(library, iters, flush)
 
     live = sum(min(max(n, 0), s) for n in kv_lens)
     elem = 1 if int8 else 2
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * 4
-    return {"cache": "int8" if int8 else "bf16", "kv_len": list(kv_lens),
-            "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_max_abs_err": lib_err,
-            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
+    out = {"cache": "int8" if int8 else "bf16", "kv_len": list(kv_lens),
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_max_abs_err": lib_err,
+           "bitwise_equal_launches": REPEATS + 2, "second_call": "ok",
+           **bound(kv_bytes + io_bytes, 4 * live * h * d)}
+    out["bound_share"] = out["bound_ms"] / ms
+    return out
+
+
+# the decode cases of phase 2, the main path's first: (page size, int8)
+PAGED_CASES = ((64, False), (64, True), (128, False), (128, True),
+               (16, False))
+SLOT_CASES = ((False, KV_LENS), (True, KV_LENS), (True, EDGE_LENS),
+              (False, EDGE_LENS))
 
 
 # (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
@@ -449,13 +509,11 @@ def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
 
 
 def phase_kernels(flush):
-    cases = [flash_decode_case(ps, int8, flush)
-             for ps in (64, 128) for int8 in (False, True)]
+    cases = [flash_decode_case(ps, int8, flush) for ps, int8 in PAGED_CASES]
     for c in cases:
         log(f"[kernel] flash_decode_paged {json.dumps(c)}")
     slot_cases = [slot_decode_case(int8, lens, flush)
-                  for int8, lens in ((False, KV_LENS), (True, KV_LENS),
-                                     (True, EDGE_LENS))]
+                  for int8, lens in SLOT_CASES]
     for c in slot_cases:
         log(f"[kernel] flash_decode {json.dumps(c)}")
     fa_cases = {"fwd": [flash_attention_fwd_case(shape, flush)
@@ -885,7 +943,8 @@ def _kernel_entry(name, source, replaces, launches, cases, tolerance):
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "tolerance": tolerance,
+            "library_ms": head["library_ms"],
+            "bound_share": head.get("bound_share"), "tolerance": tolerance,
             "cases": cases}
 
 

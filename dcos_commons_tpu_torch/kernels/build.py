@@ -66,10 +66,14 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     """The library's path; its digest covers the source, every shared
-    header of ``csrc/`` and the flags."""
+    header of ``csrc/`` and of the source's own directory, and the
+    flags."""
     src = source_path(name)
     text = src.read_bytes()
-    text += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    headers = sorted(CSRC.glob("*.cuh"))
+    if src.resolve().parent != CSRC:
+        headers += sorted(src.resolve().parent.glob("*.cuh"))
+    text += b"".join(p.read_bytes() for p in headers)
     digest = hashlib.blake2s(text + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"

@@ -10,7 +10,10 @@ or int8 (port of ``flash_decode`` and ``flash_decode_paged`` in
 Each wrapper checks its inputs, launches its CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors. It never falls back
 from the kernel: on CUDA it launches or raises. Each counts its launches
-in ``.launches``.
+in ``.launches``. A call is one kernel launch: the kernels deal work by
+each stream's live length, read on the device, and merge a stream's
+partials in the launch itself (:func:`decode_plan` sizes the grid and the
+workspace, which the wrappers keep per device and stream).
 
 The plain versions (:func:`flash_decode_reference`,
 :func:`flash_decode_paged_reference`) compute in fp32 and fold int8
@@ -38,7 +41,8 @@ with no live position.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Union
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -46,11 +50,6 @@ from .quant import QTensor
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
-# target number of split blocks per SM: enough blocks in flight to hide
-# the load latency when B * KV alone cannot fill the card
-_BLOCKS_PER_SM = 4
-# the slot kernel's split length is a multiple of this many positions
-_SPLIT_ALIGN = 64
 _INT32_MAX = 2 ** 31 - 1
 
 Cache = Union[torch.Tensor, QTensor]
@@ -58,14 +57,84 @@ Cache = Union[torch.Tensor, QTensor]
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _PAGED_SIGNATURES = {
     "flash_decode_paged_launch": (
-        _c_int, [_c_void_p] * 11 + [_c_int] * 9 + [_c_float, _c_void_p]),
+        _c_int, [_c_void_p] * 10 + [_c_int] * 9 + [_c_float, _c_void_p]),
     "flash_decode_paged_error_string": (ctypes.c_char_p, [_c_int]),
 }
 _SLOT_SIGNATURES = {
     "flash_decode_slots_launch": (
-        _c_int, [_c_void_p] * 10 + [_c_int] * 8 + [_c_float, _c_void_p]),
+        _c_int, [_c_void_p] * 6 + [_c_int] * 2 + [_c_void_p] * 3
+        + [_c_int] * 8 + [_c_float, _c_void_p]),
     "flash_decode_slots_error_string": (ctypes.c_char_p, [_c_int]),
 }
+
+
+# ---------------------------------------------------------------------------
+# work sizing: every integer formula of the two kernels' dealing lives here,
+# and the kernels' device-side walk (csrc/flash_decode_common.cuh
+# ``stream_split`` and ``Walk``) follows it
+
+STAGE_ROWS = 64        # positions per ring stage of the kernels: the chunk unit
+MAX_PARTIALS = 8       # partials per (stream, KV head) at most (8 measured
+                       # faster than 16 on an H100 80GB HBM3 at 700 W)
+BLOCKS_PER_SM = 1      # the persistent grid's blocks per SM (2 was slower
+                       # on an H100 80GB HBM3 at 700 W, PERF.md)
+
+
+def stream_split(live: int) -> Tuple[int, int]:
+    """(chunk length, chunks) of a stream with ``live`` positions: whole
+    ring stages, the chunk lengthened for a long stream so that it has at
+    most :data:`MAX_PARTIALS` chunks; no chunk for ``live <= 0``."""
+    if live <= 0:
+        return STAGE_ROWS, 0
+    stages = -(-live // STAGE_ROWS)
+    length = STAGE_ROWS * -(-stages // MAX_PARTIALS)
+    return length, -(-live // length)
+
+
+def decode_items(kv_len: Sequence[int], span: int, kv_heads: int
+                 ) -> List[Tuple[int, int, int, int, int, int]]:
+    """The work items in the kernels' deal order, ``(stream, KV head,
+    chunk, chunks, first, end)``: stream by stream, each a max(chunks, 1) x
+    KV head grid over its live positions [0, min(kv_len, span)), the heads
+    of a chunk side by side (blocks that take neighbouring items read the
+    same positions' rows, which lie together in the cache); a stream
+    without one has one empty item per KV head (it writes zeros). Item i
+    goes to block i % grid."""
+    items = []
+    for b, n in enumerate(kv_len):
+        live = max(0, min(int(n), span))
+        length, chunks = stream_split(live)
+        for j in range(max(chunks, 1)):
+            for kh in range(kv_heads):
+                p0 = j * length
+                items.append((b, kh, j, chunks, p0, min(p0 + length, live)))
+    return items
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """Launch sizes of one call: the persistent grid, the partials a
+    (stream, KV head) may write, and the workspace (fp32 partials and
+    int32 counters, one per (stream, KV head))."""
+    grid: int
+    max_partials: int
+    workspace_floats: int
+    counters: int
+
+
+def decode_plan(batch: int, kv_heads: int, group: int, head_dim: int,
+                span: int, n_sm: int, blocks_per_sm: int = BLOCKS_PER_SM,
+                max_partials: int = MAX_PARTIALS) -> DecodePlan:
+    """Sizes of a call over ``span`` cache positions, from the shapes
+    alone (the lengths stay on the device): at most ``blocks_per_sm *
+    n_sm`` blocks and never more than the most items the lengths could
+    make; partial slots for the most chunks a stream can have under the
+    kernel's cap ``max_partials``."""
+    max_partials = min(max_partials, -(-span // STAGE_ROWS))
+    pairs = batch * kv_heads
+    grid = max(1, min(blocks_per_sm * n_sm, pairs * max_partials))
+    return DecodePlan(grid, max_partials,
+                      pairs * max_partials * group * (head_dim + 2), pairs)
 
 
 def _payload(k: Cache) -> torch.Tensor:
@@ -126,27 +195,47 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
     return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
 
 
-def _lengths(kv_len: Union[int, torch.Tensor], b: int,
-             device: torch.device) -> torch.Tensor:
-    """kv_len as a contiguous [B] int32 tensor on ``device``, broadcast
-    there (no host sync). An int past int32 saturates: the kernel clamps
-    to S anyway."""
+def _check_lengths(kv_len: Union[int, torch.Tensor], b: int,
+                   device: torch.device) -> None:
     if not isinstance(kv_len, torch.Tensor):
-        n = max(-_INT32_MAX - 1, min(int(kv_len), _INT32_MAX))
-        return torch.full((b,), n, dtype=torch.int32, device=device)
+        return
     if kv_len.dtype != torch.int32:
         raise TypeError(f"flash_decode: kv_len must be int32, got "
                         f"{kv_len.dtype}")
     if kv_len.device != device:
         raise ValueError(f"flash_decode: kv_len must be on {device}, got "
                          f"{kv_len.device}")
-    flat = kv_len.reshape(-1)
-    if flat.numel() == 1:
-        return flat.expand(b).contiguous()
-    if flat.numel() != b:
+    if kv_len.numel() not in (1, b):
         raise ValueError(f"flash_decode: kv_len must have 1 or B={b} "
                          f"elements, got shape {tuple(kv_len.shape)}")
-    return flat.contiguous()
+
+
+def _saturate(n: int) -> int:
+    return max(-_INT32_MAX - 1, min(int(n), _INT32_MAX))
+
+
+def _lengths(kv_len: Union[int, torch.Tensor], b: int,
+             device: torch.device) -> torch.Tensor:
+    """kv_len as a contiguous [B] int32 tensor on ``device``, broadcast
+    there (no host sync). An int past int32 saturates: the kernel clamps
+    to S anyway."""
+    _check_lengths(kv_len, b, device)
+    if not isinstance(kv_len, torch.Tensor):
+        return torch.full((b,), _saturate(kv_len), dtype=torch.int32,
+                          device=device)
+    flat = kv_len.reshape(-1)
+    return flat.expand(b).contiguous() if flat.numel() == 1 \
+        else flat.contiguous()
+
+
+def _length_args(kv_len: Union[int, torch.Tensor], b: int):
+    """(kv_len, pointer, stride, value) of a launch: an int goes in by
+    value, a [1] or [B] int32 tensor by pointer with stride 0 or 1 (no
+    copy and no host sync); the tensor is returned to keep it alive."""
+    if not isinstance(kv_len, torch.Tensor):
+        return None, None, 0, _saturate(kv_len)
+    flat = kv_len.reshape(-1).contiguous()
+    return flat, flat.data_ptr(), int(flat.numel() > 1), 0
 
 
 def flash_decode_reference(q: torch.Tensor, k: Cache, v: Cache,
@@ -231,31 +320,46 @@ def _unsupported(name: str, q: torch.Tensor, kq: torch.Tensor) -> str:
 
 def _kernel_inputs(name: str, q: torch.Tensor, k: Cache, v: Cache):
     """(k payload, v payload, k scale pointer, v scale pointer) of a
-    launch; raises on storage the kernels' vector loads cannot read."""
+    launch; raises on storage the kernels' bulk copies cannot read."""
     quantized = isinstance(k, QTensor)
     kq, vq = _payload(k), _payload(v)
-    align = 8 if quantized else 16
-    if any(t.data_ptr() % align for t in (kq, vq)) or q.data_ptr() % 16:
-        raise ValueError(f"{name}: cache or q storage is not "
-                         f"{align}-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, kq, vq)):
+        raise ValueError(f"{name}: cache or q storage is not 16-byte "
+                         "aligned")
     ks = k.s.data_ptr() if quantized else None
     vs = v.s.data_ptr() if quantized else None
     return kq, vq, ks, vs
 
 
-def _partials(q: torch.Tensor, kvh: int, n_splits: int):
-    b, _, h, d = q.shape
-    f32 = torch.float32
-    part_m = torch.empty((b, kvh, n_splits, h // kvh), dtype=f32,
-                         device=q.device)
-    part_acc = torch.empty((b, kvh, n_splits, h // kvh, d), dtype=f32,
-                           device=q.device)
-    return part_m, torch.empty_like(part_m), part_acc
+# SM count per device index, asked once
+_SM_COUNT: Dict[int, int] = {}
+# (device index, stream) -> (fp32 partials, int32 counters); they only
+# grow, and the counters are zeroed once, when allocated (each launch
+# leaves them at zero)
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _want_splits(q: torch.Tensor, kvh: int) -> int:
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return max(1, -(-_BLOCKS_PER_SM * n_sm // (q.shape[0] * kvh)))
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
+
+
+def _workspace(device: torch.device, stream: int, plan: DecodePlan):
+    """The kept (partials, counters) of ``device`` and ``stream``, grown
+    to ``plan``'s sizes where they fall short."""
+    key = (device.index, stream)
+    part, counters = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < plan.workspace_floats:
+        part = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < plan.counters:
+        counters = torch.zeros(plan.counters, dtype=torch.int32,
+                               device=device)
+    _WORKSPACE[key] = (part, counters)
+    return part, counters
 
 
 def _raise(lib, fn: str, name: str, err: int) -> None:
@@ -263,25 +367,25 @@ def _raise(lib, fn: str, name: str, err: int) -> None:
     raise RuntimeError(f"{name}: launch failed ({err}: {msg})")
 
 
-def _launch_slots(q, k, v, lens, scale) -> torch.Tensor:
+def _launch_slots(q, k, v, kv_len, scale) -> torch.Tensor:
+    """One launch of the slot kernel; ``kv_len`` an int or a checked [1]
+    or [B] int32 tensor on q's device."""
     from ..kernels import build
     lib = build.load("flash_decode_slots", _SLOT_SIGNATURES)
     kq, vq, ks, vs = _kernel_inputs("flash_decode", q, k, v)
     b, _, h, d = q.shape
     _, s, kvh, _ = kq.shape
-    split_len = -(-s // _want_splits(q, kvh))
-    split_len = -(-split_len // _SPLIT_ALIGN) * _SPLIT_ALIGN
-    n_splits = -(-s // split_len)
-    part_m, part_l, part_acc = _partials(q, kvh, n_splits)
+    lens, len_ptr, len_stride, len_value = _length_args(kv_len, b)
+    plan = decode_plan(b, kvh, h // kvh, d, s, _sm_count(q.device))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, counters = _workspace(q.device, stream, plan)
         err = lib.flash_decode_slots_launch(
-            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
-            lens.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, d, s,
-            split_len, n_splits, int(isinstance(k, QTensor)), float(scale),
-            stream)
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs, len_ptr,
+            len_stride, len_value, out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), b, h, kvh, d, s, plan.max_partials,
+            plan.grid, int(isinstance(k, QTensor)), float(scale), stream)
     if err:
         _raise(lib, "flash_decode_slots_error_string", "flash_decode", err)
     return out
@@ -294,18 +398,17 @@ def _launch_paged(q, k, v, page_table, kv_len, scale) -> torch.Tensor:
     b, _, h, d = q.shape
     _, ps, kvh, _ = kq.shape
     mp = page_table.shape[1]
-    pages_per_split = max(1, -(-mp // _want_splits(q, kvh)))
-    n_splits = -(-mp // pages_per_split)
-    part_m, part_l, part_acc = _partials(q, kvh, n_splits)
+    plan = decode_plan(b, kvh, h // kvh, d, mp * ps, _sm_count(q.device))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, counters = _workspace(q.device, stream, plan)
         err = lib.flash_decode_paged_launch(
             q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
             page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            b, h, kvh, d, ps, mp, pages_per_split, n_splits,
-            int(isinstance(k, QTensor)), float(scale), stream)
+            part.data_ptr(), counters.data_ptr(), b, h, kvh, d, ps, mp,
+            plan.max_partials, plan.grid, int(isinstance(k, QTensor)),
+            float(scale), stream)
     if err:
         _raise(lib, "flash_decode_paged_error_string", "flash_decode_paged",
                err)
@@ -330,12 +433,12 @@ def flash_decode(q: torch.Tensor, k: Cache, v: Cache,
             or kq.shape[0] != q.shape[0]:
         raise ValueError(_unsupported(name, q, kq) + " and one cache row "
                          "per query")
-    lens = _lengths(kv_len, q.shape[0], q.device)
+    _check_lengths(kv_len, q.shape[0], q.device)
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
-        return flash_decode_reference(q, k, v, lens, sm_scale=scale)
+        return flash_decode_reference(q, k, v, kv_len, sm_scale=scale)
     _no_kernel(name, q.device)
-    out = _launch_slots(q, k, v, lens, scale)
+    out = _launch_slots(q, k, v, kv_len, scale)
     flash_decode.launches += 1
     return out
 

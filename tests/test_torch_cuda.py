@@ -1,9 +1,13 @@
 """Port tests that need the card: the paged flash-decode CUDA kernel
-against its plain PyTorch version across shapes, page sizes and int8
-pages, and the paged engine running through it; the slot-cache
-flash-decode kernel against its plain version (int8, kv_len 0 and past
-the cache, head_dim 64/128/256), its refusals, and ``SlotServer`` and
-solo decode running through it; the flash-attention
+against its plain PyTorch version across shapes, page sizes 1-256 and
+int8 pages, and the paged engine running through it; the slot-cache
+flash-decode kernel against its plain version (int8, kv_len 0, 1 and past
+the cache, lengths off the 64-position stage, head_dim 64/128/256, groups
+1-8), its refusals, and ``SlotServer`` and solo decode running through
+it; for both decode kernels, a second call on other inputs (a counter
+left set), 20 bitwise-equal launches, a CUDA-graph replay equal to eager,
+and one device kernel per warm call with no workspace allocation; the
+flash-attention
 forward, dK/dV and dQ kernels against their plain versions (the smoke
 run's shapes, ragged and negative-offset cases, one query row, Sq
 around the forward's 128-row tile, head_dim 64 and 256, the B=8
@@ -69,6 +73,16 @@ CASES = [
     (2, 16, 2, 256, 1, 40, (40, 17), True),                # group 8, ps 1
     (4, 12, 6, 128, 7, 9, (63, 1, 30, 62), False),         # odd page size
     (1, 4, 1, 64, 128, 2, (129,), True),
+    # page sizes 1-256, groups 1-8, head_dim 64-256; lengths off the
+    # 64-position stage, 0, 1 and past the table; long streams whose
+    # chunks are lengthened to keep 16 partials
+    (4, 16, 8, 128, 256, 4, (1024, 0, 1, 777), True),          # group 2
+    (3, 32, 4, 64, 16, 70, (1120, 1119, 5000), False),         # group 8
+    (2, 8, 2, 256, 64, 40, (2560, 1337), False),               # 8, 7 chunks
+    (5, 8, 4, 128, 1, 300, (300, 299, 1, 0, 150), True),       # ps 1
+    (2, 16, 16, 128, 32, 8, (256, 100), False),                # group 1
+    (2, 32, 8, 128, 64, 128, (8192, 5000), False),             # S 8192
+    (3, 16, 4, 256, 16, 9, (144, 143, 17), True),              # D 256 int8
 ]
 
 
@@ -199,6 +213,11 @@ SLOT_CASES = [
     (2, 16, 2, 256, 300, (301, 17), True),               # group 8, past S
     (4, 12, 6, 128, 7, (3, 7, 1, 0), False),             # tiny cache
     (2, 4, 1, 64, 1000, 513, False),                     # a scalar kv_len
+    (3, 16, 8, 128, 4000, (4000, 3999, 1), False),       # group 2, long
+    (2, 8, 1, 64, 130, (129, 130), True),                # group 8, D 64
+    (3, 8, 2, 256, 2100, (2100, 65, 0), True),           # D 256 int8
+    (1, 4, 4, 128, 8192, (8192,), False),                # group 1, S 8192
+    (4, 32, 8, 128, 2048, (2048, 2047, 64, 63), False),  # 8 partials a head
 ]
 
 
@@ -316,6 +335,121 @@ def test_slot_server_runs_through_the_kernels(dev):
         cfg, params, torch.tensor([reqs[0]["prompt"]], device=dev), 6,
         chunk=4)
     assert solo.shape == (1, 6)
+
+
+# ---------------------------------------------------------------------------
+# both decode kernels: one launch a call, a workspace kept between calls
+
+
+def _decode_call(dev, kind, seed, lens=(1, 63, 64, 65, 700, 2047, 1500,
+                                        333), int8=False):
+    """(call, plain) of one decode kernel on the 8B decode shape: ``call()``
+    runs the wrapper, ``plain()`` the plain version, on inputs from
+    ``seed``; ``inputs`` are the tensors a graph replay reads."""
+    if kind == "paged":
+        q, k, v, table, kv = _case(dev, 8, 32, 8, 128, 64, 32, lens, int8,
+                                   seed)
+        return (lambda: fd.flash_decode_paged(q, k, v, table, kv),
+                lambda: fd.flash_decode_paged_reference(q, k, v, table, kv),
+                (q, kv))
+    q, k, v = _slot_case(dev, 8, 32, 8, 128, 2048, int8, seed)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return (lambda: fd.flash_decode(q, k, v, kv),
+            lambda: fd.flash_decode_reference(q, k, v, kv), (q, kv))
+
+
+@pytest.mark.parametrize("kind", ["paged", "slots"])
+def test_decode_kernel_second_call_and_twenty_launches(dev, kind):
+    """A second call on other lengths, then the first again: a counter left
+    set (or a partial read from the wrong call) shows up as a wrong or
+    changed output. Then 20 launches are bitwise equal: the last block of
+    a pair merges its partials in a fixed order, whichever block it is."""
+    first, first_plain, _ = _decode_call(dev, kind, 0)
+    other, other_plain, _ = _decode_call(dev, kind, 1,
+                                         lens=(2048, 5, 129, 1000, 0, 77,
+                                               1024, 9))
+    a = first()
+    b = other()
+    torch.testing.assert_close(b.float(), other_plain().float(), rtol=RTOL,
+                               atol=ATOL)
+    assert bool((b[4] == 0).all())
+    again = first()
+    torch.testing.assert_close(a.float(), first_plain().float(), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(a, again)
+    for _ in range(20):
+        assert torch.equal(first(), a)
+
+
+@pytest.mark.parametrize("kind", ["paged", "slots"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_replays_in_a_cuda_graph(dev, kind, int8):
+    """One call captured in a CUDA graph and replayed twice equals the
+    eager call bitwise; after new q and lengths are copied into the
+    captured inputs, a replay equals the eager call on them."""
+    call, _, (q, kv) = _decode_call(dev, kind, 2, int8=int8)
+    eager = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    q.copy_(torch.randn(q.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9)))
+    kv.copy_(kv.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, call())
+
+
+@pytest.mark.parametrize("kind", ["paged", "slots"])
+def test_decode_kernel_is_one_launch_a_call(dev, kind):
+    """A warm call runs exactly one device kernel (no combine pass, no
+    broadcast of the lengths, no scratch) and allocates only its output;
+    the kept workspace stays the same tensors."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    call, _, _ = _decode_call(dev, kind, 3)
+    call()
+    torch.cuda.synchronize()
+    kept = {k: (a.data_ptr(), c.data_ptr())
+            for k, (a, c) in fd._WORKSPACE.items()}
+    calls = 3
+    # one step of warm-up inside the profiler: its first events of a
+    # session can be lost while the device tracing starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        allocs = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                  - allocs)
+        prof.step()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    assert len(kernels) == calls, [e.name for e in kernels]
+    assert all("decode_kernel" in e.name for e in kernels)
+    assert allocs == calls
+    assert {k: (a.data_ptr(), c.data_ptr())
+            for k, (a, c) in fd._WORKSPACE.items()} == kept
+
+
+def test_decode_kernel_takes_kv_len_in_every_form(dev):
+    """kv_len as an int, a [1] and a [B] int32 tensor give the same
+    output, with no copy kernel before the launch."""
+    q, k, v = _slot_case(dev, 4, 16, 4, 128, 700, False, seed=4)
+    want = fd.flash_decode(q, k, v, torch.full((4,), 650, dtype=torch.int32,
+                                                device=dev))
+    for form in (650, torch.tensor([650], dtype=torch.int32, device=dev)):
+        assert torch.equal(fd.flash_decode(q, k, v, form), want)
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,12 @@ page_size=64, prefill_chunk=64)`` (``--engine paged``, the default) or
 ``SlotServer(slots=8)`` (``--engine slots``), then runs 8 decode steps
 (window 1) under ``torch.profiler`` and prints one JSON line: the host
 wall time per step, the device busy time per step (the sum of the kernel
-and copy time the profiler saw), the device idle share, the kernels
-that take the most device time and the host ops that take the most host
-time. If the profiler records no device time,
-the device numbers are null. Needs a CUDA device; imports nothing of JAX.
+and copy time the profiler saw), the device idle share, the decode
+attention kernels' time and count per step, the kernel launches per
+step (``cudaLaunchKernel`` calls), the kernels that take the most device
+time and the host ops that take the most host time. If the profiler
+records no device time, the device numbers are null. Needs a CUDA device;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -86,6 +88,13 @@ def main() -> int:
                       reverse=True)[:12]
     step_ms = wall / STEPS * 1e3
     busy_ms = busy_us / STEPS / 1e3 if busy_us else None
+    # the decode attention kernels: the one-launch kernel, or the split
+    # pass and combine of earlier sources
+    decode = [e for e in events if _device_us(e)
+              and ("decode_kernel" in e.key or "decode_split" in e.key
+                   or "decode_combine" in e.key)]
+    launch_calls = sum(e.count for e in events
+                       if e.key.startswith("cudaLaunchKernel"))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -95,6 +104,10 @@ def main() -> int:
         "batch": 8, "steps": STEPS, "wall_ms_per_step": step_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
+        "decode_kernel_ms_per_step": sum(_device_us(e) for e in decode)
+        / STEPS / 1e3,
+        "decode_kernels_per_step": sum(e.count for e in decode) / STEPS,
+        "launch_calls_per_step": launch_calls / STEPS,
         "device_events_per_step": sum(e.count for e in events
                                       if _device_us(e)) / STEPS,
         "top_device": [{"name": e.key[:80], "count": e.count,

@@ -1,0 +1,646 @@
+// Flash-decode for Hopper (sm_90a), the body shared by the paged kernel
+// (flash_decode_paged.cu) and the slot-cache kernel (flash_decode_slots.cu).
+// The two differ only in where position p of a stream's K/V lives: each
+// passes its own `RowOf`, the index of that position's row (D elements of
+// one KV head) in the cache.
+//
+// Work by live length. A work item is (stream, KV head, chunk): a chunk is
+// a run of whole 64-position ring stages of the stream's live positions
+// [0, min(kv_len[b], span)), lengthened for a long stream so that no
+// (stream, KV head) has more than kMaxPartials partials. The grid is
+// persistent (one block per SM at most); every block reads kv_len itself
+// and walks the same item list, taking items blockIdx.x, + gridDim.x, ...
+// The dealing (stream_split, Walk) follows
+// dcos_commons_tpu_torch/ops/flash_decode.py::decode_plan and its
+// stream_split / decode_items, where the formulas live once and are tested.
+// No block reads or writes a position at or past min(kv_len[b], span); a
+// stream with none gets output 0.
+//
+// Block: one producer warp and four consumer warps.
+// - The producer walks the block's items and fills a ring of K/V stages in
+//   shared memory: one 1-D bulk copy (cp.async.bulk) per row of one head,
+//   completing on the stage's "full" mbarrier, each row looked up through
+//   `RowOf` (so any page size works, with nothing encoded on the host).
+//   int8 scales (2 bytes a row) cannot come by bulk copy: its lanes load
+//   them into the stage before they arrive on the barrier. It zero-fills
+//   the V rows (int8: the scales) past the end of a short last stage.
+// - Consumer warp w takes rows [16 w, 16 w + 16) of every stage. Both
+//   products run on tensor cores (mma.sync m16n8k16, bf16 in, fp32 out):
+//   S^T = K Q^T with keys as M and the group's <= 8 query heads as N (K by
+//   ldmatrix, Q^T in registers for the whole item), then O^T += V^T P^T
+//   with V^T by ldmatrix.trans and P^T moved from the score fragment by
+//   movmatrix.trans. The softmax is online, in base 2 with the scale
+//   folded in (ex2.approx), one max per head per stage for the warp.
+//   wgmma was not taken: its 64-row M tile would take a whole warpgroup
+//   per 64 keys and P^T would have to go through shared memory for the
+//   second product, and the kernel is bound by bytes (a few flops per
+//   byte against the ~295 where the tensor cores become the limit), so the
+//   tensor cores idle either way.
+// - At an item's end the four warps merge in shared memory into one
+//   partial (m, l, acc) per query head. An item that is its stream's only
+//   one writes the output. Otherwise it writes its partial to the
+//   workspace, and the block that finishes the pair's last item (found by
+//   __threadfence then atomicAdd on the pair's counter) merges the pair's
+//   partials in chunk order, writes the output and sets the counter back to
+//   0 for the next launch (or CUDA-graph replay). One launch a call; the
+//   output does not depend on which block finishes last.
+//
+// The arithmetic is the TPU kernel's: fp32 accumulation; int8 scales fold
+// as (q . k_q) * s_k and (p * s_v) @ v_q; p (times s_v for int8) is rounded
+// to bf16 before it meets V; int8 payloads convert exactly to bf16 (each
+// consumer warp converts its 16 rows into its own scratch) before the
+// products.
+
+#pragma once
+
+#include <type_traits>
+
+#include "flash_attention_hopper.cuh"
+
+namespace flash_decode {
+
+using fa_hopper::bf16;
+using fa_hopper::ex2;
+using fa_hopper::mbar_arrive;
+using fa_hopper::mbar_expect_tx;
+using fa_hopper::mbar_init;
+using fa_hopper::mbar_wait;
+using fa_hopper::pack_bf16;
+using fa_hopper::smem_addr;
+
+// Work sizing: ops/flash_decode.py STAGE_ROWS and MAX_PARTIALS.
+constexpr int kStageRows = 64;     // positions per ring stage; the base chunk
+constexpr int kMaxPartials = 16;   // partials per (stream, KV head) at most
+constexpr int kConsumerWarps = 4;  // 16 rows of a stage each
+constexpr int kWarpRows = kStageRows / kConsumerWarps;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kMaxGroup = 8;       // query heads per KV head: N of m16n8k16
+constexpr int kRowPad = 16;        // bytes after each shared-memory row, so
+                                   // ldmatrix's 8 rows hit all 32 banks
+
+// Shared-memory plan of one block for cache element T and head_dim D.
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool kQuant = sizeof(T) == 1;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kRowStride = kRowBytes + kRowPad;
+  static constexpr int kTileBytes = kStageRows * kRowStride;
+  static constexpr int kScaleBytes = kQuant ? kStageRows * 2 : 0;
+  // K tile, V tile, K scales, V scales
+  static constexpr int kStageBytes = 2 * kTileBytes + 2 * kScaleBytes;
+  // ring depth: as many stages as fit one block per SM beside the rest
+  static constexpr int kStages =
+      D == 64 ? 6 : D == 128 ? 4 : (kQuant ? 3 : 2);
+  // int8: a consumer warp's 16 K rows and 16 V rows converted to bf16
+  static constexpr int kScratchStride = 2 * D + kRowPad;
+  static constexpr int kScratchBytes =
+      kQuant ? kConsumerWarps * 2 * kWarpRows * kScratchStride : 0;
+  static constexpr int kMergeStride = D + 4;  // floats; conflict-free stores
+  static constexpr int kMergeBytes =
+      kConsumerWarps * kMaxGroup * (kMergeStride + 2) * 4;
+  static constexpr int kHeadBytes = 128;  // barriers and the merge flag
+  static constexpr int kSmem = kHeadBytes + kStages * kStageBytes +
+                               kScratchBytes + kMergeBytes;
+  static_assert(2 * kStages * 8 + 4 <= kHeadBytes, "barrier area");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// ----------------------------------------------------------------- PTX
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy (bulk copy) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier 1 over the consumer warps only (the producer never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// transpose an 8 x 8 bf16 matrix held one 32-bit pair per lane
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------------ the work
+
+// kv_len as a pointer with a stride (0: one length for every stream) or,
+// without a pointer, one value; clamped to [0, span].
+struct Lens {
+  const int* ptr;
+  int stride;
+  int value;
+  int span;
+  __device__ __forceinline__ int live(int b) const {
+    const int n = ptr != nullptr ? ptr[static_cast<size_t>(b) * stride] : value;
+    return max(0, min(n, span));
+  }
+};
+
+// ops/flash_decode.py::stream_split: (chunk length, chunks) of a stream
+// with `live` positions
+__device__ __forceinline__ void stream_split(int live, int& chunk, int& n) {
+  if (live <= 0) {
+    chunk = kStageRows;
+    n = 0;
+    return;
+  }
+  const int stages = (live + kStageRows - 1) / kStageRows;
+  chunk = kStageRows * ((stages + kMaxPartials - 1) / kMaxPartials);
+  n = (live + chunk - 1) / chunk;
+}
+
+struct Item {
+  int b, kh;   // stream, KV head
+  int j, n;    // chunk, chunks of the stream (0: no live position)
+  int p0, p1;  // positions [p0, p1)
+};
+
+// The items of this block in ops/flash_decode.py::decode_items' order:
+// stream by stream, each a KV head x max(chunks, 1) grid (a stream without
+// live positions has one empty item per KV head, which writes zeros);
+// item i goes to block i % gridDim.x.
+struct Walk {
+  Lens lens;
+  int batch, kv_heads;
+  int b = -1, first = 0, count = 0, live = 0, chunk = 0, n = 0, per = 1;
+  int next;
+  __device__ Walk(const Lens& l, int bt, int kvh)
+      : lens(l), batch(bt), kv_heads(kvh), next(blockIdx.x) {}
+  __device__ bool get(Item& it) {
+    while (next >= first + count) {
+      first += count;
+      count = 0;
+      if (++b >= batch) return false;
+      live = lens.live(b);
+      stream_split(live, chunk, n);
+      per = max(n, 1);
+      count = kv_heads * per;
+    }
+    const int r = next - first;
+    it.b = b;
+    it.kh = r / per;
+    it.j = r % per;
+    it.n = n;
+    it.p0 = it.j * chunk;
+    it.p1 = min(it.p0 + chunk, live);
+    next += gridDim.x;
+    return true;
+  }
+};
+
+struct Params {
+  const bf16* q;  // [B, H, D]
+  const void* k;  // cache payload, bf16 or int8
+  const void* v;
+  const bf16* k_scale;  // int8 only: one per row
+  const bf16* v_scale;
+  Lens lens;
+  bf16* out;        // [B, H, D]
+  float* ws;        // partials: acc, then m, then l
+  int* counters;    // [B, KV], zero between launches
+  int batch, kv_heads, group, max_partials;
+  float scale_log2;  // sm_scale * log2(e)
+};
+
+// workspace offsets of partial (pair, j) of head h
+__device__ __forceinline__ size_t part_index(const Params& p, size_t pair,
+                                             int j, int h) {
+  return (pair * p.max_partials + j) * p.group + h;
+}
+
+// ------------------------------------------------------------- producer
+
+template <typename T, int D, typename RowOf>
+__device__ __forceinline__ void produce(const Params& p, const RowOf& row_of,
+                                        uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int lane) {
+  using C = Cfg<T, D>;
+  constexpr int kPerLane = kStageRows / 32;
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  Walk walk(p.lens, p.batch, p.kv_heads);
+  Item it;
+  int stage = 0;
+  while (walk.get(it)) {
+    for (int p0 = it.p0; p0 < it.p1; p0 += kStageRows, ++stage) {
+      const int slot = stage % C::kStages;
+      mbar_wait(smem_addr(&empty[slot]), ((stage / C::kStages) & 1) ^ 1);
+      const int rows = min(kStageRows, it.p1 - p0);
+      uint8_t* kt = ring + slot * C::kStageBytes;
+      uint8_t* vt = kt + C::kTileBytes;
+      bf16* ks = reinterpret_cast<bf16*>(vt + C::kTileBytes);
+      bf16* vs = ks + kStageRows;
+      size_t row[kPerLane];
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int r = lane + 32 * i;
+        row[i] = 0;
+        if (r < rows) {
+          row[i] = row_of(it.b, it.kh, p0 + r);
+          if constexpr (C::kQuant) {
+            ks[r] = p.k_scale[row[i]];
+            vs[r] = p.v_scale[row[i]];
+          }
+        } else if constexpr (C::kQuant) {
+          // p * s_v must be 0 past the end, whatever the stale bytes hold
+          ks[r] = __float2bfloat16(0.f);
+          vs[r] = __float2bfloat16(0.f);
+        } else {
+          // stale or never written bf16 could be NaN, and 0 * NaN is NaN
+          uint4* dst = reinterpret_cast<uint4*>(vt + r * C::kRowStride);
+#pragma unroll
+          for (int e = 0; e < C::kRowBytes / 16; ++e)
+            dst[e] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      const uint32_t bar = smem_addr(&full[slot]);
+      if (lane == 0)
+        mbar_expect_tx(bar, 2u * rows * C::kRowBytes);
+      else
+        mbar_arrive(bar);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int r = lane + 32 * i;
+        if (r < rows) {
+          bulk_load(smem_addr(kt + r * C::kRowStride), k + row[i] * D,
+                    C::kRowBytes, bar);
+          bulk_load(smem_addr(vt + r * C::kRowStride), v + row[i] * D,
+                    C::kRowBytes, bar);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- consumer
+
+// int8 -> bf16 (exact) of a warp's 16 rows: src rows kRowStride apart,
+// dst rows kScratchStride apart
+template <int D, int kSrcStride, int kDstStride>
+__device__ __forceinline__ void convert_rows(const uint8_t* src, uint8_t* dst,
+                                             int lane) {
+  constexpr int kChunks = D / 8;  // 8 bytes in, 16 bytes out
+#pragma unroll
+  for (int c = lane; c < kWarpRows * kChunks; c += 32) {
+    const int r = c / kChunks, col = c % kChunks;
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(src + r * kSrcStride + col * 8);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+    uint4 o;
+    o.x = pack_bf16(static_cast<float>(x[0]), static_cast<float>(x[1]));
+    o.y = pack_bf16(static_cast<float>(x[2]), static_cast<float>(x[3]));
+    o.z = pack_bf16(static_cast<float>(x[4]), static_cast<float>(x[5]));
+    o.w = pack_bf16(static_cast<float>(x[6]), static_cast<float>(x[7]));
+    *reinterpret_cast<uint4*>(dst + r * kDstStride + col * 16) = o;
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* ring,
+                                        uint8_t* scratch, float* merge_o,
+                                        float* merge_m, float* merge_l,
+                                        uint64_t* full, uint64_t* empty,
+                                        int* flag, int warp, int lane) {
+  using C = Cfg<T, D>;
+  constexpr int kSteps = D / 16;
+  constexpr int Ms = C::kMergeStride;
+  const int g = lane >> 2, t = lane & 3, tid = threadIdx.x;
+  const int group = p.group;
+  const size_t acc_n = static_cast<size_t>(p.batch) * p.kv_heads *
+                       p.max_partials * group;  // partial slots
+  float* part_acc = p.ws;
+  float* part_m = p.ws + acc_n * D;
+  float* part_l = part_m + acc_n;
+  Walk walk(p.lens, p.batch, p.kv_heads);
+  Item it;
+  int stage = 0;
+  while (walk.get(it)) {
+    const size_t pair = static_cast<size_t>(it.b) * p.kv_heads + it.kh;
+    bf16* out = p.out + pair * group * D;
+    if (it.n == 0) {  // no live position: output 0
+      for (int e = tid; e < group * D; e += kConsumers)
+        out[e] = __float2bfloat16(0.f);
+      continue;
+    }
+    // Q^T as the B operand of S^T = K Q^T: column g is query head g
+    uint32_t qf[kSteps][2];
+    const bf16* qh = p.q + (pair * group + min(g, group - 1)) * D;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      qf[s][0] = g < group ? *reinterpret_cast<const uint32_t*>(
+                                 qh + 16 * s + 2 * t)
+                           : 0u;
+      qf[s][1] = g < group ? *reinterpret_cast<const uint32_t*>(
+                                 qh + 16 * s + 2 * t + 8)
+                           : 0u;
+    }
+    // this thread: heads 2t, 2t + 1; O^T rows 16 mt + g (+ 8)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[kSteps][4];
+#pragma unroll
+    for (int mt = 0; mt < kSteps; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+
+    for (int p0 = it.p0; p0 < it.p1; p0 += kStageRows, ++stage) {
+      const int slot = stage % C::kStages;
+      mbar_wait(smem_addr(&full[slot]), (stage / C::kStages) & 1);
+      const int rows = min(kStageRows, it.p1 - p0);
+      const int r0 = kWarpRows * warp;
+      uint8_t* kt = ring + slot * C::kStageBytes;
+      uint8_t* vt = kt + C::kTileBytes;
+      if (r0 < rows) {
+        uint32_t kaddr, vaddr;
+        int stride;
+        float sk[2] = {1.f, 1.f}, sv[2] = {1.f, 1.f};
+        if constexpr (C::kQuant) {
+          const bf16* ks = reinterpret_cast<const bf16*>(vt + C::kTileBytes);
+          const bf16* vs = ks + kStageRows;
+          uint8_t* kc = scratch + warp * 2 * kWarpRows * C::kScratchStride;
+          uint8_t* vc = kc + kWarpRows * C::kScratchStride;
+          convert_rows<D, C::kRowStride, C::kScratchStride>(
+              kt + r0 * C::kRowStride, kc, lane);
+          convert_rows<D, C::kRowStride, C::kScratchStride>(
+              vt + r0 * C::kRowStride, vc, lane);
+          sk[0] = __bfloat162float(ks[r0 + g]);
+          sk[1] = __bfloat162float(ks[r0 + g + 8]);
+          sv[0] = __bfloat162float(vs[r0 + g]);
+          sv[1] = __bfloat162float(vs[r0 + g + 8]);
+          __syncwarp();
+          kaddr = smem_addr(kc);
+          vaddr = smem_addr(vc);
+          stride = C::kScratchStride;
+        } else {
+          kaddr = smem_addr(kt + r0 * C::kRowStride);
+          vaddr = smem_addr(vt + r0 * C::kRowStride);
+          stride = C::kRowStride;
+        }
+        // S^T (16 keys x 8 heads): s[0..1] key r0 + g, s[2..3] key
+        // r0 + g + 8; heads 2t, 2t + 1
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a, kaddr + (lane & 15) * stride + (16 * ks + 8 * (lane >> 4)) * 2);
+          mma_16816(s, a, qf[ks][0], qf[ks][1]);
+        }
+        const bool live0 = r0 + g < rows, live1 = r0 + g + 8 < rows;
+        s[0] = live0 ? s[0] * sk[0] * p.scale_log2 : -INFINITY;
+        s[1] = live0 ? s[1] * sk[0] * p.scale_log2 : -INFINITY;
+        s[2] = live1 ? s[2] * sk[1] * p.scale_log2 : -INFINITY;
+        s[3] = live1 ? s[3] * sk[1] * p.scale_log2 : -INFINITY;
+        float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+        const float al0 = ex2(m[0] - mn0), al1 = ex2(m[1] - mn1);
+        m[0] = mn0;
+        m[1] = mn1;
+        const float p00 = ex2(s[0] - mn0), p01 = ex2(s[1] - mn1);
+        const float p10 = ex2(s[2] - mn0), p11 = ex2(s[3] - mn1);
+        l[0] = l[0] * al0 + p00 + p10;
+        l[1] = l[1] * al1 + p01 + p11;
+#pragma unroll
+        for (int mt = 0; mt < kSteps; ++mt) {
+          o[mt][0] *= al0;
+          o[mt][1] *= al1;
+          o[mt][2] *= al0;
+          o[mt][3] *= al1;
+        }
+        // P^T (16 keys x 8 heads) as the B operand, rounded to bf16
+        const uint32_t b0 =
+            movmatrix_trans(pack_bf16(p00 * sv[0], p01 * sv[0]));
+        const uint32_t b1 =
+            movmatrix_trans(pack_bf16(p10 * sv[1], p11 * sv[1]));
+#pragma unroll
+        for (int mt = 0; mt < kSteps; ++mt) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, vaddr + ((lane & 7) + 8 * (lane >> 4)) * stride +
+                               (16 * mt + 8 * ((lane >> 3) & 1)) * 2);
+          mma_16816(o[mt], a, b0, b1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty[slot]));
+    }
+
+    // merge the four warps into the item's partial
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+    }
+    float* mo = merge_o + warp * kMaxGroup * Ms;
+#pragma unroll
+    for (int mt = 0; mt < kSteps; ++mt) {
+      mo[(2 * t) * Ms + 16 * mt + g] = o[mt][0];
+      mo[(2 * t + 1) * Ms + 16 * mt + g] = o[mt][1];
+      mo[(2 * t) * Ms + 16 * mt + g + 8] = o[mt][2];
+      mo[(2 * t + 1) * Ms + 16 * mt + g + 8] = o[mt][3];
+    }
+    if (g == 0) {
+      merge_m[warp * kMaxGroup + 2 * t] = m[0];
+      merge_m[warp * kMaxGroup + 2 * t + 1] = m[1];
+      merge_l[warp * kMaxGroup + 2 * t] = l[0];
+      merge_l[warp * kMaxGroup + 2 * t + 1] = l[1];
+    }
+    consumer_sync();
+    const bool single = it.n == 1;
+    for (int e = tid; e < group * D; e += kConsumers) {
+      const int h = e / D, d = e % D;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w)
+        mx = fmaxf(mx, merge_m[w * kMaxGroup + h]);
+      float acc = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w) {
+        const float wt = ex2(merge_m[w * kMaxGroup + h] - mx);
+        acc += merge_o[(w * kMaxGroup + h) * Ms + d] * wt;
+        lsum += merge_l[w * kMaxGroup + h] * wt;
+      }
+      if (single) {
+        out[e] = __float2bfloat16(acc / lsum);
+      } else {
+        const size_t i = part_index(p, pair, it.j, h);
+        part_acc[i * D + d] = acc;
+        if (d == 0) {
+          part_m[i] = mx;
+          part_l[i] = lsum;
+        }
+      }
+    }
+    if (!single) {
+      __threadfence();
+      consumer_sync();
+      if (tid == 0) {
+        const int done = atomicAdd(&p.counters[pair], 1);
+        const int last = done == it.n - 1;
+        if (last) p.counters[pair] = 0;  // zero for the next launch
+        *flag = last;
+      }
+      consumer_sync();
+      if (*flag) {  // the pair's last item: merge its partials in order
+        __threadfence();
+        for (int e = tid; e < group * D; e += kConsumers) {
+          const int h = e / D, d = e % D;
+          float mx = -INFINITY;
+          for (int j = 0; j < it.n; ++j)
+            mx = fmaxf(mx, __ldcg(part_m + part_index(p, pair, j, h)));
+          float acc = 0.f, lsum = 0.f;
+          for (int j = 0; j < it.n; ++j) {
+            const size_t i = part_index(p, pair, j, h);
+            const float wt = ex2(__ldcg(part_m + i) - mx);
+            acc += __ldcg(part_acc + i * D + d) * wt;
+            lsum += __ldcg(part_l + i) * wt;
+          }
+          out[e] = __float2bfloat16(acc / lsum);
+        }
+      }
+    }
+    consumer_sync();  // merge buffers and flag free for the next item
+  }
+}
+
+// -------------------------------------------------------------- kernel
+
+// grid: ops/flash_decode.py::decode_plan(...).grid blocks; kThreads.
+template <typename T, int D, typename RowOf>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_kernel(const Params p, const RowOf row_of) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + C::kStages;
+  int* flag = reinterpret_cast<int*>(empty + C::kStages);
+  uint8_t* ring = smem + C::kHeadBytes;
+  uint8_t* scratch = ring + C::kStages * C::kStageBytes;
+  float* merge_o = reinterpret_cast<float*>(scratch + C::kScratchBytes);
+  float* merge_m = merge_o + kConsumerWarps * kMaxGroup * C::kMergeStride;
+  float* merge_l = merge_m + kConsumerWarps * kMaxGroup;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(smem_addr(&full[s]), 32);
+      mbar_init(smem_addr(&empty[s]), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kConsumerWarps)
+    produce<T, D>(p, row_of, ring, full, empty, lane);
+  else
+    consume<T, D>(p, ring, scratch, merge_o, merge_m, merge_l, full, empty,
+                  flag, warp, lane);
+}
+
+// ---------------------------------------------------------------- host
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Calls `launch(Tag<T>, integral_constant<int, D>)` for the runtime
+// head_dim and cache type; false for a head_dim without an instance.
+template <typename F>
+bool dispatch(int head_dim, bool quant, F&& launch) {
+  auto by_type = [&](auto d) {
+    if (quant)
+      launch(Tag<int8_t>{}, d);
+    else
+      launch(Tag<bf16>{}, d);
+  };
+  switch (head_dim) {
+    case 64:
+      by_type(std::integral_constant<int, 64>{});
+      return true;
+    case 128:
+      by_type(std::integral_constant<int, 128>{});
+      return true;
+    case 256:
+      by_type(std::integral_constant<int, 256>{});
+      return true;
+    default:
+      return false;
+  }
+}
+
+// Checks the sizes and launches one kernel on `stream`; returns a
+// cudaError_t (0 on success).
+template <typename RowOf>
+int launch(Params p, const RowOf& row_of, int heads, int head_dim,
+           int quantized, float sm_scale, int grid, void* stream_handle) {
+  if (p.batch < 1 || p.kv_heads < 1 || heads % p.kv_heads != 0 ||
+      heads / p.kv_heads > kMaxGroup || p.lens.span < 1 || grid < 1 ||
+      p.max_partials < 1 || p.max_partials > kMaxPartials)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.group = heads / p.kv_heads;
+  p.scale_log2 = sm_scale * fa_hopper::kLog2e;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  cudaError_t err = cudaSuccess;
+  const bool known = dispatch(head_dim, quantized != 0, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(d)::value;
+    auto kernel = decode_kernel<T, D, RowOf>;
+    static std::atomic<unsigned long long> raised{0};
+    err = fa_hopper::raise_smem_limit(kernel, Cfg<T, D>::kSmem, raised);
+    if (err != cudaSuccess) return;
+    kernel<<<grid, kThreads, Cfg<T, D>::kSmem, stream>>>(p, row_of);
+    err = cudaGetLastError();
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+}  // namespace flash_decode
