@@ -24,10 +24,16 @@ Phases (any failure exits non-zero):
    flash-attention case with its share of the bound, and the port's
    whole backward (rowsum pass and both kernels) beside SDPA's;
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
-   seed) through ``PagedServer``: about a dozen requests, two sharing a
-   long prefix, decode windows 1 and 8; launch counts are zeroed just
-   before and read just after; then one decode step through the kernel
-   is held against the same step through the dense gather;
+   seed) through ``PagedServer`` with a compile cache, after
+   ``warmup()``: about a dozen requests, two sharing a long prefix,
+   decode windows 1 and 8, every window a CUDA graph; launch counts are
+   zeroed just before and read just after (a graph replay counts the
+   launches it holds); then one decode step through the kernel is held
+   against the same step through the dense gather; then, from one
+   snapshot of 8 live streams, 6 windows of 8 steps run through the
+   eager model-function loop driven by hand and through the graphs,
+   each window timed unprofiled, and must give the same tokens and
+   lengths; then a second engine of the same key warms up;
 5. (run right after phase 3, on its weights) serve Llama-3-8B through
    ``SlotServer(slots=8)`` behind the HTTP front door
    (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
@@ -35,7 +41,15 @@ Phases (any failure exits non-zero):
    ``/v1/healthz`` and ``/v1/stats``, and one solo ``generate_chunked``;
    launch counts are zeroed just before and read just after; then one
    ``decode_step_slots`` through the kernel is held against the dense
-   step on the live cache, and 16 steady decode steps at B=8 are timed;
+   step on the live cache, and the graphed windows against the eager
+   loop as in phase 3;
+6. start the port's worker as the scheduler would, ``python -m
+   dcos_commons_tpu_torch.frameworks.worker llama --preset 8b --serve
+   --slots 8`` (Llama-3-8B in the default ``SlotServer``), send it 8
+   concurrent requests (one streamed), check ``/v1/healthz``,
+   ``/v1/stats`` and a heartbeat, and end it with SIGTERM; then the same
+   with ``--pages 64`` (``PagedServer``); each worker's launch counts are
+   its own, from its heartbeat;
 4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
    batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
    one warm-up step, then 10 timed steps on the same batch with the
@@ -43,9 +57,9 @@ Phases (any failure exits non-zero):
    then one loss forward and backward through the kernels is held
    against the same through the dense attention path.
 
-Output: the ``serving``, ``serving_slots`` and ``training`` lines, the
-``kernels`` line, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Without CUDA, or without the rest of the repository
+Output: the ``serving``, ``serving_slots``, ``worker``, ``worker_paged``
+and ``training`` lines, the ``kernels`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
 JAX.
 """
@@ -55,11 +69,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16
 # tensor cores 989 TFLOP/s
@@ -541,6 +557,7 @@ def phase_serve(card: str) -> dict:
     import torch
     from dcos_commons_tpu_torch.models import llama, serving
     from dcos_commons_tpu_torch.ops import flash_decode as fd
+    from dcos_commons_tpu_torch.parallel import aot
 
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
@@ -564,8 +581,12 @@ def phase_serve(card: str) -> dict:
                   "max_new": 32, "request_id": "prefix-b"})
     runs = [(queue[:6], 1), (queue[6:], 8)]     # (requests, decode window)
 
+    cache = aot.CompileCache()
     srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
-                              prefill_chunk=64, device=dev)
+                              prefill_chunk=64, compile_cache=cache,
+                              device=dev)
+    warm = srv.warmup()
+    log(f"[serve] warmup {warm}")
     torch.cuda.reset_peak_memory_stats()
     fd.flash_decode_paged.launches = 0
     ttft, t_start = {}, time.perf_counter()
@@ -604,40 +625,65 @@ def phase_serve(card: str) -> dict:
         raise RuntimeError("serving phase: " + "; ".join(problems))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(t) for t in out.values())
+    run_graphs = _graph_line(srv)
     log(f"[serve] {len(out)} requests, {n_tok} tokens in {wall:.1f} s, "
-        f"{launches} kernel launches, stats {stats}")
+        f"{launches} kernel launches, stats {stats}, graphs {run_graphs}")
 
-    # steady decode at B=8 and one step, kernel vs dense gather, on the
-    # live pool of 8 prefilled streams
+    # one step, kernel vs dense gather, on the live pool of 8 prefilled
+    # streams, then the graphed windows against the eager loop, twice:
+    # each round after a reset, the second replaying the first's graphs
+    steady = []
+    for round_ in range(2):
+        srv.reset()
+        rng = np.random.default_rng(SEED + 1)
+        # max_new outlasts the 67 steps the longest prompt takes to prefill
+        live = [{"prompt": _prompt(rng, n, v), "max_new": 200,
+                 "request_id": i} for i, n in enumerate(
+                     (1, 63, 64, 65, 700, 1500, 1300, 333))]
+        srv.submit_many(live)
+        while srv._prefill_q or srv._pending_first:
+            srv.step()
+        active = srv._active()
+        if len(active) != 8:
+            raise RuntimeError(f"expected 8 decoding streams, got {active}")
+        if round_ == 0:
+            mp = srv._window_mp(active, 1)
+            tbl = torch.tensor(srv._decode_tables()[:, :mp], device=dev)
+            logits = {}
+            for mode in ("flash", "dense"):
+                pool = {side: p.clone() for side, p in srv.pool.items()}
+                logits[mode], _ = llama.decode_step_paged(
+                    dataclasses.replace(cfg, decode_attn=mode), params,
+                    pool, tbl, srv.lengths, srv.cur_tok, rope=srv._rope)
+                del pool
+            diff, decided = _kernel_vs_dense(logits["flash"],
+                                             logits["dense"])
+        steady.append(_graph_vs_eager(srv))
+    steady = {"after_reset": steady[0], "after_reset_replayed": steady[1],
+              "graph_step_ms": steady[1]["graph_step_ms"],
+              "eager_step_ms": steady[1]["eager_step_ms"]}
+    # a second engine of the same key: a namespace hit, its own captures
+    second = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                                 prefill_chunk=64, compile_cache=cache,
+                                 device=dev)
+    second_warm = second.warmup()
+    second_line = {"warmup_s": second_warm, "cache": cache.stats(),
+                   "shares_rope": second._rope is srv._rope,
+                   "graphs": _graph_line(second)}
+    # after the workspace grew: the width-1 window graph that warmup()
+    # captured with the smallest workspace replays on a short stream and
+    # gives the tokens of the second engine, whose graph never saw a
+    # growth
     srv.reset()
-    rng = np.random.default_rng(SEED + 1)
-    # max_new outlasts the 67 steps the longest prompt takes to prefill
-    live = [{"prompt": _prompt(rng, n, v), "max_new": 200,
-             "request_id": i} for i, n in enumerate(
-                 (1, 63, 64, 65, 700, 1500, 1300, 333))]
-    srv.submit_many(live)
-    while srv._prefill_q or srv._pending_first:
-        srv.step()
-    active = srv._active()
-    if len(active) != 8:
-        raise RuntimeError(f"expected 8 decoding streams, got {active}")
-    mp = srv._window_mp(active, 1)
-    tbl = torch.tensor(srv._decode_tables()[:, :mp], device=dev)
-    logits = {}
-    for mode in ("flash", "dense"):
-        pool = {side: p.clone() for side, p in srv.pool.items()}
-        logits[mode], _ = llama.decode_step_paged(
-            dataclasses.replace(cfg, decode_attn=mode), params, pool, tbl,
-            srv.lengths, srv.cur_tok, rope=srv._rope)
-        del pool
-    diff, decided = _kernel_vs_dense(logits["flash"], logits["dense"])
-    steps = 16
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        srv.step()
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    short = [{"prompt": _prompt(np.random.default_rng(SEED + 5), 5, v),
+              "max_new": 16, "request_id": "short"}]
+    got, want = (e.drain([dict(r) for r in short], decode_window=1)
+                 for e in (srv, second))
+    if got != want:
+        raise RuntimeError(f"width-1 window after the workspace grew: "
+                           f"{got} vs a fresh engine's {want}")
+    del second
+    log(f"[serve] steady B=8 {steady}, second engine {second_line}")
     ttfts = sorted(ttft.values())
     return {"serving": {
         "model": "llama3_8b", "max_seq": cfg.max_seq, "layers": cfg.n_layers,
@@ -645,12 +691,147 @@ def phase_serve(card: str) -> dict:
         "requests": len(out), "tokens_out": n_tok, "wall_s": wall,
         "output_tok_s": n_tok / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2],
-        "decode_tok_s_b8": 8 * steps / decode_s,
-        "decode_step_ms_b8": decode_s / steps * 1e3,
+        "decode_tok_s_b8": 8 / steady["graph_step_ms"] * 1e3,
+        "decode_step_ms_b8": steady["graph_step_ms"],
+        "steady_b8_window8": steady, "warmup_s": warm,
+        "graphs_after_requests": run_graphs, "graphs": _graph_line(srv),
+        "second_engine": second_line,
         "peak_mem_gb": peak_gb, "page_stats": stats,
         "flash_vs_dense_max_abs_logit": diff,
         "flash_vs_dense_argmax_decided": int(decided.sum()),
         "card": card}}, launches, params
+
+
+# windows of 8 steps timed each way from one snapshot of 8 live streams
+STEADY_WINDOWS, STEADY_K = 6, 8
+
+
+def _graph_line(srv) -> dict:
+    g = srv.graph_stats()
+    return {"graphs": g["graphs"], "capture_s": g["capture_s"],
+            "pool_mb": g["pool_bytes"] / 2 ** 20,
+            "keys": [list(k) if isinstance(k, tuple) else k
+                     for k in g["keys"]]}
+
+
+def _kv_of(srv):
+    return srv.pool if hasattr(srv, "pool") else srv.cache
+
+
+def eager_loop(srv, k: int):
+    """The eager model-function loop driven by hand, from a snapshot of a
+    live engine ``srv``: the engines' decode path before CUDA graphs (the
+    mask and the paged table built per window, ``decode_step_paged`` /
+    ``decode_step_slots`` plus greedy select per step, one host transfer
+    a window), on clones of its K/V, lengths and tokens. Returns
+    ``(window, state)``: each ``window()`` decodes ``k`` steps of the
+    streams active at the snapshot and returns their tokens on the host
+    [k, slots]; ``state`` holds the clones (``kv``, ``ln``, ``tok``)."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+
+    paged = isinstance(srv, serving.PagedServer)
+    dev = srv.device
+    kv = {s: (QTensor(x.q.clone(), x.s.clone()) if isinstance(x, QTensor)
+              else x.clone()) for s, x in _kv_of(srv).items()}
+    active = srv._active()
+    tables = srv._decode_tables() if paged else None
+    # the host mirror of the longest stream, as the engine keeps it
+    state = {"kv": kv, "ln": srv.lengths.clone(), "tok": srv.cur_tok.clone(),
+             "top": max(srv.requests[i].prompt_len
+                        + len(srv.requests[i].tokens) for i in active)}
+
+    def window():
+        ln, tok = state["ln"], state["tok"]
+        mask = torch.zeros((srv.slots,), dtype=torch.bool, device=dev)
+        mask[active] = True
+        if paged:
+            mp = min(srv.pages_per_stream,
+                     (state["top"] + k - 2) // srv.page_size + 1)
+            tbl = torch.tensor(tables[:, :mp], device=dev)
+        out = []
+        for _ in range(k):
+            if paged:
+                logits, _ = llama.decode_step_paged(
+                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope)
+            else:
+                logits, _ = llama.decode_step_slots(
+                    srv.cfg, srv.params, kv, ln, tok, rope=srv._rope)
+            nxt = torch.where(mask, torch.argmax(logits, dim=-1).to(
+                torch.int32), tok)
+            ln = torch.where(mask, ln + 1, ln)
+            tok = nxt
+            out.append(nxt)
+        state.update(ln=ln, tok=tok, top=state["top"] + k)
+        return torch.stack(out).cpu().numpy()
+
+    return window, state
+
+
+def _graph_vs_eager(srv, windows=STEADY_WINDOWS, k=STEADY_K) -> dict:
+    """From one snapshot of a live engine (8 decoding streams): ``windows``
+    windows of ``k`` steps through :func:`eager_loop`, then through
+    ``step_many(k)``, which replays the engine's graphs (a width not seen
+    yet is captured on the way). Each window is timed unprofiled on the
+    host clock through its host transfer; the step time is the median
+    window's over ``k``. Raises unless both give the same tokens and
+    lengths and write bitwise the same K/V."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+
+    active = srv._active()
+    window, state = eager_loop(srv, k)
+    eager_ms, eager = [], []
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        eager.append(window())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    kv, ln, tok = state["kv"], state["ln"], state["tok"]
+    captured_before = len(srv._graphs)
+    graph_ms, graphed = [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        out = srv.step_many(k)
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        graphed.append(out)
+    want = np.concatenate(eager)
+    problems = []
+    for i in active:
+        got = [t for out in graphed for t in out[i]]
+        if got != want[:, i].tolist():
+            problems.append(f"stream {i}: graphed {got[:8]}... vs eager "
+                            f"{want[:, i].tolist()[:8]}...")
+    if not (torch.equal(srv.lengths, ln) and torch.equal(srv.cur_tok, tok)):
+        problems.append(f"lengths {srv.lengths.tolist()} vs eager "
+                        f"{ln.tolist()}")
+    bitwise, max_diff = True, 0.0
+    for side in ("k", "v"):
+        a, b = _kv_of(srv)[side], kv[side]
+        pairs = [(a.q, b.q), (a.s, b.s)] if isinstance(a, QTensor) \
+            else [(a, b)]
+        for x, y in pairs:
+            if not torch.equal(x, y):
+                bitwise = False
+                max_diff = max(max_diff, float((x.float() - y.float())
+                                               .abs().max()))
+    del kv
+    if not bitwise:
+        problems.append(f"K/V written differ, max abs {max_diff}")
+    if problems:
+        raise RuntimeError("graphed windows vs the eager loop: "
+                           + "; ".join(problems[:4]))
+    med = sorted(graph_ms)[len(graph_ms) // 2]
+    med_eager = sorted(eager_ms)[len(eager_ms) // 2]
+    return {"batch": len(active), "windows": windows, "k": k,
+            "graph_step_ms": med / k, "eager_step_ms": med_eager / k,
+            "graph_window_ms": graph_ms, "eager_window_ms": eager_ms,
+            "speedup": med_eager / med,
+            "graphs_captured_here": len(srv._graphs) - captured_before,
+            "tokens_equal": True, "kv_bitwise_equal": bitwise,
+            "kv_max_abs_diff": max_diff}
 
 
 def _kernel_vs_dense(lf, ld):
@@ -779,8 +960,10 @@ def phase_serve_slots(card: str, params):
     log(f"[slots] {len(replies)} requests, {n_tok} tokens in {wall:.1f} s, "
         f"launches {launches}, stats {stats}")
 
-    # one step through the kernel vs the dense read on a live cache of 8
-    # slots, then steady decode at B=8
+    # after a reset (the front door's window graph stays captured): one
+    # step through the kernel vs the dense read on a live cache of 8
+    # slots, then the graphed windows against the eager loop
+    srv.reset()
     rng = np.random.default_rng(SEED + 3)
     srv.submit_many([{"prompt": _prompt(rng, n, v), "max_new": 200,
                       "request_id": i} for i, n in enumerate(
@@ -796,13 +979,8 @@ def phase_serve_slots(card: str, params):
             srv.lengths, srv.cur_tok, rope=srv._rope)
         del cache
     diff, decided = _kernel_vs_dense(logits["flash"], logits["dense"])
-    steps = 16
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        srv.step()
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    steady = _graph_vs_eager(srv)
+    log(f"[slots] steady B=8 {steady}")
     return {"serving_slots": {
         "model": "llama3_8b", "max_seq": cfg.max_seq, "layers": cfg.n_layers,
         "dtype": "bf16", "engine": "SlotServer", "slots": 8,
@@ -811,13 +989,160 @@ def phase_serve_slots(card: str, params):
         "tokens_out": n_tok, "wall_s": wall, "output_tok_s": n_tok / wall,
         "ttft_p50_ms": stats["ttft_ms"]["p50"],
         "tpot_p50_ms": stats["tpot_ms"]["p50"],
-        "decode_tok_s_b8": 8 * steps / decode_s,
-        "decode_step_ms_b8": decode_s / steps * 1e3,
+        "decode_tok_s_b8": 8 / steady["graph_step_ms"] * 1e3,
+        "decode_step_ms_b8": steady["graph_step_ms"],
+        "steady_b8_window8": steady, "graphs": _graph_line(srv),
         "peak_mem_gb": peak_gb, "launches": launches,
         "solo_generate_chunked": {"batch": 1, "chunk": 16, "steps": 32},
         "flash_vs_dense_max_abs_logit": diff,
         "flash_vs_dense_argmax_decided": int(decided.sum()),
         "card": card}}, launches
+
+
+# --------------------------------------------------------------- phase 6
+
+WORKER_LENS = (64, 1500, 300, 777, 128, 1024, 95, 640)
+WORKER_STREAMED = (3,)
+WORKER_ARGS = ("llama", "--preset", "8b", "--serve", "--slots", "8",
+               "--serve-port", "0", "--serve-interval", "2")
+# the worker's engines: (line name, extra flags, engine, the kernels its
+# run must launch)
+WORKER_ENGINES = (
+    ("worker", (), "SlotServer", ("flash_decode", "flash_attention_fwd")),
+    ("worker_paged", ("--pages", "64"), "PagedServer",
+     ("flash_decode_paged",)),
+)
+WORKER_BOOT_S = 600
+WORKER_VOCAB = 128256           # Llama-3-8B's
+
+
+def phase_worker(card: str, name: str, extra, engine: str, kernels):
+    """The process the scheduler starts: the port's worker
+    (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
+    ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
+    Reads its
+    ``serving`` event, sends 8 concurrent ``POST /v1/generate`` (64-1,500
+    prompt tokens, 32 new, one streamed), checks ``/v1/healthz`` and
+    ``/v1/stats``, waits for a heartbeat that has seen them, and ends it
+    with SIGTERM. Its kernel launches are the worker's own counts, read
+    from that heartbeat (the process starts at 0)."""
+    import queue
+    import signal
+    import numpy as np
+
+    root = Path(__file__).resolve().parent
+    cwd = root / "build" / "worker_smoke"
+    cwd.mkdir(parents=True, exist_ok=True)
+    args = [*WORKER_ARGS, *extra]
+    cmd = [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
+           *args]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    v = WORKER_VOCAB
+    rng = np.random.default_rng(SEED + 4)
+    bodies = [{"prompt": _prompt(rng, n, v), "max_new": 32,
+               "stream": i in WORKER_STREAMED}
+              for i, n in enumerate(WORKER_LENS)]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+
+    def pump():
+        for raw in proc.stdout:
+            lines.put(raw)
+
+    threading.Thread(target=pump, daemon=True).start()
+
+    def event(name, timeout, where=lambda e: True):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            try:
+                raw = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None and lines.empty():
+                    break
+                continue
+            if raw.startswith("{"):
+                e = json.loads(raw)
+                if e.get("event") == "error":
+                    raise RuntimeError(f"worker: {e}")
+                if e.get("event") == name and where(e):
+                    return e
+        raise RuntimeError(f"worker: no {name} event within {timeout} s "
+                           f"(exit {proc.poll()})")
+
+    try:
+        serving = event("serving", WORKER_BOOT_S)
+        boot_s = time.perf_counter() - t_start
+        port = serving["port"]
+        replies, errors = [None] * len(bodies), []
+
+        def hit(i):
+            try:
+                replies[i] = _http_generate(port, bodies[i])
+            except Exception as e:          # reported below, all at once
+                errors.append(f"request {i}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        health = _http_get(port, "/v1/healthz")
+        stats = _http_get(port, "/v1/stats")
+        beat = event("heartbeat", 60,
+                     lambda e: e.get("requests", 0) >= len(bodies))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    problems = list(errors)
+    for i, r in enumerate(replies):
+        toks = (r or {}).get("tokens", [])
+        if len(toks) != 32 or not all(0 <= t < v for t in toks):
+            problems.append(f"request {i}: {len(toks)} tokens")
+    if stats["requests"] != len(bodies) or stats["tokens"] != 32 * len(
+            bodies):
+        problems.append(f"/v1/stats counts {stats['requests']} requests, "
+                        f"{stats['tokens']} tokens")
+    if not health["ok"] or health["free"] != 8:
+        problems.append(f"/v1/healthz {health}")
+    launches = {k: beat.get("launches", {}).get(k, 0) for k in kernels}
+    for k, n in launches.items():
+        if n < 1:
+            problems.append(f"{k} never launched in the worker")
+    if ("paged" in serving) != (engine == "PagedServer"):
+        problems.append(f"the worker served another engine: {serving}")
+    if rc != -signal.SIGTERM:
+        problems.append(f"worker exited {rc} on SIGTERM")
+    if problems:
+        raise RuntimeError(f"{name} phase: " + "; ".join(problems))
+    n_tok = sum(len(r["tokens"]) for r in replies)
+    line = {name: {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(args),
+        "model": "llama3_8b", "max_seq": 2048, "dtype": "bf16",
+        "engine": engine, "slots": 8, "decode_window": 8,
+        "boot_to_serving_s": boot_s, "cold_start": serving["cold_start"],
+        "solo_tokens_per_sec": serving["tokens_per_sec"],
+        "requests": len(replies), "streamed": len(WORKER_STREAMED),
+        "prompt_lens": list(WORKER_LENS), "tokens_out": n_tok,
+        "wall_s": wall, "output_tok_s": n_tok / wall,
+        "ttft_p50_ms": stats["ttft_ms"]["p50"],
+        "tpot_p50_ms": stats["tpot_ms"]["p50"],
+        "peak_mem_gb": beat.get("peak_mem_gb"), "graphs": beat.get("graphs"),
+        "launches": launches, "exit_on_sigterm": rc,
+        **({"paged": beat["paged"]} if "paged" in beat else {}),
+        "card": card}}
+    log(f"[{name}] {line}")
+    return line, launches
 
 
 # --------------------------------------------------------------- phase 4
@@ -969,6 +1294,11 @@ def main() -> int:
     # holds the engine (and the 8B weights) until the collector runs
     gc.collect()
     torch.cuda.empty_cache()
+    worker_lines, worker_launches = [], {}
+    for name, extra, engine, names in WORKER_ENGINES:
+        line, launches = phase_worker(card, name, extra, engine, names)
+        worker_lines.append(line)
+        worker_launches.update(launches)
     training_line, fa_launches = phase_train(card)
     fa_tol = {"rtol": FA_RTOL,
               "atol": f"{FA_SCALED_ATOL} * max|plain| of each row of a head "
@@ -979,15 +1309,19 @@ def main() -> int:
     kernels = [
         _kernel_entry("flash_decode_paged", csrc + "flash_decode_paged.cu",
                       "dcos_commons_tpu/ops/flash_decode.py:263",
-                      {"serving": decode_launches}, decode_cases,
+                      {"serving": decode_launches,
+                       "worker_paged": worker_launches["flash_decode_paged"]},
+                      decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
                       "dcos_commons_tpu/ops/flash_decode.py:55",
-                      {"serving_slots": slot_launches["flash_decode"]},
+                      {"serving_slots": slot_launches["flash_decode"],
+                       "worker": worker_launches["flash_decode"]},
                       slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
                       {"serving_slots": slot_launches["flash_attention_fwd"],
+                       "worker": worker_launches["flash_attention_fwd"],
                        "training": fa_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
@@ -1010,6 +1344,8 @@ def main() -> int:
                            " backward: dq, dk and dv together"))
     print(json.dumps(serving_line), flush=True)
     print(json.dumps(slots_line), flush=True)
+    for line in worker_lines:
+        print(json.dumps(line), flush=True)
     print(json.dumps(training_line), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

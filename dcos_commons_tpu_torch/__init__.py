@@ -6,7 +6,8 @@ modules: what it needs, it copies). It imports ``torch``, ``numpy`` and
 the standard library only.
 
 Slice 1 is the block-paged serving path of the Llama decoder, slice 2
-its train step, slice 3 slot serving behind the HTTP front door:
+its train step, slice 3 slot serving behind the HTTP front door, slice 7
+the worker that serves it and the decode windows as CUDA graphs:
 
 * ``ops``      quant, norms, rotary, attention, sampling, the loss
                heads, and the wrappers around hand-written CUDA
@@ -21,6 +22,10 @@ its train step, slice 3 slot serving behind the HTTP front door:
                ledger, the ``SlotServer`` and ``PagedServer`` engines,
                the HTTP front door ``ServingFrontend`` and the JAX
                bridge (parameters, caches, pools, optimizer state);
+* ``parallel`` the engines' compile cache keys (``aot``) and the
+               scheduler's rank contract (``distributed``);
+* ``frameworks.worker``  the task-side worker (``python -m
+               dcos_commons_tpu_torch.frameworks.worker llama ...``);
 * ``metrics``, ``tracing``, ``utils.stats``  the front door's registry,
                trace store and percentiles, copied from the JAX
                package's jax-free modules.

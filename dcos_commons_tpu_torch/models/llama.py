@@ -184,6 +184,27 @@ def quantize_params(params: Params) -> Params:
             "lm_head": quantize(params["lm_head"], axis=-2)}
 
 
+def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
+                          device: DeviceLike = "cuda") -> Params:
+    """:func:`init_params` then :func:`quantize_params`, both on the
+    host CPU with ``generator`` (a CPU generator), then only the int8
+    payloads, their scales and the norm gains move to ``device``: no bf16
+    weight stack is ever allocated there. Bitwise equal to
+    ``quantize_params(init_params(cfg, generator, "cpu"))``."""
+    dev = resolve_device(device)
+    host = quantize_params(init_params(cfg, generator, device="cpu"))
+
+    def move(w):
+        if isinstance(w, QTensor):
+            return QTensor(w.q.to(dev), w.s.to(dev))
+        return w.to(dev)
+
+    return {"embed": move(host["embed"]),
+            "layers": {k: move(v) for k, v in host["layers"].items()},
+            "norm": move(host["norm"]),
+            "lm_head": move(host["lm_head"])}
+
+
 # ---------------------------------------------------------------------------
 # KV storage: the padded slot cache and the block-paged pool
 

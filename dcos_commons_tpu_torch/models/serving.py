@@ -17,18 +17,35 @@ Differences from the reference, all mechanical:
 
 * the ``lax.scan`` decode window is a Python loop of decode steps;
   tokens stay on the device and the window ends with ONE host transfer;
+* on a CUDA device each window replays a CUDA graph, the counterpart of
+  the reference's one jitted executable per window: ``SlotServer`` keeps
+  one graph per window size ``k`` (the reference's ``_stepk_x[k]``),
+  ``PagedServer`` one per ``(k, table width)`` (its kernel's span is the
+  table's). A graph is captured at first use, or for the paged engine at
+  :meth:`PagedServer.warmup`, after an eager run of the same window with
+  every stream masked off, which leaves the lengths and tokens as they
+  are and takes lazy initialisation (cuBLAS handles, the kernel
+  libraries, the decode workspace) out of the capture. A capture error
+  raises: there is no eager fallback on CUDA. On the CPU the window runs
+  eagerly. Prefill, page copies and scatters stay eager;
+* so the device tensors a window reads or writes are allocated once:
+  the cache or pool, ``lengths``, ``cur_tok``, the active mask and the
+  paged decode table. The host fills them with ``copy_`` and ``reset``
+  zeroes them in place, so every captured graph stays valid;
 * the cache and the pool are updated in place;
 * a sampler draws from a ``torch.Generator`` (``generator=``), not a JAX
-  key;
+  key; a graph registers the engine's generator, so a sampled stream is
+  the eager loop's stream for the same seed;
 * not ported yet, and refused by the constructors (no such parameter):
   tensor-parallel meshes and, for the paged engine, KV tiers, the prefix
-  directory, disaggregation, migration, speculative decoding, MoE, ring
-  prefill and the AOT compile cache.
+  directory, disaggregation, migration, speculative decoding, MoE and
+  ring prefill.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,9 +53,11 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..ops.flash_decode import flash_decode, flash_decode_paged
 from ..ops.quant import QArray, QTensor, qmm, quantize
 from ..ops.rotary import rope_frequencies
 from ..ops.sampling import Sampler
+from ..parallel.aot import CompileCache, engine_key
 from . import llama
 from .paging import PagePool, PrefixRadix
 
@@ -86,16 +105,149 @@ def _scatter_rows(cache: QArray, new: torch.Tensor,
         cache[:, idx, :p] = new.to(cache.dtype)
 
 
+# the kernel wrappers a decode window launches: a graph replay adds the
+# launches its capture recorded to their counts
+_WINDOW_KERNELS = (flash_decode, flash_decode_paged)
+
+
+@dataclasses.dataclass
+class _Window:
+    """A captured decode window: its graph, the static output tokens
+    [k, slots] it writes, and the kernel launches one replay makes."""
+    graph: Any
+    out: torch.Tensor
+    launches: Tuple[int, ...]
+
+
+def _zero_(kv: Dict[str, QArray]) -> None:
+    """Zero a cache or pool in place (payload and scales)."""
+    for t in kv.values():
+        if isinstance(t, QTensor):
+            t.q.zero_()
+            t.s.zero_()
+        else:
+            t.zero_()
+
+
 class _Engine:
     """What both engines share: the slot seams, token selection, the
-    host side of a decode window and ``drain``. A subclass holds
-    ``requests`` (None for a free slot), ``finished``, ``sampler`` and
-    ``generator``, and defines ``submit_many``, ``step_many`` and
-    ``_maybe_retire``."""
+    static decode state, the decode window (eager on the CPU, a CUDA
+    graph per key on CUDA), the host side of a window and ``drain``. A
+    subclass holds ``requests`` (None for a free slot), ``finished``,
+    ``sampler`` and ``generator``, and defines ``submit_many``,
+    ``step_many``, ``_maybe_retire`` and ``_step_logits``."""
 
     # set by the front door (``models.ingress.ServingFrontend``); the
     # engines record no spans of their own yet
     tracer = None
+
+    def _init_decode_state(self) -> None:
+        """The device tensors every window reads or writes, allocated
+        once (a graph binds these very buffers), and the graph store."""
+        dev = self.device
+        self.lengths = torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=dev)
+        self.cur_tok = torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=dev)
+        self._mask = torch.zeros((self.slots,), dtype=torch.bool,
+                                 device=dev)
+        self._graphs: Dict[Any, _Window] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.capture_s = 0.0              # seconds spent capturing
+
+    def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
+                     mp: Optional[int]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _window(self, k: int, mp: Optional[int]) -> torch.Tensor:
+        """``k`` decode steps from the static lengths and tokens under
+        the static mask: tokens [k, slots]. Masked-off streams keep their
+        length and token. Ends by copying into ``lengths`` and
+        ``cur_tok``, never by rebinding them."""
+        ln, tok = self.lengths, self.cur_tok
+        window = []
+        for _ in range(k):
+            logits = self._step_logits(ln, tok, mp)
+            nxt = torch.where(self._mask, self._select(logits), tok)
+            ln = torch.where(self._mask, ln + 1, ln)
+            tok = nxt
+            window.append(nxt)
+        out = torch.stack(window)
+        self.lengths.copy_(ln)
+        self.cur_tok.copy_(tok)
+        return out
+
+    def _capture(self, k: int, mp: Optional[int], key: Any) -> _Window:
+        """Capture the window of ``key`` into this engine's graph pool.
+        First the same window runs eagerly on the capture stream with
+        every stream masked off: lazy initialisation happens outside
+        the capture, and no length or token advances (each stream
+        rewrites the K/V row its next step writes, with the same values;
+        the generator's state is put back)."""
+        t0 = time.perf_counter()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        gen_state = (self.generator.get_state()
+                     if self.generator is not None else None)
+        self._mask.zero_()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._window(k, mp)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = [fn.launches for fn in _WINDOW_KERNELS]
+        # thread_local: the front door's HTTP threads may run meanwhile
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = self._window(k, mp)
+        # a capture launches nothing: its count moves to each replay
+        launches = []
+        for fn, n in zip(_WINDOW_KERNELS, before):
+            launches.append(fn.launches - n)
+            fn.launches = n
+        win = self._graphs[key] = _Window(graph, out, tuple(launches))
+        self.capture_s += time.perf_counter() - t0
+        return win
+
+    def _run_window(self, k: int, mp: Optional[int], key: Any,
+                    active: List[int]) -> np.ndarray:
+        """Run the window of ``key`` over the ``active`` streams (the
+        graph on CUDA, captured on first use) and bring its tokens to the
+        host in ONE transfer: [k, slots]."""
+        mask = np.zeros((self.slots,), dtype=bool)
+        mask[active] = True
+        if self.device.type != "cuda":
+            self._mask.copy_(torch.from_numpy(mask))
+            return self._window(k, mp).cpu().numpy()
+        win = self._graphs.get(key)
+        if win is None:
+            win = self._capture(k, mp, key)
+        self._mask.copy_(torch.from_numpy(mask))
+        win.graph.replay()
+        for fn, n in zip(_WINDOW_KERNELS, win.launches):
+            fn.launches += n
+        return win.out.cpu().numpy()
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """Captured windows: how many, their keys, the seconds spent
+        capturing (eager pre-runs included) and the bytes the engine's
+        graph pool holds on the device."""
+        pool_bytes = 0
+        if self._graph_pool is not None:
+            pool_bytes = sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) ==
+                tuple(self._graph_pool))
+        return {"graphs": len(self._graphs),
+                "keys": sorted(self._graphs, key=repr),
+                "capture_s": self.capture_s, "pool_bytes": pool_bytes}
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.requests) if r is None]
@@ -185,21 +337,19 @@ class SlotServer(_Engine):
         self.eos_id = eos_id
         self._rope = rope_frequencies(cfg.head_dim, cfg.max_seq,
                                       cfg.rope_theta, device=self.device)
-        self.cache: Optional[llama.Cache] = None
+        self.cache = llama.init_kv_cache(cfg, slots, cfg.max_seq,
+                                         device=self.device)
+        self._init_decode_state()
         self.finished: Dict[Any, List[int]] = {}
         self.reset()
 
     def reset(self) -> None:
-        """Rebuild device state and the slot bookkeeping (a failed step
-        may leave the cache half-written); weights survive."""
-        self.cache = None                 # free the old cache first
-        self.cache = llama.init_kv_cache(self.cfg, self.slots,
-                                         self.cfg.max_seq,
-                                         device=self.device)
-        self.lengths = torch.zeros((self.slots,), dtype=torch.int32,
-                                   device=self.device)
-        self.cur_tok = torch.zeros((self.slots,), dtype=torch.int32,
-                                   device=self.device)
+        """Zero the device state in place and clear the slot bookkeeping
+        (a failed step may leave the cache half-written); weights and
+        captured graphs survive."""
+        _zero_(self.cache)
+        self.lengths.zero_()
+        self.cur_tok.zero_()
         self.requests: List[Optional[_Request]] = [None] * self.slots
         self.finished.clear()
         # slot -> device scalar of the prefill's first token, awaiting
@@ -336,26 +486,19 @@ class SlotServer(_Engine):
         slot's retirement. ``k <= 1`` is :meth:`step`."""
         return self._decode(max(k, 1))
 
+    def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
+                     mp: Optional[int]) -> torch.Tensor:
+        logits, _ = llama.decode_step_slots(
+            self.cfg, self.params, self.cache, lengths, tokens,
+            rope=self._rope)
+        return logits
+
     def _decode(self, k: int) -> Dict[int, List[int]]:
         self._flush_pending()
         active = self._active()
         if not active:
             return {}
-        mask = torch.zeros((self.slots,), dtype=torch.bool,
-                           device=self.device)
-        mask[active] = True
-        ln, tok = self.lengths, self.cur_tok
-        window = []
-        for _ in range(k):
-            logits, self.cache = llama.decode_step_slots(
-                self.cfg, self.params, self.cache, ln, tok, rope=self._rope)
-            nxt = torch.where(mask, self._select(logits), tok)
-            ln = torch.where(mask, ln + 1, ln)
-            tok = nxt
-            window.append(nxt)
-        self.lengths, self.cur_tok = ln, tok
-        host = torch.stack(window).cpu().numpy()        # ONE transfer
-        return self._emit(host, active)
+        return self._emit(self._run_window(k, None, k, active), active)
 
     # --------------------------------------------------------- retirement
 
@@ -425,6 +568,7 @@ class PagedServer(_Engine):
                  prefill_chunk: int = 64, sampler: Optional[Sampler] = None,
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None, prefix_cache: bool = True,
+                 compile_cache: Optional[CompileCache] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if page_size < 1 or cfg.max_seq % page_size:
@@ -454,26 +598,48 @@ class PagedServer(_Engine):
         # physical index total_pages is the SCRATCH page: never in the
         # ledger, never read unmasked
         self.scratch = self.total_pages
-        self._rope = rope_frequencies(cfg.head_dim, cfg.max_seq,
-                                      cfg.rope_theta, device=self.device)
+        # greedy engines at an identical (config, topology, geometry) key
+        # share what carries no engine state, the rope table; each engine
+        # captures its own graphs (parallel/aot.py). Sampled engines
+        # bypass the cache, as in the reference
+        ns = None
+        if compile_cache is not None and sampler is None:
+            ns = compile_cache.namespace(engine_key(
+                cfg, None, device=self.device, kind="paged", slots=slots,
+                pages=self.total_pages, page_size=page_size,
+                prefill_chunk=prefill_chunk))
+        if ns and "rope" in ns:
+            self._rope = ns["rope"]
+        else:
+            self._rope = rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                          cfg.rope_theta, device=self.device)
+            if ns is not None:
+                ns["rope"] = self._rope
         self._prefix_cache = prefix_cache
+        self.pool = llama.init_page_pool(cfg, self.total_pages + 1,
+                                         page_size, device=self.device)
+        self._init_decode_state()
+        # the decode table: one flat buffer whose leading slots x mp
+        # entries are the contiguous [slots, mp] table of a window of
+        # width mp
+        self._table_buf = torch.full(
+            (slots * self.pages_per_stream,), self.scratch,
+            dtype=torch.int32, device=self.device)
         self.reset()
 
     def reset(self) -> None:
-        """Rebuild device + host state (a failed step may leave the pool
-        half-written). The radix is rebuilt too: its cached K/V lived in
-        the old pool."""
-        self.pool = llama.init_page_pool(self.cfg, self.total_pages + 1,
-                                         self.page_size, device=self.device)
+        """Zero the device state in place and rebuild the host state (a
+        failed step may leave the pool half-written); captured graphs
+        survive. The radix is rebuilt too: its cached K/V is gone."""
+        _zero_(self.pool)
+        self.lengths.zero_()
+        self.cur_tok.zero_()
+        self._table_buf.fill_(self.scratch)
         self.ledger = PagePool(self.total_pages, self.page_size)
         self.radix = (PrefixRadix(self.ledger) if self._prefix_cache
                       else None)
         self._tables = np.full((self.slots, self.pages_per_stream),
                                self.scratch, np.int32)
-        self.lengths = torch.zeros((self.slots,), dtype=torch.int32,
-                                   device=self.device)
-        self.cur_tok = torch.zeros((self.slots,), dtype=torch.int32,
-                                   device=self.device)
         self.requests: List[Optional[_Request]] = [None] * self.slots
         self.finished: Dict[Any, List[int]] = {}
         # stream -> device scalar of the prefill's first token, awaiting
@@ -693,6 +859,18 @@ class PagedServer(_Engine):
         dead steps, as in the reference's fixed-mask scan."""
         return self._decode(max(k, 1))
 
+    def _table(self, mp: int) -> torch.Tensor:
+        """The static decode table of a window of width ``mp``: [slots,
+        mp], contiguous, a view of the flat buffer."""
+        return self._table_buf[:self.slots * mp].view(self.slots, mp)
+
+    def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
+                     mp: Optional[int]) -> torch.Tensor:
+        logits, _ = llama.decode_step_paged(
+            self.cfg, self.params, self.pool, self._table(mp), lengths,
+            tokens, rope=self._rope)
+        return logits
+
     def _decode(self, k: int) -> Dict[int, List[int]]:
         self._flush_pending()
         for _ in range(k):
@@ -702,25 +880,42 @@ class PagedServer(_Engine):
         active = self._active()
         if not active:
             return {}
-        mask = torch.zeros((self.slots,), dtype=torch.bool,
-                           device=self.device)
-        mask[active] = True
         mp = self._window_mp(active, k)
-        tbl = torch.tensor(self._decode_tables()[:, :mp],
-                           device=self.device)
-        ln, tok = self.lengths, self.cur_tok
-        window = []
-        for _ in range(k):
-            logits, self.pool = llama.decode_step_paged(
-                self.cfg, self.params, self.pool, tbl, ln, tok,
-                rope=self._rope)
-            nxt = torch.where(mask, self._select(logits), tok)
-            ln = torch.where(mask, ln + 1, ln)
-            tok = nxt
-            window.append(nxt)
-        self.lengths, self.cur_tok = ln, tok
-        host = torch.stack(window).cpu().numpy()        # ONE transfer
-        return self._emit(host, active)
+        self._table(mp).copy_(torch.from_numpy(
+            np.ascontiguousarray(self._decode_tables()[:, :mp])))
+        return self._emit(self._run_window(k, mp, (k, mp), active), active)
+
+    def warmup(self, widths=(1,)) -> Dict[str, float]:
+        """The cold-start ``compile`` phase before admission: one prefill
+        chunk, then the one-step window of each decode-table width in
+        ``widths`` captured as a CUDA graph (on CUDA) and run once, every
+        write landing on the scratch page and no length or token
+        advancing. Windows of other sizes or widths are captured at
+        first use. Returns ``{phase: seconds}`` with the reference's
+        keys (``chunk``, ``step_w<w>``)."""
+        widths = [int(w) for w in widths]
+        for w in widths:
+            if not 1 <= w <= self.pages_per_stream:
+                raise ValueError(f"warmup width {w} outside [1, "
+                                 f"{self.pages_per_stream}]")
+        timings: Dict[str, float] = {}
+        dev = self.device
+        t0 = time.perf_counter()
+        row = torch.full((self.pages_per_stream,), self.scratch,
+                         dtype=torch.int32, device=dev)
+        c = self.prefill_chunk
+        logits, self.pool = llama.prefill_chunk_paged(
+            self.cfg, self.params, self.pool, row,
+            torch.zeros((1, c), dtype=torch.int32, device=dev), 0, c, c - 1,
+            self.scratch, rope=self._rope)
+        logits.cpu()
+        timings["chunk"] = time.perf_counter() - t0
+        for w in widths:
+            t1 = time.perf_counter()
+            self._table(w).fill_(self.scratch)
+            self._run_window(1, w, (1, w), [])
+            timings[f"step_w{w}"] = time.perf_counter() - t1
+        return timings
 
     # --------------------------------------------------------- retirement
 

@@ -13,7 +13,8 @@ from the kernel: on CUDA it launches or raises. Each counts its launches
 in ``.launches``. A call is one kernel launch: the kernels deal work by
 each stream's live length, read on the device, and merge a stream's
 partials in the launch itself (:func:`decode_plan` sizes the grid and the
-workspace, which the wrappers keep per device and stream).
+workspace, which the wrappers keep per device and stream, and keep alive
+for good once a CUDA graph has captured it).
 
 The plain versions (:func:`flash_decode_reference`,
 :func:`flash_decode_paged_reference`) compute in fp32 and fold int8
@@ -337,6 +338,10 @@ _SM_COUNT: Dict[int, int] = {}
 # grow, and the counters are zeroed once, when allocated (each launch
 # leaves them at zero)
 _WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# the workspaces a CUDA graph captured, kept for the life of the process:
+# a replay writes the buffers its capture saw, so a later growth on the
+# same stream must not free them
+_CAPTURED: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
 
 def _sm_count(device: torch.device) -> int:
@@ -359,6 +364,9 @@ def _workspace(device: torch.device, stream: int, plan: DecodePlan):
         counters = torch.zeros(plan.counters, dtype=torch.int32,
                                device=device)
     _WORKSPACE[key] = (part, counters)
+    if torch.cuda.is_current_stream_capturing() and not any(
+            p is part and c is counters for p, c in _CAPTURED):
+        _CAPTURED.append((part, counters))
     return part, counters
 
 

@@ -325,6 +325,9 @@ def test_slot_server_runs_through_the_kernels(dev):
     n_fwd = fa.flash_attention_fwd.launches
     srv.submit_many([dict(r) for r in reqs[:2]])
     assert fa.flash_attention_fwd.launches == n_fwd + cfg.n_layers
+    # the first window also runs once eagerly before its graph is
+    # captured; a warm window launches the kernel once a layer
+    srv.step()
     before = fd.flash_decode.launches
     srv.step()
     assert fd.flash_decode.launches == before + cfg.n_layers
@@ -693,3 +696,285 @@ def test_loss_kernel_matches_dense_on_card(dev):
         want = res["dense"][1][name]
         rel = float((g - want).norm() / want.norm().clamp_min(1e-30))
         assert rel < 5e-2, (name, rel)
+
+
+# ---------------------------------------------------------------------------
+# the engines' decode windows as CUDA graphs
+
+
+def _engine(kind, cfg, params, dev, **kw):
+    if kind == "paged":
+        return serving.PagedServer(cfg, params, slots=4, page_size=16,
+                                   prefill_chunk=16, device=dev, **kw)
+    return serving.SlotServer(cfg, params, slots=4, device=dev, **kw)
+
+
+def _live(srv, cfg, seed=0, lens=(3, 15, 40, 70), max_new=40):
+    """Four streams prefilled and decoding (lengths that cross 16-position
+    pages within a few windows)."""
+    rng = np.random.default_rng(seed)
+    srv.submit_many([
+        {"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+         "max_new": max_new, "request_id": i} for i, n in enumerate(lens)])
+    while getattr(srv, "_prefill_q", None) or srv._pending_first:
+        srv.step()
+    assert len(srv._active()) == len(lens)
+
+
+def _kv_clone(kv):
+    return {s: (QTensor(x.q.clone(), x.s.clone()) if isinstance(x, QTensor)
+                else x.clone()) for s, x in kv.items()}
+
+
+def _kv_equal(a, b):
+    for s in ("k", "v"):
+        x, y = a[s], b[s]
+        if isinstance(x, QTensor):
+            if not (torch.equal(x.q, y.q) and torch.equal(x.s, y.s)):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    return True
+
+
+def _eager_windows(srv, kv, windows, k, generator=None):
+    """The eager model-function loop by hand, from a snapshot of ``srv``
+    (its kv, lengths and tokens cloned): ``windows`` windows of ``k``
+    decode steps over the active streams, the paged table rebuilt per
+    window at the width the engine would use. Returns (tokens [windows *
+    k, slots], lengths, tokens)."""
+    active = srv._active()
+    mask = torch.zeros((srv.slots,), dtype=torch.bool, device=srv.device)
+    mask[active] = True
+    ln, tok = srv.lengths.clone(), srv.cur_tok.clone()
+    out = []
+    for _ in range(windows):
+        if isinstance(srv, serving.PagedServer):
+            top = int(ln.max()) + 1
+            mp = min(srv.pages_per_stream, (top + k - 2) // srv.page_size + 1)
+            tbl = torch.tensor(srv._decode_tables()[:, :mp],
+                               device=srv.device)
+        for _ in range(k):
+            if isinstance(srv, serving.PagedServer):
+                logits, _ = llama.decode_step_paged(
+                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope)
+            else:
+                logits, _ = llama.decode_step_slots(
+                    srv.cfg, srv.params, kv, ln, tok, rope=srv._rope)
+            nxt = torch.where(mask, llama._select(
+                srv.sampler, generator, logits, torch.int32), tok)
+            ln = torch.where(mask, ln + 1, ln)
+            tok = nxt
+            out.append(nxt)
+    return torch.stack(out), ln, tok
+
+
+def _graphed_windows(srv, windows, k):
+    active = srv._active()
+    got = {i: [] for i in active}
+    for _ in range(windows):
+        for i, toks in srv.step_many(k).items():
+            got[i] += toks
+    return got
+
+
+GRAPH_CASES = [
+    # engine, kv_quant, int8 weights, sampled, k
+    ("paged", False, False, False, 1), ("paged", False, False, False, 8),
+    ("paged", True, False, False, 1), ("paged", True, False, False, 8),
+    ("slots", False, False, False, 1), ("slots", False, False, False, 8),
+    ("slots", True, False, False, 1), ("slots", True, False, False, 8),
+    ("paged", False, True, False, 8), ("slots", True, True, False, 8),
+    ("paged", False, False, True, 8), ("slots", False, False, True, 1),
+]
+
+
+@pytest.mark.parametrize("kind,kv_quant,qweights,sampled,k", GRAPH_CASES)
+def test_graphed_windows_equal_the_eager_loop(dev, kind, kv_quant, qweights,
+                                              sampled, k):
+    """From one snapshot, the engine's graphed windows and the eager loop
+    by hand give the same tokens and lengths, and write the same K/V
+    bitwise; the paged table widens between windows; a sampled engine
+    draws the eager loop's stream from the same generator state."""
+    from dcos_commons_tpu_torch.ops.sampling import make_sampler
+    cfg = _cfg(kv_quant=kv_quant)
+    if qweights:
+        params = llama.init_quantized_params(
+            cfg, torch.Generator().manual_seed(0), device=dev)
+    else:
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    kw = {}
+    if sampled:
+        kw = dict(sampler=make_sampler(0.9, top_k=50),
+                  generator=torch.Generator(device=dev).manual_seed(3))
+    srv = _engine(kind, cfg, params, dev, **kw)
+    _live(srv, cfg)
+    windows = 24 // k
+    kv = _kv_clone(srv.pool if kind == "paged" else srv.cache)
+    gen = None
+    if sampled:
+        gen = torch.Generator(device=dev)
+        gen.set_state(srv.generator.get_state())
+    want, ln, tok = _eager_windows(srv, kv, windows, k, gen)
+    got = _graphed_windows(srv, windows, k)
+    assert srv.graph_stats()["graphs"] >= 1
+    if kind == "paged":
+        widths = {key[1] for key in srv._graphs}
+        assert len(widths) >= 2, widths
+    for i, toks in got.items():
+        assert toks == want[:, i].tolist(), i
+    assert torch.equal(srv.lengths, ln) and torch.equal(srv.cur_tok, tok)
+    assert _kv_equal(srv.pool if kind == "paged" else srv.cache, kv)
+    if sampled:
+        # the generator advanced as the eager loop's did
+        assert torch.equal(srv.generator.get_state(), gen.get_state())
+
+
+@pytest.mark.parametrize("kind", ["paged", "slots"])
+def test_reset_keeps_the_graphs_valid(dev, kind):
+    """Windows capture graphs; after ``reset`` the same graphs replay on
+    the zeroed state and give a fresh engine's tokens."""
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(5)
+    reqs = [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+             "max_new": m, "request_id": i}
+            for i, (n, m) in enumerate([(9, 20), (30, 25), (4, 30)])]
+    srv = _engine(kind, cfg, params, dev)
+    srv.drain([dict(r) for r in reqs], decode_window=8)
+    graphs = dict(srv._graphs)
+    srv.submit_many([dict(r) for r in reqs[:2]])
+    srv.step_many(8)
+    srv.reset()
+    got = srv.drain([dict(r) for r in reqs], decode_window=8)
+    assert all(srv._graphs[key] is g for key, g in graphs.items())
+    fresh = _engine(kind, cfg, params, dev).drain(
+        [dict(r) for r in reqs], decode_window=8)
+    assert got == fresh
+
+
+def test_a_grown_workspace_keeps_a_captured_graph_valid(dev):
+    """Capture the paged kernel at a small table width (several chunks a
+    stream, so the partials and counters are used), grow the stream's
+    workspace with a wide call, then allocate on that stream what the
+    growth would have freed and fill it with junk: the small graph's
+    replay still equals its eager call."""
+    q, k, v, table, kv = _case(dev, 8, 32, 8, 128, 64, 32,
+                               (1, 63, 64, 65, 700, 2047, 1500, 333), False)
+    small = table[:, :4].contiguous()
+    small_kv = kv.clamp(max=256).contiguous()
+    stream = torch.cuda.Stream()
+    key = (q.device.index, stream.cuda_stream)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = fd.flash_decode_paged(q, k, v, small, small_kv)
+        part, counters = fd._WORKSPACE[key]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = fd.flash_decode_paged(q, k, v, small, small_kv)
+        wide = fd.flash_decode_paged(q, k, v, table, kv)
+        assert fd._WORKSPACE[key][0].numel() > part.numel()
+        sizes = (part.numel(), counters.numel())
+        del part, counters
+        junk = [torch.full((sizes[0],), float("nan"), device=dev)
+                for _ in range(4)]
+        junk += [torch.full((sizes[1],), 7, dtype=torch.int32, device=dev)
+                 for _ in range(4)]
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+    torch.testing.assert_close(wide.float(), fd.flash_decode_paged_reference(
+        q, k, v, table, kv).float(), rtol=RTOL, atol=ATOL)
+    del junk
+
+
+def test_paged_warmup_then_a_wider_window_then_width_one(dev):
+    """The worker's order: ``warmup`` captures the width-1 window, longer
+    streams then grow the workspace, and a later width-1 window replays
+    the first graph: its tokens equal a fresh engine's."""
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = _engine("paged", cfg, params, dev)
+    timings = srv.warmup(widths=(1,))
+    assert list(timings) == ["chunk", "step_w1"] and (1, 1) in srv._graphs
+    rng = np.random.default_rng(2)
+    long = [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, 90)],
+             "max_new": 12, "request_id": "long"}]
+    srv.drain(long, decode_window=1)
+    short = [{"prompt": [3, 1, 4], "max_new": 6, "request_id": "short"}]
+    got = srv.drain(short, decode_window=1)["short"]
+    assert got == _engine("paged", cfg, params, dev).drain(
+        short, decode_window=1)["short"]
+
+
+@pytest.mark.parametrize("kind", ["paged", "slots"])
+def test_a_warm_window_is_one_graph_launch(dev, kind):
+    """A warm graphed window of 8 steps: one ``cudaGraphLaunch`` and no
+    ``cudaLaunchKernel``; the replay adds the captured kernel launches to
+    the wrapper's count."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    # pages of 64: the table width stays 1 through these windows, so the
+    # profiled ones replay the captured graph
+    srv = (serving.PagedServer(cfg, params, slots=4, page_size=64,
+                               prefill_chunk=16, device=dev)
+           if kind == "paged" else _engine(kind, cfg, params, dev))
+    _live(srv, cfg, lens=(3, 5, 7, 9))
+    srv.step_many(8)                                    # capture
+    captured = dict(srv._graphs)
+    counter = fd.flash_decode_paged if kind == "paged" else fd.flash_decode
+    torch.cuda.synchronize()
+    # one window of warm-up inside the profiler: its first events of a
+    # session can be lost while the device tracing starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        srv.step_many(8)
+        prof.step()
+        before = counter.launches
+        srv.step_many(8)
+        prof.step()
+    names = [e.name for e in prof.events()]
+    assert srv._graphs == captured
+    assert names.count("cudaGraphLaunch") == 1, names
+    assert not [n for n in names if n.startswith("cudaLaunchKernel")]
+    assert counter.launches - before == 8 * cfg.n_layers
+
+
+def test_init_quantized_params_puts_no_bf16_weight_on_the_card(dev):
+    cfg = llama.LlamaConfig.llama_400m()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_quantized_params(
+        cfg, torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def leaves(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            elif isinstance(v, QTensor):
+                yield v.q
+                yield v.s
+            else:
+                yield v
+
+    held = sum(t.numel() * t.element_size() for t in leaves(params))
+    smallest_bf16_stack = 2 * min(
+        w.q.numel() for w in params["layers"].values()
+        if isinstance(w, QTensor))
+    # the allocator rounds each block up to 512 bytes
+    assert peak <= held + 512 * 64
+    assert peak < held + smallest_bf16_stack
+    assert all(t.device.type == "cuda" for t in leaves(params))
+    assert params["layers"]["w_gate"].q.dtype == torch.int8

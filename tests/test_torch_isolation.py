@@ -56,7 +56,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "dcos_commons_tpu_torch.models.serving" in mods
     assert "dcos_commons_tpu_torch.ops.flash_decode" in mods
     for name in ("ops.flash_attention", "ops.losses", "models.train",
-                 "models.ingress", "metrics", "tracing", "utils.stats"):
+                 "models.ingress", "metrics", "tracing", "utils.stats",
+                 "parallel.aot", "parallel.distributed",
+                 "frameworks.worker"):
         assert f"dcos_commons_tpu_torch.{name}" in mods
 
 

@@ -246,7 +246,7 @@ def test_admission_validation():
 
 @pytest.mark.parametrize("kw", [
     dict(tiers=object()), dict(directory=object()), dict(moe=object()),
-    dict(longctx_ring=2), dict(compile_cache=object()), dict(mesh=object()),
+    dict(longctx_ring=2), dict(peer_fetch=object()), dict(mesh=object()),
     dict(key=object())])
 def test_constructor_refuses_features_not_ported(kw):
     _, tcfg, _, tp = _model()

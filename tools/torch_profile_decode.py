@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Where a decode step of one of the PyTorch port's engines spends its time
-on the GPU.
+on the GPU, graphed and eager.
 
     python3 tools/torch_profile_decode.py [--engine paged|slots]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, ``max_seq`` 2048),
 prefills 8 streams of ragged length through ``PagedServer(slots=8,
 page_size=64, prefill_chunk=64)`` (``--engine paged``, the default) or
-``SlotServer(slots=8)`` (``--engine slots``), then runs 8 decode steps
-(window 1) under ``torch.profiler`` and prints one JSON line: the host
-wall time per step, the device busy time per step (the sum of the kernel
-and copy time the profiler saw), the device idle share, the decode
-attention kernels' time and count per step, the kernel launches per
-step (``cudaLaunchKernel`` calls), the kernels that take the most device
-time and the host ops that take the most host time. If the profiler
-records no device time, the device numbers are null. Needs a CUDA device;
-imports nothing of JAX.
+``SlotServer(slots=8)`` (``--engine slots``), then profiles windows of 8
+decode steps two ways from the same state: ``step_many(8)``, which
+replays the engine's CUDA graph of the window, and the eager
+model-function loop driven by hand (``chip_smoke.eager_loop``: the
+engines' path before graphs) on clones of the cache or pool. For each it prints one JSON line: the host wall time
+per step (profiled and, before the profiler starts, unprofiled), the
+device busy time per step (the sum of the kernel and copy time the
+profiler saw), the device idle share, the decode attention kernels' time
+and count per step, the ``cudaLaunchKernel`` and ``cudaGraphLaunch``
+calls per step, the kernels that take the most device time and the host
+ops that take the most host time. If the profiler records no device
+time, the device numbers are null. Needs a CUDA device; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-STEPS = 8
+K = 8           # steps a window
+WINDOWS = 3     # profiled windows a mode
 
 
 def _device_us(event) -> float:
@@ -42,13 +47,67 @@ def _device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
+def _profile(window, label, engine, layers, card) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):                                  # warm
+        window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WINDOWS):
+        window()
+    unprofiled = (time.perf_counter() - t0) / (WINDOWS * K) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(WINDOWS):
+            window()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = WINDOWS * K
+    events = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in events)
+    top = sorted(events, key=_device_us, reverse=True)[:12]
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:12]
+    step_ms = wall / steps * 1e3
+    busy_ms = busy_us / steps / 1e3 if busy_us else None
+    decode = [e for e in events if _device_us(e)
+              and "decode_kernel" in e.key]
+
+    def calls(name):
+        return sum(e.count for e in events if e.key.startswith(name)) / steps
+
+    return {
+        "profile": f"{engine} decode, {label}", "layers": layers,
+        "batch": 8, "window": K, "steps": steps,
+        "wall_ms_per_step": step_ms,
+        "unprofiled_wall_ms_per_step": unprofiled,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
+        "decode_kernel_ms_per_step": sum(_device_us(e) for e in decode)
+        / steps / 1e3,
+        "decode_kernels_per_step": sum(e.count for e in decode) / steps,
+        "launch_kernel_calls_per_step": calls("cudaLaunchKernel"),
+        "graph_launch_calls_per_step": calls("cudaGraphLaunch"),
+        "device_events_per_step": sum(e.count for e in events
+                                      if _device_us(e)) / steps,
+        "top_device": [{"name": e.key[:80], "count": e.count,
+                        "ms_per_step": _device_us(e) / steps / 1e3}
+                       for e in top if _device_us(e)],
+        "top_host": [{"name": e.key[:80], "count": e.count,
+                      "self_ms_per_step": e.self_cpu_time_total / steps / 1e3}
+                     for e in top_host],
+        "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", choices=("paged", "slots"), default="paged")
     args = ap.parse_args()
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_profile_decode: CUDA is not available", file=sys.stderr)
@@ -67,56 +126,23 @@ def main() -> int:
     rng = np.random.default_rng(1)
     srv.submit_many([
         {"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
-         "max_new": 200, "request_id": i}
+         "max_new": 400, "request_id": i}
         for i, n in enumerate((1, 63, 64, 65, 700, 1500, 1300, 333))])
     while getattr(srv, "_prefill_q", None) or srv._pending_first:
         srv.step()
-    for _ in range(2):                                  # warm
-        srv.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            srv.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(_device_us(e) for e in events)
-    top = sorted(events, key=_device_us, reverse=True)[:12]
-    top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
-                      reverse=True)[:12]
-    step_ms = wall / STEPS * 1e3
-    busy_ms = busy_us / STEPS / 1e3 if busy_us else None
-    # the decode attention kernels: the one-launch kernel, or the split
-    # pass and combine of earlier sources
-    decode = [e for e in events if _device_us(e)
-              and ("decode_kernel" in e.key or "decode_split" in e.key
-                   or "decode_combine" in e.key)]
-    launch_calls = sum(e.count for e in events
-                       if e.key.startswith("cudaLaunchKernel"))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "profile": f"{args.engine} decode step", "layers": cfg.n_layers,
-        "batch": 8, "steps": STEPS, "wall_ms_per_step": step_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
-        "decode_kernel_ms_per_step": sum(_device_us(e) for e in decode)
-        / STEPS / 1e3,
-        "decode_kernels_per_step": sum(e.count for e in decode) / STEPS,
-        "launch_calls_per_step": launch_calls / STEPS,
-        "device_events_per_step": sum(e.count for e in events
-                                      if _device_us(e)) / STEPS,
-        "top_device": [{"name": e.key[:80], "count": e.count,
-                        "ms_per_step": _device_us(e) / STEPS / 1e3}
-                       for e in top if _device_us(e)],
-        "top_host": [{"name": e.key[:80], "count": e.count,
-                      "self_ms_per_step": e.self_cpu_time_total / STEPS / 1e3}
-                     for e in top_host],
-        "card": card}))
+    from chip_smoke import eager_loop
+    eager, _ = eager_loop(srv, K)
+    lines = [_profile(eager, "eager loop", args.engine, cfg.n_layers, card),
+             _profile(lambda: srv.step_many(K), "CUDA graph", args.engine,
+                      cfg.n_layers, card)]
+    lines[1]["graphs"] = {k: v for k, v in srv.graph_stats().items()
+                          if k != "keys"}
+    for line in lines:
+        print(json.dumps(line))
     return 0
 
 
