@@ -34,7 +34,24 @@ Phases (any failure exits non-zero):
    eager model-function loop driven by hand and through the graphs,
    each window timed unprofiled, and must give the same tokens and
    lengths; then a second engine of the same key warms up;
-5. (run right after phase 3, on its weights) serve Llama-3-8B through
+7. (right after phase 3, on its weights) speculative decoding: the same
+   ``PagedServer`` armed with ``truncate_layers(cfg, params, 1)`` at k=4
+   serves phase 3's 12 requests, each stream teacher-forced through the
+   target (every token's logit within ``NEAR_TIE_ATOL`` of the top at
+   its position, so it leaves phase 3's solo stream only at a near-tie
+   and is held after it too), kernel 2 launched
+   k times a window and kernel 3 once a draft prefill; after a reset, 6
+   spec windows at B=8 through the graphs and through the eager loop by
+   hand must give the same tokens, ``n_emit``, lengths and live K/V rows
+   (pool and draft cache); the self-draft (all 32 layers) serves 4 of
+   the requests (three, then prefix-b alone on prefix-a's radix pages;
+   each drain must accept ``SELF_DRAFT_ACCEPT_FLOOR`` of its
+   proposals), then from a snapshot of those 4 streams runs eager
+   windows in which every rejected proposal must sit at a near-tie of
+   the verify's logits;
+   then ``save_draft`` writes the 1-layer draft under
+   ``build/spec_draft`` for the worker below;
+5. (on phase 3's weights) serve Llama-3-8B through
    ``SlotServer(slots=8)`` behind the HTTP front door
    (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
    concurrent ``POST /v1/generate`` requests, two of them streamed, then
@@ -49,7 +66,12 @@ Phases (any failure exits non-zero):
    concurrent requests (one streamed), check ``/v1/healthz``,
    ``/v1/stats`` and a heartbeat, and end it with SIGTERM; then the same
    with ``--pages 64`` (``PagedServer``); each worker's launch counts are
-   its own, from its heartbeat;
+   its own while it served (its heartbeat's less its ``serving``
+   event's); then (phase 7) the worker with ``--pages 64 --spec-decode
+   true --draft-checkpoint build/spec_draft --draft-k 4``: a
+   ``spec_armed`` event (a ``spec_fallback`` fails), the same 8 requests,
+   tokens held to the paged worker's under the near-tie rule, spec
+   windows in ``/v1/stats``;
 4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
    batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
    one warm-up step, then 10 timed steps on the same batch with the
@@ -57,8 +79,9 @@ Phases (any failure exits non-zero):
    then one loss forward and backward through the kernels is held
    against the same through the dense attention path.
 
-Output: the ``serving``, ``serving_slots``, ``worker``, ``worker_paged``
-and ``training`` lines, the ``kernels`` line, the card's name and power limit, and last
+Output: the ``serving``, ``serving_slots``, ``worker``, ``worker_paged``,
+``worker_spec``, ``training`` and ``spec`` lines, the ``kernels`` line,
+the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
 JAX.
@@ -699,7 +722,7 @@ def phase_serve(card: str) -> dict:
         "peak_mem_gb": peak_gb, "page_stats": stats,
         "flash_vs_dense_max_abs_logit": diff,
         "flash_vs_dense_argmax_decided": int(decided.sum()),
-        "card": card}}, launches, params
+        "card": card}}, launches, params, {"queue": queue, "out": dict(out)}
 
 
 # windows of 8 steps timed each way from one snapshot of 8 live streams
@@ -834,19 +857,19 @@ def _graph_vs_eager(srv, windows=STEADY_WINDOWS, k=STEADY_K) -> dict:
             "kv_max_abs_diff": max_diff}
 
 
-def _kernel_vs_dense(lf, ld):
+def _kernel_vs_dense(lf, ld, atol=LOGIT_ATOL):
     """Max |logit difference| of a decode step through the kernel vs the
     dense read, and how many rows have a decided argmax (top two apart by
     more than the tolerance); raises if they disagree."""
     import torch
     diff = float((lf - ld).abs().max())
     top2 = torch.topk(ld, 2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+    decided = (top2[:, 0] - top2[:, 1]) > atol
     agree = (lf.argmax(-1) == ld.argmax(-1)) | ~decided
-    if diff > LOGIT_ATOL or not bool(agree.all()) \
+    if diff > atol or not bool(agree.all()) \
             or not bool(torch.isfinite(lf).all()):
         raise RuntimeError(f"decode step kernel vs dense: max |dlogit| "
-                           f"{diff:.4f} (tol {LOGIT_ATOL}), argmax agree "
+                           f"{diff:.4f} (tol {atol}), argmax agree "
                            f"{agree.tolist()}")
     return diff, decided
 
@@ -1016,19 +1039,20 @@ WORKER_BOOT_S = 600
 WORKER_VOCAB = 128256           # Llama-3-8B's
 
 
-def phase_worker(card: str, name: str, extra, engine: str, kernels):
+def phase_worker(card: str, name: str, extra, engine: str, kernels,
+                 expect=(), forbid=("paged_fallback",)):
     """The process the scheduler starts: the port's worker
     (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
     ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
-    Reads its
-    ``serving`` event, sends 8 concurrent ``POST /v1/generate`` (64-1,500
-    prompt tokens, 32 new, one streamed), checks ``/v1/healthz`` and
-    ``/v1/stats``, waits for a heartbeat that has seen them, and ends it
-    with SIGTERM. Its kernel launches are the worker's own counts, read
-    from that heartbeat (the process starts at 0)."""
+    Reads its ``serving`` event (after each event of ``expect``; an event
+    of ``forbid`` or an ``error`` fails the phase), sends 8 concurrent
+    ``POST /v1/generate`` (64-1,500 prompt tokens, 32 new, one streamed),
+    checks ``/v1/healthz`` and ``/v1/stats``, waits for a heartbeat that
+    has seen them, and ends it with SIGTERM. Its kernel launches are the
+    worker's own counts while it served: the heartbeat's less those in
+    its ``serving`` event. Returns (line, launches, replies, events)."""
     import queue
     import signal
-    import numpy as np
 
     root = Path(__file__).resolve().parent
     cwd = root / "build" / "worker_smoke"
@@ -1038,14 +1062,12 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels):
            *args]
     env = dict(os.environ, PYTHONPATH=str(root))
     v = WORKER_VOCAB
-    rng = np.random.default_rng(SEED + 4)
-    bodies = [{"prompt": _prompt(rng, n, v), "max_new": 32,
-               "stream": i in WORKER_STREAMED}
-              for i, n in enumerate(WORKER_LENS)]
+    bodies = worker_bodies()
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
                             text=True)
     lines: "queue.Queue[str]" = queue.Queue()
+    events = []
 
     def pump():
         for raw in proc.stdout:
@@ -1064,7 +1086,8 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels):
                 continue
             if raw.startswith("{"):
                 e = json.loads(raw)
-                if e.get("event") == "error":
+                events.append(e)
+                if e.get("event") == "error" or e.get("event") in forbid:
                     raise RuntimeError(f"worker: {e}")
                 if e.get("event") == name and where(e):
                     return e
@@ -1072,6 +1095,8 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels):
                            f"(exit {proc.poll()})")
 
     try:
+        for name_ in expect:
+            event(name_, WORKER_BOOT_S)
         serving = event("serving", WORKER_BOOT_S)
         boot_s = time.perf_counter() - t_start
         port = serving["port"]
@@ -1114,10 +1139,12 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels):
                         f"{stats['tokens']} tokens")
     if not health["ok"] or health["free"] != 8:
         problems.append(f"/v1/healthz {health}")
-    launches = {k: beat.get("launches", {}).get(k, 0) for k in kernels}
+    at_serving = serving.get("launches", {})
+    launches = {k: beat.get("launches", {}).get(k, 0) - at_serving.get(k, 0)
+                for k in kernels}
     for k, n in launches.items():
         if n < 1:
-            problems.append(f"{k} never launched in the worker")
+            problems.append(f"{k} never launched while the worker served")
     if ("paged" in serving) != (engine == "PagedServer"):
         problems.append(f"the worker served another engine: {serving}")
     if rc != -signal.SIGTERM:
@@ -1139,9 +1166,620 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels):
         "tpot_p50_ms": stats["tpot_ms"]["p50"],
         "peak_mem_gb": beat.get("peak_mem_gb"), "graphs": beat.get("graphs"),
         "launches": launches, "exit_on_sigterm": rc,
+        "stats_window": stats["window"],
         **({"paged": beat["paged"]} if "paged" in beat else {}),
         "card": card}}
     log(f"[{name}] {line}")
+    return line, launches, [r["tokens"] for r in replies], events
+
+
+def worker_bodies():
+    """The workers' 8 requests, from the seed."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    return [{"prompt": _prompt(rng, n, WORKER_VOCAB), "max_new": 32,
+             "stream": i in WORKER_STREAMED}
+            for i, n in enumerate(WORKER_LENS)]
+
+
+# --------------------------------------------------------------- phase 7
+
+# the worker's DRAFT_LAYERS / DRAFT_K defaults
+DRAFT_LAYERS, SPEC_K = 1, 4
+# requests of phase 3 the self-draft serves (the last one after the
+# others, adopting prefix-a's radix pages), and its eager windows whose
+# rejections are held to the near-tie rule
+SELF_DRAFT_REQUESTS = ("r0", "r1", "prefix-a", "prefix-b")
+SELF_DRAFT_WINDOWS = 8
+# the least share of self-draft proposals each served drain must accept:
+# a sound self-draft accepted 96 of 108 on the H100 (it rejects only at
+# bf16 near-ties, each costing up to k-1 proposals of a one-stream
+# drain's few dozen), a draft that sees the wrong cache about none
+SELF_DRAFT_ACCEPT_FLOOR = 0.5
+# a spec stream may leave the solo stream only where the solo's logit of
+# the spec's token is within this of its top logit (the verify reads the
+# dense gather, solo decode kernel 1, in another reduction order): the
+# kernel-vs-dense tolerance of one decode step
+NEAR_TIE_ATOL = LOGIT_ATOL
+
+
+def _teacher_gaps(cfg, params, rope, prompt, toks) -> list:
+    """For each token of ``toks``, the target's top logit less its logit
+    of that token at its position: one causal forward over ``prompt +
+    toks[:-1]`` (the stream fed back as its own prefix)."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.ops.quant import qmm
+    dev = rope.device
+    x, _, _ = llama.prefill_trunk(
+        cfg, params, torch.tensor([prompt + toks[:-1]], dtype=torch.int32,
+                                  device=dev), rope)
+    logits = qmm(x[0, len(prompt) - 1:], params["lm_head"]).float()
+    t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
+    gaps = logits.max(dim=-1).values - logits.gather(1, t)[:, 0]
+    return gaps.tolist()
+
+
+def stream_check(name, got, want, prompts, cfg, params) -> list:
+    """Each stream of ``got`` teacher-forced through the target: every
+    token must be within ``NEAR_TIE_ATOL`` of the top logit at its
+    position, given the stream's own earlier tokens, so a stream may
+    leave the solo ``want`` only at a near-tie and is held to the target
+    after it too. Returns where each stream first leaves solo (with the
+    gap there); raises on any token away from a near-tie."""
+    from dcos_commons_tpu_torch.ops.rotary import rope_frequencies
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=params["norm"].device)
+    divergences, problems, checked, worst = [], [], 0, 0.0
+    for rid, w in want.items():
+        g = got.get(rid)
+        if g is None or len(g) != len(w):
+            problems.append(f"{rid}: {None if g is None else len(g)} tokens "
+                            f"against {len(w)}")
+            continue
+        gaps = _teacher_gaps(cfg, params, rope, prompts[rid], g)
+        checked, worst = checked + len(g), max(worst, *gaps)
+        problems += [f"{rid}: token {j} is {g[j]}, the target's top logit "
+                     f"{gap:.4f} above it" for j, gap in enumerate(gaps)
+                     if gap > NEAR_TIE_ATOL]
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:
+            divergences.append({"stream": rid, "at": j, "gap": gaps[j]})
+    if problems:
+        raise RuntimeError(f"{name}: {len(problems)} tokens away from a "
+                           "near-tie of the target: " + "; ".join(
+                               problems[:4]))
+    log(f"[check] {name}: {checked} tokens teacher-forced, largest gap "
+        f"{worst}")
+    return divergences
+
+
+def spec_eager_loop(srv):
+    """The speculative window's eager model-function loop driven by hand,
+    from a snapshot of an armed ``PagedServer`` ``srv`` with every
+    decoding stream active: k greedy ``decode_step_slots`` over the draft
+    cache, ``verify_step_paged`` over the pool (the table built per
+    window), the acceptance counted on the host, on clones of the pool,
+    the draft cache, the lengths and the tokens. Returns ``(window,
+    state)``: each ``window()`` returns the window's target tokens
+    [slots, k] and ``n_emit`` [slots] on the host."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+
+    def clone(kv):
+        return {s: (QTensor(x.q.clone(), x.s.clone())
+                    if isinstance(x, QTensor) else x.clone())
+                for s, x in kv.items()}
+
+    dev = srv.device
+    cfg_d, params_d = srv._draft
+    k = srv.draft_k
+    active = srv._active()
+    tables = srv._decode_tables()
+    mask = torch.zeros((srv.slots,), dtype=torch.bool, device=dev)
+    mask[active] = True
+    state = {"pool": clone(srv.pool), "draft": clone(srv._draft_cache),
+             "ln": srv.lengths.clone(), "tok": srv.cur_tok.clone()}
+
+    def window():
+        ln, tok = state["ln"], state["tok"]
+        top = int(ln[active].max()) + 1
+        mp = min(srv.pages_per_stream, (top + k - 2) // srv.page_size + 1)
+        tbl = torch.tensor(tables[:, :mp], device=dev)
+        cur, drafted = tok, []
+        for j in range(k):
+            lg, _ = llama.decode_step_slots(cfg_d, params_d, state["draft"],
+                                            ln + j, cur, rope=srv._draft_rope)
+            cur = torch.where(mask, torch.argmax(lg, dim=-1).to(torch.int32),
+                              cur)
+            drafted.append(cur)
+        drafted = torch.stack(drafted[:k - 1], dim=1)
+        logits, _ = llama.verify_step_paged(
+            srv.cfg, srv.params, state["pool"], tbl, ln,
+            torch.cat([tok[:, None], drafted], dim=1), rope=srv._rope)
+        state["logits"] = logits
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        d = state["drafted"] = drafted.cpu().numpy()
+        n = np.zeros((srv.slots,), np.int32)
+        new_tok = tok.cpu().numpy().copy()
+        for i in active:
+            a = 0
+            while a < k - 1 and d[i, a] == tgt[i, a]:
+                a += 1
+            n[i] = a + 1
+            new_tok[i] = tgt[i, a]
+        state["ln"] = ln + torch.from_numpy(n).to(dev)
+        state["tok"] = torch.from_numpy(new_tok).to(dev)
+        return tgt, n
+
+    return window, state
+
+
+def verify_vs_steps(srv, atol=LOGIT_ATOL) -> float:
+    """The armed engine's K-wide verify (dense gather) against k
+    successive paged decode steps through kernel 1, on clones of its
+    live pool: the window is the steps' own greedy tokens, and each
+    position's logits must agree within ``atol`` (``_kernel_vs_dense``)
+    for the active streams. Returns the max |logit difference|."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+
+    def clone(kv):
+        return {s: (QTensor(x.q.clone(), x.s.clone())
+                    if isinstance(x, QTensor) else x.clone())
+                for s, x in kv.items()}
+
+    k = srv.draft_k
+    active = srv._active()
+    ln, tok = srv.lengths.clone(), srv.cur_tok.clone()
+    top = int(ln[active].max()) + 1
+    mp = min(srv.pages_per_stream, (top + k - 2) // srv.page_size + 1)
+    tbl = torch.tensor(srv._decode_tables()[:, :mp], device=srv.device)
+    pool = clone(srv.pool)
+    steps, window, cur = [], [tok], tok
+    for j in range(k):
+        lg, _ = llama.decode_step_paged(srv.cfg, srv.params, pool, tbl,
+                                        ln + j, cur, rope=srv._rope)
+        steps.append(lg)
+        cur = torch.argmax(lg, dim=-1).to(torch.int32)
+        window.append(cur)
+    del pool
+    pool = clone(srv.pool)
+    verify, _ = llama.verify_step_paged(
+        srv.cfg, srv.params, pool, tbl, ln, torch.stack(window[:k], dim=1),
+        rope=srv._rope)
+    del pool
+    worst = 0.0
+    for j in range(k):
+        diff, _ = _kernel_vs_dense(steps[j][active], verify[active, j],
+                                   atol=atol)
+        worst = max(worst, diff)
+    return worst
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn`` captured as a CUDA graph, over ``iters``
+    replays timed with CUDA events."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                            # lazy init
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def spec_split(srv) -> dict:
+    """A spec window's device time by part, from the armed engine's live
+    state (every decoding stream active): the k draft steps, the K-wide
+    verify, the verify's page gather and dense attention alone (every
+    layer's, at the window's table width) and the acceptance, each
+    captured as its own CUDA graph on clones of the state and timed over
+    replays (:func:`graph_ms`)."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.ops.attention import gqa_attention
+
+    cfg, k = srv.cfg, srv.draft_k
+    cfg_d, params_d = srv._draft
+    active = srv._active()
+    ln, tok = srv.lengths.clone(), srv.cur_tok.clone()
+    mask = torch.zeros((srv.slots,), dtype=torch.bool, device=srv.device)
+    mask[active] = True
+    top = int(ln[active].max()) + 1
+    mp = min(srv.pages_per_stream, (top + k - 2) // srv.page_size + 1)
+    tbl = torch.tensor(srv._decode_tables()[:, :mp], device=srv.device)
+    pool = {s: t.clone() for s, t in srv.pool.items()}
+    draft = {s: t.clone() for s, t in srv._draft_cache.items()}
+    window = torch.cat([tok[:, None]] * k, dim=1)
+    logits = torch.zeros((srv.slots, k, cfg.vocab_size), device=srv.device)
+
+    def draft_steps():
+        cur = tok
+        for j in range(k):
+            lg, _ = llama.decode_step_slots(cfg_d, params_d, draft, ln + j,
+                                            cur, rope=srv._draft_rope)
+            cur = torch.where(mask, torch.argmax(lg, dim=-1).to(torch.int32),
+                              cur)
+
+    def verify():
+        llama.verify_step_paged(cfg, srv.params, pool, tbl, ln, window,
+                                rope=srv._rope)
+
+    q = torch.randn((srv.slots, k, cfg.n_heads, cfg.head_dim),
+                    device=srv.device).to(cfg.dtype)
+
+    def attention():
+        for i in range(cfg.n_layers):
+            kr = llama._gather_pages(pool["k"][i], tbl, cfg.dtype)
+            vr = llama._gather_pages(pool["v"][i], tbl, cfg.dtype)
+            gqa_attention(q, kr, vr, causal=True, q_offset=ln,
+                          kv_len=ln + k)
+
+    def accept():
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32)
+        agree = torch.cumprod((window[:, 1:] == tgt[:, :k - 1]).to(
+            torch.int32), dim=1)
+        n = torch.where(mask, agree.sum(dim=1).to(torch.int32) + 1,
+                        torch.zeros_like(ln))
+        torch.gather(tgt, 1, (n - 1).clamp(min=0).long()[:, None])
+
+    out = {"draft_steps_ms": graph_ms(draft_steps),
+           "verify_ms": graph_ms(verify),
+           "verify_gather_attention_ms": graph_ms(attention),
+           "accept_ms": graph_ms(accept)}
+    out["parts_ms"] = (out["draft_steps_ms"] + out["verify_ms"]
+                       + out["accept_ms"])
+    out["verify_share"] = out["verify_ms"] / out["parts_ms"]
+    return {"k": k, "draft_layers": cfg_d.n_layers, "batch": len(active),
+            "table_width": mp, "positions_max": top, **out}
+
+
+def self_draft_rejections(srv, windows: int) -> list:
+    """From a snapshot of an engine armed with the self-draft, ``windows``
+    windows of :func:`spec_eager_loop`: for every rejected proposal, the
+    verify's top logit less its logit of the proposal. The proposals are
+    the target's own greedy tokens reached by another path (kernel 2 over
+    the draft cache, against the verify's dense gather), so each gap must
+    be within ``NEAR_TIE_ATOL``; raises otherwise."""
+    window, state = spec_eager_loop(srv)
+    k, out = srv.draft_k, []
+    for _ in range(windows):
+        _, n = window()
+        for i in srv._active():
+            a = int(n[i]) - 1
+            if a < k - 1:
+                row = state["logits"][i, a]
+                out.append(float(row.max() - row[int(state["drafted"][i, a])]))
+    del state
+    bad = [g for g in out if g > NEAR_TIE_ATOL]
+    if bad:
+        raise RuntimeError(f"self-draft: {len(bad)} of {len(out)} rejections "
+                           f"away from a near-tie (verify gaps {bad[:4]})")
+    return out
+
+
+def _live_rows_equal(srv, state) -> tuple:
+    """(pool rows equal, draft rows equal): each active stream's rows
+    below its length, read through its table in the pool and in place in
+    the draft cache, engine against the eager loop's clones, bitwise."""
+    import torch
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+
+    def parts(x):
+        return (x.q, x.s) if isinstance(x, QTensor) else (x,)
+
+    pool_eq = draft_eq = True
+    ps = srv.page_size
+    for i in srv._active():
+        n = int(srv.lengths[i])
+        pages = torch.tensor(srv._tables[i, :-(-n // ps)],
+                             device=srv.device, dtype=torch.long)
+        for side in ("k", "v"):
+            for a, b in zip(parts(srv.pool[side]), parts(state["pool"][side])):
+                ra = a[:, pages].flatten(1, 2)[:, :n]
+                rb = b[:, pages].flatten(1, 2)[:, :n]
+                pool_eq &= bool(torch.equal(ra, rb))
+            a, b = srv._draft_cache[side], state["draft"][side]
+            draft_eq &= bool(torch.equal(a[:, i, :n], b[:, i, :n]))
+    return pool_eq, draft_eq
+
+
+def _spec_graph_vs_eager(srv, windows=STEADY_WINDOWS) -> dict:
+    """From one snapshot of an armed engine (8 decoding streams):
+    ``windows`` spec windows through :func:`spec_eager_loop`, then through
+    ``step_many``, which replays the engine's spec graphs (a width not
+    seen yet is captured on the way). Each window is timed unprofiled on
+    the host clock through its host transfer. Raises unless both give the
+    same tokens, ``n_emit`` and lengths and write bitwise the same live
+    K/V rows in the pool and the draft cache."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+
+    active = srv._active()
+    k = srv.draft_k
+    window, state = spec_eager_loop(srv)
+    eager_ms, eager = [], []
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        eager.append(window())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    graph_ms, graphed, per_window = [], [], []
+    for _ in range(windows):
+        captured, before = len(srv._graphs), fd.flash_decode.launches
+        t0 = time.perf_counter()
+        out = srv.step_many(k)
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        graphed.append(out)
+        if len(srv._graphs) == captured:            # a replay
+            per_window.append(fd.flash_decode.launches - before)
+    problems = []
+    for w, ((tgt, n), out) in enumerate(zip(eager, graphed)):
+        for i in active:
+            if out.get(i) != tgt[i, :n[i]].tolist():
+                problems.append(f"window {w} stream {i}: graphed {out.get(i)}"
+                                f" vs eager {tgt[i, :n[i]].tolist()}")
+    if not (torch.equal(srv.lengths, state["ln"])
+            and torch.equal(srv.cur_tok, state["tok"])):
+        problems.append(f"lengths {srv.lengths.tolist()} vs eager "
+                        f"{state['ln'].tolist()}")
+    pool_eq, draft_eq = _live_rows_equal(srv, state)
+    if not (pool_eq and draft_eq):
+        problems.append(f"live K/V rows differ: pool {pool_eq}, draft "
+                        f"{draft_eq}")
+    want_launches = k * srv._draft[0].n_layers
+    if not per_window or any(n != want_launches for n in per_window):
+        problems.append(f"kernel 2 launches a replayed window {per_window}, "
+                        f"expected {want_launches}")
+    del state
+    if problems:
+        raise RuntimeError("graphed spec windows vs the eager loop: "
+                           + "; ".join(problems[:4]))
+    emitted = [int(n[i]) for _, n in eager for i in active]
+    med = sorted(graph_ms)[len(graph_ms) // 2]
+    med_eager = sorted(eager_ms)[len(eager_ms) // 2]
+    return {"batch": len(active), "windows": windows, "k": k,
+            "graph_window_ms": med, "eager_window_ms": med_eager,
+            "graph_window_ms_all": graph_ms, "eager_window_ms_all": eager_ms,
+            "tokens_per_target_pass": float(np.mean(emitted)),
+            "kernel2_launches_per_window": per_window,
+            "tokens_equal": True, "n_emit_equal": True,
+            "live_kv_bitwise_equal": True}
+
+
+def _serve_spec(srv, reqs, window=8):
+    """Drain ``reqs`` through the armed engine with the kernel counts set
+    to 0 just before and read just after: (streams, wall s, launches,
+    captures)."""
+    import torch
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    counters = {"flash_decode": fd.flash_decode,
+                "flash_decode_paged": fd.flash_decode_paged,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    graphs = len(srv._graphs)
+    t0 = time.perf_counter()
+    out = srv.drain([dict(r) for r in reqs], decode_window=window)
+    wall = time.perf_counter() - t0
+    return (out, wall, {n: c.launches for n, c in counters.items()},
+            len(srv._graphs) - graphs)
+
+
+def phase_spec(card: str, params, solo) -> tuple:
+    """Speculative decoding in process, on phase 3's 8B weights:
+    (1) ``PagedServer(slots=8, page_size=64, prefill_chunk=64)`` armed
+    with ``truncate_layers(cfg, params, 1)`` at k=4 serves phase 3's 12
+    requests, every stream held to phase 3's solo stream (near-tie rule);
+    (3) after a reset, 6 spec windows at B=8 graphed and by the eager
+    loop; (2) the self-draft (all 32 layers) on 4 of the requests, then
+    its rejections held to the near-tie rule
+    (:func:`self_draft_rejections`)."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    v = cfg.vocab_size
+    queue, want = solo["queue"], solo["out"]
+    prompts = {r["request_id"]: r["prompt"] for r in queue}
+    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                              prefill_chunk=64, device=dev)
+    cfg_d, params_d = llama.truncate_layers(cfg, params, DRAFT_LAYERS)
+    t0 = time.perf_counter()
+    srv.arm_draft(cfg_d, params_d, k=SPEC_K)
+    arm_s = time.perf_counter() - t0
+    out, wall, launches, captures = _serve_spec(srv, queue)
+    stats = srv.page_stats()
+    problems = []
+    divergences = stream_check("spec engine (truncated draft)", out, want,
+                               prompts, cfg, params)
+    if srv.ledger_violations():
+        problems.append(f"ledger: {srv.ledger_violations()[:3]}")
+    held = sum(srv.radix.held().values()) if srv.radix else 0
+    if any(srv._stream_pages) or srv.ledger.in_use() != len(
+            srv.radix.held() if srv.radix else ()) or held < 1:
+        problems.append(f"pages not back after the drain: {stats}")
+    spec = stats["spec"]
+    want_k2 = (spec["windows"] + captures) * SPEC_K * DRAFT_LAYERS
+    if launches["flash_decode"] != want_k2 or spec["windows"] < 1:
+        problems.append(f"kernel 2 launched {launches['flash_decode']} "
+                        f"times in {spec['windows']} windows and {captures} "
+                        f"captures, expected {want_k2}")
+    if launches["flash_attention_fwd"] != len(queue) * DRAFT_LAYERS:
+        problems.append(f"kernel 3 launched {launches['flash_attention_fwd']}"
+                        f" times for {len(queue)} draft prefills")
+    if spec["fallbacks"]:
+        problems.append(f"spec fallbacks {spec['fallbacks']}")
+    if problems:
+        raise RuntimeError("spec phase: " + "; ".join(problems))
+    n_tok = sum(len(t) for t in out.values())
+    log(f"[spec] {len(out)} requests, {n_tok} tokens in {wall:.1f} s, "
+        f"launches {launches}, spec {spec}, divergences {divergences}")
+
+    # (3) graphed vs eager after a reset, replaying part 1's graphs
+    srv.reset()
+    rng = np.random.default_rng(SEED + 1)
+    srv.submit_many([{"prompt": _prompt(rng, n, v), "max_new": 200,
+                      "request_id": i} for i, n in enumerate(
+                          (1, 63, 64, 65, 700, 1500, 1300, 333))])
+    while srv._prefill_q or srv._pending_first:
+        srv.step_many(1)
+    if len(srv._active()) != 8:
+        raise RuntimeError(f"expected 8 decoding streams, got "
+                           f"{srv._active()}")
+    verify_diff = verify_vs_steps(srv)
+    steady = _spec_graph_vs_eager(srv)
+    steady["verify_vs_kernel_steps_max_abs_logit"] = verify_diff
+    steady["split"] = spec_split(srv)
+    log(f"[spec] graphed vs eager {steady}")
+    graphs = _graph_line(srv)
+
+    # (2) the self-draft: every layer of the target as its own draft,
+    # first on three requests, then on prefix-b alone, whose prompt
+    # adopts prefix-a's radix pages (the draft must still see all of it);
+    # each drain's acceptance is held to SELF_DRAFT_ACCEPT_FLOOR
+    srv.reset()
+    cfg_s, params_s = llama.truncate_layers(cfg, params, cfg.n_layers)
+    srv.arm_draft(cfg_s, params_s, k=SPEC_K)
+    by_id = {r["request_id"]: r for r in queue}
+    self_reqs = [by_id[rid] for rid in SELF_DRAFT_REQUESTS]
+    out_s, wall_s, launches_s, drains = {}, 0.0, {}, []
+    for reqs in (self_reqs[:-1], self_reqs[-1:]):
+        before = dict(srv.page_stats())
+        out, wall, launches_d, _ = _serve_spec(srv, reqs)
+        after = srv.page_stats()
+        out_s.update(out)
+        wall_s += wall
+        for n, c in launches_d.items():
+            launches_s[n] = launches_s.get(n, 0) + c
+        drains.append({
+            "requests": [r["request_id"] for r in reqs],
+            "proposed": after["spec"]["proposed"]
+            - before["spec"]["proposed"],
+            "accepted": after["spec"]["accepted"]
+            - before["spec"]["accepted"],
+            "prefix_hits": after["prefix_hits"] - before["prefix_hits"]})
+    proposed = sum(d["proposed"] for d in drains)
+    accepted = sum(d["accepted"] for d in drains)
+    self_rate = accepted / max(proposed, 1)
+    low = [d for d in drains
+           if d["accepted"] < SELF_DRAFT_ACCEPT_FLOOR * d["proposed"]
+           or not d["proposed"]]
+    if low or drains[-1]["prefix_hits"] < 1:
+        raise RuntimeError(f"self-draft: acceptance under "
+                           f"{SELF_DRAFT_ACCEPT_FLOOR} or prefix-b adopted "
+                           f"no radix page: {drains}")
+    div_s = stream_check("spec engine (self-draft)", out_s,
+                         {r["request_id"]: want[r["request_id"]]
+                          for r in self_reqs}, prompts, cfg, params)
+    srv.reset()
+    srv.submit_many([{**r, "max_new": 200} for r in self_reqs])
+    while srv._prefill_q or srv._pending_first:
+        srv.step_many(1)
+    gaps = self_draft_rejections(srv, SELF_DRAFT_WINDOWS)
+    log(f"[spec] self-draft {len(out_s)} requests in {wall_s:.1f} s, "
+        f"accept {self_rate:.3f}, divergences {div_s}, eager rejections' "
+        f"verify gaps {gaps}")
+    srv.disarm_draft()
+    del srv
+    return {
+        "engine": "PagedServer", "slots": 8, "page_size": 64,
+        "prefill_chunk": 64, "k": SPEC_K, "draft_layers": DRAFT_LAYERS,
+        "requests": len(out), "tokens_out": n_tok, "wall_s": wall,
+        "output_tok_s": n_tok / wall, "arm_s": arm_s,
+        "windows": spec["windows"], "proposed": spec["proposed"],
+        "accepted": spec["accepted"], "accept_rate": spec["accept_rate"],
+        "fallbacks": spec["fallbacks"],
+        "draft_prefill_s": spec["draft_prefill_s"],
+        "window_s": spec["window_s"], "captures": captures,
+        "launches": launches, "graphs": graphs,
+        "near_tie_atol": NEAR_TIE_ATOL, "divergences": divergences,
+        "graphed_vs_eager": steady,
+        "self_draft": {"requests": len(out_s), "wall_s": wall_s,
+                       "proposed": proposed, "accepted": accepted,
+                       "accept_rate": self_rate, "launches": launches_s,
+                       "accept_floor": SELF_DRAFT_ACCEPT_FLOOR,
+                       "drains": drains, "divergences": div_s,
+                       "eager_windows": SELF_DRAFT_WINDOWS,
+                       "eager_rejections": len(gaps),
+                       "eager_rejection_max_gap": max(gaps, default=0.0)},
+        "card": card}, launches
+
+
+def save_spec_draft(params) -> dict:
+    """The worker's draft artifact: ``save_draft`` of the 1-layer
+    truncated 8B draft under ``build/spec_draft`` (the worker loads it;
+    its ``spec_armed`` event says how long that took)."""
+    import shutil
+    from dcos_commons_tpu_torch.models import llama, speculative
+
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    cfg_d, params_d = llama.truncate_layers(cfg, params, DRAFT_LAYERS)
+    path = Path(__file__).resolve().parent / "build" / "spec_draft"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    t0 = time.perf_counter()
+    step_dir = speculative.save_draft(str(path), 1, cfg_d, params_d,
+                                      target_cfg=cfg)
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+    return {"path": str(path), "save_s": save_s, "bytes": size}
+
+
+def phase_spec_worker(card, artifact, solo_replies, params):
+    """The worker with ``--spec-decode`` on the artifact: ``spec_armed``
+    with one draft layer (a ``spec_fallback`` fails the phase), the
+    requests of phase 6, tokens held to the paged worker's solo streams
+    (near-tie rule), ``/v1/stats`` with spec windows."""
+    from dcos_commons_tpu_torch.models import llama
+    extra = ("--pages", "64", "--spec-decode", "true", "--draft-checkpoint",
+             artifact["path"], "--draft-k", str(SPEC_K))
+    line, launches, replies, events = phase_worker(
+        card, "worker_spec", extra, "PagedServer",
+        ("flash_decode", "flash_attention_fwd"), expect=("spec_armed",),
+        forbid=("paged_fallback", "spec_fallback"))
+    armed = next(e for e in events if e["event"] == "spec_armed")
+    body = line["worker_spec"]
+    problems = []
+    if armed["draft_layers"] != DRAFT_LAYERS or armed["k"] != SPEC_K:
+        problems.append(f"armed {armed}")
+    if not body["stats_window"].get("spec_windows"):
+        problems.append(f"/v1/stats shows no spec window: "
+                        f"{body['stats_window']}")
+    if launches["flash_attention_fwd"] != len(WORKER_LENS) * DRAFT_LAYERS:
+        problems.append(f"kernel 3 launched {launches['flash_attention_fwd']}"
+                        " times while serving")
+    if problems:
+        raise RuntimeError("worker_spec phase: " + "; ".join(problems))
+    bodies = worker_bodies()
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    divergences = stream_check(
+        "worker_spec", dict(enumerate(replies)), dict(enumerate(solo_replies)),
+        {i: b["prompt"] for i, b in enumerate(bodies)}, cfg, params)
+    body["spec_armed"] = armed
+    body["divergences"] = divergences
     return line, launches
 
 
@@ -1286,20 +1924,61 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     decode_cases, slot_cases, fa_cases = phase_kernels(flush)
     del flush
-    serving_line, decode_launches, params = phase_serve(card)
+    serving_line, decode_launches, params, solo = phase_serve(card)
     torch.cuda.empty_cache()
-    slots_line, slot_launches = phase_serve_slots(card, params)
-    del params
-    # the front door's handler closes over the front door, a cycle that
-    # holds the engine (and the 8B weights) until the collector runs
+    spec_line, spec_launches = phase_spec(card, params, solo)
+    artifact = save_spec_draft(params)
     gc.collect()
     torch.cuda.empty_cache()
-    worker_lines, worker_launches = [], {}
+    slots_line, slot_launches = phase_serve_slots(card, params)
+    # the front door's handler closes over the front door, a cycle that
+    # holds the engine until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    worker_lines, worker_launches, replies = [], {}, {}
     for name, extra, engine, names in WORKER_ENGINES:
-        line, launches = phase_worker(card, name, extra, engine, names)
+        line, launches, replies[name], _ = phase_worker(card, name, extra,
+                                                        engine, names)
         worker_lines.append(line)
         worker_launches.update(launches)
+    try:
+        t0 = time.perf_counter()
+        spec_worker_line, spec_worker_launches = phase_spec_worker(
+            card, artifact, replies["worker_paged"], params)
+        spec_worker_s = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(artifact["path"], ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     training_line, fa_launches = phase_train(card)
+    ws = spec_worker_line["worker_spec"]
+    spec_summary = {
+        "windows": spec_line["windows"], "proposed": spec_line["proposed"],
+        "accepted": spec_line["accepted"],
+        "accept_rate_truncated": spec_line["accept_rate"],
+        "accept_rate_self": spec_line["self_draft"]["accept_rate"],
+        "fallbacks": spec_line["fallbacks"],
+        "window_ms_graphed": spec_line["graphed_vs_eager"]["graph_window_ms"],
+        "window_ms_eager": spec_line["graphed_vs_eager"]["eager_window_ms"],
+        "tokens_per_target_pass":
+            spec_line["graphed_vs_eager"]["tokens_per_target_pass"],
+        "verify_share": spec_line["graphed_vs_eager"]["split"][
+            "verify_share"],
+        "draft_prefill_s": spec_line["draft_prefill_s"],
+        "artifact_save_s": artifact["save_s"],
+        "artifact_load_s": ws["spec_armed"]["load_s"],
+        "artifact_bytes": artifact["bytes"],
+        "worker_boot_s": ws["boot_to_serving_s"],
+        "worker_phase_s": spec_worker_s,
+        "worker_ttft_p50_ms": ws["ttft_p50_ms"],
+        "worker_tpot_p50_ms": ws["tpot_p50_ms"],
+        "worker_output_tok_s": ws["output_tok_s"],
+        "near_tie_divergences": (len(spec_line["divergences"])
+                                 + len(spec_line["self_draft"]["divergences"])
+                                 + len(ws["divergences"])),
+        "engine": spec_line, "card": card}
     fa_tol = {"rtol": FA_RTOL,
               "atol": f"{FA_SCALED_ATOL} * max|plain| of each row of a head "
                       "(O) or of the tensor (gradients)",
@@ -1310,18 +1989,24 @@ def main() -> int:
         _kernel_entry("flash_decode_paged", csrc + "flash_decode_paged.cu",
                       "dcos_commons_tpu/ops/flash_decode.py:263",
                       {"serving": decode_launches,
-                       "worker_paged": worker_launches["flash_decode_paged"]},
+                       "worker_paged": worker_launches["flash_decode_paged"],
+                       "spec": spec_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
                       "dcos_commons_tpu/ops/flash_decode.py:55",
                       {"serving_slots": slot_launches["flash_decode"],
-                       "worker": worker_launches["flash_decode"]},
+                       "worker": worker_launches["flash_decode"],
+                       "spec": spec_launches["flash_decode"],
+                       "worker_spec": spec_worker_launches["flash_decode"]},
                       slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
                       {"serving_slots": slot_launches["flash_attention_fwd"],
                        "worker": worker_launches["flash_attention_fwd"],
+                       "spec": spec_launches["flash_attention_fwd"],
+                       "worker_spec":
+                           spec_worker_launches["flash_attention_fwd"],
                        "training": fa_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
@@ -1346,7 +2031,9 @@ def main() -> int:
     print(json.dumps(slots_line), flush=True)
     for line in worker_lines:
         print(json.dumps(line), flush=True)
+    print(json.dumps(spec_worker_line), flush=True)
     print(json.dumps(training_line), flush=True)
+    print(json.dumps({"spec": spec_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

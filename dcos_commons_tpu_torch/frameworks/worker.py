@@ -3,7 +3,8 @@ of ``frameworks/jax/worker.py``, its ``llama`` workload).
 
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset tiny
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
-        --serve --slots 8 [--pages 64] [--quant int8] [--kv-quant]
+        --serve --slots 8 [--pages 64] [--quant int8] [--kv-quant] \\
+        [--spec-decode true --draft-checkpoint DIR --draft-k 4] [--out VOL]
 
 Flags keep the reference's names, defaults and env knobs; ``--device``
 (default ``cuda``) is the one new flag, the counterpart of the
@@ -20,14 +21,21 @@ as CUDA graphs, with the process-wide compile cache of
 decode. ``serving.ready`` in the working directory is the readiness
 marker, re-stamped with the port once the front door listens.
 
+``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
+a sealed draft artifact (``models.speculative.save_draft``): a
+``spec_armed`` event, or a coded ``spec_fallback`` (the reference's
+codes) and solo serving. A serving worker whose ``--out`` holds a
+sharded checkpoint (``parallel.checkpoint``) restores its weights from
+it (``weights_loaded`` with ``source`` ``disk``), or emits
+``weight_restore_fallback`` and serves the init.
+
 What is not ported yet refuses loudly, never serves without it: a
 knob of a module still to port exits 2 with a coded ``error`` event
-naming its ROADMAP Queue 1 item (checkpoints and peer weights: item 6;
-gangs: item 7; speculative decoding: item 8; MoE and ring prefill: item
-9; disaggregation, the router, KV tiers and the prefix directory: item
-10; profiling and the other workloads: item 4). The weight server is an
-accelerant in the reference, so asking for it only emits
-``weight_server_error``.
+naming its ROADMAP Queue 1 item (peer weights: item 6; gangs: item 7;
+MoE and ring prefill: item 9; disaggregation, the router, KV tiers and
+the prefix directory: item 10; profiling and the other workloads: item
+4). The weight server is an accelerant in the reference, so asking for
+it only emits ``weight_server_error``.
 """
 
 from __future__ import annotations
@@ -36,7 +44,6 @@ import argparse
 import json
 import logging
 import os
-import re
 import sys
 import time
 
@@ -65,22 +72,6 @@ def yaml_bool(value) -> bool:
     return bool(value)
 
 
-# a committed step of the sharded checkpoint layout: step-<8 digits>-p<pid>
-# holding a manifest.json
-_STEP_RE = re.compile(r"step-(\d{8})-p(\d+)$")
-
-
-def _has_checkpoint(out_dir: str, pid: int) -> bool:
-    try:
-        names = os.listdir(out_dir)
-    except OSError:
-        return False
-    return any(
-        (m := _STEP_RE.match(name)) and int(m.group(2)) == pid
-        and os.path.exists(os.path.join(out_dir, name, "manifest.json"))
-        for name in names)
-
-
 def _refuse_unported(args) -> None:
     """Raise :class:`NotPorted` for a serving knob whose module is not
     ported yet."""
@@ -95,10 +86,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("disagg_not_ported", f"--serve-role {role}: "
                         "disaggregated prefill/decode tiers are not "
                         "ported yet (ROADMAP Queue 1 item 10)")
-    if yaml_bool(args.spec_decode):
-        raise NotPorted("spec_decode_not_ported", "--spec-decode: "
-                        "speculative decoding is not ported yet (ROADMAP "
-                        "Queue 1 item 8)")
     if args.moe_experts > 0:
         raise NotPorted("moe_not_ported", "--moe-experts: MoE serving is "
                         "not ported yet (ROADMAP Queue 1 item 9)")
@@ -117,22 +104,39 @@ def _refuse_unported(args) -> None:
                         "(ROADMAP Queue 1 item 10)")
 
 
-def _boot_serving_weights(args, params, contract):
-    """The reference boots serving weights from a sibling's weight
-    server, else the local checkpoint under ``--out``, else the init.
-    Neither source is ported, and serving the init in their place would
-    be a different result: both refuse."""
+def _boot_serving_weights(args, template, init, registry=None):
+    """Serving weights from, in the reference's order, a sibling's weight
+    server (``WEIGHT_FETCH_PEERS``: not ported, refused, since serving
+    the init in its place would be a different result), the newest
+    sharded checkpoint under ``--out`` restored into ``template`` (a tree
+    of uninitialised tensors, so the device never holds the weights
+    twice), or ``init()``. A checkpoint that fails its restore (pruned or
+    corrupt shards) falls through to the init with a
+    ``weight_restore_fallback`` event. The restore's seconds land in the
+    registry and the returned report, as in the reference."""
+    from ..parallel import checkpoint as ckpt
     if any(p.strip() for p in
            os.environ.get("WEIGHT_FETCH_PEERS", "").split(",")):
         raise NotPorted("weight_fetch_not_ported", "WEIGHT_FETCH_PEERS: "
                         "peer weight fetch (models/weights.py) is not "
                         "ported yet (ROADMAP Queue 1 item 6)")
-    if args.out and _has_checkpoint(args.out, contract["process_id"]):
-        raise NotPorted("checkpoint_not_ported", f"--out {args.out} holds "
-                        "a checkpoint: restoring it (parallel/"
-                        "checkpoint.py) is not ported yet (ROADMAP Queue 1 "
-                        "item 6)")
-    return params, {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
+    report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
+    step = ckpt.latest_step(args.out) if args.out else None
+    if step is not None:
+        try:
+            t0 = time.perf_counter()
+            params = ckpt.restore_sharded(args.out, template, step)
+            dt = time.perf_counter() - t0
+            report["restore_s"] = round(dt, 4)
+            if registry is not None:
+                registry.observe("autoscale.cold_start.restore_seconds", dt)
+            report["source"] = "disk"
+            report["step"] = step
+            return params, report
+        except (FileNotFoundError, ckpt.CheckpointCorrupt) as e:
+            _emit({"event": "weight_restore_fallback", "error": str(e),
+                   "step": step})
+    return init(), report
 
 
 def _start_weight_server(args) -> None:
@@ -146,13 +150,16 @@ def _start_weight_server(args) -> None:
                         "ported yet (ROADMAP Queue 1 item 6)"})
 
 
-def _make_serving_engine(args, cfg, params, device):
+def _make_serving_engine(args, cfg, params, device, registry=None):
     """``PagedServer`` with ``--pages`` (sharing the process-wide compile
     cache), ``SlotServer`` otherwise. A paged config the model cannot
     satisfy falls back to the slot engine with a ``paged_fallback``
-    event, as in the reference."""
+    event, as in the reference. ``--spec-decode`` arms the paged engine
+    (:func:`_arm_spec_decode`); without one it emits ``spec_fallback``
+    with ``spec_needs_paged`` and serves solo."""
     from ..models.serving import PagedServer, SlotServer
     from ..parallel import aot
+    spec_wanted = yaml_bool(args.spec_decode)
     if args.pages:
         try:
             engine = PagedServer(
@@ -161,12 +168,50 @@ def _make_serving_engine(args, cfg, params, device):
                 page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk,
                 compile_cache=aot.from_env(), device=device)
+            if spec_wanted:
+                _arm_spec_decode(args, cfg, engine, registry)
             return engine, engine.page_stats()
         except ValueError as e:
             _emit({"event": "paged_fallback", "error": str(e),
                    "pages": args.pages, "page_size": args.page_size,
                    "prefill_chunk": args.prefill_chunk})
+    if spec_wanted:
+        _emit({"event": "spec_fallback", "code": "spec_needs_paged",
+               "error": "speculative decode needs the paged engine "
+                        "(--pages); serving solo"})
     return SlotServer(cfg, params, slots=args.slots, device=device), None
+
+
+def _arm_spec_decode(args, cfg, engine, registry) -> None:
+    """Load the draft artifact onto the engine's device and arm the paged
+    engine, with a coded ``spec_fallback`` on any draft problem: the load
+    re-checks the sealed manifest digest (an overwritten artifact reads
+    as ``draft_manifest_stale``) and the arm runs the widest window once,
+    so what can go wrong goes wrong here, before a request exists."""
+    from ..models.speculative import DraftIncompatible, load_draft
+    path = args.draft_checkpoint or ""
+    if not path:
+        _emit({"event": "spec_fallback", "code": "draft_config_missing",
+               "error": "--spec-decode without --draft-checkpoint"})
+        return
+    try:
+        t0 = time.perf_counter()
+        cfg_d, params_d, meta = load_draft(path, cfg, device=engine.device)
+        load_s = time.perf_counter() - t0
+        engine.arm_draft(cfg_d, params_d, k=max(2, args.draft_k),
+                         metrics=registry)
+    except DraftIncompatible as e:
+        _emit({"event": "spec_fallback", "code": e.code, "error": str(e),
+               "draft_checkpoint": path})
+        return
+    except Exception as e:  # the arm-time window failed to run
+        engine.disarm_draft()
+        _emit({"event": "spec_fallback", "code": "draft_arm_failed",
+               "error": str(e), "draft_checkpoint": path})
+        return
+    _emit({"event": "spec_armed", "draft_checkpoint": path,
+           "k": engine.draft_k, "draft_layers": cfg_d.n_layers,
+           "draft_step": meta.get("step"), "load_s": round(load_s, 4)})
 
 
 def _nbytes(tree) -> int:
@@ -235,21 +280,27 @@ def run_llama(args) -> dict:
         toks.cpu()
         return round(exec_len / max(time.perf_counter() - t0, 1e-9), 2)
 
-    if args.quant == "int8":
-        # init + quantize on the host CPU: no bf16 weight on the device
-        params = llama.init_quantized_params(
-            cfg, torch.Generator().manual_seed(0), device=dev)
-    else:
-        params = llama.init_params(
+    def init():
+        if args.quant == "int8":
+            # init + quantize on the host CPU: no bf16 weight on the device
+            return llama.init_quantized_params(
+                cfg, torch.Generator().manual_seed(0), device=dev)
+        return llama.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
     registry = None
     boot_report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
     if args.serve:
         from ..metrics import MetricsRegistry
         registry = MetricsRegistry()
-        if args.quant == "none":
-            params, boot_report = _boot_serving_weights(args, params,
-                                                        contract)
+    if args.serve and args.quant == "none":
+        params, boot_report = _boot_serving_weights(
+            args, llama.param_template(cfg, dev), init, registry)
+    else:
+        # int8 replicas keep their freshly quantized init, as in the
+        # reference: quantized trees are outside the restore template
+        params = init()
+    if args.serve:
         _emit({"event": "weights_loaded", **boot_report})
     prompt = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
     timed_decode(prompt)  # warm-up
@@ -292,7 +343,8 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
     """Continuous batching behind the HTTP front door; never returns."""
     from ..models.ingress import ServingFrontend
     t_compile = time.perf_counter()
-    server, page_stats = _make_serving_engine(args, cfg, params, dev)
+    server, page_stats = _make_serving_engine(args, cfg, params, dev,
+                                              registry)
     warmup = getattr(server, "warmup", None)
     if warmup is not None:
         # capture the one-step window graph now, so the first request
@@ -326,7 +378,7 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
                "compile_s": round(compile_s, 4),
                "admit_s": round(admit_s, 4)},
            **({"paged": page_stats} if page_stats else {}),
-           **result})
+           **_device_report(server), **result})
     i = 0
     while True:
         time.sleep(args.serve_interval)
@@ -403,13 +455,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported (item 10): > 0 exits 2")
     p.add_argument("--spec-decode",
                    default=os.environ.get("SPEC_DECODE", "false"),
-                   help="not ported (item 8): true exits 2")
+                   help="--serve --pages: arm speculative decode on the "
+                        "paged engine (draft-propose + paged verify, 1 + "
+                        "accepted tokens per target pass, the greedy "
+                        "stream); true/false. Any draft problem serves "
+                        "solo with a coded spec_fallback event")
     p.add_argument("--draft-checkpoint",
                    default=os.environ.get("DRAFT_CHECKPOINT", ""),
-                   help="--spec-decode's draft artifact (not ported)")
+                   help="--spec-decode: the save_draft artifact directory "
+                        "(sharded draft weights + draft_config.json)")
     p.add_argument("--draft-k", type=int,
                    default=int(os.environ.get("DRAFT_K", "4") or 4),
-                   help="--spec-decode's window (not ported)")
+                   help="--spec-decode: draft proposals verified per "
+                        "target pass (>= 2)")
     p.add_argument("--moe-experts", type=int,
                    default=int(os.environ.get("MOE_EXPERTS", "0") or 0),
                    help="not ported (item 9): > 0 exits 2")
@@ -472,9 +530,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=os.environ.get("SERVE_PEER", ""),
                    help="--serve-role decode's prefill tier (not ported)")
     p.add_argument("--out", default="",
-                   help="the task's volume: created if absent; a "
-                        "checkpoint in it is not restored yet (item 6) "
-                        "and exits 2")
+                   help="the task's volume: created if absent; --serve "
+                        "restores the newest sharded checkpoint in it")
     p.add_argument("--profile-dir", default="",
                    help="not ported (item 4): set, or TPU_PROFILE_DIR set, "
                         "exits 2")

@@ -26,9 +26,14 @@ API (all JSON):
   reference answers for an engine without ``export_prefix``: no engine
   of the port exports a prefix yet (its KVSPAN frame is not ported).
 
+A paged engine with a draft armed (or armed once) adds the reference's
+speculative gauges (``spec_windows``, ``spec_proposed``,
+``spec_accepted``, ``spec_accept_rate``, ``spec_fallbacks``) to the load
+gauges and the registry.
+
 Not ported: the external-driver interface of the tensor-parallel gang
 loop (``start(drive=False)``, ``attach``, ``mark_driven``), and the KV
-tier and speculative-decoding gauges (no port engine has either).
+tier gauges (no port engine has tiers).
 """
 
 from __future__ import annotations
@@ -162,7 +167,8 @@ class ServingFrontend:
         # lock — to_dict()'s contract — so reading self._lock is safe)
         for key in ("queue_depth", "queue_capacity", "completed", "shed",
                     "shed_rate", "ttft_p95_ms", "pages_free",
-                    "pages_total"):
+                    "pages_total", "spec_windows", "spec_proposed",
+                    "spec_accepted", "spec_accept_rate", "spec_fallbacks"):
             self.metrics.gauge(f"ingress.{key}",
                                lambda k=key: self.load_gauges().get(k))
         frontend = self
@@ -542,6 +548,18 @@ class ServingFrontend:
             ledger = getattr(self.engine, "ledger", None)
             if ledger is not None:
                 out["pages_total"] = ledger.pages
+        if getattr(self.engine, "spec_windows", 0) or \
+                getattr(self.engine, "draft_k", 0):
+            # speculative decode armed (or armed once): tokens per target
+            # pass are 1 + accept_rate * (k - 1), the engine's speed
+            # multiplier, beside the queue gauges
+            proposed = self.engine.spec_proposed
+            out["spec_windows"] = self.engine.spec_windows
+            out["spec_proposed"] = proposed
+            out["spec_accepted"] = self.engine.spec_accepted
+            out["spec_accept_rate"] = (
+                out["spec_accepted"] / proposed if proposed else 0.0)
+            out["spec_fallbacks"] = self.engine.spec_fallbacks
         return out
 
     def stats(self) -> dict:

@@ -8,9 +8,13 @@ Serving: the config presets, parameter init and int8 weights
   ``prefill`` / ``prefill_trunk`` write a prompt's K/V, ``decode_step``
   decodes every row at one position, ``decode_step_slots`` each row at
   its own; ``generate``, ``generate_stepwise``, ``generate_chunked`` and
-  ``decode_chunk`` drive solo decode.
-* The page pool (``init_page_pool``) with ``decode_step_paged`` and
-  ``prefill_chunk_paged``.
+  ``decode_chunk`` drive solo decode; ``extend_step`` consumes a K-token
+  window at one position (the speculative verify of solo decoding).
+* The page pool (``init_page_pool``) with ``decode_step_paged``,
+  ``prefill_chunk_paged`` and ``verify_step_paged`` (a K-token window per
+  stream: the engine's speculative verify).
+
+``truncate_layers`` cuts a draft from the target's first layers.
 
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
@@ -46,8 +50,8 @@ from ..ops.flash_decode import (flash_decode, flash_decode_paged,
 from ..ops.losses import fused_linear_cross_entropy, softmax_cross_entropy
 from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
-from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_positions,
-                          rope_frequencies)
+from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_at_many,
+                          apply_rope_positions, rope_frequencies)
 
 Params = Dict[str, Any]
 Pool = Dict[str, QArray]
@@ -125,45 +129,73 @@ class LlamaConfig:
 _INIT_ROWS = 1 << 14
 
 
+def param_template(cfg: LlamaConfig, device: DeviceLike = "cuda") -> Params:
+    """The parameter tree of uninitialised tensors: the reference's keys,
+    shapes (stacked [L, ...] layer weights) and ``cfg.dtype``.
+    :func:`init_params` fills it; a checkpoint restore takes it as its
+    template, with no random draws."""
+    dev = resolve_device(device)
+    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+
+    def e(*shape):
+        return torch.empty(shape, dtype=cfg.dtype, device=dev)
+
+    return {
+        "embed": e(cfg.vocab_size, d),
+        "layers": {"attn_norm": e(L, d), "wq": e(L, d, qd),
+                   "wk": e(L, d, kvd), "wv": e(L, d, kvd),
+                   "wo": e(L, qd, d), "ffn_norm": e(L, d),
+                   "w_gate": e(L, d, f), "w_up": e(L, d, f),
+                   "w_down": e(L, f, d)},
+        "norm": e(d),
+        "lm_head": e(d, cfg.vocab_size),
+    }
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Params:
     """Scaled-normal init with the reference's shapes and scales; stacked
     [L, ...] layer weights. ``generator`` must live on ``device``. Torch
     and JAX draw different numbers from one seed: parity tests take the
     JAX weights through ``models.bridge.params_from_jax`` instead."""
-    dev = resolve_device(device)
-    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
-    qd = cfg.n_heads * cfg.head_dim
-    kvd = cfg.n_kv_heads * cfg.head_dim
-    dt = cfg.dtype
+    params = param_template(cfg, device)
+    layers = params["layers"]
+    L, qd = cfg.n_layers, cfg.n_heads * cfg.head_dim
 
-    def norm2(*shape, scale=None):
-        scale = scale if scale is not None else shape[-2] ** -0.5
-        out = torch.empty(shape, dtype=dt, device=dev)
-        rows = out.view(-1, shape[-1])
+    def normal_(out, scale=None):
+        scale = scale if scale is not None else out.shape[-2] ** -0.5
+        rows = out.view(-1, out.shape[-1])
         for i in range(0, rows.shape[0], _INIT_ROWS):
             n = min(_INIT_ROWS, rows.shape[0] - i)
             rows[i:i + n] = (torch.randn(
-                (n, shape[-1]), generator=generator, dtype=torch.float32,
-                device=dev) * scale).to(dt)
-        return out
+                (n, rows.shape[1]), generator=generator,
+                dtype=torch.float32, device=out.device) * scale).to(out.dtype)
 
-    return {
-        "embed": norm2(cfg.vocab_size, d, scale=d ** -0.5),
-        "layers": {
-            "attn_norm": torch.ones((L, d), dtype=dt, device=dev),
-            "wq": norm2(L, d, qd),
-            "wk": norm2(L, d, kvd),
-            "wv": norm2(L, d, kvd),
-            "wo": norm2(L, qd, d, scale=(qd ** -0.5) / (2 * L) ** 0.5),
-            "ffn_norm": torch.ones((L, d), dtype=dt, device=dev),
-            "w_gate": norm2(L, d, f),
-            "w_up": norm2(L, d, f),
-            "w_down": norm2(L, f, d, scale=(f ** -0.5) / (2 * L) ** 0.5),
-        },
-        "norm": torch.ones((d,), dtype=dt, device=dev),
-        "lm_head": norm2(d, cfg.vocab_size),
-    }
+    # drawn in the order the keys are listed, as before the template
+    normal_(params["embed"], cfg.dim ** -0.5)
+    for name in ("wq", "wk", "wv"):
+        normal_(layers[name])
+    normal_(layers["wo"], (qd ** -0.5) / (2 * L) ** 0.5)
+    for name in ("w_gate", "w_up"):
+        normal_(layers[name])
+    normal_(layers["w_down"], (cfg.ffn_dim ** -0.5) / (2 * L) ** 0.5)
+    normal_(params["lm_head"])
+    for norm in (layers["attn_norm"], layers["ffn_norm"], params["norm"]):
+        norm.fill_(1)
+    return params
+
+
+def check_params_device(params: Params, device: torch.device,
+                        user: str) -> None:
+    """Raise unless ``params`` live on ``device``'s type (the ``user``,
+    an engine or a decoder, runs there)."""
+    embed = params["embed"]
+    params_dev = (embed.q if isinstance(embed, QTensor) else embed).device
+    if params_dev.type != device.type:
+        raise ValueError(f"params live on {params_dev}, the {user} on "
+                         f"{device}")
 
 
 def quantize_params(params: Params) -> Params:
@@ -340,16 +372,17 @@ def _use_flash_decode(cfg: LlamaConfig, device: torch.device) -> bool:
 
 def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
                  tokens: torch.Tensor, rope_fn: Callable, cache_write,
-                 attn: Callable, logit_index: Optional[int] = None
-                 ) -> torch.Tensor:
+                 attn: Callable, logit_index: Optional[int] = None,
+                 all_positions: bool = False) -> torch.Tensor:
     """The cache-consuming forward shared by the decode steps (solo, per
-    slot, paged) and the paged prefill chunk: they differ only in how
-    rope is applied, where K/V rows land (``cache_write(cache_layer,
-    rows)``) and the attention read (``attn(q, k_cache_layer,
-    v_cache_layer)``).
+    slot, paged), the paged prefill chunk and the K-token windows: they
+    differ only in how rope is applied, where K/V rows land
+    (``cache_write(cache_layer, rows)``) and the attention read
+    (``attn(q, k_cache_layer, v_cache_layer)``).
 
     ``tokens`` [B, S]; returns fp32 logits [B, V] at the last position,
-    or at ``logit_index`` (a padded prefill chunk's last live token)."""
+    at ``logit_index`` (a padded prefill chunk's last live token), or
+    with ``all_positions`` [B, S, V] at every position."""
     b, s = tokens.shape
     layers = params["layers"]
     x = qtake(params["embed"], tokens, cfg.dtype)               # [B, S, D]
@@ -368,7 +401,8 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
         x = x + qmm(o.reshape(b, s, -1), lp["wo"])
         x = ffn_block(cfg, x, lp)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
-    x = x[:, -1, :] if logit_index is None else x[:, logit_index, :]
+    if not all_positions:
+        x = x[:, -1, :] if logit_index is None else x[:, logit_index, :]
     return qmm(x, params["lm_head"]).float()
 
 
@@ -412,6 +446,53 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     logits = _decode_body(cfg, params, pool, tokens[:, None],
                           rope_fn=lambda t: apply_rope_at(t, rope, lengths),
                           cache_write=cache_write, attn=attn)
+    return logits, pool
+
+
+def verify_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
+                      table: torch.Tensor, lengths: torch.Tensor,
+                      tokens: torch.Tensor,
+                      rope: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Pool]:
+    """Consume a K-token window PER STREAM against the paged pool: the
+    speculative verify of :class:`~dcos_commons_tpu_torch.models.serving.
+    PagedServer`.
+
+    ``tokens`` [B, K] occupy positions ``lengths[b] .. lengths[b]+K-1``
+    of each stream. Row (b, j)'s K/V lands through ``table`` [B, MP] as
+    :func:`decode_step_paged`'s single row would at that position, every
+    stream's, masked or not; the page index clips to ``MP - 1``, so a
+    window past the table's span writes onto the rows of its last page,
+    as the reference's does. Attention gathers the pages and is causal
+    within the window (query j of stream b sees positions up to
+    ``lengths[b] + j``), in fp32 over the dense gather, outside any
+    kernel, as in the reference. Returns (logits [B, K, V] fp32, the pool
+    updated in place)."""
+    rope = _rope_table(cfg, rope, tokens.device)
+    b, kk = tokens.shape
+    ps = pool["k"].shape[2]
+    mp = table.shape[1]
+    positions = lengths[:, None] + torch.arange(
+        kk, dtype=torch.int32, device=tokens.device)[None]
+    page_idx = torch.clamp(positions // ps, 0, mp - 1).long()
+    phys = torch.gather(table, 1, page_idx)                    # [B, K]
+    offs = positions % ps
+    rope_pos = torch.clamp(positions, 0, rope.shape[1] - 1)
+
+    def cache_write(cache, new):
+        _page_write(cache, new.reshape((b * kk,) + new.shape[2:]),
+                    phys.reshape(-1), offs.reshape(-1))
+
+    def attn(q, k_cache, v_cache):
+        k_read = _gather_pages(k_cache, table, cfg.dtype)
+        v_read = _gather_pages(v_cache, table, cfg.dtype)
+        return gqa_attention(q, k_read, v_read, causal=True,
+                             q_offset=lengths, kv_len=lengths + kk)
+
+    logits = _decode_body(
+        cfg, params, pool, tokens,
+        rope_fn=lambda t: apply_rope_at_many(t, rope, rope_pos),
+        cache_write=cache_write, attn=attn, all_positions=True)
     return logits, pool
 
 
@@ -467,6 +548,31 @@ def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
         cache_write=lambda c, new: _cache_update(c, new, pos, 1),
         attn=_slot_attn(cfg, token.device, kv_len))
     return logits, cache
+
+
+def extend_step(cfg: LlamaConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor, pos: int,
+                rope: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Consume K tokens in ONE forward: ``tokens`` [B, K] occupy
+    positions ``pos .. pos+K-1`` (``pos`` a host int); returns (logits
+    [B, K, V] fp32 at every position, the cache updated in place). The
+    verify pass of :class:`~dcos_commons_tpu_torch.models.speculative.
+    SpeculativeDecoder`: the window's K/V land first, then each query
+    attends causally within the window and to the live prefix, over the
+    dense read (as in the reference). A window past the cache's end
+    writes onto its last rows (the clamped start of
+    :func:`_cache_update`)."""
+    kk = tokens.shape[1]
+    rope = _rope_table(cfg, rope, tokens.device)
+    return _decode_body(
+        cfg, params, cache, tokens,
+        rope_fn=lambda t: apply_rope(t, rope, pos),
+        cache_write=lambda c, new: _cache_update(c, new, pos, 1),
+        attn=lambda q, k_cache, v_cache: gqa_attention(
+            q, _dense(k_cache, cfg.dtype), _dense(v_cache, cfg.dtype),
+            causal=True, q_offset=pos, kv_len=pos + kk),
+        all_positions=True), cache
 
 
 def decode_step_slots(cfg: LlamaConfig, params: Params, cache: Cache,
@@ -787,3 +893,17 @@ def generate_chunked(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
         emitted += chunk
         pos += chunk
     return torch.cat(out, dim=1)[:, :steps]
+
+
+def truncate_layers(cfg: LlamaConfig, params: Params, n_layers: int
+                    ) -> Tuple[LlamaConfig, Params]:
+    """A layer-skip draft: the target's FIRST ``n_layers`` decoder layers
+    with the embedding, final norm and lm_head shared. The stacked
+    ``[L, ...]`` layout makes the cut a view (quantized leaves too): no
+    weight is copied."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"draft layers {n_layers} not in [1, {cfg.n_layers}]")
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    layers = {k: w[:n_layers] for k, w in params["layers"].items()}
+    return dcfg, {**params, "layers": layers}

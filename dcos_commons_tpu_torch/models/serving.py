@@ -36,10 +36,14 @@ Differences from the reference, all mechanical:
 * a sampler draws from a ``torch.Generator`` (``generator=``), not a JAX
   key; a graph registers the engine's generator, so a sampled stream is
   the eager loop's stream for the same seed;
+* speculative decoding (:meth:`PagedServer.arm_draft`): a window is k
+  draft steps over the draft's own slot cache, the K-wide paged verify
+  and the acceptance on the device, replayed on CUDA as one graph per
+  ``(k, table width)`` from the same pool; ``reset`` zeroes the draft
+  cache in place, since graphs bind it;
 * not ported yet, and refused by the constructors (no such parameter):
   tensor-parallel meshes and, for the paged engine, KV tiers, the prefix
-  directory, disaggregation, migration, speculative decoding, MoE and
-  ring prefill.
+  directory, disaggregation, migration, MoE and ring prefill.
 """
 
 from __future__ import annotations
@@ -105,15 +109,17 @@ def _scatter_rows(cache: QArray, new: torch.Tensor,
         cache[:, idx, :p] = new.to(cache.dtype)
 
 
-# the kernel wrappers a decode window launches: a graph replay adds the
-# launches its capture recorded to their counts
+# the kernel wrappers a decode window launches (a spec window: the slot
+# kernel in its draft steps): a graph replay adds the launches its
+# capture recorded to their counts
 _WINDOW_KERNELS = (flash_decode, flash_decode_paged)
 
 
 @dataclasses.dataclass
 class _Window:
-    """A captured decode window: its graph, the static output tokens
-    [k, slots] it writes, and the kernel launches one replay makes."""
+    """A captured decode window: its graph, the static output it writes
+    (tokens [k, slots]; a spec window's [slots, k + 1]), and the kernel
+    launches one replay makes."""
     graph: Any
     out: torch.Tensor
     launches: Tuple[int, ...]
@@ -178,13 +184,15 @@ class _Engine:
         self.cur_tok.copy_(tok)
         return out
 
-    def _capture(self, k: int, mp: Optional[int], key: Any) -> _Window:
-        """Capture the window of ``key`` into this engine's graph pool.
-        First the same window runs eagerly on the capture stream with
-        every stream masked off: lazy initialisation happens outside
+    def _capture(self, key: Any, fn) -> _Window:
+        """Capture the window ``fn`` (no arguments, returns the window's
+        output tensor) as the graph of ``key`` in this engine's graph
+        pool. First the same window runs eagerly on the capture stream
+        with every stream masked off: lazy initialisation happens outside
         the capture, and no length or token advances (each stream
         rewrites the K/V row its next step writes, with the same values;
-        the generator's state is put back)."""
+        rows past it are rewritten before they are read; the generator's
+        state is put back)."""
         t0 = time.perf_counter()
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -195,44 +203,43 @@ class _Engine:
         self._mask.zero_()
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._window(k, mp)
+            fn()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         if gen_state is not None:
             self.generator.set_state(gen_state)
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        before = [fn.launches for fn in _WINDOW_KERNELS]
+        before = [kern.launches for kern in _WINDOW_KERNELS]
         # thread_local: the front door's HTTP threads may run meanwhile
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                               capture_error_mode="thread_local"):
-            out = self._window(k, mp)
+            out = fn()
         # a capture launches nothing: its count moves to each replay
         launches = []
-        for fn, n in zip(_WINDOW_KERNELS, before):
-            launches.append(fn.launches - n)
-            fn.launches = n
+        for kern, n in zip(_WINDOW_KERNELS, before):
+            launches.append(kern.launches - n)
+            kern.launches = n
         win = self._graphs[key] = _Window(graph, out, tuple(launches))
         self.capture_s += time.perf_counter() - t0
         return win
 
-    def _run_window(self, k: int, mp: Optional[int], key: Any,
-                    active: List[int]) -> np.ndarray:
-        """Run the window of ``key`` over the ``active`` streams (the
-        graph on CUDA, captured on first use) and bring its tokens to the
-        host in ONE transfer: [k, slots]."""
+    def _run_window(self, key: Any, active: List[int], fn) -> np.ndarray:
+        """Run the window ``fn`` over the ``active`` streams (on CUDA the
+        graph of ``key``, captured on first use) and bring its output to
+        the host in ONE transfer."""
         mask = np.zeros((self.slots,), dtype=bool)
         mask[active] = True
         if self.device.type != "cuda":
             self._mask.copy_(torch.from_numpy(mask))
-            return self._window(k, mp).cpu().numpy()
+            return fn().cpu().numpy()
         win = self._graphs.get(key)
         if win is None:
-            win = self._capture(k, mp, key)
+            win = self._capture(key, fn)
         self._mask.copy_(torch.from_numpy(mask))
         win.graph.replay()
-        for fn, n in zip(_WINDOW_KERNELS, win.launches):
-            fn.launches += n
+        for kern, n in zip(_WINDOW_KERNELS, win.launches):
+            kern.launches += n
         return win.out.cpu().numpy()
 
     def graph_stats(self) -> Dict[str, Any]:
@@ -291,14 +298,6 @@ class _Engine:
         return dict(self.finished)
 
 
-def _check_params_device(params, device: torch.device) -> None:
-    embed = params["embed"]
-    params_dev = (embed.q if isinstance(embed, QTensor) else embed).device
-    if params_dev.type != device.type:
-        raise ValueError(f"params live on {params_dev}, the engine on "
-                         f"{device}")
-
-
 class SlotServer(_Engine):
     """Fixed-slot continuous batching over one resident weight set.
 
@@ -326,7 +325,7 @@ class SlotServer(_Engine):
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
-        _check_params_device(params, self.device)
+        llama.check_params_device(params, self.device, "engine")
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -498,7 +497,8 @@ class SlotServer(_Engine):
         active = self._active()
         if not active:
             return {}
-        return self._emit(self._run_window(k, None, k, active), active)
+        host = self._run_window(k, active, lambda: self._window(k, None))
+        return self._emit(host, active)
 
     # --------------------------------------------------------- retirement
 
@@ -578,7 +578,7 @@ class PagedServer(_Engine):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
-        _check_params_device(params, self.device)
+        llama.check_params_device(params, self.device, "engine")
         self.cfg = cfg
         self.params = params
         self.slots = slots                     # concurrent stream cap
@@ -598,6 +598,19 @@ class PagedServer(_Engine):
         # physical index total_pages is the SCRATCH page: never in the
         # ledger, never read unmasked
         self.scratch = self.total_pages
+        # speculative decoding (arm_draft): the draft, its slot cache and
+        # the counters, which survive a disarm
+        self._draft = None
+        self._draft_cache = None
+        self._draft_rope = None
+        self.draft_k = 0
+        self.metrics = None
+        self.spec_windows = 0          # armed dispatches
+        self.spec_proposed = 0         # draft tokens offered to verify
+        self.spec_accepted = 0         # draft tokens the target kept
+        self.spec_fallbacks = 0        # windows that failed and disarmed
+        self.spec_draft_prefill_s = 0.0
+        self.spec_window_s = 0.0
         # greedy engines at an identical (config, topology, geometry) key
         # share what carries no engine state, the rope table; each engine
         # captures its own graphs (parallel/aot.py). Sampled engines
@@ -630,8 +643,12 @@ class PagedServer(_Engine):
     def reset(self) -> None:
         """Zero the device state in place and rebuild the host state (a
         failed step may leave the pool half-written); captured graphs
-        survive. The radix is rebuilt too: its cached K/V is gone."""
+        survive. The radix is rebuilt too: its cached K/V is gone. An
+        armed draft's cache is zeroed in place as well (the reference
+        re-allocates it; here the spec graphs bind it)."""
         _zero_(self.pool)
+        if self._draft_cache is not None:
+            _zero_(self._draft_cache)
         self.lengths.zero_()
         self.cur_tok.zero_()
         self._table_buf.fill_(self.scratch)
@@ -821,6 +838,10 @@ class PagedServer(_Engine):
             # lands, and an EOS/budget-1 first token would decode steps
             self._pending_first[slot] = toks[0]
             self._prefill_q.popleft()
+            if self._draft is not None:
+                # the draft sees the WHOLE prompt, pages the radix
+                # adopted for the target included
+                self._draft_prefill(slot, prompt)
 
     def _decode_tables(self) -> np.ndarray:
         """Tables for the decode step: any stream not actively decoding
@@ -856,7 +877,10 @@ class PagedServer(_Engine):
         with a fixed page table (safe: admission reserved every stream's
         full span). Returns {stream: [tokens...]}, each list cut at the
         stream's retirement. Streams retiring mid-window keep decoding
-        dead steps, as in the reference's fixed-mask scan."""
+        dead steps, as in the reference's fixed-mask scan. With a draft
+        armed, one speculative window instead (:meth:`_spec_step_many`)."""
+        if self._draft is not None:
+            return self._spec_step_many(max(k, 1))
         return self._decode(max(k, 1))
 
     def _table(self, mp: int) -> torch.Tensor:
@@ -883,7 +907,9 @@ class PagedServer(_Engine):
         mp = self._window_mp(active, k)
         self._table(mp).copy_(torch.from_numpy(
             np.ascontiguousarray(self._decode_tables()[:, :mp])))
-        return self._emit(self._run_window(k, mp, (k, mp), active), active)
+        host = self._run_window((k, mp), active,
+                                lambda: self._window(k, mp))
+        return self._emit(host, active)
 
     def warmup(self, widths=(1,)) -> Dict[str, float]:
         """The cold-start ``compile`` phase before admission: one prefill
@@ -913,9 +939,198 @@ class PagedServer(_Engine):
         for w in widths:
             t1 = time.perf_counter()
             self._table(w).fill_(self.scratch)
-            self._run_window(1, w, (1, w), [])
+            self._run_window((1, w), [], lambda: self._window(1, w))
             timings[f"step_w{w}"] = time.perf_counter() - t1
         return timings
+
+    # ----------------------------------------------- speculative decoding
+
+    def arm_draft(self, cfg_d: llama.LlamaConfig, params_d, k: int = 4,
+                  metrics=None) -> None:
+        """Arm the speculative path: each ``step_many`` runs ONE window
+        of ``k`` draft steps, the K-wide paged verify and the acceptance,
+        advancing every stream by ``1 + accepted`` target-verified tokens
+        a target pass (the greedy stream, whatever the draft proposes).
+
+        Compatibility is checked here, before a stream uses the draft
+        (:class:`~dcos_commons_tpu_torch.models.speculative.
+        DraftIncompatible` with the reference's codes), and the widest
+        window runs once with every stream masked off (on CUDA
+        capturing its graph), so a draft that cannot run fails at arm
+        time. Greedy engines only. The draft's cache stays unquantized
+        whatever the pool does, and its execution policy follows the
+        engine's. ``params_d`` must live on the engine's device."""
+        from .speculative import DraftIncompatible
+        if self.sampler is not None:
+            raise DraftIncompatible(
+                "draft_sampled_engine",
+                "speculative decode is greedy-only; this engine samples")
+        if k < 2:
+            raise DraftIncompatible("draft_k", f"draft k must be >= 2, "
+                                               f"got {k}")
+        if cfg_d.vocab_size != self.cfg.vocab_size:
+            raise DraftIncompatible(
+                "draft_vocab_mismatch",
+                f"draft vocab {cfg_d.vocab_size} != target "
+                f"{self.cfg.vocab_size}")
+        if cfg_d.rope_theta != self.cfg.rope_theta:
+            raise DraftIncompatible(
+                "draft_rope_mismatch",
+                f"draft rope_theta {cfg_d.rope_theta} != target "
+                f"{self.cfg.rope_theta}")
+        if cfg_d.max_seq < self.cfg.max_seq:
+            raise DraftIncompatible(
+                "draft_max_seq",
+                f"draft max_seq {cfg_d.max_seq} < target "
+                f"{self.cfg.max_seq}: the draft cannot cover every "
+                "position this engine serves")
+        llama.check_params_device(params_d, self.device, "engine")
+        cfg_d = dataclasses.replace(
+            cfg_d, kv_quant=False, attn_impl=self.cfg.attn_impl,
+            decode_attn=self.cfg.decode_attn, remat=False,
+            remat_policy=None)
+        self.disarm_draft()
+        self._draft = (cfg_d, params_d)
+        self.draft_k = int(k)
+        self.metrics = metrics
+        self._draft_rope = rope_frequencies(cfg_d.head_dim, cfg_d.max_seq,
+                                            cfg_d.rope_theta,
+                                            device=self.device)
+        self._draft_cache = llama.init_kv_cache(cfg_d, self.slots,
+                                                cfg_d.max_seq,
+                                                device=self.device)
+        mp = self.pages_per_stream
+        self._table(mp).fill_(self.scratch)
+        self._run_window(("spec", self.draft_k, mp), [],
+                         lambda: self._spec_window(mp))
+
+    def disarm_draft(self) -> None:
+        """Back to solo decode: the draft, its cache and its graphs are
+        dropped; the counters survive."""
+        self._draft = None
+        self._draft_cache = None
+        self._draft_rope = None
+        self.draft_k = 0
+        for key in [key for key in self._graphs if key[0] == "spec"]:
+            del self._graphs[key]
+
+    def _spec_window(self, mp: int) -> torch.Tensor:
+        """One speculative window over the static state: k greedy draft
+        steps over the draft cache consuming ``[cur, d_1 .. d_{k-1}]``
+        (the k-th proposal is discarded; its step writes d_{k-1}'s K/V),
+        then the target's K-wide paged verify of that window, then the
+        acceptance: the agreeing prefix by cumulative product, ``n_emit =
+        1 + accepted`` for the active streams (0 for the rest), the new
+        lengths and tokens copied into ``lengths`` and ``cur_tok``.
+        Returns [slots, k + 1]: the target's tokens, then ``n_emit``."""
+        cfg_d, params_d = self._draft
+        k = self.draft_k
+        ln, tok, mask = self.lengths, self.cur_tok, self._mask
+        cur, dtoks = tok, []
+        for j in range(k):
+            lg, _ = llama.decode_step_slots(cfg_d, params_d,
+                                            self._draft_cache, ln + j, cur,
+                                            rope=self._draft_rope)
+            cur = torch.where(mask, torch.argmax(lg, dim=-1).to(
+                torch.int32), cur)
+            dtoks.append(cur)
+        drafted = torch.stack(dtoks[:k - 1], dim=1)              # [B, k-1]
+        window = torch.cat([tok[:, None], drafted], dim=1)       # [B, k]
+        logits, _ = llama.verify_step_paged(
+            self.cfg, self.params, self.pool, self._table(mp), ln, window,
+            rope=self._rope)
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32)       # [B, k]
+        agree = torch.cumprod((drafted == tgt[:, :k - 1]).to(torch.int32),
+                              dim=1)
+        n_emit = torch.where(mask, agree.sum(dim=1).to(torch.int32) + 1,
+                             torch.zeros_like(ln))
+        new_cur = torch.gather(
+            tgt, 1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+        new_cur = torch.where(mask, new_cur, tok)
+        new_ln = ln + n_emit
+        out = torch.cat([tgt, n_emit[:, None]], dim=1)
+        self.lengths.copy_(new_ln)
+        self.cur_tok.copy_(new_cur)
+        return out
+
+    def _draft_prefill(self, slot: int, prompt: List[int]) -> None:
+        """Write the draft's K/V for a freshly prefilled stream: one
+        whole-prompt forward, padded to a multiple of ``prefill_chunk``
+        (padded rows are causally downstream of the live ones, never read
+        unmasked, and rewritten by decode before they become readable)."""
+        cfg_d, params_d = self._draft
+        n = len(prompt)
+        c = self.prefill_chunk
+        padded = -(-n // c) * c
+        buf = np.zeros((1, padded), np.int32)
+        buf[0, :n] = prompt
+        t0 = time.perf_counter()
+        _, ks, vs = llama.prefill_trunk(
+            cfg_d, params_d, torch.from_numpy(buf).to(self.device),
+            self._draft_rope)
+        rows = torch.tensor([slot], device=self.device)
+        _scatter_rows(self._draft_cache["k"], ks, rows)
+        _scatter_rows(self._draft_cache["v"], vs, rows)
+        dt = time.perf_counter() - t0
+        self.spec_draft_prefill_s += dt
+        if self.metrics is not None:
+            self.metrics.observe("serving.spec.draft_prefill_seconds", dt)
+
+    def _spec_step_many(self, k: int) -> Dict[int, List[int]]:
+        """The armed dispatch: up to ``k`` prefill chunks (the solo
+        window's pacing), then ONE speculative window of ``draft_k``
+        advancing every active stream by ``1 + accepted`` tokens,
+        committed per stream until its retirement. The verify writes only
+        through tables allocated at admission, so the page ledger never
+        hears of a window. A failed window disarms the draft before
+        re-raising: the caller's reset and retry then run solo."""
+        self._flush_pending()
+        for _ in range(k):
+            self._prefill_tick()
+            if not self._prefill_q:
+                break
+        active = self._active()
+        if not active:
+            return {}
+        kd = self.draft_k
+        mp = self._window_mp(active, kd)
+        self._table(mp).copy_(torch.from_numpy(
+            np.ascontiguousarray(self._decode_tables()[:, :mp])))
+        t0 = time.perf_counter()
+        try:
+            host = self._run_window(("spec", kd, mp), active,
+                                    lambda: self._spec_window(mp))
+        except Exception:
+            self.spec_fallbacks += 1
+            if self.metrics is not None:
+                self.metrics.counter("serving.spec.fallbacks")
+            self.disarm_draft()
+            raise
+        dt = time.perf_counter() - t0
+        self.spec_windows += 1
+        self.spec_window_s += dt
+        out: Dict[int, List[int]] = {}
+        accepted = 0
+        for i in active:
+            n = int(host[i, kd])
+            self.spec_proposed += kd - 1
+            self.spec_accepted += n - 1
+            accepted += n - 1
+            emitted: List[int] = []
+            for t in host[i, :n]:
+                emitted.append(int(t))
+                self.requests[i].tokens.append(int(t))
+                self._maybe_retire(i)
+                if self.requests[i] is None:
+                    break
+            out[i] = emitted
+        if self.metrics is not None:
+            self.metrics.counter("serving.spec.windows")
+            self.metrics.counter("serving.spec.proposed",
+                                 float(len(active) * (kd - 1)))
+            self.metrics.counter("serving.spec.accepted", float(accepted))
+            self.metrics.observe("serving.spec.window_seconds", dt)
+        return out
 
     # --------------------------------------------------------- retirement
 
@@ -994,4 +1209,16 @@ class PagedServer(_Engine):
             "prefix_hits": self.radix.hits if self.radix else 0,
             "prefix_shared_pages": (self.radix.shared_pages
                                     if self.radix else 0),
+            "spec": {
+                "armed": self._draft is not None,
+                "k": self.draft_k,
+                "windows": self.spec_windows,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+                "fallbacks": self.spec_fallbacks,
+                "draft_prefill_s": self.spec_draft_prefill_s,
+                "window_s": self.spec_window_s,
+            },
         }

@@ -67,6 +67,16 @@ def apply_rope_at(x: torch.Tensor, table: torch.Tensor,
                    x.shape[-1] // 2)
 
 
+def apply_rope_at_many(x: torch.Tensor, table: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    """Rotate a K-token window PER STREAM: x [B, K, H, D], pos [B, K]
+    (each stream's window at its own positions: the paged speculative
+    verify). Lookups clamp to the table, as every lookup here does."""
+    cos, sin = _lookup(table, pos)
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :],
+                   x.shape[-1] // 2)
+
+
 def _rotate(x, cos, sin, half):
     x32 = x.float()
     x1, x2 = x32[..., :half], x32[..., half:]

@@ -13,7 +13,13 @@ run's shapes, ragged and negative-offset cases, one query row, Sq
 around the forward's 128-row tile, head_dim 64 and 256, the B=8
 slot-prefill bucket, and the edges of the backward's tiles), the run-to-
 run determinism and any softmax scale of the forward and of the
-backward, their refusals, and the train step running through them.
+backward, their refusals, and the train step running through them;
+the paged engine's speculative window as a CUDA graph (graphed windows
+bitwise equal to the eager loop for k 2 and 4, bf16 and int8-KV pools, a
+widening table; ``reset`` and disarm keeping the graphs valid; k draft
+launches of the slot kernel a window), the verify against successive
+kernel decode steps, and the batch-1 ``SpeculativeDecoder`` through the
+kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -978,3 +984,157 @@ def test_init_quantized_params_puts_no_bf16_weight_on_the_card(dev):
     assert peak < held + smallest_bf16_stack
     assert all(t.device.type == "cuda" for t in leaves(params))
     assert params["layers"]["w_gate"].q.dtype == torch.int8
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the spec window as a CUDA graph
+
+
+def _armed(dev, kv_quant=False, layers=1, k=4):
+    """A paged engine of the small model armed with its first ``layers``
+    layers as the draft (all of them: the self-draft)."""
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = _engine("paged", cfg, params, dev)
+    srv.arm_draft(*llama.truncate_layers(cfg, params, layers), k=k)
+    return cfg, params, srv
+
+
+SPEC_GRAPH_CASES = [(2, False), (4, False), (2, True), (4, True)]
+
+
+@pytest.mark.parametrize("k,kv_quant", SPEC_GRAPH_CASES)
+def test_graphed_spec_windows_equal_the_eager_loop(dev, k, kv_quant):
+    """From one snapshot of four decoding streams, the engine's graphed
+    spec windows and the eager loop by hand (``chip_smoke.
+    spec_eager_loop``, acceptance counted on the host) give the same
+    tokens, ``n_emit`` and lengths and write the same live K/V rows in the
+    pool and the draft cache, bitwise; the table widens between windows;
+    a replayed window launches kernel 2 k times (one draft layer)."""
+    import chip_smoke
+    cfg, params, srv = _armed(dev, kv_quant, k=k)
+    _live(srv, cfg)
+    out = chip_smoke._spec_graph_vs_eager(srv, windows=24 // k)
+    assert out["kernel2_launches_per_window"]
+    widths = {key[2] for key in srv._graphs if key[0] == "spec"}
+    assert len(widths) >= 2, widths
+
+
+def test_reset_keeps_the_spec_graphs_valid(dev):
+    """The self-draft serves (capturing its spec graphs), ``reset``
+    zeroes the draft cache in place, memory freed since is filled with
+    junk, and the same graphs then give a fresh engine's tokens and
+    acceptance."""
+    cfg, params, srv = _armed(dev, layers=2)
+    rng = np.random.default_rng(5)
+    reqs = [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+             "max_new": m, "request_id": i}
+            for i, (n, m) in enumerate([(9, 20), (30, 25), (4, 30)])]
+    srv.drain([dict(r) for r in reqs], decode_window=8)
+    graphs = {key: g for key, g in srv._graphs.items() if key[0] == "spec"}
+    assert graphs
+    cache = srv._draft_cache["k"]
+    srv.reset()
+    assert srv._draft_cache["k"] is cache
+    size = cache.numel()
+    junk = [torch.full((size,), float("nan"), dtype=cache.dtype,
+                       device=dev) for _ in range(4)]
+    before = dict(srv.page_stats()["spec"])
+    got = srv.drain([dict(r) for r in reqs], decode_window=8)
+    after = srv.page_stats()["spec"]
+    assert all(srv._graphs[key] is g for key, g in graphs.items())
+    _, _, fresh = _armed(dev, layers=2)
+    want = fresh.drain([dict(r) for r in reqs], decode_window=8)
+    assert got == want
+    for key in ("windows", "proposed", "accepted"):
+        assert after[key] - before[key] == fresh.page_stats()["spec"][key]
+    del junk
+
+
+def test_arm_then_disarm_and_the_solo_graphs_replay(dev):
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(6)
+    reqs = [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+             "max_new": 12, "request_id": i} for i, n in enumerate((7, 20))]
+    srv = _engine("paged", cfg, params, dev)
+    want = srv.drain([dict(r) for r in reqs], decode_window=8)
+    solo = dict(srv._graphs)
+    srv.arm_draft(*llama.truncate_layers(cfg, params, 1), k=4)
+    srv.drain([dict(r) for r in reqs], decode_window=8)
+    assert any(key[0] == "spec" for key in srv._graphs)
+    srv.disarm_draft()
+    assert not any(key[0] == "spec" for key in srv._graphs)
+    before = fd.flash_decode_paged.launches
+    assert srv.drain([dict(r) for r in reqs], decode_window=8) == want
+    assert fd.flash_decode_paged.launches > before
+    assert all(srv._graphs[key] is g for key, g in solo.items())
+
+
+def test_a_spec_window_launches_kernel_2_k_times_a_draft_layer(dev):
+    """A warm spec window replays its graph: kernel 2 (the draft steps)
+    counts k launches a draft layer, kernel 1 none (the verify reads the
+    dense gather), and no ``cudaLaunchKernel`` is made."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = serving.PagedServer(cfg, params, slots=4, page_size=64,
+                              prefill_chunk=16, device=dev)
+    srv.arm_draft(*llama.truncate_layers(cfg, params, 2), k=3)
+    _live(srv, cfg, lens=(3, 5, 7, 9))
+    srv.step_many(8)
+    captured = dict(srv._graphs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        srv.step_many(8)
+        prof.step()
+        k2, k1 = fd.flash_decode.launches, fd.flash_decode_paged.launches
+        srv.step_many(8)
+        prof.step()
+    names = [e.name for e in prof.events()]
+    assert srv._graphs == captured
+    assert names.count("cudaGraphLaunch") == 1, names
+    assert not [n for n in names if n.startswith("cudaLaunchKernel")]
+    assert fd.flash_decode.launches - k2 == 3 * 2
+    assert fd.flash_decode_paged.launches == k1
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_verify_equals_successive_kernel_decode_steps(dev, kv_quant):
+    """The K-wide verify over the dense gather against k successive
+    paged decode steps through kernel 1 on the same pool, short streams
+    included: logits within the kernel-vs-dense tolerance."""
+    import chip_smoke
+    cfg, params, srv = _armed(dev, kv_quant)
+    _live(srv, cfg, lens=(1, 2, 17, 40))
+    diff = chip_smoke.verify_vs_steps(srv, atol=5e-2)
+    assert diff < 5e-2
+
+
+def test_speculative_decoder_runs_through_the_kernels(dev):
+    """The batch-1 decoder on the card: its two prefills launch kernel 3
+    once a layer, each draft chunk kernel 2 k times a draft layer, and the
+    fused loop gives ``generate``'s greedy stream."""
+    from dcos_commons_tpu_torch.models import speculative
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cfg_d, params_d = llama.truncate_layers(cfg, params, 1)
+    dec = speculative.SpeculativeDecoder(cfg, params, cfg_d, params_d, k=4,
+                                         device=dev)
+    prompt = torch.tensor([[5, 17, 99, 3, 250, 1, 42, 7]], dtype=torch.int32,
+                          device=dev)
+    k2, k3 = fd.flash_decode.launches, fa.flash_attention_fwd.launches
+    got, stats = dec.generate(prompt, 24)
+    assert fd.flash_decode.launches - k2 == stats["verify_passes"] * 4
+    assert fa.flash_attention_fwd.launches - k3 == cfg.n_layers + 1
+    fused, fstats = dec.generate_fused(prompt, 24)
+    assert fused.tolist() == got.tolist()
+    assert fstats["verify_passes"] == stats["verify_passes"]
+    assert tuple(got.shape) == (1, 24)
+    assert all(0 <= t < cfg.vocab_size for t in got[0].tolist())

@@ -6,7 +6,13 @@ result has the reference's keys; as a subprocess with ``--serve --slots``
 answers ``POST /v1/generate`` with the tokens of a port engine built
 directly from the same seed, emits heartbeats and exits on SIGTERM; a
 page size that does not divide ``max_seq`` falls back to slots; every
-knob of a module not ported yet exits 2 with its coded error."""
+knob of a module not ported yet exits 2 with its coded error.
+``--spec-decode`` arms the paged engine from a sealed draft artifact
+(``spec_armed``) or gives the reference's coded ``spec_fallback``; a
+serving ``--out`` holding a checkpoint the JAX package wrote restores it
+bitwise (``source: disk``), a corrupt one falls back with
+``weight_restore_fallback``, and an empty manifest fails as the
+reference's does."""
 
 import json
 import os
@@ -17,18 +23,25 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
 import tests._jax_cpu  # noqa: F401
 
 from frameworks.jax import worker as jworker
+from dcos_commons_tpu.models import llama as jl
+from dcos_commons_tpu.parallel import checkpoint as jc
 from dcos_commons_tpu_torch.frameworks import worker as tworker
 from dcos_commons_tpu_torch.models import llama as tl
 from dcos_commons_tpu_torch.models import serving as ts
+from dcos_commons_tpu_torch.models import speculative as tspec
+from dcos_commons_tpu_torch.models.bridge import params_from_jax
+from dcos_commons_tpu_torch.parallel import checkpoint as tc
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER_SRC = (ROOT / "dcos_commons_tpu_torch" / "frameworks"
@@ -241,43 +254,34 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
         w.stop()
 
 
-def _checkpoint(tmp_path):
-    step = tmp_path / "vol" / "step-00000003-p0"
-    step.mkdir(parents=True)
-    (step / "manifest.json").write_text("{}")
-    return ["--out", "vol"]
-
-
+# (index, args, env, code): the index keeps each case's id as it was
+# while speculative decoding and the checkpoint restore were refused
 REFUSALS = [
-    (["--spec-decode", "true"], {}, "spec_decode_not_ported"),
-    (["--moe-experts", "4"], {}, "moe_not_ported"),
-    (["--prefill-seq-parallel", "true"], {}, "longctx_not_ported"),
-    (["--serve-role", "prefill"], {}, "disagg_not_ported"),
-    (["--serve-role", "decode"], {}, "disagg_not_ported"),
-    (["--serve-role", "router"], {}, "router_not_ported"),
-    (["--kv-tier-host-pages", "8"], {}, "kv_tiers_not_ported"),
-    (["--kv-tier-disk-dir", "tier", "--kv-tier-disk-pages", "8"], {},
+    (1, ["--moe-experts", "4"], {}, "moe_not_ported"),
+    (2, ["--prefill-seq-parallel", "true"], {}, "longctx_not_ported"),
+    (3, ["--serve-role", "prefill"], {}, "disagg_not_ported"),
+    (4, ["--serve-role", "decode"], {}, "disagg_not_ported"),
+    (5, ["--serve-role", "router"], {}, "router_not_ported"),
+    (6, ["--kv-tier-host-pages", "8"], {}, "kv_tiers_not_ported"),
+    (7, ["--kv-tier-disk-dir", "tier", "--kv-tier-disk-pages", "8"], {},
      "kv_tiers_not_ported"),
-    (["--prefix-directory", "5"], {}, "prefix_directory_not_ported"),
-    ([], {"WEIGHT_FETCH_PEERS": "http://peer:1"}, "weight_fetch_not_ported"),
-    (_checkpoint, {}, "checkpoint_not_ported"),
-    (["--profile-dir", "prof"], {}, "profile_not_ported"),
-    ([], {"TPU_PROFILE_DIR": "prof"}, "profile_not_ported"),
-    ([], {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
-          "JAX_NUM_PROCESSES": "2"}, "not_ported"),
+    (8, ["--prefix-directory", "5"], {}, "prefix_directory_not_ported"),
+    (9, [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
+     "weight_fetch_not_ported"),
+    (11, ["--profile-dir", "prof"], {}, "profile_not_ported"),
+    (12, [], {"TPU_PROFILE_DIR": "prof"}, "profile_not_ported"),
+    (13, [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
+              "JAX_NUM_PROCESSES": "2"}, "not_ported"),
 ]
 
 
-@pytest.mark.parametrize("args,env,code", REFUSALS,
-                         ids=[f"{c}-{i}" for i, (_, _, c) in
-                              enumerate(REFUSALS)])
+@pytest.mark.parametrize("args,env,code", [r[1:] for r in REFUSALS],
+                         ids=[f"{c}-{i}" for i, _, _, c in REFUSALS])
 def test_unported_knob_exits_2_with_its_code(args, env, code, tmp_path,
                                              capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if callable(args):
-        args = args(tmp_path)
     rc = tworker.main(["llama", "--device", "cpu", "--serve", "--slots",
                        "2", "--gen-len", "2", *args])
     assert rc == 2
@@ -293,3 +297,195 @@ def test_multislice_is_refused(monkeypatch, capsys):
     monkeypatch.setenv("MEGASCALE_NUM_SLICES", "2")
     assert tworker.main(["llama", "--device", "cpu"]) == 2
     assert jworker.main(["llama"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and the checkpoint restore
+
+
+def _draft_artifact(path, **cfg_kw):
+    """The tiny worker model's 1-layer draft (the weights of seed 0, as
+    the worker initialises them) sealed with ``save_draft``."""
+    cfg = tl.LlamaConfig.tiny(**cfg_kw)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    cfg_d, params_d = tl.truncate_layers(cfg, params, 1)
+    tspec.save_draft(str(path), 1, cfg_d, params_d, target_cfg=cfg)
+    return cfg, params, cfg_d, params_d
+
+
+def _events(capsys):
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+def _spec_outcome(capsys, argv, cfg_kw=None):
+    """The spec events of the port's and the reference's
+    ``_make_serving_engine`` on the same flags, each on its own tiny
+    engine."""
+    cfg_kw = cfg_kw or {}
+    targs = tworker.build_parser().parse_args(["llama", *argv])
+    tcfg = tl.LlamaConfig.tiny(**cfg_kw)
+    tparams = tl.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    engine, stats = tworker._make_serving_engine(targs, tcfg, tparams, "cpu")
+    ours = [e for e in _events(capsys) if e["event"].startswith("spec_")]
+    jargs = jworker.build_parser().parse_args(["llama", *argv])
+    jcfg = jl.LlamaConfig.tiny(**cfg_kw)
+    jparams = jl.init_params(jcfg, jax.random.key(0))
+    jworker._make_serving_engine(jargs, jcfg, jparams,
+                                 types.SimpleNamespace(size=1))
+    ref = [e for e in _events(capsys) if e["event"].startswith("spec_")]
+    return engine, ours, ref
+
+
+SPEC_CASES = [
+    # (name, extra flags, draft artifact config, event, code)
+    ("armed", ["--pages", "64"], {}, "spec_armed", None),
+    ("no_checkpoint", ["--pages", "64", "--draft-checkpoint", ""], None,
+     "spec_fallback", "draft_config_missing"),
+    ("not_an_artifact", ["--pages", "64"], None, "spec_fallback",
+     "draft_config_missing"),
+    ("slot_engine", [], {}, "spec_fallback", "spec_needs_paged"),
+    ("vocab", ["--pages", "64"], {"vocab_size": 512}, "spec_fallback",
+     "draft_vocab_mismatch"),
+    ("stale", ["--pages", "64"], "stale", "spec_fallback",
+     "draft_manifest_stale"),
+]
+
+
+@pytest.mark.parametrize("name,extra,draft,event,code", SPEC_CASES,
+                         ids=[c[0] for c in SPEC_CASES])
+def test_spec_decode_arms_or_falls_back_as_the_reference(
+        tmp_path, capsys, name, extra, draft, event, code):
+    path = tmp_path / "draft"
+    path.mkdir()
+    if draft == "stale":
+        cfg, params, _, _ = _draft_artifact(path)
+        tc.save_sharded(str(path), 2, {"params": params})
+    elif draft is not None:
+        _draft_artifact(path, **draft)
+    argv = ["--serve", "--slots", "2", "--spec-decode", "true",
+            "--draft-checkpoint", str(path), "--draft-k", "3", *extra]
+    engine, ours, ref = _spec_outcome(capsys, argv)
+    assert [e["event"] for e in ours] == [e["event"] for e in ref] == [event]
+    assert ours[0].get("code") == ref[0].get("code") == code
+    if event == "spec_armed":
+        assert ours[0]["k"] == ref[0]["k"] == 3
+        assert ours[0]["draft_layers"] == ref[0]["draft_layers"] == 1
+        assert ours[0]["draft_step"] == 1 and ours[0]["load_s"] >= 0
+        assert engine.page_stats()["spec"]["armed"]
+    elif hasattr(engine, "page_stats"):
+        assert not engine.page_stats()["spec"]["armed"]
+
+
+def _save_jax_checkpoint(vol, step=4):
+    """The reference's serving template (tiny, bf16, key 0) changed so a
+    restore is visible, saved by the JAX package under ``vol``."""
+    jcfg = jl.LlamaConfig.tiny()
+    jp = jl.init_params(jcfg, jax.random.key(0))
+    jp = {**jp, "lm_head": jp["lm_head"] * 2, "norm": jp["norm"] * 0.5}
+    jc.save_sharded(str(vol), step, jp)
+    return jcfg, jp
+
+
+def test_serving_weights_restore_a_jax_checkpoint_bitwise(tmp_path, capsys):
+    jcfg, jp = _save_jax_checkpoint(tmp_path / "vol")
+    args = tworker.build_parser().parse_args(
+        ["llama", "--serve", "--out", str(tmp_path / "vol")])
+    template = tl.param_template(tl.LlamaConfig.tiny(), "cpu")
+    params, report = tworker._boot_serving_weights(
+        args, template, lambda: pytest.fail("restored, not initialised"))
+    assert report["source"] == "disk" and report["step"] == 4
+    assert report["restore_s"] >= 0 and report["fetch_s"] == 0.0
+    want = params_from_jax(jax.device_get(jp), device="cpu")
+    for (k, a), (_, b) in zip(tc._flatten(params), tc._flatten(want)):
+        assert torch.equal(a, b), k
+    jparams, jreport = jworker._boot_serving_weights(
+        jworker.build_parser().parse_args(
+            ["llama", "--serve", "--out", str(tmp_path / "vol")]),
+        jl.init_params(jcfg, jax.random.key(0)))
+    assert sorted(jreport) == sorted(report)
+    assert not [e for e in _events(capsys) if "fallback" in e["event"]]
+
+
+def test_a_corrupt_checkpoint_falls_back_to_the_init(tmp_path, capsys):
+    _save_jax_checkpoint(tmp_path / "vol")
+    shard = tmp_path / "vol" / "step-00000004-p0" / "norm.o0.bin"
+    shard.write_bytes(shard.read_bytes()[:-2])
+    init = tl.init_params(tl.LlamaConfig.tiny(),
+                          torch.Generator().manual_seed(0), device="cpu")
+    args = tworker.build_parser().parse_args(
+        ["llama", "--serve", "--out", str(tmp_path / "vol")])
+    params, report = tworker._boot_serving_weights(
+        args, tl.param_template(tl.LlamaConfig.tiny(), "cpu"), lambda: init)
+    assert params is init and report["source"] == "init"
+    ours = [e for e in _events(capsys) if "fallback" in e["event"]]
+    jworker._boot_serving_weights(
+        jworker.build_parser().parse_args(
+            ["llama", "--serve", "--out", str(tmp_path / "vol")]),
+        jl.init_params(jl.LlamaConfig.tiny(), jax.random.key(0)))
+    ref = [e for e in _events(capsys) if "fallback" in e["event"]]
+    assert [e["event"] for e in ours] == [e["event"] for e in ref] == [
+        "weight_restore_fallback"]
+    assert ours[0]["step"] == ref[0]["step"] == 4
+    assert "truncated" in ours[0]["error"]
+
+
+def test_an_empty_manifest_fails_as_the_reference(tmp_path, monkeypatch,
+                                                  capsys):
+    """A step directory whose manifest is ``{}``: the reference's restore
+    raises KeyError ('leaves'), which its fallback does not catch, and
+    the worker dies (ROADMAP Queue 3); the port does the same."""
+    monkeypatch.chdir(tmp_path)
+    step = tmp_path / "vol" / "step-00000003-p0"
+    step.mkdir(parents=True)
+    (step / "manifest.json").write_text("{}")
+    argv = ["llama", "--serve", "--slots", "2", "--gen-len", "2",
+            "--out", "vol"]
+    with pytest.raises(KeyError, match="leaves"):
+        jworker.main(argv)
+    with pytest.raises(KeyError, match="leaves"):
+        tworker.main([*argv, "--device", "cpu"])
+    assert not any(e.get("event") == "serving" for e in _events(capsys))
+
+
+def test_the_worker_serves_spec_decode_from_a_restored_checkpoint(tmp_path):
+    """The scheduler's command with ``--out`` holding a JAX checkpoint
+    and ``--spec-decode``: ``weights_loaded`` from disk, ``spec_armed``,
+    and the served tokens equal a port engine built directly from the
+    restored weights and armed with the same draft."""
+    jcfg, jp = _save_jax_checkpoint(tmp_path / "vol")
+    draft = tmp_path / "draft"
+    draft.mkdir()
+    params = params_from_jax(jax.device_get(jp), device="cpu")
+    cfg = tl.LlamaConfig.tiny()
+    cfg_d, params_d = tl.truncate_layers(cfg, params, 1)
+    tspec.save_draft(str(draft), 1, cfg_d, params_d)
+    w = _Worker(tmp_path, "--serve", "--slots", "2", "--serve-port", "0",
+                "--pages", "64", "--out", "vol", "--spec-decode", "true",
+                "--draft-checkpoint", str(draft))
+    try:
+        loaded = w.event("weights_loaded")
+        assert loaded["source"] == "disk" and loaded["step"] == 4
+        armed = w.event("spec_armed")
+        assert armed["draft_layers"] == 1 and armed["k"] == 4
+        serving = w.event("serving")
+        assert serving["cold_start"]["source"] == "disk"
+        got = [_post(serving["port"], {"prompt": p, "max_new": 6})["tokens"]
+               for p in PROMPTS]
+        hb = w.event("heartbeat", where=lambda e: e.get("requests") == 2)
+        assert hb["paged"]["spec"]["windows"] > 0
+        stats = urllib.request.urlopen(
+            f"http://127.0.0.1:{serving['port']}/v1/stats", timeout=20)
+        assert json.loads(stats.read())["window"]["spec_windows"] > 0
+        rc = w.stop()
+    finally:
+        if w.proc.poll() is None:
+            w.proc.kill()
+    assert rc == -signal.SIGTERM
+    srv = ts.PagedServer(cfg, params, slots=2, pages=64, device="cpu")
+    srv.arm_draft(cfg_d, params_d, k=4)
+    want = [srv.drain([{"prompt": p, "max_new": 6, "request_id": i}],
+                      decode_window=8)[i] for i, p in enumerate(PROMPTS)]
+    assert got == want

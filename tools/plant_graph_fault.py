@@ -27,25 +27,28 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-TARGET = "dcos_commons_tpu_torch/models/serving.py"
+SERVING = "dcos_commons_tpu_torch/models/serving.py"
 
+# fault -> (file, text, replacement)
 FAULTS = {
-    "g1": ("        self.lengths.copy_(ln)\n", ""),
-    "g2": ("self._run_window(k, mp, (k, mp), active)",
-           "self._run_window(k, mp, k, active)"),
-    "g3": ("        _zero_(self.pool)\n",
+    "g1": (SERVING, "        self.lengths.copy_(ln)\n", ""),
+    "g2": (SERVING, "self._run_window((k, mp), active,",
+           "self._run_window(k, active,"),
+    "g3": (SERVING, "        _zero_(self.pool)\n",
            "        self.pool = llama.init_page_pool(\n"
            "            self.cfg, self.total_pages + 1, self.page_size,\n"
            "            device=self.device)\n"),
 }
 
 
-def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[1] not in FAULTS:
-        print(__doc__, file=sys.stderr)
+def plant(faults, doc: str, argv) -> int:
+    """Copy the tree to ``argv[1]`` with fault ``argv[0]`` of ``faults``
+    planted."""
+    if len(argv) != 2 or argv[0] not in faults:
+        print(doc, file=sys.stderr)
         return 2
-    old, new = FAULTS[sys.argv[1]]
-    dest = Path(sys.argv[2]).resolve()
+    target, old, new = faults[argv[0]]
+    dest = Path(argv[1]).resolve()
     if dest.exists():
         shutil.rmtree(dest)
     skip = {".git"} | {
@@ -55,15 +58,15 @@ def main() -> int:
     shutil.copytree(ROOT, dest, ignore=lambda d, names: [
         n for n in names if Path(d) == ROOT and n in skip
         or n == "__pycache__"])
-    path = dest / TARGET
+    path = dest / target
     text = path.read_text()
     if text.count(old) != 1:
-        raise SystemExit(f"{sys.argv[1]}: the text to change occurs "
-                         f"{text.count(old)} times in {TARGET}")
+        raise SystemExit(f"{argv[0]}: the text to change occurs "
+                         f"{text.count(old)} times in {target}")
     path.write_text(text.replace(old, new))
-    print(f"{sys.argv[1]} planted in {dest}")
+    print(f"{argv[0]} planted in {dest}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(plant(FAULTS, __doc__, sys.argv[1:]))

@@ -2,7 +2,7 @@
 """Where a decode step of one of the PyTorch port's engines spends its time
 on the GPU, graphed and eager.
 
-    python3 tools/torch_profile_decode.py [--engine paged|slots]
+    python3 tools/torch_profile_decode.py [--engine paged|slots|spec]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, ``max_seq`` 2048),
 prefills 8 streams of ragged length through ``PagedServer(slots=8,
@@ -18,8 +18,18 @@ profiler saw), the device idle share, the decode attention kernels' time
 and count per step, the ``cudaLaunchKernel`` and ``cudaGraphLaunch``
 calls per step, the kernels that take the most device time and the host
 ops that take the most host time. If the profiler records no device
-time, the device numbers are null. Needs a CUDA device; imports nothing
-of JAX.
+time, the device numbers are null.
+
+``--engine spec`` arms the paged engine with the 1-layer truncated draft
+at k=4 (``chip_smoke.DRAFT_LAYERS``/``SPEC_K``), prefills the same 8
+streams through spec windows, and profiles spec windows the same two
+ways (``step_many``, one graph a window, and ``chip_smoke.
+spec_eager_loop``), a "step" being a window. Then it splits a window's
+device time: the k draft steps, the K-wide verify, the verify's page
+gather and dense attention alone (every layer's, at the window's table
+width), and the acceptance, each captured as its own CUDA graph on
+clones of the engine's state and timed over replays with CUDA events
+(``chip_smoke.spec_split``). Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -47,7 +57,9 @@ def _device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def _profile(window, label, engine, layers, card) -> dict:
+def _profile(window, label, engine, layers, card, k=K) -> dict:
+    """One mode's line; ``window()`` runs ``k`` steps (a spec window
+    counts as one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,7 +69,7 @@ def _profile(window, label, engine, layers, card) -> dict:
     t0 = time.perf_counter()
     for _ in range(WINDOWS):
         window()
-    unprofiled = (time.perf_counter() - t0) / (WINDOWS * K) * 1e3
+    unprofiled = (time.perf_counter() - t0) / (WINDOWS * k) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -65,7 +77,7 @@ def _profile(window, label, engine, layers, card) -> dict:
             window()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = WINDOWS * K
+    steps = WINDOWS * k
     events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:12]
@@ -81,7 +93,7 @@ def _profile(window, label, engine, layers, card) -> dict:
 
     return {
         "profile": f"{engine} decode, {label}", "layers": layers,
-        "batch": 8, "window": K, "steps": steps,
+        "batch": 8, "window": k, "steps": steps,
         "wall_ms_per_step": step_ms,
         "unprofiled_wall_ms_per_step": unprofiled,
         "device_busy_ms_per_step": busy_ms,
@@ -104,7 +116,8 @@ def _profile(window, label, engine, layers, card) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("paged", "slots"), default="paged")
+    ap.add_argument("--engine", choices=("paged", "slots", "spec"),
+                    default="paged")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -118,27 +131,44 @@ def main() -> int:
     cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    if args.engine == "paged":
+    if args.engine in ("paged", "spec"):
         srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
                                   prefill_chunk=64, device=dev)
     else:
         srv = serving.SlotServer(cfg, params, slots=8, device=dev)
+    if args.engine == "spec":
+        from chip_smoke import DRAFT_LAYERS, SPEC_K
+        srv.arm_draft(*llama.truncate_layers(cfg, params, DRAFT_LAYERS),
+                      k=SPEC_K)
     rng = np.random.default_rng(1)
     srv.submit_many([
         {"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
          "max_new": 400, "request_id": i}
         for i, n in enumerate((1, 63, 64, 65, 700, 1500, 1300, 333))])
     while getattr(srv, "_prefill_q", None) or srv._pending_first:
-        srv.step()
+        # armed, step_many(1) keeps the draft cache in step
+        srv.step_many(1) if args.engine == "spec" else srv.step()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    from chip_smoke import eager_loop
-    eager, _ = eager_loop(srv, K)
-    lines = [_profile(eager, "eager loop", args.engine, cfg.n_layers, card),
-             _profile(lambda: srv.step_many(K), "CUDA graph", args.engine,
-                      cfg.n_layers, card)]
+    from chip_smoke import eager_loop, spec_eager_loop, spec_split
+    if args.engine == "spec":
+        split = {"profile": "spec window split", **spec_split(srv),
+                 "card": card}
+        k = 1                                 # a "step" is a window
+        eager, _ = spec_eager_loop(srv)
+        graphed = lambda: srv.step_many(srv.draft_k)   # noqa: E731
+    else:
+        k = K
+        eager, _ = eager_loop(srv, K)
+        graphed = lambda: srv.step_many(K)             # noqa: E731
+    lines = [_profile(eager, "eager loop", args.engine, cfg.n_layers, card,
+                      k),
+             _profile(graphed, "CUDA graph", args.engine, cfg.n_layers,
+                      card, k)]
+    if args.engine == "spec":
+        lines.append(split)
     lines[1]["graphs"] = {k: v for k, v in srv.graph_stats().items()
                           if k != "keys"}
     for line in lines:
