@@ -19,8 +19,9 @@ Phases (any failure exits non-zero):
    other inputs and 20 more launches that must give the first call's
    bits; flash-attention forward,
    dK/dV and dQ (the Llama-400m train step's B=16, S=511, H=12, KV=6,
-   D=128, and Llama-3-8B heads B=2, S=2048, H=32, KV=8), and the forward
-   alone at the slot-prefill bucket (B=8, S=2048, Llama-3-8B heads), each
+   D=128, Llama-3-8B heads B=2, S=2048, H=32, KV=8, and the distill
+   step's B=32, S=256 at those heads), and the forward alone at the
+   slot-prefill bucket (B=8, S=2048, Llama-3-8B heads), each
    flash-attention case with its share of the bound, and the port's
    whole backward (rowsum pass and both kernels) beside SDPA's;
 3. serve Llama-3-8B (full width and depth, random bf16 weights from a
@@ -72,16 +73,34 @@ Phases (any failure exits non-zero):
    ``spec_armed`` event (a ``spec_fallback`` fails), the same 8 requests,
    tokens held to the paged worker's under the near-tie rule, spec
    windows in ``/v1/stats``;
+8. (right after phase 2, in a process of its own) the worker's
+   ``distill --preset 8b --draft-layers 1 --batch 32 --seq 256 --steps
+   20 --out DIR``: exit 0, finite falling losses, kernels 3-5 launched
+   once a layer a step by the run's own counts (no attention dense), the
+   checkpoint and the sealed draft saved, step time and peak memory
+   beside the reckoning; then (after phase 7's worker) the worker with
+   ``--pages 64 --spec-decode true --draft-checkpoint DIR/draft``:
+   ``spec_armed``, phase 6's 8 requests, every token held to the target
+   under the near-tie rule, its acceptance beside the truncated draft's;
 4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
    batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
    one warm-up step, then 10 timed steps on the same batch with the
    flash-attention launch counts zeroed just before and read just after;
    then one loss forward and backward through the kernels is held
-   against the same through the dense attention path.
+   against the same through the dense attention path;
+9. the worker's ``llama-train`` (tiny, head_dim 8; ``--attn auto`` is
+   dense, as the reference's ``auto`` under its train mesh, no kernel
+   launched): a fresh ``--steps 3`` (counts 4 saved), a ``--steps 5``
+   that resumes at 3, and a ``--ckpt-every 1`` run SIGTERM'd after its
+   first checkpoint (``sigterm``, ``preempted``, exit 143) whose
+   relaunch resumes at the flushed step; then ``--attn flash --steps 2``
+   through kernels 3-5 (head_dim 8 zero-padded to 64), one launch of
+   each a layer a step.
 
 Output: the ``serving``, ``serving_slots``, ``worker``, ``worker_paged``,
-``worker_spec``, ``training`` and ``spec`` lines, the ``kernels`` line,
-the card's name and power limit, and last
+``worker_spec``, ``worker_distilled``, ``training``, ``distill``,
+``llama_train`` and ``spec`` lines, the ``kernels`` line, the card's
+name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
 JAX.
@@ -385,7 +404,8 @@ SLOT_CASES = ((False, KV_LENS), (True, KV_LENS), (True, EDGE_LENS),
 
 # (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
 FA_SHAPES = (("llama_400m_train", 16, 511, 12, 6, 128),
-             ("llama3_8b_heads", 2, 2048, 32, 8, 128))
+             ("llama3_8b_heads", 2, 2048, 32, 8, 128),
+             ("llama3_8b_distill", 32, 256, 32, 8, 128))
 # forward only: the slot-prefill bucket that serving runs ([8, 2048])
 FA_FWD_SHAPES = (("llama3_8b_prefill_b8", 8, 2048, 32, 8, 128),)
 
@@ -1783,6 +1803,249 @@ def phase_spec_worker(card, artifact, solo_replies, params):
     return line, launches
 
 
+# --------------------------------------------------------------- phase 8
+
+# the reference's distill defaults at the 8B preset
+DISTILL_BATCH, DISTILL_SEQ, DISTILL_STEPS = 32, 256, 20
+DISTILL_ARGS = ("distill", "--preset", "8b", "--draft-layers",
+                str(DRAFT_LAYERS), "--batch", str(DISTILL_BATCH), "--seq",
+                str(DISTILL_SEQ), "--steps", str(DISTILL_STEPS))
+# the reckoning for one step at this shape (PERF.md's distill prediction),
+# printed beside the run
+DISTILL_STEP_S_PREDICTED = (0.35, 0.5)
+DISTILL_PEAK_GB_PREDICTED = 49.0
+TRAIN_TIMEOUT_S = 900
+
+
+def _worker_run(args, cwd, timeout=TRAIN_TIMEOUT_S, on_event=None):
+    """``python -m dcos_commons_tpu_torch.frameworks.worker *args`` in
+    ``cwd``: (exit code, its JSON events). ``on_event(proc, event)`` sees
+    each event as it arrives."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
+         *args], cwd=cwd, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    events = []
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    try:
+        for raw in proc.stdout:
+            if raw.startswith("{"):
+                events.append(json.loads(raw))
+                if on_event is not None:
+                    on_event(proc, events[-1])
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, events
+
+
+def _one(events, name):
+    found = [e for e in events if e.get("event") == name]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} {name} events: {events[-3:]}")
+    return found[0]
+
+
+def phase_distill(card: str) -> tuple:
+    """The worker's ``distill --preset 8b`` at the reference's defaults
+    (batch 32 x 256 tokens, 1 draft layer, 20 steps after the warm-up)
+    as a subprocess: exit 0, finite falling losses, kernels 3-5 launched
+    once a layer a step by the run's own counts (32 + 1 forward launches
+    a step, 1 of each backward kernel: no attention went dense), the
+    checkpoint and the sealed draft saved. Returns (line, launches, the
+    artifact's directory)."""
+    import math
+    import shutil
+
+    out = Path(__file__).resolve().parent / "build" / "distill_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rc, events = _worker_run([*DISTILL_ARGS, "--out", str(out)], out.parent)
+    wall = time.perf_counter() - t0
+    problems = [] if rc == 0 else [f"exit {rc}"]
+    done = _one(events, "done") if rc == 0 else {}
+    saved = _one(events, "draft_saved") if rc == 0 else {}
+    traj = done.get("loss_trajectory") or []
+    if not traj or not all(math.isfinite(x) for x in traj):
+        problems.append(f"losses {traj}")
+    elif not done["loss_final"] < done["loss_first"]:
+        problems.append(f"loss did not fall: {traj}")
+    steps = done.get("steps_run", 0) + 1                    # and the warm-up
+    launches = done.get("launches", {})
+    layers = done.get("teacher_layers", 0) + DRAFT_LAYERS
+    want = {"flash_attention_fwd": layers * steps,
+            "flash_attention_bwd_dkdv": DRAFT_LAYERS * steps,
+            "flash_attention_bwd_dq": DRAFT_LAYERS * steps}
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if problems:
+        raise RuntimeError("distill phase: " + "; ".join(problems))
+    tokens = DISTILL_BATCH * DISTILL_SEQ
+    step_s = tokens / done["tokens_per_sec"]
+    # the teacher's forward and the student's forward and backward, 2 and
+    # 6 flops a weight a token, against the bf16 peak
+    line = {"distill": {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(DISTILL_ARGS) + " --out DIR",
+        "teacher": "llama3_8b", "draft_layers": done["draft_layers"],
+        "batch": DISTILL_BATCH, "seq": DISTILL_SEQ,
+        "steps_run": done["steps_run"], "loss_first": done["loss_first"],
+        "loss_final": done["loss_final"],
+        "loss_trajectory": done["loss_trajectory"],
+        "tokens_per_s": done["tokens_per_sec"], "step_s": step_s,
+        "step_s_predicted": list(DISTILL_STEP_S_PREDICTED),
+        "peak_mem_gb": done["peak_mem_gb"],
+        "peak_mem_gb_predicted": DISTILL_PEAK_GB_PREDICTED,
+        "checkpoint_save_s": saved["save_s"],
+        "artifact_save_s": saved["draft_save_s"],
+        "process_wall_s": wall, "launches": launches, "card": card}}
+    log(f"[distill] {line}")
+    return line, launches, saved["path"]
+
+
+def phase_distill_serve(card, artifact, solo_replies, params, truncated):
+    """The distilled artifact served as phase 7's worker serves the
+    truncated one: ``spec_armed`` (a ``spec_fallback`` fails), phase 6's
+    8 requests, every served token held to the target under the near-tie
+    rule; its acceptance beside the truncated draft's ``truncated``."""
+    from dcos_commons_tpu_torch.models import llama
+    extra = ("--pages", "64", "--spec-decode", "true", "--draft-checkpoint",
+             artifact, "--draft-k", str(SPEC_K))
+    line, launches, replies, events = phase_worker(
+        card, "worker_distilled", extra, "PagedServer",
+        ("flash_decode", "flash_attention_fwd"), expect=("spec_armed",),
+        forbid=("paged_fallback", "spec_fallback"))
+    armed = next(e for e in events if e["event"] == "spec_armed")
+    body = line["worker_distilled"]
+    if armed["draft_step"] != DISTILL_STEPS:
+        raise RuntimeError(f"worker_distilled armed {armed}")
+    bodies = worker_bodies()
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    body["divergences"] = stream_check(
+        "worker_distilled", dict(enumerate(replies)),
+        dict(enumerate(solo_replies)),
+        {i: b["prompt"] for i, b in enumerate(bodies)}, cfg, params)
+    body["spec_armed"] = armed
+    spec = body["paged"]["spec"]
+    body["accept_rate_distilled"] = spec["accept_rate"]
+    body["accept_rate_truncated"] = truncated
+    log(f"[worker_distilled] accepted {spec['accepted']} of "
+        f"{spec['proposed']} ({spec['accept_rate']}) against the truncated "
+        f"draft's {truncated}")
+    return line, launches
+
+
+# --------------------------------------------------------------- phase 9
+
+LT_FRESH, LT_RESUMED, LT_FLASH = 3, 5, 2
+LT_LAYERS = 4                   # LlamaConfig.tiny
+
+
+def _saved_counts(out: Path, step: int) -> tuple:
+    """(Adam count, schedule count) of a train checkpoint's step."""
+    import numpy as np
+    d = out / f"step-{step:08d}-p0"
+    return tuple(int(np.fromfile(d / f"opt_state.{k}.count.o.bin",
+                                 dtype=np.int32)[0]) for k in ("1.0", "1.2"))
+
+
+def phase_llama_train(card: str) -> dict:
+    """``llama-train`` (the tiny config at its defaults: batch 2 x 256,
+    head_dim 8, ``--attn auto``, which is dense as the reference's
+    ``auto`` under its train mesh) as subprocesses: a fresh ``--steps 3``
+    (counts 4 saved, the warm-up's update kept), ``--steps 5`` on the
+    same volume (``resumed`` at 3, 2 steps), and a long ``--ckpt-every
+    1`` run SIGTERM'd after its first ``checkpoint`` (``sigterm``,
+    ``preempted`` with ``flushed_step``, exit 143) whose relaunch resumes
+    at the flushed step; kernels 3-5 launch 0 times in these runs. Then
+    ``--attn flash --steps 2``, which the reference runs through its
+    kernel at this shape: kernels 3-5 launch once a layer for the
+    warm-up and each step."""
+    import math
+    import shutil
+    import signal
+
+    base = Path(__file__).resolve().parent / "build" / "lt_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    vol, vol2 = base / "vol", base / "vol2"
+    base.mkdir(parents=True)
+    problems, runs = [], {}
+
+    def run(name, args, want_launches=0, **kw):
+        t0 = time.perf_counter()
+        rc, events = _worker_run(["llama-train", *args], base, **kw)
+        runs[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                      "events": [e["event"] for e in events]}
+        done = [e for e in events if e.get("event") == "done"]
+        if done:
+            launches = runs[name]["launches"] = done[0].get("launches")
+            if launches is None or set(launches.values()) != {want_launches}:
+                problems.append(f"{name}: kernel launches {launches}, want "
+                                f"{want_launches} each")
+        return rc, events, done[0] if done else {}
+
+    rc, _, done = run("fresh", ["--steps", str(LT_FRESH), "--out", str(vol)])
+    if rc != 0 or done.get("steps_run") != LT_FRESH \
+            or not math.isfinite(done.get("final_loss") or math.nan):
+        problems.append(f"fresh: exit {rc}, {done}")
+    elif _saved_counts(vol, LT_FRESH) != (LT_FRESH + 1,) * 2:
+        problems.append(f"fresh: counts {_saved_counts(vol, LT_FRESH)}")
+    rc, events, done = run("resumed", ["--steps", str(LT_RESUMED), "--out",
+                                       str(vol)])
+    resumed = [e["step"] for e in events if e.get("event") == "resumed"]
+    if rc != 0 or resumed != [LT_FRESH] \
+            or done.get("steps_run") != LT_RESUMED - LT_FRESH:
+        problems.append(f"resumed: exit {rc}, resumed at {resumed}, {done}")
+
+    sent = []
+
+    def preempt(proc, event):
+        # once: the flush emits a checkpoint event too
+        if event.get("event") == "checkpoint" and not sent:
+            sent.append(event["step"])
+            proc.send_signal(signal.SIGTERM)
+
+    rc, events, done = run("sigterm", ["--steps", "1000000", "--ckpt-every",
+                                       "1", "--out", str(vol2)],
+                           on_event=preempt)
+    pre = [e for e in events if e.get("event") == "preempted"]
+    flushed = pre[0]["flushed_step"] if pre else None
+    if rc != 143 or "sigterm" not in runs["sigterm"]["events"] \
+            or len(pre) != 1 or done.get("resume_step") != flushed:
+        problems.append(f"sigterm: exit {rc}, events "
+                        f"{runs['sigterm']['events'][-6:]}, {done}")
+    else:
+        rc, events, done = run("relaunch", ["--steps", str(flushed + 2),
+                                            "--out", str(vol2)])
+        resumed = [e["step"] for e in events if e.get("event") == "resumed"]
+        if rc != 0 or resumed != [flushed] or done.get("steps_run") != 2:
+            problems.append(f"relaunch: exit {rc}, resumed at {resumed}, "
+                            f"{done}")
+    rc, _, done = run("flash", ["--attn", "flash", "--steps", str(LT_FLASH)],
+                      want_launches=(LT_FLASH + 1) * LT_LAYERS)
+    if rc != 0 or done.get("steps_run") != LT_FLASH \
+            or not math.isfinite(done.get("final_loss") or math.nan):
+        problems.append(f"flash: exit {rc}, {done}")
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("llama-train phase: " + "; ".join(problems))
+    line = {"llama_train": {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   "llama-train", "model": "tiny", "batch": 2, "seq": 256,
+        "head_dim": 8,
+        "attn": "auto (dense, the reference's auto under its train mesh); "
+                "flash (kernels 3-5, head_dim padded to 64)",
+        "flushed_step": flushed, "runs": runs, "card": card}}
+    log(f"[llama_train] {line}")
+    return line
+
+
 # --------------------------------------------------------------- phase 4
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
@@ -1924,6 +2187,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     decode_cases, slot_cases, fa_cases = phase_kernels(flush)
     del flush
+    torch.cuda.empty_cache()
+    distill_line, distill_launches, distilled = phase_distill(card)
     serving_line, decode_launches, params, solo = phase_serve(card)
     torch.cuda.empty_cache()
     spec_line, spec_launches = phase_spec(card, params, solo)
@@ -1946,13 +2211,18 @@ def main() -> int:
         spec_worker_line, spec_worker_launches = phase_spec_worker(
             card, artifact, replies["worker_paged"], params)
         spec_worker_s = time.perf_counter() - t0
+        distilled_line, distilled_launches = phase_distill_serve(
+            card, distilled, replies["worker_paged"], params,
+            spec_line["accept_rate"])
     finally:
         import shutil
         shutil.rmtree(artifact["path"], ignore_errors=True)
+        shutil.rmtree(Path(distilled).parent, ignore_errors=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     training_line, fa_launches = phase_train(card)
+    llama_train_line = phase_llama_train(card)
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -1978,6 +2248,8 @@ def main() -> int:
         "near_tie_divergences": (len(spec_line["divergences"])
                                  + len(spec_line["self_draft"]["divergences"])
                                  + len(ws["divergences"])),
+        "accept_rate_distilled":
+            distilled_line["worker_distilled"]["accept_rate_distilled"],
         "engine": spec_line, "card": card}
     fa_tol = {"rtol": FA_RTOL,
               "atol": f"{FA_SCALED_ATOL} * max|plain| of each row of a head "
@@ -1998,7 +2270,9 @@ def main() -> int:
                       {"serving_slots": slot_launches["flash_decode"],
                        "worker": worker_launches["flash_decode"],
                        "spec": spec_launches["flash_decode"],
-                       "worker_spec": spec_worker_launches["flash_decode"]},
+                       "worker_spec": spec_worker_launches["flash_decode"],
+                       "worker_distilled":
+                           distilled_launches["flash_decode"]},
                       slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
@@ -2007,17 +2281,23 @@ def main() -> int:
                        "spec": spec_launches["flash_attention_fwd"],
                        "worker_spec":
                            spec_worker_launches["flash_attention_fwd"],
-                       "training": fa_launches["flash_attention_fwd"]},
+                       "worker_distilled":
+                           distilled_launches["flash_attention_fwd"],
+                       "training": fa_launches["flash_attention_fwd"],
+                       "distill": distill_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:214",
-                      {"training": fa_launches["flash_attention_bwd_dkdv"]},
+                      {"training": fa_launches["flash_attention_bwd_dkdv"],
+                       "distill":
+                           distill_launches["flash_attention_bwd_dkdv"]},
                       fa_cases["dkdv"], fa_tol),
         _kernel_entry("flash_attention_bwd_dq",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:256",
-                      {"training": fa_launches["flash_attention_bwd_dq"]},
+                      {"training": fa_launches["flash_attention_bwd_dq"],
+                       "distill": distill_launches["flash_attention_bwd_dq"]},
                       fa_cases["dq"], fa_tol),
     ]
     sdpa = "scaled_dot_product_attention(attn_mask=kv_len, enable_gqa) over "
@@ -2032,7 +2312,10 @@ def main() -> int:
     for line in worker_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps(spec_worker_line), flush=True)
+    print(json.dumps(distilled_line), flush=True)
     print(json.dumps(training_line), flush=True)
+    print(json.dumps(distill_line), flush=True)
+    print(json.dumps(llama_train_line), flush=True)
     print(json.dumps({"spec": spec_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

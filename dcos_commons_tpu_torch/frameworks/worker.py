@@ -1,10 +1,15 @@
 """Task-side worker of the port: what a scheduled pod instance runs (port
-of ``frameworks/jax/worker.py``, its ``llama`` workload).
+of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
+``distill`` workloads).
 
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset tiny
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
         --serve --slots 8 [--pages 64] [--quant int8] [--kv-quant] \\
         [--spec-decode true --draft-checkpoint DIR --draft-k 4] [--out VOL]
+    python -m dcos_commons_tpu_torch.frameworks.worker llama-train \\
+        --steps 20 --seq 256 [--ckpt-every N] [--grad-accum N] --out VOL
+    python -m dcos_commons_tpu_torch.frameworks.worker distill --preset 8b \\
+        --draft-layers 1 --batch 32 --seq 256 --steps 20 --out VOL
 
 Flags keep the reference's names, defaults and env knobs; ``--device``
 (default ``cuda``) is the one new flag, the counterpart of the
@@ -29,13 +34,24 @@ sharded checkpoint (``parallel.checkpoint``) restores its weights from
 it (``weights_loaded`` with ``source`` ``disk``), or emits
 ``weight_restore_fallback`` and serves the init.
 
-What is not ported yet refuses loudly, never serves without it: a
-knob of a module still to port exits 2 with a coded ``error`` event
-naming its ROADMAP Queue 1 item (peer weights: item 6; gangs: item 7;
-MoE and ring prefill: item 9; disaggregation, the router, KV tiers and
-the prefix directory: item 10; profiling and the other workloads: item
-4). The weight server is an accelerant in the reference, so asking for
-it only emits ``weight_server_error``.
+``llama-train`` trains the tiny Llama on one device under the fault
+sentinel (``frameworks.sentinel``: SIGTERM flush and exit 143, NaN
+rollback, stall watchdog), with sharded ``{"params", "opt_state"}``
+checkpoints in the reference's layout and automatic resume from
+``--out``. ``distill`` trains a draft (the target's first
+``--draft-layers`` layers, copied) against the frozen target that
+``llama --serve`` builds from the same preset and seed, through the
+fused linear-KL head, and seals it under ``--out/draft`` for
+``--spec-decode``. ``--profile-dir`` (or ``TPU_PROFILE_DIR``) wraps the
+workload in ``torch.profiler`` and writes a Chrome trace there.
+
+What is not ported yet refuses loudly, never runs without it: a knob of
+a module still to port exits 2 with a coded ``error`` event naming its
+ROADMAP Queue 1 item (peer weights: item 6; gangs: item 7; MoE,
+pipelines, ring prefill and ring or Ulysses attention: item 9;
+disaggregation, the router, KV tiers, the prefix directory and live
+resharding: item 10). The weight server is an accelerant in the
+reference, so asking for it only emits ``weight_server_error``.
 """
 
 from __future__ import annotations
@@ -241,6 +257,35 @@ def _device_report(server) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def _target_config(args):
+    """The serving target's config from ``--preset``, ``--max-seq`` and
+    ``--kv-quant``: what ``llama`` serves and ``distill`` distills from."""
+    from ..models import llama
+    kv_quant = args.kv_quant
+    if args.preset == "8b":
+        return llama.LlamaConfig.llama3_8b(max_seq=args.max_seq or 2048,
+                                           remat=False, kv_quant=kv_quant)
+    if args.preset == "400m":
+        return llama.LlamaConfig.llama_400m(max_seq=args.max_seq or 2048,
+                                            kv_quant=kv_quant)
+    if args.max_seq:
+        return llama.LlamaConfig.tiny(max_seq=args.max_seq,
+                                      kv_quant=kv_quant)
+    return llama.LlamaConfig.tiny(kv_quant=kv_quant)
+
+
+def _init_target(cfg, dev: torch.device, quant: str = "none"):
+    """The serving target's weights, from seed 0: a draft distilled from
+    them fits the target ``llama --serve`` builds on the same device."""
+    from ..models import llama
+    if quant == "int8":
+        # init + quantize on the host CPU: no bf16 weight on the device
+        return llama.init_quantized_params(
+            cfg, torch.Generator().manual_seed(0), device=dev)
+    return llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
 def run_llama(args) -> dict:
     """Llama inference on one device: the solo decode rate, then with
     ``--serve`` a serving loop that never returns while healthy."""
@@ -252,17 +297,7 @@ def run_llama(args) -> dict:
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     kv_quant = args.kv_quant
-    if args.preset == "8b":
-        cfg = llama.LlamaConfig.llama3_8b(max_seq=args.max_seq or 2048,
-                                          remat=False, kv_quant=kv_quant)
-    elif args.preset == "400m":
-        cfg = llama.LlamaConfig.llama_400m(max_seq=args.max_seq or 2048,
-                                           kv_quant=kv_quant)
-    elif args.max_seq:
-        cfg = llama.LlamaConfig.tiny(max_seq=args.max_seq,
-                                     kv_quant=kv_quant)
-    else:
-        cfg = llama.LlamaConfig.tiny(kv_quant=kv_quant)
+    cfg = _target_config(args)
     gen_len = args.gen_len
     # chunked decode for everything but tiny, as in the reference
     chunked = args.preset != "tiny" or args.quant != "none"
@@ -281,12 +316,7 @@ def run_llama(args) -> dict:
         return round(exec_len / max(time.perf_counter() - t0, 1e-9), 2)
 
     def init():
-        if args.quant == "int8":
-            # init + quantize on the host CPU: no bf16 weight on the device
-            return llama.init_quantized_params(
-                cfg, torch.Generator().manual_seed(0), device=dev)
-        return llama.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        return _init_target(cfg, dev, args.quant)
 
     registry = None
     boot_report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
@@ -394,17 +424,296 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
 
 
-WORKLOADS = {"llama": run_llama}
+# ---------------------------------------------------------------- training
+
+
+def _fused_ce(args) -> bool:
+    """--fused-ce arrives as a rendered spec string ('true'/'false')."""
+    return yaml_bool(args.fused_ce)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _train_tree(params, opt_state) -> dict:
+    """What a train checkpoint holds, in the reference's layout."""
+    from ..models import train
+    return {"params": params, "opt_state": train.opt_state_tree(opt_state)}
+
+
+def _restore_train(out_dir: str, params, opt_state, step: int):
+    """``(params, opt_state)`` of ``step`` under ``out_dir``, restored
+    into the live tree's structure, dtypes and device."""
+    from ..models import train
+    from ..parallel import checkpoint as ckpt
+    tree = ckpt.restore_sharded(out_dir, _train_tree(params, opt_state),
+                                step)
+    return tree["params"], train.opt_state_from_tree(tree["opt_state"])
+
+
+def _train_device_report(dev: torch.device) -> dict:
+    """The flash-attention kernels' launches in this process and the peak
+    device memory (CUDA only)."""
+    from ..ops import flash_attention as fa
+    if dev.type != "cuda":
+        return {}
+    return {"launches": {name: getattr(fa, name).launches for name in (
+                "flash_attention_fwd", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def run_llama_train(args) -> dict:
+    """LM training of the tiny Llama on one device: the reference's
+    dp-sp-tp variant, whose ``divisor_at_most`` clamps every axis to 1 on
+    one device (mesh dp=sp=tp=1), with its optimizer, warm-up, resume,
+    guarded loop and report. The warm-up step runs on the fresh init; a
+    fresh run keeps its update (so a fresh ``--steps N`` saves counts
+    N + 1), a resumed run overwrites it with the newest checkpoint under
+    ``--out``.
+
+    The reference trains under a mesh, where its ``auto`` attention is
+    dense (``models/llama.py::_make_attn_fn``): ``--attn auto`` is dense
+    here too, and ``--attn flash`` takes the flash-attention kernels."""
+    from .._device import resolve_device
+    from ..models import llama, train
+    from ..parallel import checkpoint as ckpt
+    from ..parallel import distributed
+    from . import sentinel as sentinel_mod
+
+    if args.pp > 1:
+        raise NotPorted("pipeline_not_ported", "--pp > 1: pipeline-parallel "
+                        "training is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.ep > 1:
+        raise NotPorted("moe_not_ported", "--ep > 1: expert-parallel (MoE) "
+                        "training is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.attn in ("ring", "ulysses"):
+        raise NotPorted("attn_not_ported", f"--attn {args.attn}: sequence-"
+                        "parallel attention is not ported yet (ROADMAP "
+                        "Queue 1 item 9)")
+    if str(os.environ.get("RESHARD_ENABLE", "0")).strip().lower() \
+            not in ("", "0", "false", "no"):
+        raise NotPorted("reshard_not_ported", "RESHARD_ENABLE: restart-free "
+                        "resharding is not ported yet (ROADMAP Queue 1 item "
+                        "10)")
+    contract = distributed.initialize()
+    dev = resolve_device(args.device)
+    seq = args.seq
+    cfg = llama.LlamaConfig.tiny(
+        attn_impl="dense" if args.attn == "auto" else args.attn,
+        max_seq=seq + 1, fused_ce=_fused_ce(args))
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq + 1),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         dtype=torch.int32, device=dev)
+
+    grad_accum = max(1, args.grad_accum)
+    if grad_accum > 1 and toks.shape[0] % grad_accum:
+        # degrade, don't crash-loop the gang, as the reference
+        _emit({"event": "grad_accum_fallback",
+               "requested": grad_accum, "batch": int(toks.shape[0])})
+        grad_accum = 1
+    opt = train.make_optimizer(lr=1e-3, warmup=5,
+                               decay_steps=max(args.steps, 10))
+    step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b), opt,
+                                 grad_accum=grad_accum)
+    opt_state = train.init_opt_state(opt, params)
+    params, opt_state, out = step(params, opt_state, toks)     # warm-up
+    float(out["loss"])
+    start = 0
+    resumed = False
+    if args.out and (resume_step := ckpt.latest_step(args.out)) is not None:
+        t_r = time.perf_counter()
+        params, opt_state = _restore_train(args.out, params, opt_state,
+                                           resume_step)
+        start = resume_step
+        resumed = True
+        _emit({"event": "resumed", "step": start, "sharded": True,
+               "restore_s": round(time.perf_counter() - t_r, 6)})
+
+    sent = sentinel_mod.FaultSentinel.from_env(emit=_emit)
+    sent.install()
+    _sync(dev)
+    t0 = time.perf_counter()
+    steps_run = 0
+
+    def run_step(i):
+        nonlocal params, opt_state, out, steps_run
+        params, opt_state, out = step(params, opt_state, toks)
+        steps_run += 1
+        if args.out and args.ckpt_every \
+                and steps_run % args.ckpt_every == 0:
+            ckpt.save_sharded(args.out, i + 1, _train_tree(params, opt_state))
+            _emit({"event": "checkpoint", "step": i + 1})
+        return out
+
+    def save(i):
+        if args.out:
+            ckpt.save_sharded(args.out, i, _train_tree(params, opt_state))
+            _emit({"event": "checkpoint", "step": i})
+
+    def restore():
+        nonlocal params, opt_state
+        if not args.out:
+            return None
+        restore_step = ckpt.latest_step(args.out)
+        if restore_step is None:
+            return None
+        # the optimizer state travels with the params: the schedule
+        # resumes at the restored step
+        params, opt_state = _restore_train(args.out, params, opt_state,
+                                           restore_step)
+        return restore_step
+
+    try:
+        stopped, end_step = sentinel_mod.guarded_loop(
+            sent, start, args.steps, run_step,
+            lambda result: float(result["loss"]), save, restore, emit=_emit)
+    finally:
+        sent.uninstall()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    mesh_report = {"dp": 1, "sp": 1, "tp": 1}
+    if stopped == "preempted":
+        # flushed by guarded_loop; main() exits 143
+        return {"workload": "llama-train", "attn": args.attn, "seq": seq,
+                "mesh": mesh_report, "stopped": "preempted",
+                "resume_step": end_step, "steps_run": steps_run,
+                "process_id": contract["process_id"],
+                **_train_device_report(dev)}
+    if resumed and steps_run == 0:
+        # already at the target step: nothing ran, and `out` is the
+        # discarded warm-up; the restored state keeps its step
+        loss = None
+    else:
+        loss = float(out["loss"])
+        if args.out:
+            ckpt.save_sharded(args.out, args.steps,
+                              _train_tree(params, opt_state))
+    return {"workload": "llama-train", "attn": args.attn, "seq": seq,
+            "fused_ce": bool(cfg.fused_ce), "grad_accum": grad_accum,
+            "mesh": mesh_report, "final_loss": loss,
+            "steps_run": steps_run,
+            "tokens_per_sec": (round(
+                toks.shape[0] * seq * steps_run / dt, 1) if steps_run
+                else 0.0),
+            "process_id": contract["process_id"],
+            **_train_device_report(dev)}
+
+
+def run_distill(args) -> dict:
+    """Draft distillation: train a draft against the FROZEN serving
+    target's own distribution, so ``--spec-decode`` has something worth
+    proposing.
+
+    The teacher is built as ``llama --serve`` builds its target
+    (:func:`_target_config`, :func:`_init_target`: same preset, seed and
+    device), so the artifact fits the engine that arms it. The student
+    is a copy of the teacher's first ``--draft-layers`` layers with the
+    embedding, final norm and head, every weight its own (the cut is a
+    view, and the step updates in place), and trains all of them through
+    the fused linear-KL head (``ops.losses.fused_linear_distillation``).
+    The teacher's forward runs under ``torch.no_grad``.
+
+    Saves a resumable train checkpoint under ``--out`` and, at the end,
+    the sealed draft artifact under ``--out/draft``
+    (``models.speculative.save_draft``)."""
+    from torch.profiler import record_function
+
+    from .._device import resolve_device
+    from ..models import train
+    from ..models.speculative import distill_loss, draft_student, save_draft
+    from ..parallel import checkpoint as ckpt
+    from ..parallel import distributed
+
+    contract = distributed.initialize()
+    dev = resolve_device(args.device)
+    cfg_t = _target_config(args)
+    seq = min(args.seq, cfg_t.max_seq)
+    temp = max(float(args.distill_temp), 1e-3)
+    layers = max(1, min(args.draft_layers, cfg_t.n_layers - 1))
+    params_t = _init_target(cfg_t, dev)
+    cfg_d, params_d = draft_student(cfg_t, params_t, layers)
+    toks = torch.randint(0, cfg_t.vocab_size, (max(args.batch, 1), seq),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         dtype=torch.int32, device=dev)
+    loss_fn = distill_loss(cfg_t, params_t, cfg_d, temp)
+    opt = train.make_optimizer(lr=1e-3, warmup=5,
+                               decay_steps=max(args.steps, 10))
+    step = train.make_train_step(loss_fn, opt)
+    opt_state = train.init_opt_state(opt, params_d)
+    params_d, opt_state, out = step(params_d, opt_state, toks)  # warm-up
+    float(out["loss"])
+    start = 0
+    if args.out and (resume := ckpt.latest_step(args.out)) is not None:
+        params_d, opt_state = _restore_train(args.out, params_d, opt_state,
+                                             resume)
+        start = resume
+        _emit({"event": "resumed", "step": start, "sharded": True})
+    _sync(dev)
+    t0 = time.perf_counter()
+    trajectory = []
+    for i in range(start, args.steps):
+        with record_function("distill.step"):
+            params_d, opt_state, out = step(params_d, opt_state, toks)
+            loss = float(out["loss"])
+        trajectory.append(round(loss, 6))
+        if args.emit_every and (i + 1) % args.emit_every == 0:
+            _emit({"event": "progress", "step": i + 1, "loss": loss})
+        if args.out and args.ckpt_every \
+                and (i + 1 - start) % args.ckpt_every == 0:
+            ckpt.save_sharded(args.out, i + 1,
+                              _train_tree(params_d, opt_state))
+            _emit({"event": "checkpoint", "step": i + 1})
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    device_report = _train_device_report(dev)   # before the saves' copies
+    draft_dir = ""
+    if args.out:
+        t_s = time.perf_counter()
+        ckpt.save_sharded(args.out, args.steps,
+                          _train_tree(params_d, opt_state))
+        save_s = time.perf_counter() - t_s
+        draft_dir = os.path.join(args.out, "draft")
+        t_s = time.perf_counter()
+        save_draft(draft_dir, args.steps, cfg_d, params_d, cfg_t)
+        _emit({"event": "draft_saved", "path": draft_dir,
+               "step": args.steps, "draft_layers": cfg_d.n_layers,
+               "save_s": round(save_s, 4),
+               "draft_save_s": round(time.perf_counter() - t_s, 4)})
+    steps_run = len(trajectory)
+    return {"workload": "distill", "preset": args.preset,
+            "draft_layers": cfg_d.n_layers, "teacher_layers": cfg_t.n_layers,
+            "seq": seq, "temperature": temp,
+            "loss_first": trajectory[0] if trajectory else None,
+            "loss_final": trajectory[-1] if trajectory else None,
+            "loss_trajectory": trajectory[-16:],
+            "steps_run": steps_run, "draft_dir": draft_dir,
+            "tokens_per_sec": (round(
+                toks.shape[0] * seq * steps_run / dt, 1) if steps_run
+                else 0.0),
+            "process_id": contract["process_id"], **device_report}
+
+
+WORKLOADS = {"llama": run_llama, "llama-train": run_llama_train,
+             "distill": run_distill}
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference parser's ``llama`` flags (same names, defaults and
-    env knobs) plus ``--device``."""
+    """The reference parser's flags of the ported workloads (same names,
+    defaults and env knobs) plus ``--device``."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("workload", choices=sorted(WORKLOADS))
     p.add_argument("--device", default="cuda",
                    help="torch device the model runs on (cuda, cuda:N or "
                         "cpu); never falls back to the CPU on its own")
+    p.add_argument("--steps", type=int, default=20,
+                   help="llama-train, distill: optimizer steps")
+    p.add_argument("--batch", type=int, default=32,
+                   help="distill: sequences a step")
     p.add_argument("--preset", default="tiny",
                    choices=["tiny", "400m", "8b"])
     p.add_argument("--kv-quant", action="store_true",
@@ -468,6 +777,15 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(os.environ.get("DRAFT_K", "4") or 4),
                    help="--spec-decode: draft proposals verified per "
                         "target pass (>= 2)")
+    p.add_argument("--draft-layers", type=int,
+                   default=int(os.environ.get("DRAFT_LAYERS", "1") or 1),
+                   help="distill: student decoder layers (the teacher's "
+                        "first N, copied; clamped to teacher layers - 1)")
+    p.add_argument("--distill-temp", type=float,
+                   default=float(os.environ.get("DISTILL_TEMP", "1.0")
+                                 or 1.0),
+                   help="distill: softmax temperature of both "
+                        "distributions in the KL loss")
     p.add_argument("--moe-experts", type=int,
                    default=int(os.environ.get("MOE_EXPERTS", "0") or 0),
                    help="not ported (item 9): > 0 exits 2")
@@ -529,12 +847,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-peer",
                    default=os.environ.get("SERVE_PEER", ""),
                    help="--serve-role decode's prefill tier (not ported)")
+    p.add_argument("--attn", default="auto",
+                   choices=["auto", "dense", "flash", "ring", "ulysses"],
+                   help="llama-train: attention (ring and ulysses are not "
+                        "ported, item 9: exit 2)")
+    p.add_argument("--ring-layout", default="contiguous",
+                   choices=["contiguous", "zigzag"],
+                   help="llama-train --attn ring's block order (not "
+                        "ported; zigzag degrades to contiguous)")
+    p.add_argument("--seq", type=int, default=256,
+                   help="llama-train, distill: sequence length")
+    p.add_argument("--fused-ce", default=os.environ.get("FUSED_CE", "true"),
+                   help="llama-train: fused linear-cross-entropy loss head "
+                        "(the [B, S, V] fp32 logits never materialize); "
+                        "true/false (spec boolean)")
+    p.add_argument("--grad-accum", type=int,
+                   default=int(os.environ.get("GRAD_ACCUM", "1") or 1),
+                   help="llama-train: gradient-accumulation microbatches "
+                        "per optimizer step; one the batch does not divide "
+                        "falls back to 1 (grad_accum_fallback)")
+    p.add_argument("--sp", type=int, default=0,
+                   help="llama-train: sequence-parallel mesh size (0=auto; "
+                        "1 on one device)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="llama-train: tensor-parallel mesh size (0=auto; "
+                        "1 on one device)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="llama-train: pipeline stages (not ported, item 9: "
+                        "> 1 exits 2)")
+    p.add_argument("--ep", type=int, default=0,
+                   help="llama-train: expert-parallel size (not ported, "
+                        "item 9: > 1 exits 2)")
+    p.add_argument("--emit-every", type=int, default=0,
+                   help="distill: emit a {event: progress, step, loss} "
+                        "line every N steps (0 = off)")
     p.add_argument("--out", default="",
                    help="the task's volume: created if absent; --serve "
-                        "restores the newest sharded checkpoint in it")
+                        "restores the newest sharded checkpoint in it; "
+                        "llama-train and distill checkpoint into it and "
+                        "resume from it")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="llama-train, distill: save a sharded checkpoint "
+                        "every N steps (0 = only at the end)")
     p.add_argument("--profile-dir", default="",
-                   help="not ported (item 4): set, or TPU_PROFILE_DIR set, "
-                        "exits 2")
+                   help="write a torch.profiler Chrome trace of the whole "
+                        "workload here (env TPU_PROFILE_DIR also works)")
     return p
 
 
@@ -552,19 +909,40 @@ def main(argv=None) -> int:
            "task": os.environ.get("TASK_NAME", "?"),
            "pod_index": os.environ.get("POD_INSTANCE_INDEX", "0"),
            "pid": os.getpid()})
+    profile_dir = args.profile_dir or os.environ.get("TPU_PROFILE_DIR", "")
     try:
-        if args.profile_dir or os.environ.get("TPU_PROFILE_DIR", ""):
-            raise NotPorted("profile_not_ported", "--profile-dir / "
-                            "TPU_PROFILE_DIR: profiling the worker is not "
-                            "ported yet (ROADMAP Queue 1 item 4)")
-        result = WORKLOADS[args.workload](args)
+        if profile_dir:
+            result = _profiled(args, profile_dir)
+        else:
+            result = WORKLOADS[args.workload](args)
     except (NotPorted, NotImplementedError) as e:
         code = getattr(e, "code", "not_ported")
         _emit({"event": "error", "code": code, "error": str(e)})
         print(f"error: {code}: {e}", file=sys.stderr)
         return 2
     _emit({"event": "done", **result})
+    if result.get("stopped") == "preempted":
+        # the conventional SIGTERM exit: the checkpoint is flushed, and
+        # the scheduler's relaunch resumes from it
+        return 143
     return 0
+
+
+def _profiled(args, profile_dir: str) -> dict:
+    """The workload under ``torch.profiler`` (CPU, and CUDA activities
+    when it runs on the card); the Chrome trace lands in
+    ``profile_dir/worker-<pid>.trace.json`` when the workload returns."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(profile_dir, exist_ok=True)
+    _emit({"event": "profiling", "dir": profile_dir})
+    activities = [ProfilerActivity.CPU]
+    if torch.device(args.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        result = WORKLOADS[args.workload](args)
+    prof.export_chrome_trace(
+        os.path.join(profile_dir, f"worker-{os.getpid()}.trace.json"))
+    return result
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ import torch.utils.checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import gqa_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.flash_decode import (flash_decode, flash_decode_paged,
                                 supports_decode, supports_decode_paged)
 from ..ops.losses import fused_linear_cross_entropy, softmax_cross_entropy
@@ -71,9 +71,12 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     # train attention: auto | dense | flash (ring | ulysses raise until
-    # ported). auto = the flash-attention kernels on a CUDA device (a
-    # shape or dtype outside their gate raises), the dense path on the
-    # CPU; flash forces the kernel wrapper (its plain version on CPU)
+    # ported). On a CUDA device auto and flash take the flash-attention
+    # kernels for every head_dim up to 256 (the reference's gate), zero-
+    # padded to the kernels' widths, and the dense path beyond it; the
+    # kernels take bf16 only, so an fp32 config raises there. On the
+    # CPU auto is dense and flash runs the kernel wrapper (its plain
+    # version). See :func:`attn_route`
     attn_impl: str = "auto"
     dtype: torch.dtype = torch.bfloat16
     # recompute each layer's activations in the backward (full remat);
@@ -645,14 +648,55 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
 # train forward
 
 
-def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
-    """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal.
+def attn_route(impl: str, device_type: str, q: torch.Tensor,
+               k: torch.Tensor) -> str:
+    """Which path causal train attention takes, ``"flash"`` or
+    ``"dense"``, decided from the impl, the device type and the shapes
+    and dtype alone (no launch, no build).
 
-    ``auto`` takes the flash-attention kernels on a CUDA device and the
-    dense path on the CPU; ``flash`` forces the kernel wrapper; ``dense``
-    the dense path. Unlike the reference, a shape or dtype the kernels do
-    not take raises on CUDA instead of going dense (``supports`` is the
-    kernels' gate, not a router)."""
+    ``dense`` is dense. A head_dim above 256 is dense, as the reference's
+    gate sends it. On the CPU ``auto`` is dense and ``flash`` takes the
+    kernel wrapper, which runs its plain version. On a CUDA device
+    ``auto`` and ``flash`` take the kernels: they take any sequence
+    length (the reference's ``S % 128`` tile rule does not carry over)
+    and :func:`_make_attn_fn` zero-pads a head_dim below a kernel width;
+    they take bf16 only, so any other dtype raises ``TypeError`` where
+    the reference would run its kernel. A caller that trains under the
+    reference's mesh, where its ``auto`` is dense, passes ``dense``."""
+    if impl == "dense" or q.shape[-1] > HEAD_DIMS[-1]:
+        return "dense"
+    if device_type != "cuda":
+        return "flash" if impl == "flash" else "dense"
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        raise TypeError(
+            f"attn_impl={impl!r} on a CUDA device: the flash-attention "
+            f"kernels take bf16, got {q.dtype}/{k.dtype}; train this "
+            "config with attn_impl='dense'")
+    return "flash"
+
+
+def _padded_flash(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Causal flash attention at any head_dim up to 256: q/k/v are
+    zero-padded to the next kernel width and the softmax keeps the true
+    width's scale. The zero columns add nothing to Q.K^T, the output's
+    padded columns are zero and cut away, and the gradients of the
+    padding are dropped by the pad's own backward."""
+    d = q.shape[-1]
+    width = next(w for w in HEAD_DIMS if w >= d)
+    if width == d:
+        return flash_attention(q, k, v, causal=True)
+    pad = (0, width - d)
+    o = flash_attention(torch.nn.functional.pad(q, pad),
+                        torch.nn.functional.pad(k, pad),
+                        torch.nn.functional.pad(v, pad), causal=True,
+                        sm_scale=d ** -0.5)
+    return o[..., :d]
+
+
+def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
+    """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal, routed
+    per call by :func:`attn_route`."""
     impl = cfg.attn_impl
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
@@ -660,9 +704,13 @@ def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
     if impl not in ("auto", "dense", "flash"):
         raise ValueError(f"attn_impl={impl!r}: expected one of 'auto', "
                          "'dense', 'flash'")
-    if impl == "flash" or (impl == "auto" and device.type == "cuda"):
-        return lambda q, k, v: flash_attention(q, k, v, causal=True)
-    return lambda q, k, v: gqa_attention(q, k, v, causal=True)
+
+    def attn(q, k, v):
+        if attn_route(impl, device.type, q, k) == "flash":
+            return _padded_flash(q, k, v)
+        return gqa_attention(q, k, v, causal=True)
+
+    return attn
 
 
 def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,

@@ -18,6 +18,9 @@ with greedy exact-match or sampled rejection acceptance.
   with the blake2s of their manifest; :func:`load_draft` runs every
   check that can fail before the weights reach an engine and raises
   :class:`DraftIncompatible` with the reference's codes.
+* Training a draft (the worker's ``distill``): :func:`draft_student`
+  copies the target's first layers, :func:`distill_loss` is the step's
+  loss against the frozen target through the fused linear-KL head.
 
 Execution differs from the reference only mechanically: the jitted
 draft chunk, verify and fused ``while_loop`` are eager loops, and the
@@ -311,6 +314,44 @@ def save_draft(out_dir: str, step: int, cfg_d: llama.LlamaConfig,
         os.fsync(f.fileno())
     os.rename(tmp, os.path.join(out_dir, "draft_config.json"))
     return step_dir
+
+
+def draft_student(cfg_t: llama.LlamaConfig, params_t: Params, layers: int
+                  ) -> Tuple[llama.LlamaConfig, Params]:
+    """``(cfg_d, params_d)``: the target's first ``layers`` layers with
+    the embedding, final norm and head, every leaf a copy. The cut
+    (:func:`llama.truncate_layers`) is a view, and the train step updates
+    in place: without the copies the optimizer would write into the
+    target."""
+    cfg_d, params_d = llama.truncate_layers(cfg_t, params_t, layers)
+    return cfg_d, {k: ({n: w.clone() for n, w in v.items()}
+                       if isinstance(v, dict) else v.clone())
+                   for k, v in params_d.items()}
+
+
+def distill_loss(cfg_t: llama.LlamaConfig, params_t: Params,
+                 cfg_d: llama.LlamaConfig, temperature: float):
+    """The distill step's ``loss_fn(params_d, tokens) -> (loss, loss)``:
+    the frozen target's final hidden states (under ``torch.no_grad``) and
+    the student's, into the fused linear-KL head
+    (``ops.losses.fused_linear_distillation``). Each part runs under a
+    ``distill.*`` profiler range."""
+    from torch.profiler import record_function
+
+    from ..ops.losses import fused_linear_distillation
+
+    def loss_fn(p_d, batch):
+        with torch.no_grad(), record_function("distill.teacher_forward"):
+            x_t = llama.forward(cfg_t, params_t, batch, return_hidden=True)
+        with record_function("distill.student_forward"):
+            x_s = llama.forward(cfg_d, p_d, batch, return_hidden=True)
+        with record_function("distill.kl_head"):
+            loss = fused_linear_distillation(
+                x_s, p_d["lm_head"], x_t, params_t["lm_head"],
+                temperature=temperature)
+        return loss, loss
+
+    return loss_fn
 
 
 def load_draft(path: str, cfg_t: Optional[llama.LlamaConfig] = None,

@@ -15,16 +15,27 @@ the rate is 0 at step 0.
 Unlike the reference, whose jitted step donates and returns new arrays,
 :func:`make_train_step`'s step updates the parameters and the optimizer
 state IN PLACE and returns the same objects. There is no mesh yet, and
-no ``has_aux_state`` (the ResNet batch-norm pattern).
+no ``has_aux_state`` (the ResNet batch-norm pattern). The step's backward
+and optimizer update run under ``train_step.backward`` and
+``train_step.optimizer`` profiler ranges.
+
+:class:`OptState` keeps its counts as Python ints; :func:`opt_state_tree`
+and :func:`opt_state_from_tree` map it to and from the tree of the
+reference's optax chain, ``(EmptyState(), (ScaleByAdamState(count, mu,
+nu), EmptyState(), ScaleByScheduleState(count)))`` with int32 0-d counts,
+which ``parallel.checkpoint`` saves under the reference's keys
+(``opt_state.1.0.count``, ``opt_state.1.0.mu.<param>``, ...,
+``opt_state.1.2.count``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 Params = Dict[str, Any]
 
@@ -74,6 +85,45 @@ class OptState:
     mu: Params
     nu: Params
     sched_count: int
+
+
+class EmptyState(NamedTuple):
+    """optax's stateless transforms' state (clip, weight decay)."""
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the update count and the moments."""
+
+    count: torch.Tensor
+    mu: Params
+    nu: Params
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's ``ScaleByScheduleState``: the schedule's count."""
+
+    count: torch.Tensor
+
+
+def opt_state_tree(state: OptState) -> tuple:
+    """``state`` as the reference optimizer's optax chain tree, the
+    moments shared (not copied) and the counts int32 0-d tensors on the
+    moments' device."""
+    dev = _leaves(state.mu)[0].device
+
+    def count(n: int) -> torch.Tensor:
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    return (EmptyState(),
+            (ScaleByAdamState(count(state.count), state.mu, state.nu),
+             EmptyState(), ScaleByScheduleState(count(state.sched_count))))
+
+
+def opt_state_from_tree(tree: tuple) -> OptState:
+    """The inverse of :func:`opt_state_tree` (e.g. after a restore)."""
+    _, (adam, _, sched) = tree
+    return OptState(count=int(adam.count), mu=adam.mu, nu=adam.nu,
+                    sched_count=int(sched.count))
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:
@@ -157,8 +207,9 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
 
     def grads_of(params, leaves, batch):
         loss, metric = loss_fn(params, batch)
-        return loss.detach(), metric.detach(), torch.autograd.grad(
-            loss, leaves)
+        with record_function("train_step.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), metric.detach(), grads
 
     def step(params, opt_state, batch):
         leaves = _leaves(params)
@@ -184,7 +235,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        apply_updates(optimizer, params, list(grads), opt_state)
+        with record_function("train_step.optimizer"):
+            apply_updates(optimizer, params, list(grads), opt_state)
         return params, opt_state, {"loss": loss, "metric": metric}
 
     return step

@@ -15,8 +15,16 @@ fp32 head computes exactly the reference's fp32 products. A bf16 head
 puts bf16 operands on the tensor cores with fp32 accumulation, which is
 the precision of the reference's default-precision dot on a TPU (the MXU
 rounds fp32 operands to bf16); a full fp32 product of [B*block, V] x
-[V, D] would cost more than the rest of the train step. Distillation
-(``fused_linear_distillation``) is not ported yet.
+[V, D] would cost more than the rest of the train step.
+
+* :func:`softmax_kl_divergence` is the distillation loss on materialized
+  logits (plain autograd), the reference the fused head is held to.
+* :func:`fused_linear_distillation` fuses both heads into the KL loss
+  the same way: each sequence block projects the student's and the
+  teacher's hidden states to fp32 logits tiles, reduces them to the
+  per-token KL and the two logsumexp rows (the only residuals), and drops
+  them; the backward recomputes both tiles. Gradients reach the student's
+  hidden states and a plain student head only.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .quant import QArray, QTensor, qmm
 
@@ -172,3 +181,157 @@ def fused_linear_cross_entropy(x: torch.Tensor, lm_head: QArray,
     loss, acc = _FusedLCE.apply(xf.contiguous(), lm_head, lab, maskf,
                                 float(z_loss), block, bool(compute_accuracy))
     return loss, (acc if compute_accuracy else None)
+
+
+# ---------------------------------------------------------------------------
+# fused linear + KL distillation (neither logits tensor materialized)
+
+
+def softmax_kl_divergence(logits_s: torch.Tensor, logits_t: torch.Tensor, *,
+                          mask: Optional[torch.Tensor] = None,
+                          temperature: float = 1.0) -> torch.Tensor:
+    """Masked mean per-token ``KL(softmax(logits_t/T) ||
+    softmax(logits_s/T))`` on materialized logits [..., V], in fp32."""
+    inv = 1.0 / temperature
+    zs = logits_s.float() * inv
+    zt = logits_t.float() * inv
+    lzs = torch.logsumexp(zs, dim=-1)
+    lzt = torch.logsumexp(zt, dim=-1)
+    pt = torch.exp(zt - lzt[..., None])
+    kl = (lzs - lzt) + ((zt - zs) * pt).sum(dim=-1)
+    if mask is not None:
+        m = mask.float()
+        return (kl * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return kl.mean()
+
+
+def _tempered_logits(xb: torch.Tensor, w: QArray, inv: float
+                     ) -> torch.Tensor:
+    """One block's fp32 logits tile [B, blk, V], divided by T in place."""
+    z = _block_logits(xb, w)
+    if inv != 1.0:
+        z *= inv
+    return z
+
+
+def _softmax_(z: torch.Tensor, lz: torch.Tensor) -> torch.Tensor:
+    """``exp(z - lz)`` written over the tile ``z``."""
+    return z.sub_(lz[..., None]).exp_()
+
+
+class _FusedKL(torch.autograd.Function):
+    """(x_s [B, S, Ds], head_s [Ds, V] or QTensor, x_t [B, S, Dt], head_t,
+    maskf [B, S]) -> loss; S is a multiple of ``block``. At most three
+    fp32 tiles of one block are live in either direction (the two logits
+    tiles and one temporary), each overwritten in place."""
+
+    @staticmethod
+    def forward(ctx, xs, ws, xt, wt, maskf, temp, block):
+        b, s, _ = xs.shape
+        inv = 1.0 / temp
+        kl_sum = xs.new_zeros((), dtype=torch.float32)
+        lzs = xs.new_empty((b, s), dtype=torch.float32)
+        lzt = xs.new_empty((b, s), dtype=torch.float32)
+        for s0 in range(0, s, block):
+            sl = slice(s0, s0 + block)
+            zs = _tempered_logits(xs[:, sl], ws, inv)            # [B, blk, V]
+            lzs_b = torch.logsumexp(zs, dim=-1)
+            zt = _tempered_logits(xt[:, sl], wt, inv)
+            lzt_b = torch.logsumexp(zt, dim=-1)
+            d = zs.neg_().add_(zt)                               # zt - zs
+            pt = _softmax_(zt, lzt_b)
+            kl = (lzs_b - lzt_b) + d.mul_(pt).sum(dim=-1)
+            kl_sum += (kl * maskf[:, sl]).sum()
+            lzs[:, sl], lzt[:, sl] = lzs_b, lzt_b
+            del zs, zt, d, pt
+        denom = torch.clamp(maskf.sum(), min=1.0)
+        ctx.heads = (ws if isinstance(ws, QTensor) else None,
+                     wt if isinstance(wt, QTensor) else None)
+        ctx.save_for_backward(
+            xs, xt, maskf, lzs, lzt, denom,
+            *(w for w in (ws, wt) if not isinstance(w, QTensor)))
+        ctx.temp, ctx.block = temp, block
+        return kl_sum / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        """Per token, dlogits_s = ``(p_s - p_t) * g * mask / (denom *
+        T)``. The teacher side and a quantized student head get no
+        gradient."""
+        xs, xt, maskf, lzs, lzt, denom, *plain = ctx.saved_tensors
+        q_s, q_t = ctx.heads
+        ws = q_s if q_s is not None else plain.pop(0)
+        wt = q_t if q_t is not None else plain.pop(0)
+        inv = 1.0 / ctx.temp
+        block = ctx.block
+        scale = (g / denom).float() * inv
+        want_dx = ctx.needs_input_grad[0]
+        want_dw = q_s is None and ctx.needs_input_grad[1]
+        dx = torch.empty_like(xs) if want_dx else None
+        dw = (torch.zeros(ws.shape, dtype=torch.float32, device=xs.device)
+              if want_dw else None)
+        with record_function("fused_kl.backward"):
+            for s0 in range(0, xs.shape[1], block):
+                sl = slice(s0, s0 + block)
+                xb = xs[:, sl]
+                dlog = _softmax_(_tempered_logits(xb, ws, inv), lzs[:, sl])
+                pt = _softmax_(_tempered_logits(xt[:, sl], wt, inv),
+                               lzt[:, sl])
+                dlog.sub_(pt).mul_((scale * maskf[:, sl])[..., None])
+                del pt
+                if q_s is not None:
+                    if want_dx:
+                        dx[:, sl] = _dx_block(dlog, ws, xs.dtype)
+                    del dlog
+                    continue
+                dlog = dlog.to(ws.dtype)           # one copy for both products
+                if want_dx:
+                    dx[:, sl] = (dlog @ ws.t()).to(xs.dtype)
+                if want_dw:
+                    d = xb.shape[-1]
+                    dw += (xb.reshape(-1, d).t().to(ws.dtype)
+                           @ dlog.reshape(-1, dlog.shape[-1])).float()
+                del dlog
+        return (dx, dw.to(ws.dtype) if dw is not None else None,
+                None, None, None, None, None)
+
+
+def fused_linear_distillation(x_s: torch.Tensor, head_s: QArray,
+                              x_t: torch.Tensor, head_t: QArray, *,
+                              mask: Optional[torch.Tensor] = None,
+                              temperature: float = 1.0,
+                              block_size: int = 512) -> torch.Tensor:
+    """KL(teacher || student) of ``x_s @ head_s`` vs ``x_t @ head_t``
+    without materializing either logits tensor.
+
+    ``x_s`` / ``x_t`` [..., S, Ds] / [..., S, Dt] (final-norm hidden
+    states; the widths may differ, the vocabularies must match),
+    ``head_s`` / ``head_t`` [D, V] (tensors or int8
+    :class:`~dcos_commons_tpu_torch.ops.quant.QTensor`). Same value as
+    ``softmax_kl_divergence(qmm(x_s, head_s), qmm(x_t, head_t), ...)``,
+    computed in ``block_size`` sequence chunks (``S % block_size != 0``
+    is padded under the mask). ``temperature`` tempers both
+    distributions; the gradients carry its 1/T. Differentiable in ``x_s``
+    and a plain ``head_s`` only: the teacher side gets no gradient, with
+    or without a ``torch.no_grad`` teacher forward.
+    """
+    if x_s.shape[:-1] != x_t.shape[:-1]:
+        raise ValueError(f"student/teacher token shapes differ: "
+                         f"{tuple(x_s.shape[:-1])} vs "
+                         f"{tuple(x_t.shape[:-1])}")
+    if temperature <= 0.0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    s = x_s.shape[-2]
+    b = x_s[..., 0, 0].numel()
+    xs = x_s.reshape(b, s, x_s.shape[-1])
+    xt = x_t.reshape(b, s, x_t.shape[-1])
+    maskf = (torch.ones((b, s), dtype=torch.float32, device=x_s.device)
+             if mask is None else mask.reshape(b, s).float())
+    block = max(1, min(int(block_size), s))
+    pad = -s % block
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        xt = torch.nn.functional.pad(xt, (0, 0, 0, pad))
+        maskf = torch.nn.functional.pad(maskf, (0, pad))  # pads never count
+    return _FusedKL.apply(xs.contiguous(), head_s, xt.contiguous(), head_t,
+                          maskf, float(temperature), block)

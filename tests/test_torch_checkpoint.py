@@ -19,10 +19,13 @@ import torch
 import tests._jax_cpu  # noqa: F401
 
 from dcos_commons_tpu.models import llama as jl
+from dcos_commons_tpu.models import train as jt
 from dcos_commons_tpu.ops.quant import quantize as jquantize
 from dcos_commons_tpu.parallel import checkpoint as jc
 from dcos_commons_tpu_torch.models import llama as tl
-from dcos_commons_tpu_torch.models.bridge import params_from_jax
+from dcos_commons_tpu_torch.models import train as tt
+from dcos_commons_tpu_torch.models.bridge import (opt_state_from_jax,
+                                                  params_from_jax)
 from dcos_commons_tpu_torch.ops.quant import QTensor
 from dcos_commons_tpu_torch.parallel import checkpoint as tc
 
@@ -247,3 +250,79 @@ def test_host_leaves_restore_as_numpy_values(tmp_path):
     got = tc.restore_sharded(str(tmp_path / "t"), tree)
     assert got["step"] == 12 and got["step"].dtype == np.int32
     assert got["lr"] == np.float32(0.5)
+
+
+# ---------------------------------------------------------------------------
+# train checkpoints: params + the optimizer state
+
+
+def _jax_train_tree():
+    """A tiny bf16 Llama and the reference optimizer's state after one
+    update (counts 1, moments non-zero)."""
+    cfg = jl.LlamaConfig.tiny(n_layers=2, max_seq=64)
+    params = jl.init_params(cfg, jax.random.key(0))
+    opt = jt.make_optimizer(lr=1e-3, warmup=5, decay_steps=10)
+    grads = jax.tree.map(lambda p: p * 0.5, params)
+    _, state = opt.update(grads, opt.init(params), params)
+    return {"params": params, "opt_state": state}
+
+
+def _port_train_tree(jtree):
+    host = jax.device_get(jtree)
+    return {"params": params_from_jax(host["params"], device="cpu"),
+            "opt_state": tt.opt_state_tree(
+                opt_state_from_jax(host["opt_state"], device="cpu"))}
+
+
+def test_train_checkpoint_keys_and_manifest_are_the_reference_s(tmp_path):
+    jtree = _jax_train_tree()
+    jdir = jc.save_sharded(str(tmp_path / "j"), 4, jtree)
+    tdir = tc.save_sharded(str(tmp_path / "t"), 4, _port_train_tree(jtree))
+    assert _manifest(jdir) == _manifest(tdir)
+    assert sorted(os.listdir(jdir)) == sorted(os.listdir(tdir))
+    for name in os.listdir(jdir):
+        with open(os.path.join(jdir, name), "rb") as a, \
+                open(os.path.join(tdir, name), "rb") as b:
+            assert a.read() == b.read(), name
+    leaves = json.loads(_manifest(tdir))["leaves"]
+    opt_keys = [k for k in leaves if k.startswith("opt_state")]
+    assert opt_keys[0] == "opt_state.1.0.count"
+    assert opt_keys[-1] == "opt_state.1.2.count"
+    for k in ("opt_state.1.0.count", "opt_state.1.2.count"):
+        assert leaves[k]["dtype"] == "int32"
+        assert leaves[k]["global_shape"] == []
+    assert leaves["opt_state.1.0.mu.layers.wq"]["dtype"] == "bfloat16"
+    assert "opt_state.1.0.nu.lm_head" in leaves
+    assert len(opt_keys) == 2 + 2 * sum(k.startswith("params.")
+                                        for k in leaves)
+
+
+def test_jax_train_checkpoint_restores_into_the_port_bitwise(tmp_path):
+    jtree = _jax_train_tree()
+    jc.save_sharded(str(tmp_path), 4, jtree)
+    cfg = tl.LlamaConfig.tiny(n_layers=2, max_seq=64)
+    params = tl.param_template(cfg, "cpu")
+    template = {"params": params, "opt_state": tt.opt_state_tree(
+        tt.init_opt_state(tt.make_optimizer(), params))}
+    got = tc.restore_sharded(str(tmp_path), template)
+    state = tt.opt_state_from_tree(got["opt_state"])
+    want = opt_state_from_jax(jax.device_get(jtree["opt_state"]),
+                              device="cpu")
+    assert (state.count, state.sched_count) == (want.count,
+                                                want.sched_count) == (1, 1)
+    assert got["opt_state"][1][0].count.dtype == torch.int32
+    _leaves_equal(jtree, got)
+    _leaves_equal({"mu": jtree["opt_state"][1][0].mu},
+                  {"mu": state.mu})
+
+
+def test_port_train_checkpoint_restores_into_the_reference_bitwise(
+        tmp_path):
+    jtree = _jax_train_tree()
+    ttree = _port_train_tree(jtree)
+    tc.save_sharded(str(tmp_path), 4, ttree)
+    template = jax.tree.map(jnp.zeros_like, jtree)
+    got = jc.restore_sharded(str(tmp_path), template)
+    _leaves_equal(got, ttree)
+    assert int(got["opt_state"][1][0].count) == 1
+    assert int(got["opt_state"][1][2].count) == 1

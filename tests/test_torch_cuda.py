@@ -14,6 +14,10 @@ around the forward's 128-row tile, head_dim 64 and 256, the B=8
 slot-prefill bucket, and the edges of the backward's tiles), the run-to-
 run determinism and any softmax scale of the forward and of the
 backward, their refusals, and the train step running through them;
+the model's attention routed by the kernels' gate (head_dim 8 dense,
+128 through the kernels); the fused linear-KL head at the Llama-3 vocab
+against the materialized KL; one distill step at Llama-3-8B width
+through kernels 3-5 with the teacher left bit-identical;
 the paged engine's speculative window as a CUDA graph (graphed windows
 bitwise equal to the eager loop for k 2 and 4, bf16 and int8-KV pools, a
 widening table; ``reset`` and disarm keeping the graphs valid; k draft
@@ -28,12 +32,15 @@ file imports no JAX, so it runs on the GPU machine as it is:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from dcos_commons_tpu_torch.models import llama, serving, train
+from dcos_commons_tpu_torch.frameworks import worker
+from dcos_commons_tpu_torch.models import llama, serving, speculative, train
+from dcos_commons_tpu_torch.ops import losses
 from dcos_commons_tpu_torch.ops import flash_attention as fa
 from dcos_commons_tpu_torch.ops import flash_decode as fd
 from dcos_commons_tpu_torch.ops.quant import QTensor, quantize
@@ -704,6 +711,136 @@ def test_loss_kernel_matches_dense_on_card(dev):
         assert rel < 5e-2, (name, rel)
 
 
+FA_COUNTERS = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+               fa.flash_attention_bwd_dq)
+
+
+def _fa_launches():
+    return tuple(c.launches for c in FA_COUNTERS)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+@pytest.mark.parametrize("dim,heads,kv,want", [
+    (64, 8, 4, (2, 2, 2)),        # head_dim 8, zero-padded to 64
+    (256, 2, 1, (2, 2, 2)),       # head_dim 128
+    (1024, 2, 1, (0, 0, 0)),      # head_dim 512: dense, as the reference
+])
+def test_train_attention_routes_on_the_card(dev, impl, dim, heads, kv, want):
+    """A train step of a 2-layer model at S=64 through ``auto`` and
+    ``flash``: one launch of each kernel a layer up to head_dim 256
+    (llama-train's head_dim 8 padded to the kernels' 64), none beyond;
+    the loss and the layer gradients agree with the dense path (within
+    1e-2 absolute and 5e-2 relative in norm: bf16 products)."""
+    cfg = llama.LlamaConfig.tiny(dim=dim, n_heads=heads, n_kv_heads=kv,
+                                 n_layers=2, attn_impl=impl)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32)).to(dev)
+    res = {}
+    for mode in (impl, "dense"):
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in params["layers"].items()}
+        n0 = _fa_launches()
+        loss, _ = llama.loss_fn(dataclasses.replace(cfg, attn_impl=mode),
+                                dict(params, layers=leaves), toks)
+        loss.backward()
+        res[mode] = (float(loss.detach()),
+                     {k: v.grad.float() for k, v in leaves.items()},
+                     tuple(a - b for a, b in zip(_fa_launches(), n0)))
+    assert res[impl][2] == want and res["dense"][2] == (0, 0, 0)
+    assert np.isfinite(res[impl][0])
+    assert abs(res[impl][0] - res["dense"][0]) < 1e-2
+    for name, g in res[impl][1].items():
+        want_g = res["dense"][1][name]
+        rel = float((g - want_g).norm() / want_g.norm().clamp_min(1e-30))
+        assert rel < 5e-2, (name, rel)
+
+
+@pytest.mark.parametrize("attn,want", [("auto", (0, 0, 0)),
+                                       ("flash", (16, 16, 16))])
+def test_llama_train_worker_attention_on_the_card(dev, attn, want,
+                                                  capsys):
+    """``llama-train --seq 256 --steps 3`` on the card: ``--attn auto``
+    trains dense, as the reference's ``auto`` under its train mesh;
+    ``--attn flash`` runs kernels 3-5 at the tiny config's head_dim 8,
+    one launch a layer a step (4 layers, the warm-up and 3 steps)."""
+    n0 = _fa_launches()
+    assert worker.main(["llama-train", "--attn", attn, "--seq", "256",
+                        "--steps", "3", "--device", "cuda"]) == 0
+    done = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")][-1]
+    assert done["event"] == "done" and done["attn"] == attn
+    assert np.isfinite(done["final_loss"])
+    assert tuple(a - b for a, b in zip(_fa_launches(), n0)) == want
+
+
+def test_fused_kl_head_at_the_llama3_vocab(dev):
+    """The fused head against the materialized KL at B=2, S=256,
+    D=4096, V=128256 in bf16: the same loss within 1e-4 relative (both
+    reduce the same bf16 logits in fp32), the student gradients within
+    2e-2 relative in norm (both round dlogits to bf16 for the products),
+    and nothing for the teacher."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, s, d, v = 2, 256, 4096, 128256
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    x_s, x_t = rand(b, s, d), rand(b, s, d)
+    w_s, w_t = rand(d, v, scale=d ** -0.5), rand(d, v, scale=d ** -0.5)
+    mask = torch.rand((b, s), generator=g, device=dev) > 0.2
+    res = {}
+    for name in ("fused", "plain"):
+        xs, ws = x_s.clone().requires_grad_(), w_s.clone().requires_grad_()
+        if name == "fused":
+            loss = losses.fused_linear_distillation(
+                xs, ws, x_t, w_t, mask=mask, temperature=2.0)
+        else:
+            loss = losses.softmax_kl_divergence(
+                xs @ ws, x_t @ w_t, mask=mask, temperature=2.0)
+        loss.backward()
+        res[name] = (float(loss.detach()), xs.grad.float(), ws.grad.float())
+    assert res["fused"][0] == pytest.approx(res["plain"][0], rel=1e-4)
+    for got, want in zip(res["fused"][1:], res["plain"][1:]):
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel < 2e-2, rel
+
+
+def test_distill_step_at_8b_width_runs_kernels_3_to_5(dev):
+    """Three steps of the worker's distill loss on a 2-layer
+    Llama-3-8B-width teacher (B=2, S=256): kernels 3-5 launch (3 forward
+    launches a loss, teacher and student; 1 of each backward kernel), the
+    loss is finite and falls at a rate small against Adam's first,
+    sign-like steps (at the workload's 2e-4 the second step's update
+    raised the loss), and the teacher is bit-identical."""
+    cfg_t = llama.LlamaConfig.llama3_8b(n_layers=2, max_seq=512, remat=False)
+    params_t = llama.init_params(
+        cfg_t, torch.Generator(device=dev).manual_seed(0), device=dev)
+    frozen = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                  {n: w.clone() for n, w in v.items()})
+              for k, v in params_t.items()}
+    cfg_d, params_d = speculative.draft_student(cfg_t, params_t, 1)
+    opt = train.make_optimizer(lr=1e-5, warmup=1, decay_steps=100)
+    state = train.init_opt_state(opt, params_d)
+    step = train.make_train_step(
+        speculative.distill_loss(cfg_t, params_t, cfg_d, 1.0), opt)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg_t.vocab_size, (2, 256)).astype(np.int32)).to(dev)
+    n0 = _fa_launches()
+    losses_ = []
+    for _ in range(3):
+        params_d, state, out = step(params_d, state, toks)
+        losses_.append(float(out["loss"]))
+    assert tuple(a - b for a, b in zip(_fa_launches(), n0)) == (9, 3, 3)
+    assert all(np.isfinite(losses_)) and losses_[-1] < losses_[0], losses_
+    for k, v in frozen.items():
+        for n, w in (v.items() if isinstance(v, dict) else [(k, v)]):
+            now = params_t[k][n] if isinstance(v, dict) else params_t[k]
+            assert torch.equal(now, w), (k, n)
+
+
 # ---------------------------------------------------------------------------
 # the engines' decode windows as CUDA graphs
 
@@ -1120,7 +1257,6 @@ def test_speculative_decoder_runs_through_the_kernels(dev):
     """The batch-1 decoder on the card: its two prefills launch kernel 3
     once a layer, each draft chunk kernel 2 k times a draft layer, and the
     fused loop gives ``generate``'s greedy stream."""
-    from dcos_commons_tpu_torch.models import speculative
     cfg = _cfg()
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)

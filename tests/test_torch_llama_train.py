@@ -5,8 +5,9 @@ next-token shift, a ragged length). Weights cross through
 ``params_from_jax``; the optimizer state through ``opt_state_from_jax``.
 
 The port forces ``attn_impl="flash"`` (the flash-attention autograd
-Function, which runs its plain versions on CPU tensors); JAX runs dense,
-since its flash kernel cannot lower on the CPU.
+Function, which runs its plain versions on CPU tensors, with head_dim 8
+zero-padded to 64 as on the card); JAX runs dense, since its flash
+kernel cannot lower on the CPU.
 
 Tolerances (fp32): logits and loss within 1e-5 relative, gradients
 within 2e-5 of each leaf's largest magnitude (four layers of fp32
@@ -37,6 +38,7 @@ from dcos_commons_tpu_torch.models import train as tt
 from dcos_commons_tpu_torch.models.bridge import (opt_state_from_jax,
                                                   params_from_jax)
 from dcos_commons_tpu_torch.ops import rotary as trot
+from dcos_commons_tpu_torch.ops.attention import gqa_attention
 
 CPU = torch.device("cpu")
 OPT = dict(lr=1e-3, warmup=2, decay_steps=20)
@@ -369,3 +371,54 @@ def test_training_refuses_quantized_params():
     tp = params_from_jax(host, device="cpu")
     with pytest.raises(TypeError):
         tt.init_opt_state(tt.make_optimizer(**OPT), tp)
+
+
+# (impl, device type, head_dim, dtype, route): the route is decided from
+# shapes and dtype alone, so a CUDA device's decision is tested on CPU
+# tensors
+ROUTES = [
+    ("auto", "cuda", 8, torch.bfloat16, "flash"),     # padded to 64
+    ("flash", "cuda", 8, torch.bfloat16, "flash"),    # llama-train --attn
+    ("auto", "cuda", 128, torch.bfloat16, "flash"),   # the distill shape
+    ("flash", "cuda", 64, torch.bfloat16, "flash"),
+    ("auto", "cuda", 512, torch.bfloat16, "dense"),   # past the ref's gate
+    ("flash", "cuda", 512, torch.float32, "dense"),
+    ("dense", "cuda", 128, torch.bfloat16, "dense"),
+    ("auto", "cuda", 8, torch.float32, TypeError),    # bf16-only kernels
+    ("flash", "cuda", 128, torch.float32, TypeError),
+    ("auto", "cpu", 128, torch.bfloat16, "dense"),
+    ("flash", "cpu", 8, torch.float32, "flash"),      # the plain version
+]
+
+
+@pytest.mark.parametrize("impl,device_type,d,dtype,want", ROUTES)
+def test_attn_route_decides_from_shapes_and_dtype(impl, device_type, d, dtype,
+                                             want):
+    q = torch.zeros((2, 5, 8, d), dtype=dtype)
+    k = torch.zeros((2, 5, 4, d), dtype=dtype)
+    if want is TypeError:
+        with pytest.raises(TypeError, match="bf16"):
+            tl.attn_route(impl, device_type, q, k)
+    else:
+        assert tl.attn_route(impl, device_type, q, k) == want
+
+
+@pytest.mark.parametrize("d", [8, 64, 96, 200])
+def test_padded_flash_matches_dense(d):
+    """The kernels' route at a head_dim below their widths: q/k/v
+    zero-padded to 64/128/256 with the true width's softmax scale give
+    the dense attention and its gradients (fp32, plain versions, within
+    1e-5)."""
+    rng = np.random.default_rng(d)
+    qkv = [torch.from_numpy(rng.standard_normal(
+        (2, 24, h, d)).astype(np.float32)) for h in (8, 4, 4)]
+    res = []
+    for fn in (tl._padded_flash,
+               lambda q, k, v: gqa_attention(q, k, v, causal=True)):
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        o = fn(*leaves)
+        (o * torch.linspace(-1, 1, d)).sum().backward()
+        res.append([o.detach()] + [t.grad for t in leaves])
+    assert res[0][0].shape == (2, 24, 8, d)
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -51,7 +51,7 @@ ENV_KNOBS = sorted(set(re.findall(r'os\.environ\.get\("([A-Z_]+)"',
     # read at run time, not by the parser
     "WEIGHT_FETCH_PEERS", "WEIGHT_SERVE_PORT", "PORT_WEIGHTS",
     "PORT_SERVE", "MEGASCALE_NUM_SLICES", "TASK_NAME",
-    "POD_INSTANCE_INDEX", "TPU_PROFILE_DIR"})
+    "POD_INSTANCE_INDEX", "TPU_PROFILE_DIR", "RESHARD_ENABLE"})
 
 
 def _actions(parser):
@@ -255,7 +255,8 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 
 
 # (index, args, env, code): the index keeps each case's id as it was
-# while speculative decoding and the checkpoint restore were refused
+# while speculative decoding, the checkpoint restore and profiling were
+# refused
 REFUSALS = [
     (1, ["--moe-experts", "4"], {}, "moe_not_ported"),
     (2, ["--prefill-seq-parallel", "true"], {}, "longctx_not_ported"),
@@ -268,8 +269,6 @@ REFUSALS = [
     (8, ["--prefix-directory", "5"], {}, "prefix_directory_not_ported"),
     (9, [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
      "weight_fetch_not_ported"),
-    (11, ["--profile-dir", "prof"], {}, "profile_not_ported"),
-    (12, [], {"TPU_PROFILE_DIR": "prof"}, "profile_not_ported"),
     (13, [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
               "JAX_NUM_PROCESSES": "2"}, "not_ported"),
 ]
