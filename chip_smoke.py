@@ -82,6 +82,24 @@ Phases (any failure exits non-zero):
    ``--pages 64 --spec-decode true --draft-checkpoint DIR/draft``:
    ``spec_armed``, phase 6's 8 requests, every token held to the target
    under the near-tie rule, its acceptance beside the truncated draft's;
+10. (after the dense 8B phases free their weights) MoE serving at
+   Llama-3-8B widths and depth with 8 experts, top-2, dropless (the
+   Mixtral-8x7B routing geometry, 64.9 GB of random bf16 weights from the
+   seed): ``PagedServer(moe=...)`` after ``warmup()`` drains phase 3's 12
+   requests and the workers' 8, and ``generate_stepwise_moe`` decodes
+   phase 3's 12 alone (kernel 2), with the kernel counts zeroed just
+   before and read just after; the engine's streams, teacher-forced
+   through the MoE target, must put ``MOE_NEAR_TIE_SHARE`` of their
+   tokens within ``NEAR_TIE_ATOL`` of the top logit (bf16 routing flips
+   let a stream leave the reference at any token: see there), and in
+   fp32 at ``MOE_FP32_LAYERS`` layers of the full width every stream
+   must equal ``generate_stepwise_moe``; ``moe_apply_local`` on the card
+   is held to the port's CPU result in fp32, and the graphed windows at
+   B=8 bitwise to the eager loop; then the worker with
+   ``dist/moe.yml``'s flags (``--pages -1 --moe-experts 8
+   --moe-capacity-factor 0``): a ``moe_fallback`` or ``paged_fallback``
+   fails, its replies are held to the in-process engine's streams for
+   the same prompts (by the same share where they leave them);
 4. train ``llama_400m`` (full width and depth, bench.py's headline shape:
    batch 16 x 512 tokens, fused cross-entropy, AdamW with warmup 10):
    one warm-up step, then 10 timed steps on the same batch with the
@@ -97,9 +115,11 @@ Phases (any failure exits non-zero):
    through kernels 3-5 (head_dim 8 zero-padded to 64), one launch of
    each a layer a step.
 
-Output: the ``serving``, ``serving_slots``, ``worker``, ``worker_paged``,
-``worker_spec``, ``worker_distilled``, ``training``, ``distill``,
-``llama_train`` and ``spec`` lines, the ``kernels`` line, the card's
+Each phase's wall seconds go to stderr as it ends and into the
+``phase_s`` line. Output: the ``serving``, ``serving_slots``,
+``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
+``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
+``worker_moe`` and ``phase_s`` lines, the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
@@ -595,24 +615,12 @@ def _prompt(rng, n, vocab):
     return [int(t) for t in rng.integers(0, vocab, n)]
 
 
-def phase_serve(card: str) -> dict:
+def serve_queue(v: int) -> list:
+    """Phase 3's 12 requests from the seed: 64-1,500 prompt tokens, 32
+    new; two share a 319-token prefix: 4 full radix pages of 64 (the
+    lookup hit) plus 63 tokens of the fifth (the boundary COW)."""
     import numpy as np
-    import torch
-    from dcos_commons_tpu_torch.models import llama, serving
-    from dcos_commons_tpu_torch.ops import flash_decode as fd
-    from dcos_commons_tpu_torch.parallel import aot
-
-    dev = torch.device("cuda")
-    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    torch.cuda.synchronize()
-    log(f"[serve] init 8B params in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
-    v = cfg.vocab_size
-    # two requests share a 319-token prefix: 4 full radix pages of 64
-    # (the lookup hit) plus 63 tokens of the fifth (the boundary COW)
     base = _prompt(rng, 320, v)
     alt = (base[319] + 1) % v
     lens = (64, 1500, 300, 777, 128, 1024, 95, 640, 1200, 411)
@@ -622,16 +630,14 @@ def phase_serve(card: str) -> dict:
                      "request_id": "prefix-a"})
     queue.append({"prompt": base[:319] + [alt] + _prompt(rng, 200, v),
                   "max_new": 32, "request_id": "prefix-b"})
-    runs = [(queue[:6], 1), (queue[6:], 8)]     # (requests, decode window)
+    return queue
 
-    cache = aot.CompileCache()
-    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
-                              prefill_chunk=64, compile_cache=cache,
-                              device=dev)
-    warm = srv.warmup()
-    log(f"[serve] warmup {warm}")
-    torch.cuda.reset_peak_memory_stats()
-    fd.flash_decode_paged.launches = 0
+
+def drain_timed(srv, queue) -> tuple:
+    """Phase 3's drive: the first 6 requests at decode window 1, the rest
+    at 8, submitting as streams free up. Returns (wall s, {request:
+    seconds from its run's start to its first token})."""
+    runs = [(queue[:6], 1), (queue[6:], 8)]     # (requests, decode window)
     ttft, t_start = {}, time.perf_counter()
     for reqs, window in runs:
         t_sub = time.perf_counter()
@@ -646,7 +652,52 @@ def phase_serve(card: str) -> dict:
                     ttft[r.request_id] = now - t_sub
             for rid in srv.finished:
                 ttft.setdefault(rid, now - t_sub)
-    wall = time.perf_counter() - t_start
+    return time.perf_counter() - t_start, ttft
+
+
+def steady_streams(srv) -> None:
+    """Reset ``srv`` and prefill 8 streams (1-1,500 prompt tokens; their
+    max_new outlasts the 67 steps the longest takes to prefill), all
+    decoding after."""
+    import numpy as np
+    srv.reset()
+    rng = np.random.default_rng(SEED + 1)
+    srv.submit_many([{"prompt": _prompt(rng, n, srv.cfg.vocab_size),
+                      "max_new": 200, "request_id": i} for i, n in enumerate(
+                          (1, 63, 64, 65, 700, 1500, 1300, 333))])
+    while srv._prefill_q or srv._pending_first:
+        srv.step()
+    if len(srv._active()) != 8:
+        raise RuntimeError(f"expected 8 decoding streams, got "
+                           f"{srv._active()}")
+
+
+def phase_serve(card: str) -> dict:
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    from dcos_commons_tpu_torch.parallel import aot
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    log(f"[serve] init 8B params in {time.perf_counter() - t0:.1f} s")
+    v = cfg.vocab_size
+    queue = serve_queue(v)
+
+    cache = aot.CompileCache()
+    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                              prefill_chunk=64, compile_cache=cache,
+                              device=dev)
+    warm = srv.warmup()
+    log(f"[serve] warmup {warm}")
+    torch.cuda.reset_peak_memory_stats()
+    fd.flash_decode_paged.launches = 0
+    wall, ttft = drain_timed(srv, queue)
     launches = fd.flash_decode_paged.launches
     out = srv.finished
     problems = []
@@ -677,18 +728,8 @@ def phase_serve(card: str) -> dict:
     # each round after a reset, the second replaying the first's graphs
     steady = []
     for round_ in range(2):
-        srv.reset()
-        rng = np.random.default_rng(SEED + 1)
-        # max_new outlasts the 67 steps the longest prompt takes to prefill
-        live = [{"prompt": _prompt(rng, n, v), "max_new": 200,
-                 "request_id": i} for i, n in enumerate(
-                     (1, 63, 64, 65, 700, 1500, 1300, 333))]
-        srv.submit_many(live)
-        while srv._prefill_q or srv._pending_first:
-            srv.step()
+        steady_streams(srv)
         active = srv._active()
-        if len(active) != 8:
-            raise RuntimeError(f"expected 8 decoding streams, got {active}")
         if round_ == 0:
             mp = srv._window_mp(active, 1)
             tbl = torch.tensor(srv._decode_tables()[:, :mp], device=dev)
@@ -797,7 +838,8 @@ def eager_loop(srv, k: int):
         for _ in range(k):
             if paged:
                 logits, _ = llama.decode_step_paged(
-                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope)
+                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope,
+                    ffn_override=srv._ffn)
             else:
                 logits, _ = llama.decode_step_slots(
                     srv.cfg, srv.params, kv, ln, tok, rope=srv._rope)
@@ -1223,24 +1265,32 @@ SELF_DRAFT_ACCEPT_FLOOR = 0.5
 NEAR_TIE_ATOL = LOGIT_ATOL
 
 
-def _teacher_gaps(cfg, params, rope, prompt, toks) -> list:
+def _teacher_gaps(cfg, params, rope, prompt, toks, ffn=None) -> list:
     """For each token of ``toks``, the target's top logit less its logit
     of that token at its position: one causal forward over ``prompt +
-    toks[:-1]`` (the stream fed back as its own prefix)."""
+    toks[:-1]`` (the stream fed back as its own prefix). With ``ffn`` (an
+    MoE model's ``make_moe_ffn``) the forward is one ``extend_step`` from
+    position 0, the sequence one dispatch group."""
     import torch
     from dcos_commons_tpu_torch.models import llama
     from dcos_commons_tpu_torch.ops.quant import qmm
     dev = rope.device
-    x, _, _ = llama.prefill_trunk(
-        cfg, params, torch.tensor([prompt + toks[:-1]], dtype=torch.int32,
-                                  device=dev), rope)
-    logits = qmm(x[0, len(prompt) - 1:], params["lm_head"]).float()
+    seq = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device=dev)
+    if ffn is None:
+        x, _, _ = llama.prefill_trunk(cfg, params, seq, rope)
+        logits = qmm(x[0, len(prompt) - 1:], params["lm_head"]).float()
+    else:
+        cache = llama.init_kv_cache(cfg, 1, cfg.max_seq, device=dev)
+        logits, _ = llama.extend_step(cfg, params, cache, seq, 0, rope=rope,
+                                      ffn_override=ffn)
+        logits = logits[0, len(prompt) - 1:]
+        del cache
     t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
     gaps = logits.max(dim=-1).values - logits.gather(1, t)[:, 0]
     return gaps.tolist()
 
 
-def stream_check(name, got, want, prompts, cfg, params) -> list:
+def stream_check(name, got, want, prompts, cfg, params, ffn=None) -> list:
     """Each stream of ``got`` teacher-forced through the target: every
     token must be within ``NEAR_TIE_ATOL`` of the top logit at its
     position, given the stream's own earlier tokens, so a stream may
@@ -1257,7 +1307,7 @@ def stream_check(name, got, want, prompts, cfg, params) -> list:
             problems.append(f"{rid}: {None if g is None else len(g)} tokens "
                             f"against {len(w)}")
             continue
-        gaps = _teacher_gaps(cfg, params, rope, prompts[rid], g)
+        gaps = _teacher_gaps(cfg, params, rope, prompts[rid], g, ffn)
         checked, worst = checked + len(g), max(worst, *gaps)
         problems += [f"{rid}: token {j} is {g[j]}, the target's top logit "
                      f"{gap:.4f} above it" for j, gap in enumerate(gaps)
@@ -2046,6 +2096,426 @@ def phase_llama_train(card: str) -> dict:
     return line
 
 
+# --------------------------------------------------------------- phase 10
+
+# Mixtral-8x7B's routing geometry at the 8b preset's widths: 8 experts,
+# top-2, dropless (the capacity default of the moe.yml service)
+MOE_EXPERTS = 8
+# dist/moe.yml's worker flags at the 8b preset
+WORKER_MOE_ARGS = ("--pages", "-1", "--moe-experts", str(MOE_EXPERTS),
+                   "--moe-capacity-factor", "0")
+# moe_apply_local on the card vs the port's CPU result, both fp32 (TF32
+# off): outputs within this share of max |out| (the products' sums in
+# another order), and the same dropped rows
+MOE_APPLY_RTOL = 1e-5
+MOE_APPLY_TOKENS = 64                  # one prefill chunk
+# the reckoning before the first run: weights 64.9 GB (60.13 GB of expert
+# banks), every expert read each step under dropless capacity (63.9 GB,
+# 19.1 ms at 3.35 TB/s)
+MOE_WEIGHT_GB_PREDICTED = 64.9
+MOE_STEP_BOUND_MS = 63.9e9 / HBM_BYTES_PER_S * 1e3
+# In bf16 two valid computations of the MoE model route differently: one
+# 1,500-token prompt prefilled in 64-token chunks and whole differs in
+# 2,642 of its 48,000 top-2 decisions (the router logits' median
+# difference 0.012, from bf16 roundings carried through the layers), and
+# a flipped expert changes its token's output by a whole expert's
+# contribution, so a stream's logits move by up to 0.84 at such a token.
+# A stream may therefore leave the stepwise reference at any token, and
+# the token-level near-tie rule cannot hold. In bf16 the share of tokens
+# within NEAR_TIE_ATOL of the teacher's top logit must reach this
+# (measured 0.943-0.951 over phase 3's 12 streams; a wrong expert
+# product or combine puts most tokens far from the top). Exact parity
+# with the reference is held in fp32 at MOE_FP32_LAYERS layers of the
+# full width, where nothing flips (12 of 12 streams token-exact).
+MOE_NEAR_TIE_SHARE = 0.8
+MOE_FP32_LAYERS = 4
+
+
+def _moe_apply_check(params) -> dict:
+    """``moe_apply_local`` on the card against the port's CPU result, in
+    fp32, on layer 0's router and expert banks (cast to fp32) and
+    ``MOE_APPLY_TOKENS`` random tokens: top-2 dropless, and at capacity
+    factor 1.0, where tokens are dropped."""
+    import torch
+    from dcos_commons_tpu_torch.parallel.moe import (MoEConfig, dropless,
+                                                     moe_apply_local)
+    lp = params["layers"]
+    dev = (lp["router"][0], lp["w_in"][0].float(), lp["w_out"][0].float())
+    cpu = [t.cpu() for t in dev]
+    x = torch.randn((MOE_APPLY_TOKENS, cpu[1].shape[1]),
+                    generator=torch.Generator().manual_seed(SEED + 10))
+    out = {}
+    for name, cfg in (("top2_dropless", dropless(MoEConfig(MOE_EXPERTS))),
+                      ("top2_factor_1", MoEConfig(MOE_EXPERTS,
+                                                  capacity_factor=1.0))):
+        want, _ = moe_apply_local(x, *cpu, cfg)
+        got, _ = moe_apply_local(x.to(dev[0].device), *dev, cfg)
+        got = got.cpu()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        dropped = (want == 0).all(-1)
+        if err > MOE_APPLY_RTOL * scale or not torch.equal(
+                (got == 0).all(-1), dropped):
+            raise RuntimeError(f"moe_apply_local {name}: card vs CPU max "
+                               f"|diff| {err} (tol {MOE_APPLY_RTOL} x "
+                               f"{scale}), dropped rows differ or not")
+        out[name] = {"max_abs_err": err, "max_abs_out": scale,
+                     "dropped_tokens": int(dropped.sum()),
+                     "tokens": MOE_APPLY_TOKENS}
+    return out
+
+
+def moe_split(srv) -> dict:
+    """A graphed MoE decode step's device time by part, from the engine's
+    live state (8 decoding streams): the whole step, and for every layer
+    the routing (FFN norm, router product, softmax and the top-2 dispatch
+    tensors), the two one-hot products (dispatch and combine), the expert
+    products (two batched matmuls and the silu), the casts around them
+    and kernel 1 alone. Each part is captured as its own CUDA graph on
+    clones of the state and timed over replays (:func:`graph_ms`); the
+    rest of the step is the attention projections, rope, the K/V writes,
+    the residual adds and the lm_head."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.ops.flash_decode import flash_decode_paged
+    from dcos_commons_tpu_torch.ops.norms import rms_norm
+    from dcos_commons_tpu_torch.parallel import moe as pm
+
+    cfg, moe, dev = srv.cfg, srv.moe, srv.device
+    lay = srv.params["layers"]
+    nl, b = cfg.n_layers, srv.slots
+    ln, tok = srv.lengths.clone(), srv.cur_tok.clone()
+    mp = min(srv.pages_per_stream, int(ln.max()) // srv.page_size + 1)
+    tbl = torch.tensor(srv._decode_tables()[:, :mp], device=dev)
+    pool = {s: t.clone() for s, t in srv.pool.items()}
+    dispatch_fn = (pm.expert_choice_dispatch
+                   if moe.routing == "expert_choice" else pm.top2_dispatch)
+    cap = moe.capacity(b)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(cfg.dtype)
+    gates = torch.softmax(x.float() @ lay["router"][0], dim=-1)
+    combine, dispatch = dispatch_fn(gates, cap)
+    comb, disp = combine.to(cfg.dtype), dispatch.to(cfg.dtype)
+    expert_in = torch.einsum("gec,gd->ecd", disp, x)
+    q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(cfg.dtype)
+    kv_len = (ln + 1).to(torch.int32)
+
+    def step():
+        llama.decode_step_paged(cfg, srv.params, pool, tbl, ln, tok,
+                                rope=srv._rope, ffn_override=srv._ffn)
+
+    def route():
+        for i in range(nl):
+            h = rms_norm(x, lay["ffn_norm"][i], cfg.norm_eps)
+            dispatch_fn(torch.softmax(h.float() @ lay["router"][i], dim=-1),
+                        cap)
+
+    def dispatch_combine():
+        for _ in range(nl):
+            torch.einsum("gec,gd->ecd", disp, x)
+            torch.einsum("gec,ecd->gd", comb, expert_in)
+
+    def experts():
+        for i in range(nl):
+            h = torch.bmm(expert_in, lay["w_in"][i])
+            torch.bmm(h * torch.sigmoid(h), lay["w_out"][i])
+
+    def casts():
+        for _ in range(nl):
+            x.float()
+            combine.to(cfg.dtype)
+            dispatch.to(cfg.dtype)
+            (x + x.float().to(cfg.dtype))
+
+    def kernel_1():
+        for i in range(nl):
+            flash_decode_paged(q, pool["k"][i], pool["v"][i], tbl, kv_len)
+
+    parts = {"route_ms": graph_ms(route),
+             "dispatch_combine_ms": graph_ms(dispatch_combine),
+             "expert_products_ms": graph_ms(experts),
+             "casts_ms": graph_ms(casts),
+             "kernel_1_ms": graph_ms(kernel_1)}
+    step_ms = graph_ms(step)
+    del pool
+    expert_bytes = sum(lay[k].numel() * lay[k].element_size()
+                       for k in ("w_in", "w_out"))
+    return {"batch": b, "capacity": cap, "table_width": mp,
+            "positions_max": int(ln.max()) + 1, "step_ms": step_ms, **parts,
+            "rest_ms": step_ms - sum(parts.values()),
+            "expert_share": parts["expert_products_ms"] / step_ms,
+            "expert_bytes_gb": expert_bytes / 1e9,
+            "expert_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "expert_gb_per_s": expert_bytes / parts["expert_products_ms"]
+            / 1e6}
+
+
+def phase_moe(card: str) -> tuple:
+    """MoE serving in process at Llama-3-8B widths and depth with 8
+    experts (top-2, dropless): ``init_moe_params`` from the seed,
+    ``PagedServer(moe=...)`` warmed up, then with the kernel counts zeroed
+    phase 3's 12 requests drained as phase 3 drains them, the workers' 8
+    requests drained at window 8 (the tokens the MoE worker is held to),
+    and each of the 12 streams decoded alone by ``generate_stepwise_moe``
+    (kernel 2); the counts are read after. The engine's streams are held
+    to the MoE target by :func:`moe_stream_share`, ``moe_apply_local`` on
+    the card to the CPU, graphed windows bitwise to the eager loop at
+    B=8, and, once the bf16 model is freed, the engine to
+    ``generate_stepwise_moe`` token for token in fp32 at reduced depth
+    (:func:`_moe_fp32_parity`). Returns (line, launches, the workers'
+    streams from the engine)."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+
+    dev = torch.device("cuda")
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    if resident_gb > 4:
+        raise RuntimeError(f"moe phase: {resident_gb:.1f} GB still resident "
+                           "before the 65 GB MoE weights")
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    moe = dropless(MoEConfig(MOE_EXPERTS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_moe_params(
+        cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in [params["embed"], params["norm"],
+                              params["lm_head"], *params["layers"].values()]
+                    ) / 1e9
+    log(f"[moe] init {weight_gb:.2f} GB of MoE params in {init_s:.1f} s")
+    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                              prefill_chunk=64, moe=moe, device=dev)
+    warm = srv.warmup()
+    queue = serve_queue(cfg.vocab_size)
+    workers = [{"prompt": b["prompt"], "max_new": b["max_new"],
+                "request_id": f"w{i}"} for i, b in enumerate(worker_bodies())]
+    prompts = {r["request_id"]: r["prompt"] for r in queue + workers}
+    fd.flash_decode_paged.launches = 0
+    fd.flash_decode.launches = 0
+    wall, ttft = drain_timed(srv, queue)
+    out = {rid: srv.finished[rid] for rid in prompts if rid in srv.finished}
+    worker_want = srv.drain([dict(r) for r in workers], decode_window=8)
+    worker_want = {rid: worker_want[rid] for rid in prompts
+                   if rid.startswith("w")}
+    t_ref = time.perf_counter()
+    want = {r["request_id"]: llama.generate_stepwise_moe(
+        cfg, params, torch.tensor([r["prompt"]], dtype=torch.int32,
+                                  device=dev), r["max_new"], moe)[0].tolist()
+        for r in queue}
+    ref_s = time.perf_counter() - t_ref
+    launches = {"flash_decode_paged": fd.flash_decode_paged.launches,
+                "flash_decode": fd.flash_decode.launches}
+    problems = []
+    if sorted(out) != sorted(want) or sorted(worker_want) != sorted(
+            r["request_id"] for r in workers):
+        problems.append(f"finished {sorted(out)} {sorted(worker_want)}")
+    for rid, toks in {**out, **worker_want}.items():
+        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+            problems.append(f"{rid}: {len(toks)} tokens or one outside the "
+                            "vocabulary")
+    if srv.ledger_violations():
+        problems.append(f"ledger: {srv.ledger_violations()[:3]}")
+    stats = srv.page_stats()
+    if stats["prefix_hits"] < 1:
+        problems.append("no prefix hit")
+    for name, n in launches.items():
+        if n < 1:
+            problems.append(f"{name} never launched on the MoE path")
+    if problems:
+        raise RuntimeError("moe phase: " + "; ".join(problems))
+    differ = sum(a != b for rid in want for a, b in zip(out[rid], want[rid]))
+    near_tie = moe_stream_share("moe engine vs generate_stepwise_moe", out,
+                                want, prompts, cfg, params, srv._ffn)
+    apply_check = _moe_apply_check(params)
+    t_chunk = []
+    row = torch.full((srv.pages_per_stream,), srv.scratch, dtype=torch.int32,
+                     device=dev)
+    chunk = torch.zeros((1, srv.prefill_chunk), dtype=torch.int32, device=dev)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        llama.prefill_chunk_paged(cfg, params, srv.pool, row, chunk, 0,
+                                  srv.prefill_chunk, srv.prefill_chunk - 1,
+                                  srv.scratch, rope=srv._rope,
+                                  ffn_override=srv._ffn)
+        torch.cuda.synchronize()
+        t_chunk.append((time.perf_counter() - t1) * 1e3)
+    steady_streams(srv)
+    steady = _graph_vs_eager(srv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = sum(len(t) for t in out.values())
+    ttfts = sorted(ttft.values())
+    line = {"moe": {
+        "model": "llama3_8b widths and depth, 8 experts top-2 "
+                 "(Mixtral-8x7B routing geometry)",
+        "max_seq": cfg.max_seq, "layers": cfg.n_layers, "dtype": "bf16",
+        "experts": MOE_EXPERTS, "routing": moe.routing,
+        "capacity_factor": moe.capacity_factor, "slots": 8, "page_size": 64,
+        "prefill_chunk": 64, "weight_gb": weight_gb,
+        "weight_gb_predicted": MOE_WEIGHT_GB_PREDICTED, "init_s": init_s,
+        "warmup_s": warm, "requests": len(out), "tokens_out": n_tok,
+        "wall_s": wall, "output_tok_s": n_tok / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2],
+        "decode_step_ms_b8": steady["graph_step_ms"],
+        "eager_step_ms_b8": steady["eager_step_ms"],
+        "decode_tok_s_b8": 8 / steady["graph_step_ms"] * 1e3,
+        "step_bound_ms": MOE_STEP_BOUND_MS,
+        "prefill_chunk_ms": sorted(t_chunk)[len(t_chunk) // 2],
+        "prefill_chunk_ms_all": t_chunk, "steady_b8_window8": steady,
+        "stepwise_reference_s": ref_s, "tokens_differing_from_stepwise":
+            differ, "bf16_vs_stepwise": near_tie,
+        "moe_apply_card_vs_cpu": apply_check, "launches": launches,
+        "peak_mem_gb": peak_gb, "page_stats_moe": stats["moe"],
+        "page_stats": stats, "graphs": _graph_line(srv), "card": card}}
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["moe"]["fp32_parity"] = _moe_fp32_parity(queue)
+    log(f"[moe] {line}")
+    return line, launches, worker_want
+
+
+def moe_stream_share(name, got, want, prompts, cfg, params, ffn) -> dict:
+    """Each bf16 stream of ``got`` teacher-forced through the MoE target
+    (:func:`_teacher_gaps`): the share of tokens within ``NEAR_TIE_ATOL``
+    of the top logit at their position must reach ``MOE_NEAR_TIE_SHARE``
+    (see there). Returns where each stream first leaves ``want``, the
+    share and the largest gap; raises below the share."""
+    from dcos_commons_tpu_torch.ops.rotary import rope_frequencies
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=params["norm"].device)
+    gaps, divergences = [], []
+    for rid, w in want.items():
+        g = got[rid]
+        row = _teacher_gaps(cfg, params, rope, prompts[rid], g, ffn)
+        gaps += row
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:
+            divergences.append({"stream": rid, "at": j, "gap": row[j]})
+    share = sum(gap <= NEAR_TIE_ATOL for gap in gaps) / len(gaps)
+    out = {"tokens": len(gaps), "near_tie_share": share,
+           "near_tie_share_floor": MOE_NEAR_TIE_SHARE,
+           "tokens_away_from_a_near_tie": sum(gap > NEAR_TIE_ATOL
+                                              for gap in gaps),
+           "max_gap": max(gaps), "streams_equal": len(want) - len(
+               divergences), "divergences": divergences}
+    log(f"[check] {name}: {out}")
+    if share < MOE_NEAR_TIE_SHARE:
+        raise RuntimeError(f"{name}: only {share:.3f} of {len(gaps)} tokens "
+                           f"within {NEAR_TIE_ATOL} of the target's top "
+                           f"logit (floor {MOE_NEAR_TIE_SHARE})")
+    return out
+
+
+def _moe_fp32_parity(queue) -> dict:
+    """The MoE engine against ``generate_stepwise_moe`` on the card in
+    fp32 (TF32 off) at the full width with ``MOE_FP32_LAYERS`` layers and
+    8 experts (dense attention: the decode kernels take bf16): phase 3's
+    12 requests drained as phase 3 drains them, every stream token-exact,
+    as on the CPU. Frees what it builds."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048, n_layers=MOE_FP32_LAYERS,
+                                      dtype=torch.float32,
+                                      decode_attn="dense")
+    moe = dropless(MoEConfig(MOE_EXPERTS))
+    params = llama.init_moe_params(
+        cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                              prefill_chunk=64, moe=moe, device=dev)
+    t0 = time.perf_counter()
+    drain_timed(srv, queue)
+    differ = {}
+    for r in queue:
+        want = llama.generate_stepwise_moe(
+            cfg, params, torch.tensor([r["prompt"]], dtype=torch.int32,
+                                      device=dev), r["max_new"], moe)
+        got = srv.finished[r["request_id"]]
+        if got != want[0].tolist():
+            differ[r["request_id"]] = next(
+                i for i, (a, b) in enumerate(zip(got, want[0].tolist()))
+                if a != b)
+    seconds = time.perf_counter() - t0
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ:
+        raise RuntimeError(f"moe fp32 parity: streams leave "
+                           f"generate_stepwise_moe at {differ}")
+    return {"layers": MOE_FP32_LAYERS, "dtype": "fp32", "streams_equal":
+            len(queue), "of": len(queue), "seconds": seconds}
+
+
+def phase_moe_worker(card, want) -> tuple:
+    """The worker with dist/moe.yml's flags at the 8b preset
+    (``WORKER_MOE_ARGS``): ``moe_fallback`` or ``paged_fallback`` fails
+    the phase; the 8 worker requests, each reply held to the in-process
+    engine's stream for the same prompt ``want`` (the same weights, drawn
+    from seed 0 by the same function): equal, or, where streams leave
+    it, held by :func:`moe_stream_share` (weights drawn again once the
+    worker has exited).
+    Kernel 1's launches are the worker's while it served, kernel 2's its
+    timed decode's (``generate_stepwise_moe`` before serving). Returns
+    (line, launches)."""
+    import torch
+    line, launches, replies, events = phase_worker(
+        card, "worker_moe", WORKER_MOE_ARGS, "PagedServer",
+        ("flash_decode_paged",),
+        forbid=("paged_fallback", "moe_fallback"))
+    body = line["worker_moe"]
+    serving = next(e for e in events if e.get("event") == "serving")
+    launches["flash_decode"] = serving.get("launches", {}).get(
+        "flash_decode", 0)
+    problems = []
+    if launches["flash_decode"] < 1:
+        problems.append("the worker's timed decode never launched "
+                        "flash_decode")
+    moe_stats = (body.get("paged") or {}).get("moe")
+    if moe_stats != {"experts": MOE_EXPERTS,
+                     "capacity_factor": float(MOE_EXPERTS),
+                     "routing": "top2"}:
+        problems.append(f"page_stats moe {moe_stats}")
+    if problems:
+        raise RuntimeError("worker_moe phase: " + "; ".join(problems))
+    got = {f"w{i}": toks for i, toks in enumerate(replies)}
+    differ = [rid for rid in want if got[rid] != want[rid]]
+    body["streams_equal_in_process"] = len(want) - len(differ)
+    body["bf16_vs_in_process"] = None
+    if differ:
+        from dcos_commons_tpu_torch.models import llama
+        from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+        dev = torch.device("cuda")
+        cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+        params = llama.init_moe_params(
+            cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)
+        prompts = {f"w{i}": b["prompt"]
+                   for i, b in enumerate(worker_bodies())}
+        body["bf16_vs_in_process"] = moe_stream_share(
+            "MoE worker vs the in-process engine",
+            {rid: got[rid] for rid in differ},
+            {rid: want[rid] for rid in differ}, prompts, cfg, params,
+            llama.make_moe_ffn(cfg, dropless(MoEConfig(MOE_EXPERTS))))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    body["model"] = ("llama3_8b widths and depth, 8 experts top-2 "
+                     "(Mixtral-8x7B routing geometry)")
+    body["launches"] = launches
+    log(f"[worker_moe] streams equal {body['streams_equal_in_process']}, "
+        f"bf16 hold {body['bf16_vs_in_process']}")
+    return line, launches
+
+
 # --------------------------------------------------------------- phase 4
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
@@ -2174,46 +2644,66 @@ def _kernel_entry(name, source, replaces, launches, cases, tolerance):
             "cases": cases}
 
 
+PHASE_S = {}
+
+
+def timed_phase(name, fn, *args, **kw):
+    """Run one phase and keep its wall seconds in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        log(f"[phase] {name} {PHASE_S[name]:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
         return 1
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    timed_phase("1_build", phase_build)
     card = card_line()
     log(f"[card] {card}")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    decode_cases, slot_cases, fa_cases = phase_kernels(flush)
+    decode_cases, slot_cases, fa_cases = timed_phase(
+        "2_kernels", phase_kernels, flush)
     del flush
     torch.cuda.empty_cache()
-    distill_line, distill_launches, distilled = phase_distill(card)
-    serving_line, decode_launches, params, solo = phase_serve(card)
+    distill_line, distill_launches, distilled = timed_phase(
+        "8_distill", phase_distill, card)
+    serving_line, decode_launches, params, solo = timed_phase(
+        "3_serve", phase_serve, card)
     torch.cuda.empty_cache()
-    spec_line, spec_launches = phase_spec(card, params, solo)
+    spec_line, spec_launches = timed_phase("7_spec", phase_spec, card,
+                                           params, solo)
     artifact = save_spec_draft(params)
     gc.collect()
     torch.cuda.empty_cache()
-    slots_line, slot_launches = phase_serve_slots(card, params)
+    slots_line, slot_launches = timed_phase("5_serve_slots",
+                                            phase_serve_slots, card, params)
     # the front door's handler closes over the front door, a cycle that
     # holds the engine until the collector runs
     gc.collect()
     torch.cuda.empty_cache()
     worker_lines, worker_launches, replies = [], {}, {}
     for name, extra, engine, names in WORKER_ENGINES:
-        line, launches, replies[name], _ = phase_worker(card, name, extra,
-                                                        engine, names)
+        line, launches, replies[name], _ = timed_phase(
+            f"6_{name}", phase_worker, card, name, extra, engine, names)
         worker_lines.append(line)
         worker_launches.update(launches)
     try:
         t0 = time.perf_counter()
-        spec_worker_line, spec_worker_launches = phase_spec_worker(
-            card, artifact, replies["worker_paged"], params)
+        spec_worker_line, spec_worker_launches = timed_phase(
+            "7_worker_spec", phase_spec_worker, card, artifact,
+            replies["worker_paged"], params)
         spec_worker_s = time.perf_counter() - t0
-        distilled_line, distilled_launches = phase_distill_serve(
-            card, distilled, replies["worker_paged"], params,
-            spec_line["accept_rate"])
+        distilled_line, distilled_launches = timed_phase(
+            "8_worker_distilled", phase_distill_serve, card, distilled,
+            replies["worker_paged"], params, spec_line["accept_rate"])
     finally:
         import shutil
         shutil.rmtree(artifact["path"], ignore_errors=True)
@@ -2221,8 +2711,12 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    training_line, fa_launches = phase_train(card)
-    llama_train_line = phase_llama_train(card)
+    moe_line, moe_launches, moe_worker_want = timed_phase(
+        "10_moe", phase_moe, card)
+    moe_worker_line, moe_worker_launches = timed_phase(
+        "10_worker_moe", phase_moe_worker, card, moe_worker_want)
+    training_line, fa_launches = timed_phase("4_train", phase_train, card)
+    llama_train_line = timed_phase("9_llama_train", phase_llama_train, card)
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -2262,7 +2756,10 @@ def main() -> int:
                       "dcos_commons_tpu/ops/flash_decode.py:263",
                       {"serving": decode_launches,
                        "worker_paged": worker_launches["flash_decode_paged"],
-                       "spec": spec_launches["flash_decode_paged"]},
+                       "spec": spec_launches["flash_decode_paged"],
+                       "moe": moe_launches["flash_decode_paged"],
+                       "worker_moe":
+                           moe_worker_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -2272,7 +2769,9 @@ def main() -> int:
                        "spec": spec_launches["flash_decode"],
                        "worker_spec": spec_worker_launches["flash_decode"],
                        "worker_distilled":
-                           distilled_launches["flash_decode"]},
+                           distilled_launches["flash_decode"],
+                       "moe": moe_launches["flash_decode"],
+                       "worker_moe": moe_worker_launches["flash_decode"]},
                       slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
@@ -2317,6 +2816,12 @@ def main() -> int:
     print(json.dumps(distill_line), flush=True)
     print(json.dumps(llama_train_line), flush=True)
     print(json.dumps({"spec": spec_summary}), flush=True)
+    print(json.dumps(moe_line), flush=True)
+    print(json.dumps(moe_worker_line), flush=True)
+    PHASE_S["total"] = time.perf_counter() - t_main
+    PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
+        v for k, v in PHASE_S.items() if k != "total")
+    print(json.dumps({"phase_s": PHASE_S}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
         --serve --slots 8 [--pages 64] [--quant int8] [--kv-quant] \\
         [--spec-decode true --draft-checkpoint DIR --draft-k 4] [--out VOL]
+    python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
+        --serve --slots 8 --pages -1 --moe-experts 8 --moe-capacity-factor 0
     python -m dcos_commons_tpu_torch.frameworks.worker llama-train \\
         --steps 20 --seq 256 [--ckpt-every N] [--grad-accum N] --out VOL
     python -m dcos_commons_tpu_torch.frameworks.worker distill --preset 8b \\
@@ -25,6 +27,15 @@ as CUDA graphs, with the process-wide compile cache of
 ``parallel.aot``). Without ``--slots`` it keeps the solo heartbeat
 decode. ``serving.ready`` in the working directory is the readiness
 marker, re-stamped with the port once the front door listens.
+
+``--moe-experts E`` (with ``--pages``) serves a mixture-of-experts model:
+random bf16 expert banks from seed 0 (``llama.init_moe_params``; no
+checkpoint restore, as in the reference), routed by
+``--moe-routing`` with ``--moe-capacity-factor`` (0 = dropless), the
+timed decode through ``llama.generate_stepwise_moe``. Without
+``--pages``, or with ``--quant``/``--kv-quant``, it serves dense with a
+coded ``moe_fallback`` (the reference's codes); with
+``--prefill-seq-parallel`` MoE wins and ``longctx_fallback`` says so.
 
 ``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
 a sealed draft artifact (``models.speculative.save_draft``): a
@@ -47,8 +58,9 @@ workload in ``torch.profiler`` and writes a Chrome trace there.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (peer weights: item 6; gangs: item 7; MoE,
-pipelines, ring prefill and ring or Ulysses attention: item 9;
+ROADMAP Queue 1 item (peer weights: item 6; gangs and expert-parallel
+MoE training: item 7; pipelines, ring prefill and ring or Ulysses
+attention: item 9;
 disaggregation, the router, KV tiers, the prefix directory and live
 resharding: item 10). The weight server is an accelerant in the
 reference, so asking for it only emits ``weight_server_error``.
@@ -102,13 +114,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("disagg_not_ported", f"--serve-role {role}: "
                         "disaggregated prefill/decode tiers are not "
                         "ported yet (ROADMAP Queue 1 item 10)")
-    if args.moe_experts > 0:
-        raise NotPorted("moe_not_ported", "--moe-experts: MoE serving is "
-                        "not ported yet (ROADMAP Queue 1 item 9)")
-    if yaml_bool(args.prefill_seq_parallel):
-        raise NotPorted("longctx_not_ported", "--prefill-seq-parallel: "
-                        "ring prefill is not ported yet (ROADMAP Queue 1 "
-                        "item 9)")
     disk = args.kv_tier_disk_pages if args.kv_tier_disk_dir else 0
     if args.kv_tier_host_pages > 0 or disk > 0:
         raise NotPorted("kv_tiers_not_ported", "--kv-tier-*: host and "
@@ -118,6 +123,47 @@ def _refuse_unported(args) -> None:
         raise NotPorted("prefix_directory_not_ported", "--prefix-directory:"
                         " the fleet prefix directory is not ported yet "
                         "(ROADMAP Queue 1 item 10)")
+
+
+def _serving_arithmetic(args):
+    """The MoE config ``--moe-experts`` asks for, or None for the dense
+    stack, with the reference's coded events: MoE serves through the
+    paged engine only (``moe_fallback`` ``moe_needs_paged``), and on raw
+    bf16 expert banks (``moe_quant``), else the replica serves dense.
+    ``--prefill-seq-parallel`` with MoE emits ``longctx_fallback``
+    ``longctx_with_moe`` (MoE wins, prefill stays chunked); without MoE
+    ring prefill is refused, since it is not ported. Capacity is
+    ``--moe-capacity-factor`` (1.0 when unset), dropless when it is <= 0.
+    On one device the reference's mesh is ``ep=1``: the local path."""
+    from ..parallel.moe import MoEConfig, dropless
+    moe_cfg = None
+    if args.moe_experts > 0:
+        if not args.pages:
+            _emit({"event": "moe_fallback", "code": "moe_needs_paged",
+                   "error": "MoE serving routes through the paged "
+                            "engine only: set --pages/SERVE_PAGES "
+                            "(serving dense)"})
+        elif args.quant != "none" or args.kv_quant:
+            _emit({"event": "moe_fallback", "code": "moe_quant",
+                   "error": "MoE expert banks serve raw bf16 "
+                            "(quantize_params rejects router trees); "
+                            "drop --quant/--kv-quant (serving dense)"})
+        else:
+            moe_cfg = MoEConfig(args.moe_experts,
+                                capacity_factor=args.moe_capacity_factor
+                                or 1.0,
+                                routing=args.moe_routing)
+            if args.moe_capacity_factor <= 0:
+                moe_cfg = dropless(moe_cfg)
+    if yaml_bool(args.prefill_seq_parallel):
+        if moe_cfg is None:
+            raise NotPorted("longctx_not_ported", "--prefill-seq-parallel: "
+                            "ring prefill is not ported yet (ROADMAP Queue "
+                            "1 item 9)")
+        _emit({"event": "longctx_fallback", "code": "longctx_with_moe",
+               "error": "one replica mesh carries ep OR sp; MoE decode "
+                        "wins, prefill stays chunked"})
+    return moe_cfg
 
 
 def _boot_serving_weights(args, template, init, registry=None):
@@ -166,13 +212,17 @@ def _start_weight_server(args) -> None:
                         "ported yet (ROADMAP Queue 1 item 6)"})
 
 
-def _make_serving_engine(args, cfg, params, device, registry=None):
+def _make_serving_engine(args, cfg, params, device, registry=None,
+                         moe=None):
     """``PagedServer`` with ``--pages`` (sharing the process-wide compile
-    cache), ``SlotServer`` otherwise. A paged config the model cannot
-    satisfy falls back to the slot engine with a ``paged_fallback``
-    event, as in the reference. ``--spec-decode`` arms the paged engine
-    (:func:`_arm_spec_decode`); without one it emits ``spec_fallback``
-    with ``spec_needs_paged`` and serves solo."""
+    cache; ``moe`` from :func:`_serving_arithmetic`), ``SlotServer``
+    otherwise. A paged config the model cannot satisfy falls back to the
+    slot engine with a ``paged_fallback`` event, as in the reference;
+    an MoE model, which the slot engine cannot serve, raises after the
+    event instead of serving a replica that fails its first request.
+    ``--spec-decode`` arms the paged engine (:func:`_arm_spec_decode`);
+    without one it emits ``spec_fallback`` with ``spec_needs_paged`` and
+    serves solo."""
     from ..models.serving import PagedServer, SlotServer
     from ..parallel import aot
     spec_wanted = yaml_bool(args.spec_decode)
@@ -183,7 +233,7 @@ def _make_serving_engine(args, cfg, params, device, registry=None):
                 pages=None if args.pages < 0 else args.pages,
                 page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk,
-                compile_cache=aot.from_env(), device=device)
+                compile_cache=aot.from_env(), moe=moe, device=device)
             if spec_wanted:
                 _arm_spec_decode(args, cfg, engine, registry)
             return engine, engine.page_stats()
@@ -191,6 +241,8 @@ def _make_serving_engine(args, cfg, params, device, registry=None):
             _emit({"event": "paged_fallback", "error": str(e),
                    "pages": args.pages, "page_size": args.page_size,
                    "prefill_chunk": args.prefill_chunk})
+            if moe is not None:
+                raise
     if spec_wanted:
         _emit({"event": "spec_fallback", "code": "spec_needs_paged",
                "error": "speculative decode needs the paged engine "
@@ -294,20 +346,26 @@ def run_llama(args) -> dict:
     from ..parallel import distributed
 
     _refuse_unported(args)
+    moe_cfg = _serving_arithmetic(args) if args.serve else None
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     kv_quant = args.kv_quant
     cfg = _target_config(args)
     gen_len = args.gen_len
-    # chunked decode for everything but tiny, as in the reference
-    chunked = args.preset != "tiny" or args.quant != "none"
+    # chunked decode for everything but tiny, as in the reference; MoE
+    # decodes stepwise (the dense generate paths read the dense FFN)
+    chunked = ((args.preset != "tiny" or args.quant != "none")
+               and moe_cfg is None)
     # chunked rounds the continuation up to whole chunks before trimming;
     # divide by the EXECUTED token count or tps reads low off-alignment
     exec_len = (1 + -(-(gen_len - 1) // 16) * 16) if chunked else gen_len
 
     def timed_decode(prompt):
         t0 = time.perf_counter()
-        if chunked:
+        if moe_cfg is not None:
+            toks = llama.generate_stepwise_moe(cfg, params, prompt, gen_len,
+                                               moe_cfg)
+        elif chunked:
             toks = llama.generate_chunked(cfg, params, prompt, gen_len,
                                           chunk=16)
         else:
@@ -316,6 +374,11 @@ def run_llama(args) -> dict:
         return round(exec_len / max(time.perf_counter() - t0, 1e-9), 2)
 
     def init():
+        if moe_cfg is not None:
+            # raw bf16 expert banks, drawn slab by slab on the device
+            return llama.init_moe_params(
+                cfg, moe_cfg.num_experts,
+                torch.Generator(device=dev).manual_seed(0), device=dev)
         return _init_target(cfg, dev, args.quant)
 
     registry = None
@@ -323,12 +386,13 @@ def run_llama(args) -> dict:
     if args.serve:
         from ..metrics import MetricsRegistry
         registry = MetricsRegistry()
-    if args.serve and args.quant == "none":
+    if args.serve and args.quant == "none" and moe_cfg is None:
         params, boot_report = _boot_serving_weights(
             args, llama.param_template(cfg, dev), init, registry)
     else:
         # int8 replicas keep their freshly quantized init, as in the
-        # reference: quantized trees are outside the restore template
+        # reference: quantized trees are outside the restore template,
+        # and so are MoE trees
         params = init()
     if args.serve:
         _emit({"event": "weights_loaded", **boot_report})
@@ -348,7 +412,8 @@ def run_llama(args) -> dict:
     if not args.serve:
         return result
     if args.slots > 0:
-        _serve_slots(args, cfg, params, dev, registry, boot_report, result)
+        _serve_slots(args, cfg, params, dev, registry, boot_report, result,
+                     moe_cfg)
     # no slot engine: the fixed-prompt heartbeat decode keeps the solo
     # liveness signal; slots 0 tells monitoring not to expect batching
     _emit({"event": "serving", "slots": 0,
@@ -369,12 +434,12 @@ def run_llama(args) -> dict:
 
 
 def _serve_slots(args, cfg, params, dev, registry, boot_report,
-                 result) -> None:
+                 result, moe_cfg=None) -> None:
     """Continuous batching behind the HTTP front door; never returns."""
     from ..models.ingress import ServingFrontend
     t_compile = time.perf_counter()
     server, page_stats = _make_serving_engine(args, cfg, params, dev,
-                                              registry)
+                                              registry, moe=moe_cfg)
     warmup = getattr(server, "warmup", None)
     if warmup is not None:
         # capture the one-step window graph now, so the first request
@@ -488,7 +553,8 @@ def run_llama_train(args) -> dict:
                         "training is not ported yet (ROADMAP Queue 1 item 9)")
     if args.ep > 1:
         raise NotPorted("moe_not_ported", "--ep > 1: expert-parallel (MoE) "
-                        "training is not ported yet (ROADMAP Queue 1 item 9)")
+                        "training needs the device mesh, not ported yet "
+                        "(ROADMAP Queue 1 item 7)")
     if args.attn in ("ring", "ulysses"):
         raise NotPorted("attn_not_ported", f"--attn {args.attn}: sequence-"
                         "parallel attention is not ported yet (ROADMAP "
@@ -788,21 +854,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "distributions in the KL loss")
     p.add_argument("--moe-experts", type=int,
                    default=int(os.environ.get("MOE_EXPERTS", "0") or 0),
-                   help="not ported (item 9): > 0 exits 2")
+                   help="llama --serve --pages: experts in the routed MLP "
+                        "(0 = dense). Raw bf16 expert banks "
+                        "(init_moe_params), every decode step and prefill "
+                        "chunk routed through parallel/moe.py on the local "
+                        "path (dist/moe.yml). Without --pages, or with "
+                        "--quant/--kv-quant, serves dense (moe_fallback)")
     p.add_argument("--moe-capacity-factor", type=float,
                    default=float(os.environ.get("MOE_CAPACITY_FACTOR",
                                                 "0") or 0),
-                   help="--moe-experts' capacity (not ported)")
+                   help="llama --serve --moe-experts: expert buffer slots "
+                        "= tokens/experts * factor. 0 (default) = dropless "
+                        "(factor = experts): routing is independent of "
+                        "token grouping, so in fp32 serving is token-exact "
+                        "vs generate_stepwise_moe (bf16 roundings can flip "
+                        "a near-tied route); smaller factors drop "
+                        "overflowing tokens")
     p.add_argument("--moe-routing", default="top2",
                    choices=["top2", "expert_choice"],
-                   help="--moe-experts' routing (not ported)")
+                   help="llama --serve --moe-experts: token-choice top-2 "
+                        "(GShard) or expert-choice (balanced by "
+                        "construction, but ranks tokens against the whole "
+                        "group, so it is non-causal; see parallel/moe.py)")
     p.add_argument("--longctx-ring", type=int,
                    default=int(os.environ.get("LONGCTX_RING", "0") or 0),
                    help="--prefill-seq-parallel's ring size (not ported)")
     p.add_argument("--prefill-seq-parallel",
                    default=os.environ.get("PREFILL_SEQ_PARALLEL",
                                           "false"),
-                   help="not ported (item 9): true exits 2")
+                   help="not ported (item 9): true exits 2, unless MoE "
+                        "is served (then longctx_fallback longctx_with_moe)")
     p.add_argument("--queue-limit", type=int, default=64,
                    help="--serve --slots: bounded ingress queue "
                         "(overflow answers 503 + Retry-After)")
@@ -877,7 +958,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "> 1 exits 2)")
     p.add_argument("--ep", type=int, default=0,
                    help="llama-train: expert-parallel size (not ported, "
-                        "item 9: > 1 exits 2)")
+                        "item 7: > 1 exits 2)")
     p.add_argument("--emit-every", type=int, default=0,
                    help="distill: emit a {event: progress, step, loss} "
                         "line every N steps (0 = off)")

@@ -16,6 +16,13 @@ Serving: the config presets, parameter init and int8 weights
 
 ``truncate_layers`` cuts a draft from the target's first layers.
 
+Mixture of experts (serving): ``init_moe_params`` builds the routed tree
+(``router``, ``w_in``, ``w_out`` in place of the dense FFN);
+``make_moe_ffn`` is the ``ffn_override`` that the decode steps, the
+paged prefill chunk and ``extend_step`` take, and
+``generate_stepwise_moe`` the greedy reference the MoE engine is held
+to.
+
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
 and ``loss_fn`` (next-token loss, fused linear cross-entropy by
@@ -52,11 +59,14 @@ from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
 from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_at_many,
                           apply_rope_positions, rope_frequencies)
+from ..parallel.moe import MoEConfig, moe_apply_local
 
 Params = Dict[str, Any]
 Pool = Dict[str, QArray]
 Cache = Dict[str, QArray]
 Sampler = Callable[[Optional[torch.Generator], torch.Tensor], torch.Tensor]
+# x [B, S, D], one layer's params -> x after the FFN residual step
+FfnOverride = Callable[[torch.Tensor, Params], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,29 +142,62 @@ class LlamaConfig:
 _INIT_ROWS = 1 << 14
 
 
-def param_template(cfg: LlamaConfig, device: DeviceLike = "cuda") -> Params:
+def param_template(cfg: LlamaConfig, device: DeviceLike = "cuda",
+                   num_experts: int = 0) -> Params:
     """The parameter tree of uninitialised tensors: the reference's keys,
     shapes (stacked [L, ...] layer weights) and ``cfg.dtype``.
     :func:`init_params` fills it; a checkpoint restore takes it as its
-    template, with no random draws."""
+    template, with no random draws. With ``num_experts`` the tree of
+    :func:`init_moe_params`: the dense FFN (never allocated) replaced by
+    ``router`` [L, D, E] fp32, ``w_in`` [L, E, D, F] and ``w_out``
+    [L, E, F, D]."""
     dev = resolve_device(device)
     d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
 
-    def e(*shape):
-        return torch.empty(shape, dtype=cfg.dtype, device=dev)
+    def e(*shape, dtype=cfg.dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
+    if num_experts:
+        ffn = {"router": e(L, d, num_experts, dtype=torch.float32),
+               "w_in": e(L, num_experts, d, f),
+               "w_out": e(L, num_experts, f, d)}
+    else:
+        ffn = {"w_gate": e(L, d, f), "w_up": e(L, d, f),
+               "w_down": e(L, f, d)}
     return {
         "embed": e(cfg.vocab_size, d),
         "layers": {"attn_norm": e(L, d), "wq": e(L, d, qd),
                    "wk": e(L, d, kvd), "wv": e(L, d, kvd),
-                   "wo": e(L, qd, d), "ffn_norm": e(L, d),
-                   "w_gate": e(L, d, f), "w_up": e(L, d, f),
-                   "w_down": e(L, f, d)},
+                   "wo": e(L, qd, d), "ffn_norm": e(L, d), **ffn},
         "norm": e(d),
         "lm_head": e(d, cfg.vocab_size),
     }
+
+
+def _normal_(out: torch.Tensor, generator: torch.Generator,
+             scale: Optional[float] = None) -> None:
+    """Fill ``out`` in place with scaled normal noise, drawn in fp32
+    ``_INIT_ROWS`` rows at a time (default scale: fan-in ** -0.5)."""
+    scale = scale if scale is not None else out.shape[-2] ** -0.5
+    rows = out.view(-1, out.shape[-1])
+    for i in range(0, rows.shape[0], _INIT_ROWS):
+        n = min(_INIT_ROWS, rows.shape[0] - i)
+        rows[i:i + n] = (torch.randn(
+            (n, rows.shape[1]), generator=generator,
+            dtype=torch.float32, device=out.device) * scale).to(out.dtype)
+
+
+def _init_attention(cfg: LlamaConfig, params: Params,
+                    generator: torch.Generator) -> None:
+    """Draw the embedding and the attention weights (in this order)."""
+    layers = params["layers"]
+    qd = cfg.n_heads * cfg.head_dim
+    _normal_(params["embed"], generator, cfg.dim ** -0.5)
+    for name in ("wq", "wk", "wv"):
+        _normal_(layers[name], generator)
+    _normal_(layers["wo"], generator, (qd ** -0.5) / (2 * cfg.n_layers) ** 0.5)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -165,26 +208,41 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     JAX weights through ``models.bridge.params_from_jax`` instead."""
     params = param_template(cfg, device)
     layers = params["layers"]
-    L, qd = cfg.n_layers, cfg.n_heads * cfg.head_dim
-
-    def normal_(out, scale=None):
-        scale = scale if scale is not None else out.shape[-2] ** -0.5
-        rows = out.view(-1, out.shape[-1])
-        for i in range(0, rows.shape[0], _INIT_ROWS):
-            n = min(_INIT_ROWS, rows.shape[0] - i)
-            rows[i:i + n] = (torch.randn(
-                (n, rows.shape[1]), generator=generator,
-                dtype=torch.float32, device=out.device) * scale).to(out.dtype)
-
+    L = cfg.n_layers
     # drawn in the order the keys are listed, as before the template
-    normal_(params["embed"], cfg.dim ** -0.5)
-    for name in ("wq", "wk", "wv"):
-        normal_(layers[name])
-    normal_(layers["wo"], (qd ** -0.5) / (2 * L) ** 0.5)
+    _init_attention(cfg, params, generator)
     for name in ("w_gate", "w_up"):
-        normal_(layers[name])
-    normal_(layers["w_down"], (cfg.ffn_dim ** -0.5) / (2 * L) ** 0.5)
-    normal_(params["lm_head"])
+        _normal_(layers[name], generator)
+    _normal_(layers["w_down"], generator,
+             (cfg.ffn_dim ** -0.5) / (2 * L) ** 0.5)
+    _normal_(params["lm_head"], generator)
+    for norm in (layers["attn_norm"], layers["ffn_norm"], params["norm"]):
+        norm.fill_(1)
+    return params
+
+
+def init_moe_params(cfg: LlamaConfig, num_experts: int,
+                    generator: torch.Generator,
+                    device: DeviceLike = "cuda") -> Params:
+    """:func:`init_params` with the dense FFN replaced by a routed expert
+    bank, the reference's tree and scales: ``router`` [L, D, E] fp32
+    (scale D ** -0.5), ``w_in`` [L, E, D, F] (D ** -0.5) and ``w_out``
+    [L, E, F, D] (F ** -0.5 / sqrt(2L)) in ``cfg.dtype``. The banks are
+    drawn one [D, F] (or [F, D]) slab at a time into the final tensors,
+    and the dense FFN is never allocated. ``generator`` must live on
+    ``device``."""
+    params = param_template(cfg, device, num_experts)
+    layers = params["layers"]
+    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+    _init_attention(cfg, params, generator)
+    _normal_(params["lm_head"], generator)
+    _normal_(layers["router"], generator, d ** -0.5)
+    out_scale = (f ** -0.5) / (2 * L) ** 0.5
+    for bank, scale in ((layers["w_in"], d ** -0.5),
+                        (layers["w_out"], out_scale)):
+        for i in range(L):
+            for e in range(num_experts):
+                _normal_(bank[i, e], generator, scale)
     for norm in (layers["attn_norm"], layers["ffn_norm"], params["norm"]):
         norm.fill_(1)
     return params
@@ -376,7 +434,9 @@ def _use_flash_decode(cfg: LlamaConfig, device: torch.device) -> bool:
 def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
                  tokens: torch.Tensor, rope_fn: Callable, cache_write,
                  attn: Callable, logit_index: Optional[int] = None,
-                 all_positions: bool = False) -> torch.Tensor:
+                 all_positions: bool = False,
+                 ffn_override: Optional[FfnOverride] = None
+                 ) -> torch.Tensor:
     """The cache-consuming forward shared by the decode steps (solo, per
     slot, paged), the paged prefill chunk and the K-token windows: they
     differ only in how rope is applied, where K/V rows land
@@ -385,7 +445,10 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
 
     ``tokens`` [B, S]; returns fp32 logits [B, V] at the last position,
     at ``logit_index`` (a padded prefill chunk's last live token), or
-    with ``all_positions`` [B, S, V] at every position."""
+    with ``all_positions`` [B, S, V] at every position.
+    ``ffn_override(x, lp) -> x`` replaces the whole pre-norm FFN residual
+    step (MoE serving routes through ``parallel.moe`` there,
+    :func:`make_moe_ffn`); None keeps the dense SwiGLU."""
     b, s = tokens.shape
     layers = params["layers"]
     x = qtake(params["embed"], tokens, cfg.dtype)               # [B, S, D]
@@ -402,7 +465,10 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
         cache_write(v_cache, v)
         o = attn(q, k_cache, v_cache)
         x = x + qmm(o.reshape(b, s, -1), lp["wo"])
-        x = ffn_block(cfg, x, lp)
+        if ffn_override is not None:
+            x = ffn_override(x, lp)
+        else:
+            x = ffn_block(cfg, x, lp)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     if not all_positions:
         x = x[:, -1, :] if logit_index is None else x[:, logit_index, :]
@@ -412,7 +478,8 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
 def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                       table: torch.Tensor, lengths: torch.Tensor,
                       tokens: torch.Tensor,
-                      rope: Optional[torch.Tensor] = None
+                      rope: Optional[torch.Tensor] = None,
+                      ffn_override: Optional[FfnOverride] = None
                       ) -> Tuple[torch.Tensor, Pool]:
     """One decode step against the paged pool.
 
@@ -421,8 +488,9 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     row lands at (table[b, lengths[b] // ps], lengths[b] % ps) and it
     attends to ``lengths[b] + 1`` positions, through the CUDA kernel or
     the dense gather (:func:`_use_flash_decode`). Inactive
-    streams point their table rows at a scratch page. Returns (logits
-    [B, V] fp32, pool updated in place)."""
+    streams point their table rows at a scratch page. ``ffn_override``
+    as in :func:`_decode_body`. Returns (logits [B, V] fp32, pool
+    updated in place)."""
     rope = _rope_table(cfg, rope, tokens.device)
     ps = pool["k"].shape[2]
     mp = table.shape[1]
@@ -448,7 +516,8 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
 
     logits = _decode_body(cfg, params, pool, tokens[:, None],
                           rope_fn=lambda t: apply_rope_at(t, rope, lengths),
-                          cache_write=cache_write, attn=attn)
+                          cache_write=cache_write, attn=attn,
+                          ffn_override=ffn_override)
     return logits, pool
 
 
@@ -533,7 +602,8 @@ def _rope_table(cfg: LlamaConfig, rope: Optional[torch.Tensor],
 
 
 def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
-                token: torch.Tensor, rope: Optional[torch.Tensor] = None
+                token: torch.Tensor, rope: Optional[torch.Tensor] = None,
+                ffn_override: Optional[FfnOverride] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step of every row at position ``pos`` (a host int, the
     current length): ``token`` [B] int32 lands at ``pos`` and every row
@@ -549,13 +619,15 @@ def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
         cfg, params, cache, token[:, None],
         rope_fn=lambda t: apply_rope(t, rope, pos),
         cache_write=lambda c, new: _cache_update(c, new, pos, 1),
-        attn=_slot_attn(cfg, token.device, kv_len))
+        attn=_slot_attn(cfg, token.device, kv_len),
+        ffn_override=ffn_override)
     return logits, cache
 
 
 def extend_step(cfg: LlamaConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, pos: int,
-                rope: Optional[torch.Tensor] = None
+                rope: Optional[torch.Tensor] = None,
+                ffn_override: Optional[FfnOverride] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """Consume K tokens in ONE forward: ``tokens`` [B, K] occupy
     positions ``pos .. pos+K-1`` (``pos`` a host int); returns (logits
@@ -575,7 +647,7 @@ def extend_step(cfg: LlamaConfig, params: Params, cache: Cache,
         attn=lambda q, k_cache, v_cache: gqa_attention(
             q, _dense(k_cache, cfg.dtype), _dense(v_cache, cfg.dtype),
             causal=True, q_offset=pos, kv_len=pos + kk),
-        all_positions=True), cache
+        all_positions=True, ffn_override=ffn_override), cache
 
 
 def decode_step_slots(cfg: LlamaConfig, params: Params, cache: Cache,
@@ -604,14 +676,16 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                         table: torch.Tensor, tokens: torch.Tensor,
                         start: int, true_len: int, logit_index: int,
                         scratch_page: int,
-                        rope: Optional[torch.Tensor] = None
+                        rope: Optional[torch.Tensor] = None,
+                        ffn_override: Optional[FfnOverride] = None
                         ) -> Tuple[torch.Tensor, Pool]:
     """One CHUNK of paged prefill for a single stream: ``tokens`` [1, C]
     occupy positions ``start..start+C-1``, K/V landing through ``table``
     [MP]. Returns (logits [1, V] at chunk index ``logit_index``, the
     pool updated in place). Padded positions at/after ``true_len`` write
     to ``scratch_page``; attention gathers the stream's pages in logical
-    order, causal from ``start``."""
+    order, causal from ``start``. Every one of the C rows goes through
+    ``ffn_override``, padded ones included, as in the reference."""
     rope = _rope_table(cfg, rope, tokens.device)
     ps = pool["k"].shape[2]
     mp = table.shape[0]
@@ -640,7 +714,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     logits = _decode_body(
         cfg, params, pool, tokens,
         rope_fn=lambda t: apply_rope_positions(t, rope, rope_pos),
-        cache_write=cache_write, attn=attn, logit_index=logit_index)
+        cache_write=cache_write, attn=attn, logit_index=logit_index,
+        ffn_override=ffn_override)
     return logits, pool
 
 
@@ -876,6 +951,63 @@ def generate(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
 
 
 generate_stepwise = generate
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts: the routed FFN of the serving paths
+
+
+def make_moe_ffn(cfg: LlamaConfig, moe_cfg: MoEConfig,
+                 mesh: Any = None) -> FfnOverride:
+    """The ``ffn_override`` that routes :func:`_decode_body`'s FFN step
+    through :func:`~dcos_commons_tpu_torch.parallel.moe.moe_apply_local`:
+    every token of the call (all B*S rows, padded and masked ones
+    included) is one dispatch group. The auxiliary loss is dead weight at
+    inference and is dropped. Only the local path is ported: the
+    expert-parallel mesh form is ROADMAP Queue 1 item 7."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel MoE over a device mesh is not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+
+    def ffn(x: torch.Tensor, lp: Params) -> torch.Tensor:
+        b, s, d = x.shape
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        out, _ = moe_apply_local(h.reshape(b * s, d), lp["router"],
+                                 lp["w_in"], lp["w_out"], moe_cfg)
+        return x + out.reshape(b, s, d).to(cfg.dtype)
+
+    return ffn
+
+
+def generate_stepwise_moe(cfg: LlamaConfig, params: Params,
+                          prompt: torch.Tensor, steps: int,
+                          moe_cfg: MoEConfig) -> torch.Tensor:
+    """Greedy MoE generation, the serving parity reference: the whole
+    prompt in one :func:`extend_step`, then one :func:`decode_step` per
+    token (on a CUDA device through the slot-cache decode kernel), both
+    with the :func:`make_moe_ffn` override. Returns [B, steps]. The paged
+    engine routes each prefill chunk and decode batch as its own group,
+    this reference the whole prompt and then one token at a time: the
+    two agree token for token only under dropless capacity
+    (``parallel.moe.dropless``)."""
+    b, s = prompt.shape
+    _check_capacity(cfg, s, steps)
+    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
+    rope = _rope_table(cfg, None, prompt.device)
+    ffn = make_moe_ffn(cfg, moe_cfg)
+    logits, cache = extend_step(cfg, params, cache, prompt, 0, rope=rope,
+                                ffn_override=ffn)
+    logits = logits[:, -1]           # extend_step returns every position
+    toks = []
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
+        logits, cache = decode_step(cfg, params, cache, s + i, tok,
+                                    rope=rope, ffn_override=ffn)
+        toks.append(tok)
+    if not toks:
+        return torch.zeros((b, 0), dtype=prompt.dtype, device=prompt.device)
+    return torch.stack(toks, dim=1)
 
 
 def decode_chunk_logits(cfg: LlamaConfig, params: Params, cache: Cache,

@@ -41,9 +41,14 @@ Differences from the reference, all mechanical:
   and the acceptance on the device, replayed on CUDA as one graph per
   ``(k, table width)`` from the same pool; ``reset`` zeroes the draft
   cache in place, since graphs bind it;
+* MoE (``PagedServer(moe=...)``, the paged engine only, as in the
+  reference): every decode step, prefill chunk and warm-up runs its FFN
+  through ``llama.make_moe_ffn``, on the local path (every expert on the
+  engine's device); each captured window holds the routing;
 * not ported yet, and refused by the constructors (no such parameter):
   tensor-parallel meshes and, for the paged engine, KV tiers, the prefix
-  directory, disaggregation, migration, MoE and ring prefill.
+  directory, disaggregation, migration, ring prefill and expert-parallel
+  meshes.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ..ops.quant import QArray, QTensor, qmm, quantize
 from ..ops.rotary import rope_frequencies
 from ..ops.sampling import Sampler
 from ..parallel.aot import CompileCache, engine_key
+from ..parallel.moe import MoEConfig
 from . import llama
 from .paging import PagePool, PrefixRadix
 
@@ -559,6 +565,12 @@ class PagedServer(_Engine):
       device; the stream turns decode-active at the next flush, so
       tokens land in emission order and an EOS or budget-1 first token
       decodes nothing.
+    * **MoE.** ``moe=MoEConfig(...)`` with ``llama.init_moe_params``
+      weights routes every FFN through the expert bank; each prefill
+      chunk (padded rows included) and each decode step (all ``slots``
+      rows, masked ones included) is one dispatch group, so streams
+      match ``llama.generate_stepwise_moe`` only under
+      ``parallel.moe.dropless``. A draft is refused.
 
     ``params`` must live on ``device``.
     """
@@ -569,6 +581,7 @@ class PagedServer(_Engine):
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None, prefix_cache: bool = True,
                  compile_cache: Optional[CompileCache] = None,
+                 moe: Optional[MoEConfig] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if page_size < 1 or cfg.max_seq % page_size:
@@ -578,6 +591,20 @@ class PagedServer(_Engine):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
+        # MoE: `moe` (a parallel.moe.MoEConfig) swaps the FFN of every
+        # decode step, prefill chunk and warm-up for the routed expert
+        # layer; the paged KV is untouched
+        if moe is not None and "router" not in params["layers"]:
+            raise ValueError(
+                "moe config given but params carry no router; build "
+                "them with llama.init_moe_params")
+        if moe is None and "router" in params["layers"]:
+            raise ValueError(
+                "params carry a router but no moe config; pass "
+                "moe=MoEConfig(...) so routing is explicit")
+        self.moe = moe
+        self._ffn = (llama.make_moe_ffn(cfg, moe)
+                     if moe is not None else None)
         llama.check_params_device(params, self.device, "engine")
         self.cfg = cfg
         self.params = params
@@ -617,10 +644,16 @@ class PagedServer(_Engine):
         # bypass the cache, as in the reference
         ns = None
         if compile_cache is not None and sampler is None:
+            extra: Dict[str, Any] = {}
+            if moe is not None:
+                # routing identity is engine identity, as in the reference
+                extra.update(moe_experts=moe.num_experts,
+                             moe_capacity=moe.capacity_factor,
+                             moe_routing=moe.routing)
             ns = compile_cache.namespace(engine_key(
                 cfg, None, device=self.device, kind="paged", slots=slots,
                 pages=self.total_pages, page_size=page_size,
-                prefill_chunk=prefill_chunk))
+                prefill_chunk=prefill_chunk, **extra))
         if ns and "rope" in ns:
             self._rope = ns["rope"]
         else:
@@ -826,7 +859,7 @@ class PagedServer(_Engine):
             self.cfg, self.params, self.pool,
             torch.tensor(self._tables[slot], device=dev),
             torch.tensor(chunk, device=dev), start, n, li,
-            self.scratch, rope=self._rope)
+            self.scratch, rope=self._rope, ffn_override=self._ffn)
         self._prefill_pos[slot] = end
         if last:
             toks = self._select(logits)
@@ -892,7 +925,7 @@ class PagedServer(_Engine):
                      mp: Optional[int]) -> torch.Tensor:
         logits, _ = llama.decode_step_paged(
             self.cfg, self.params, self.pool, self._table(mp), lengths,
-            tokens, rope=self._rope)
+            tokens, rope=self._rope, ffn_override=self._ffn)
         return logits
 
     def _decode(self, k: int) -> Dict[int, List[int]]:
@@ -933,7 +966,7 @@ class PagedServer(_Engine):
         logits, self.pool = llama.prefill_chunk_paged(
             self.cfg, self.params, self.pool, row,
             torch.zeros((1, c), dtype=torch.int32, device=dev), 0, c, c - 1,
-            self.scratch, rope=self._rope)
+            self.scratch, rope=self._rope, ffn_override=self._ffn)
         logits.cpu()
         timings["chunk"] = time.perf_counter() - t0
         for w in widths:
@@ -965,6 +998,13 @@ class PagedServer(_Engine):
             raise DraftIncompatible(
                 "draft_sampled_engine",
                 "speculative decode is greedy-only; this engine samples")
+        if self._ffn is not None:
+            raise DraftIncompatible(
+                "draft_moe_engine",
+                "speculative decode is not supported on MoE engines: the "
+                "K-wide verify pass routes a k-token group while the "
+                "accepted history was routed one token at a time, so "
+                "verify logits would not match the committed path")
         if k < 2:
             raise DraftIncompatible("draft_k", f"draft k must be >= 2, "
                                                f"got {k}")
@@ -1221,4 +1261,9 @@ class PagedServer(_Engine):
                 "draft_prefill_s": self.spec_draft_prefill_s,
                 "window_s": self.spec_window_s,
             },
+            "moe": ({
+                "experts": self.moe.num_experts,
+                "capacity_factor": self.moe.capacity_factor,
+                "routing": self.moe.routing,
+            } if self.moe is not None else None),
         }

@@ -18,6 +18,10 @@ the model's attention routed by the kernels' gate (head_dim 8 dense,
 128 through the kernels); the fused linear-KL head at the Llama-3 vocab
 against the materialized KL; one distill step at Llama-3-8B width
 through kernels 3-5 with the teacher left bit-identical;
+the MoE paged engine's decode windows as CUDA graphs (bitwise equal to
+the eager loop for top-2 dropless and capacity-bounded and for expert
+choice, kernel 1 launched once a layer a step inside them) and
+``moe_apply_local`` on the card against the CPU in fp32;
 the paged engine's speculative window as a CUDA graph (graphed windows
 bitwise equal to the eager loop for k 2 and 4, bf16 and int8-KV pools, a
 widening table; ``reset`` and disarm keeping the graphs valid; k draft
@@ -44,6 +48,8 @@ from dcos_commons_tpu_torch.ops import losses
 from dcos_commons_tpu_torch.ops import flash_attention as fa
 from dcos_commons_tpu_torch.ops import flash_decode as fd
 from dcos_commons_tpu_torch.ops.quant import QTensor, quantize
+from dcos_commons_tpu_torch.parallel.moe import (MoEConfig, dropless,
+                                                 moe_apply_local)
 
 pytestmark = pytest.mark.cuda
 
@@ -900,7 +906,8 @@ def _eager_windows(srv, kv, windows, k, generator=None):
         for _ in range(k):
             if isinstance(srv, serving.PagedServer):
                 logits, _ = llama.decode_step_paged(
-                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope)
+                    srv.cfg, srv.params, kv, tbl, ln, tok, rope=srv._rope,
+                    ffn_override=srv._ffn)
             else:
                 logits, _ = llama.decode_step_slots(
                     srv.cfg, srv.params, kv, ln, tok, rope=srv._rope)
@@ -1274,3 +1281,98 @@ def test_speculative_decoder_runs_through_the_kernels(dev):
     assert fstats["verify_passes"] == stats["verify_passes"]
     assert tuple(got.shape) == (1, 24)
     assert all(0 <= t < cfg.vocab_size for t in got[0].tolist())
+
+
+# ---------------------------------------------------------------------------
+# MoE serving
+
+
+def _moe_engine(dev, routing="top2", factor=None):
+    """A 4-expert model on the card (head_dim 64) and its paged engine;
+    dropless unless ``factor`` is given."""
+    cfg = _cfg()
+    params = llama.init_moe_params(
+        cfg, 4, torch.Generator(device=dev).manual_seed(0), device=dev)
+    moe = MoEConfig(4, routing=routing, capacity_factor=factor or 2.0)
+    srv = _engine("paged", cfg, params, dev,
+                  moe=moe if factor else dropless(moe))
+    return cfg, srv
+
+
+MOE_GRAPH_CASES = [("top2", None, 1), ("top2", None, 8), ("top2", 1.0, 8),
+                   ("expert_choice", None, 4), ("expert_choice", 1.0, 8)]
+
+
+@pytest.mark.parametrize("routing,factor,k", MOE_GRAPH_CASES)
+def test_moe_graphed_windows_equal_the_eager_loop(dev, routing, factor, k):
+    """The routed FFN inside a captured window: from one snapshot the
+    graphed windows and the eager loop by hand give the same tokens and
+    lengths and write the same K/V bitwise (capacity-bounded routing
+    included, where the masked rows compete for capacity)."""
+    cfg, srv = _moe_engine(dev, routing, factor)
+    _live(srv, cfg)
+    windows = 24 // k
+    kv = _kv_clone(srv.pool)
+    want, ln, tok = _eager_windows(srv, kv, windows, k)
+    got = _graphed_windows(srv, windows, k)
+    assert srv.graph_stats()["graphs"] >= 1
+    for i, toks in got.items():
+        assert toks == want[:, i].tolist(), i
+    assert torch.equal(srv.lengths, ln) and torch.equal(srv.cur_tok, tok)
+    assert _kv_equal(srv.pool, kv)
+
+
+def test_moe_window_launches_kernel_1_once_a_layer_a_step(dev):
+    """A warm MoE window replays kernel 1 (the paged decode kernel) once a
+    layer a step, and a prefill chunk and warm-up go through the routed
+    FFN without it."""
+    cfg, srv = _moe_engine(dev)
+    srv.warmup()
+    _live(srv, cfg)
+    srv.step_many(8)                      # captures the window
+    fd.flash_decode_paged.launches = 0
+    graphs = srv.graph_stats()["graphs"]
+    for _ in range(3):
+        srv.step_many(8)
+    # a window that widens the table is captured first, after an eager
+    # run of the same 8 steps, whose launches count
+    eager = srv.graph_stats()["graphs"] - graphs
+    assert fd.flash_decode_paged.launches == (3 + eager) * 8 * cfg.n_layers
+    assert srv.page_stats()["moe"]["experts"] == 4
+
+
+def test_generate_stepwise_moe_launches_kernel_2(dev):
+    """The MoE reference decodes through the slot-cache kernel, one launch
+    a layer a step."""
+    cfg = _cfg()
+    params = llama.init_moe_params(
+        cfg, 4, torch.Generator(device=dev).manual_seed(0), device=dev)
+    fd.flash_decode.launches = 0
+    toks = llama.generate_stepwise_moe(
+        cfg, params, torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32,
+                                  device=dev), 6, dropless(MoEConfig(4)))
+    assert toks.shape == (1, 6)
+    assert fd.flash_decode.launches == 6 * cfg.n_layers
+
+
+@pytest.mark.parametrize("routing,factor", [("top2", None), ("top2", 1.0),
+                                            ("expert_choice", 1.0)])
+def test_moe_apply_local_on_the_card_matches_the_cpu(dev, routing, factor):
+    """fp32 (TF32 off): the same routing and outputs within 1e-5 of
+    max |out| (the products' sums in another order)."""
+    g = torch.Generator().manual_seed(3)
+    d, e, f, n = 256, 8, 512, 64
+    x = torch.randn((n, d), generator=g)
+    router = torch.randn((d, e), generator=g) * d ** -0.5
+    w_in = torch.randn((e, d, f), generator=g) * d ** -0.5
+    w_out = torch.randn((e, f, d), generator=g) * f ** -0.5
+    cfg = MoEConfig(e, routing=routing, capacity_factor=factor or 2.0)
+    cfg = cfg if factor else dropless(cfg)
+    want, aux_want = moe_apply_local(x, router, w_in, w_out, cfg)
+    got, aux_got = moe_apply_local(*(t.to(dev) for t in
+                                     (x, router, w_in, w_out)), cfg)
+    got = got.cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # the same dropped rows
+    assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
+    assert abs(float(aux_got) - float(aux_want)) <= 1e-6

@@ -25,6 +25,7 @@ from dcos_commons_tpu_torch.models import paging as tpaging
 from dcos_commons_tpu_torch.models import serving as ts
 from dcos_commons_tpu_torch.models.bridge import params_from_jax
 from dcos_commons_tpu_torch.ops.sampling import make_sampler
+from dcos_commons_tpu_torch.parallel.moe import MoEConfig
 
 _MODELS = {}
 
@@ -245,12 +246,15 @@ def test_admission_validation():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tiers=object()), dict(directory=object()), dict(moe=object()),
+    dict(tiers=object()), dict(directory=object()),
+    dict(moe=MoEConfig(4)),
     dict(longctx_ring=2), dict(peer_fetch=object()), dict(mesh=object()),
     dict(key=object())])
 def test_constructor_refuses_features_not_ported(kw):
+    """No such parameter (TypeError); ``moe`` is ported, and refused with
+    dense weights, which carry no router (ValueError)."""
     _, tcfg, _, tp = _model()
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError if "moe" in kw else TypeError):
         ts.PagedServer(tcfg, tp, device="cpu", **kw)
 
 

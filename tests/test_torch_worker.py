@@ -254,34 +254,37 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
         w.stop()
 
 
-# (index, args, env, code): the index keeps each case's id as it was
-# while speculative decoding, the checkpoint restore and profiling were
-# refused
+# (index, workload, args, env, code): the index keeps each case's id as
+# it was while speculative decoding, the checkpoint restore, profiling and
+# MoE serving were refused (MoE training stays refused: it needs the mesh)
 REFUSALS = [
-    (1, ["--moe-experts", "4"], {}, "moe_not_ported"),
-    (2, ["--prefill-seq-parallel", "true"], {}, "longctx_not_ported"),
-    (3, ["--serve-role", "prefill"], {}, "disagg_not_ported"),
-    (4, ["--serve-role", "decode"], {}, "disagg_not_ported"),
-    (5, ["--serve-role", "router"], {}, "router_not_ported"),
-    (6, ["--kv-tier-host-pages", "8"], {}, "kv_tiers_not_ported"),
-    (7, ["--kv-tier-disk-dir", "tier", "--kv-tier-disk-pages", "8"], {},
-     "kv_tiers_not_ported"),
-    (8, ["--prefix-directory", "5"], {}, "prefix_directory_not_ported"),
-    (9, [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
+    (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
+    (2, "llama", ["--prefill-seq-parallel", "true"], {},
+     "longctx_not_ported"),
+    (3, "llama", ["--serve-role", "prefill"], {}, "disagg_not_ported"),
+    (4, "llama", ["--serve-role", "decode"], {}, "disagg_not_ported"),
+    (5, "llama", ["--serve-role", "router"], {}, "router_not_ported"),
+    (6, "llama", ["--kv-tier-host-pages", "8"], {}, "kv_tiers_not_ported"),
+    (7, "llama", ["--kv-tier-disk-dir", "tier", "--kv-tier-disk-pages", "8"],
+     {}, "kv_tiers_not_ported"),
+    (8, "llama", ["--prefix-directory", "5"], {},
+     "prefix_directory_not_ported"),
+    (9, "llama", [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
      "weight_fetch_not_ported"),
-    (13, [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
-              "JAX_NUM_PROCESSES": "2"}, "not_ported"),
+    (13, "llama", [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1",
+                       "JAX_PROCESS_ID": "0", "JAX_NUM_PROCESSES": "2"},
+     "not_ported"),
 ]
 
 
-@pytest.mark.parametrize("args,env,code", [r[1:] for r in REFUSALS],
-                         ids=[f"{c}-{i}" for i, _, _, c in REFUSALS])
-def test_unported_knob_exits_2_with_its_code(args, env, code, tmp_path,
-                                             capsys, monkeypatch):
+@pytest.mark.parametrize("workload,args,env,code", [r[1:] for r in REFUSALS],
+                         ids=[f"{r[-1]}-{r[0]}" for r in REFUSALS])
+def test_unported_knob_exits_2_with_its_code(workload, args, env, code,
+                                             tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    rc = tworker.main(["llama", "--device", "cpu", "--serve", "--slots",
+    rc = tworker.main([workload, "--device", "cpu", "--serve", "--slots",
                        "2", "--gen-len", "2", *args])
     assert rc == 2
     events = [json.loads(line)

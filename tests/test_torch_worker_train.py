@@ -66,20 +66,22 @@ def test_a_run_past_its_target_reports_nothing_ran(tmp_path, capsys):
     assert got["tokens_per_sec"] == 0.0
 
 
+# (args, env, code, the ROADMAP Queue 1 item the refusal names)
 REFUSALS = [
-    (["--pp", "2"], {}, "pipeline_not_ported"),
-    (["--ep", "2"], {}, "moe_not_ported"),
-    (["--attn", "ring"], {}, "attn_not_ported"),
-    (["--attn", "ulysses"], {}, "attn_not_ported"),
-    ([], {"RESHARD_ENABLE": "1"}, "reshard_not_ported"),
+    (["--pp", "2"], {}, "pipeline_not_ported", 9),
+    (["--ep", "2"], {}, "moe_not_ported", 7),
+    (["--attn", "ring"], {}, "attn_not_ported", 9),
+    (["--attn", "ulysses"], {}, "attn_not_ported", 9),
+    ([], {"RESHARD_ENABLE": "1"}, "reshard_not_ported", 10),
 ]
 
 
-@pytest.mark.parametrize("args,env,code", REFUSALS,
-                         ids=[f"{c}-{i}" for i, (_, _, c) in
+@pytest.mark.parametrize("args,env,code,item", REFUSALS,
+                         ids=[f"{c}-{i}" for i, (_, _, c, _) in
                               enumerate(REFUSALS)])
-def test_unported_train_knob_exits_2_with_its_code(args, env, code, tmp_path,
-                                                   capsys, monkeypatch):
+def test_unported_train_knob_exits_2_with_its_code(args, env, code, item,
+                                                   tmp_path, capsys,
+                                                   monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     rc = tworker.main([*TRAIN, *CPU, "--steps", "1", "--out",
@@ -88,7 +90,7 @@ def test_unported_train_knob_exits_2_with_its_code(args, env, code, tmp_path,
     events = _events(capsys)
     errors = [e for e in events if e.get("event") == "error"]
     assert len(errors) == 1 and errors[0]["code"] == code
-    assert "item 9" in errors[0]["error"] or "item 10" in errors[0]["error"]
+    assert f"item {item})" in errors[0]["error"]
     assert not any(e.get("event") == "done" for e in events)
     assert not (tmp_path / "vol").exists()
 

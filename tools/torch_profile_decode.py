@@ -2,7 +2,7 @@
 """Where a decode step of one of the PyTorch port's engines spends its time
 on the GPU, graphed and eager.
 
-    python3 tools/torch_profile_decode.py [--engine paged|slots|spec]
+    python3 tools/torch_profile_decode.py [--engine paged|slots|spec|moe]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, ``max_seq`` 2048),
 prefills 8 streams of ragged length through ``PagedServer(slots=8,
@@ -29,7 +29,16 @@ device time: the k draft steps, the K-wide verify, the verify's page
 gather and dense attention alone (every layer's, at the window's table
 width), and the acceptance, each captured as its own CUDA graph on
 clones of the engine's state and timed over replays with CUDA events
-(``chip_smoke.spec_split``). Needs a CUDA device; imports nothing of JAX.
+(``chip_smoke.spec_split``).
+
+``--engine moe`` builds the MoE model instead (Llama-3-8B widths and
+depth, 8 experts top-2, dropless: ``llama.init_moe_params`` from seed 0,
+about 65 GB) behind ``PagedServer(moe=...)``, profiles its windows the
+same two ways, and splits a graphed step's device time
+(``chip_smoke.moe_split``): routing, the dispatch and combine products,
+the expert products, the casts and kernel 1, each captured as its own
+CUDA graph, and the rest of the step. Needs a CUDA device; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -116,7 +125,7 @@ def _profile(window, label, engine, layers, card, k=K) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("paged", "slots", "spec"),
+    ap.add_argument("--engine", choices=("paged", "slots", "spec", "moe"),
                     default="paged")
     args = ap.parse_args()
     import numpy as np
@@ -129,12 +138,23 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
-    params = llama.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if args.engine == "moe":
+        from chip_smoke import MOE_EXPERTS
+        from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+        params = llama.init_moe_params(
+            cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                                  prefill_chunk=64,
+                                  moe=dropless(MoEConfig(MOE_EXPERTS)),
+                                  device=dev)
+    else:
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     if args.engine in ("paged", "spec"):
         srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
                                   prefill_chunk=64, device=dev)
-    else:
+    elif args.engine == "slots":
         srv = serving.SlotServer(cfg, params, slots=8, device=dev)
     if args.engine == "spec":
         from chip_smoke import DRAFT_LAYERS, SPEC_K
@@ -152,7 +172,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    from chip_smoke import eager_loop, spec_eager_loop, spec_split
+    from chip_smoke import eager_loop, moe_split, spec_eager_loop, spec_split
+    split = None
+    if args.engine == "moe":
+        split = {"profile": "moe step split", **moe_split(srv), "card": card}
     if args.engine == "spec":
         split = {"profile": "spec window split", **spec_split(srv),
                  "card": card}
@@ -167,7 +190,7 @@ def main() -> int:
                       k),
              _profile(graphed, "CUDA graph", args.engine, cfg.n_layers,
                       card, k)]
-    if args.engine == "spec":
+    if split is not None:
         lines.append(split)
     lines[1]["graphs"] = {k: v for k, v in srv.graph_stats().items()
                           if k != "keys"}
