@@ -52,6 +52,25 @@ Phases (any failure exits non-zero):
    the verify's logits;
    then ``save_draft`` writes the 1-layer draft under
    ``build/spec_draft`` for the worker below;
+11. (right after phase 7, on phase 3's weights) the KV hierarchy: 8
+   tenants, each a 1,024-token system prompt (16 pages) and a 64-192
+   token turn, 32 new; round 1 at once, round 2 one by one, newest
+   tenant first (``serve_tier_rounds``). ``PagedServer(pages=64,
+   tiers=PageTierStore(32 host pages, 96 disk pages))`` after
+   ``warmup()``: every page a promote installs is bitwise the page
+   before its first demote, host and disk both hit, nothing falls back
+   or drops, no chain is in the radix and a tier at once, and kernel 1
+   is counted over both rounds; an untiered 256-page engine gives the
+   same tokens; the int8 pool repeats the byte checks for two tenants;
+   after a promote, graphed windows equal the eager loop bitwise; a
+   replica with an empty radix adopts round 2 from the untiered engine
+   over ``POST /v1/prefix`` (pages and tokens equal); then demote,
+   promote (host, disk) and adoption times with their blake2s share,
+   and the time to first token by promote, by adoption and by
+   recompute; then the worker with ``--pages 64 --kv-tier-host-pages 32
+   --kv-tier-disk-dir DIR --kv-tier-disk-pages 96`` serves both rounds
+   over HTTP with the in-process engine's round-2 tokens and tier hits
+   in ``/v1/stats``;
 5. (on phase 3's weights) serve Llama-3-8B through
    ``SlotServer(slots=8)`` behind the HTTP front door
    (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
@@ -119,7 +138,8 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
 ``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
-``worker_moe`` and ``phase_s`` lines, the ``kernels`` line, the card's
+``worker_moe``, ``kv_tiers``, ``worker_kv_tiers`` and ``phase_s`` lines,
+the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
 beside it, it exits non-zero and prints no result. Imports nothing of
@@ -1102,7 +1122,7 @@ WORKER_VOCAB = 128256           # Llama-3-8B's
 
 
 def phase_worker(card: str, name: str, extra, engine: str, kernels,
-                 expect=(), forbid=("paged_fallback",)):
+                 expect=(), forbid=("paged_fallback",), rounds=None):
     """The process the scheduler starts: the port's worker
     (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
     ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
@@ -1112,7 +1132,10 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
     checks ``/v1/healthz`` and ``/v1/stats``, waits for a heartbeat that
     has seen them, and ends it with SIGTERM. Its kernel launches are the
     worker's own counts while it served: the heartbeat's less those in
-    its ``serving`` event. Returns (line, launches, replies, events)."""
+    its ``serving`` event. ``rounds`` (lists of request bodies) replaces
+    the 8 requests: each round's requests are sent at once, round after
+    round, and the replies come back in that order. Returns (line,
+    launches, replies, events)."""
     import queue
     import signal
 
@@ -1124,7 +1147,8 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
            *args]
     env = dict(os.environ, PYTHONPATH=str(root))
     v = WORKER_VOCAB
-    bodies = worker_bodies()
+    rounds = rounds or [worker_bodies()]
+    bodies = [b for r in rounds for b in r]
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
                             text=True)
@@ -1171,12 +1195,16 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
                 errors.append(f"request {i}: {e!r}")
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=hit, args=(i,))
-                   for i in range(len(bodies))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
+        threads, first = [], 0
+        for r in rounds:
+            batch = [threading.Thread(target=hit, args=(first + i,))
+                     for i in range(len(r))]
+            first += len(r)
+            for t in batch:
+                t.start()
+            for t in batch:
+                t.join(timeout=600)
+            threads += batch
         wall = time.perf_counter() - t0
         health = _http_get(port, "/v1/healthz")
         stats = _http_get(port, "/v1/stats")
@@ -1191,6 +1219,8 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
             proc.kill()
             rc = proc.wait()
     problems = list(errors)
+    if any(t.is_alive() for t in threads):
+        problems.append("a request thread did not finish")
     for i, r in enumerate(replies):
         toks = (r or {}).get("tokens", [])
         if len(toks) != 32 or not all(0 <= t < v for t in toks):
@@ -1221,8 +1251,10 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
         "engine": engine, "slots": 8, "decode_window": 8,
         "boot_to_serving_s": boot_s, "cold_start": serving["cold_start"],
         "solo_tokens_per_sec": serving["tokens_per_sec"],
-        "requests": len(replies), "streamed": len(WORKER_STREAMED),
-        "prompt_lens": list(WORKER_LENS), "tokens_out": n_tok,
+        "requests": len(replies),
+        "streamed": sum(bool(b.get("stream")) for b in bodies),
+        "prompt_lens": [len(b["prompt"]) for b in bodies],
+        "tokens_out": n_tok,
         "wall_s": wall, "output_tok_s": n_tok / wall,
         "ttft_p50_ms": stats["ttft_ms"]["p50"],
         "tpot_p50_ms": stats["tpot_ms"]["p50"],
@@ -2630,6 +2662,488 @@ def phase_train(card: str):
         "card": card}}, launches
 
 
+# -------------------------------------------------------------- phase 11
+
+# the KV hierarchy's traffic: 8 tenants, each a 1,024-token system prompt
+# (16 full pages of 64) from its own seed, then a user turn of 64-192
+# tokens, 32 new tokens greedy; round 2 sends every tenant a new turn
+# (serve_tier_rounds says in what order)
+TIER_TENANTS, TIER_SYS, TIER_TURN, TIER_NEW = 8, 1024, (64, 192), 32
+TIER_ENGINE = dict(slots=8, page_size=64, prefill_chunk=64)
+# a 64-page pool under 128 prefix pages, tiers of 32 host + 96 disk pages;
+# the untiered engine it is held to keeps every prefix in its 256 pages
+TIER_POOL, TIER_HOST, TIER_DISK, TIER_BIG_POOL = 64, 32, 96, 256
+# the int8 check: two tenants, a host tier of 16 so it spills to disk
+TIER_INT8_TENANTS, TIER_INT8_HOST = 2, 16
+# graph vs eager after a promote: 2 streams, 3 windows of 8
+TIER_GRAPH_STREAMS, TIER_GRAPH_WINDOWS = 2, 3
+WORKER_TIER_ARGS = ("--pages", str(TIER_POOL), "--kv-tier-host-pages",
+                    str(TIER_HOST), "--kv-tier-disk-dir", "{disk}",
+                    "--kv-tier-disk-pages", str(TIER_DISK))
+
+
+def tier_rounds(v: int, tenants: int = TIER_TENANTS) -> list:
+    """Two rounds of one request per tenant, from the seed: the tenant's
+    system prompt (its own seed) and a user turn; a round-2 turn starts
+    with another token than the round-1 turn, so the boundary
+    copy-on-write never fires and the tail starts at position 1,024."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 11)
+    systems = [_prompt(np.random.default_rng(SEED + 1100 + t), TIER_SYS, v)
+               for t in range(tenants)]
+    rounds, firsts = [], {}
+    for r in range(3):
+        reqs = []
+        for t in range(tenants):
+            turn = _prompt(rng, int(rng.integers(TIER_TURN[0],
+                                                 TIER_TURN[1] + 1)), v)
+            while turn[0] in firsts.get(t, ()):
+                turn[0] = (turn[0] + 1) % v
+            firsts.setdefault(t, set()).add(turn[0])
+            reqs.append({"prompt": systems[t] + turn, "max_new": TIER_NEW,
+                         "request_id": f"t{t}-r{r + 1}"})
+        rounds.append(reqs)
+    return rounds
+
+
+def serve_tier_rounds(srv, rounds) -> list:
+    """Round 1's requests at once, then round 2's one after another, each
+    after the previous reply and the tenant served last in round 1 first
+    (its prefix is the warmest): per round, {request: tokens}. Served all
+    at once, each round-2 admission would evict the pages its own plan
+    is about to promote out of the host tier before the promote lands,
+    and no promote would hit the host tier (measured on the CPU)."""
+    got = srv.drain([dict(r) for r in rounds[0]], decode_window=8)
+    out = [{r["request_id"]: got[r["request_id"]] for r in rounds[0]}, {}]
+    for r in reversed(rounds[1]):
+        out[1][r["request_id"]] = srv.drain([dict(r)], decode_window=8)[
+            r["request_id"]]
+    return out
+
+
+def tier_worker_rounds(rounds) -> list:
+    """The worker's waves of request bodies in :func:`serve_tier_rounds`'
+    order: round 1 at once, then round 2 one by one."""
+    def body(r):
+        return {"prompt": r["prompt"], "max_new": r["max_new"]}
+    return [[body(r) for r in rounds[0]]] + [[body(r)]
+                                             for r in reversed(rounds[1])]
+
+
+def _same_bits(a, b) -> bool:
+    """Two gathered payloads (CPU tensors, ``{"q", "s"}`` for int8) are
+    bitwise equal."""
+    import torch
+
+    def parts(p):
+        out = []
+        for side in ("k", "v"):
+            val = p[side]
+            out += [val["q"], val["s"]] if isinstance(val, dict) else [val]
+        return out
+
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(parts(a), parts(b)))
+
+
+def _page_of(payload, j: int):
+    """Page ``j`` of a gathered span, as a one-page payload."""
+    def one(x):
+        if isinstance(x, dict):
+            return {k: v[:, j:j + 1].contiguous() for k, v in x.items()}
+        return x[:, j:j + 1].contiguous()
+    return {side: one(payload[side]) for side in ("k", "v")}
+
+
+def checked_server(*args, watch=(), **kw):
+    """A ``PagedServer`` that, for the smoke's byte checks, saves the
+    pages of each watched chain as the radix first evicts it (gathered
+    before the demote runs), and holds every page a promote installs
+    against that copy and every page an adoption installs against the
+    span it fetched. Everything else is the engine's own path."""
+    from dcos_commons_tpu_torch.models import serving
+    from dcos_commons_tpu_torch.models.paging import chain_keys
+
+    class Checked(serving.PagedServer):
+        def __init__(self):
+            super().__init__(*args, **kw)
+            self.watch, self.saved = set(watch), {}
+            self.checked, self.mismatched, self.fetched = 0, [], None
+
+        def _demote(self, page, prefix_tokens):
+            ck = chain_keys(prefix_tokens, self.page_size)[-1]
+            if ck in self.watch and ck not in self.saved:
+                self.saved[ck] = self._gather_span([page])
+            super()._demote(page, prefix_tokens)
+
+        def _installed(self, slot, a, b):
+            return self._gather_span(self._stream_pages[slot][a:b])
+
+        def _promote_from_tier(self, plan):
+            ok = super()._promote_from_tier(plan)
+            if ok:
+                slot, base = plan["slot"], plan["base"]
+                m = self._prefill_pos[slot] // self.page_size - base
+                got = self._installed(slot, base, base + m)
+                for j, ck in enumerate(plan["chains"][:m]):
+                    if ck in self.saved:
+                        self.checked += 1
+                        if not _same_bits(_page_of(got, j), self.saved[ck]):
+                            self.mismatched.append(ck)
+            return ok
+
+        def _adopt_from_fleet(self, plan):
+            ok = super()._adopt_from_fleet(plan)
+            if ok:
+                slot, base = plan["slot"], plan["base"]
+                cover = self._prefill_pos[slot] // self.page_size
+                got = self._installed(slot, base, cover)
+                span = self.fetched["payload"]
+                for j in range(cover - base):
+                    self.checked += 1
+                    if not _same_bits(_page_of(got, j),
+                                      _page_of(span, base + j)):
+                        self.mismatched.append((plan["holder"], base + j))
+            return ok
+
+    return Checked()
+
+
+def _owner_overlap(srv) -> list:
+    """Chains both in the radix and in the tier store (must be none)."""
+    from dcos_commons_tpu_torch.models.paging import chain_keys
+    radix = {chain_keys(srv.radix.prefix_tokens(n), srv.page_size)[-1]
+             for n in srv.radix._iter_nodes()}
+    return sorted(radix & set(srv.tiers.chains()))
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def first_token(srv, req) -> dict:
+    """Serve ``req`` alone with max_new 1 (it retires at its first token,
+    so no decode window runs): seconds from submit to the token on the
+    host, each step's seconds (one prefill chunk each, synchronised),
+    and what the engine's promote/adoption counters gained."""
+    before = (srv.tier_promote_s, srv.tier_promoted_pages,
+              srv.adopted_prefix_pages)
+    _sync(srv.device)
+    t0 = time.perf_counter()
+    srv.submit(req["prompt"], 1, request_id=req["request_id"])
+    steps = []
+    while req["request_id"] not in srv.finished:
+        t = time.perf_counter()
+        srv.step()
+        _sync(srv.device)
+        steps.append(time.perf_counter() - t)
+    ttft = time.perf_counter() - t0
+    return {"ttft_s": ttft, "step_s": steps,
+            "token": srv.finished.pop(req["request_id"])[0],
+            "promote_s": srv.tier_promote_s - before[0],
+            "promoted_pages": srv.tier_promoted_pages - before[1],
+            "adopted_pages": srv.adopted_prefix_pages - before[2]}
+
+
+def _tier_engine_checks(name, srv, store, problems, fallbacks_ok=False):
+    st = store.stats()
+    if srv.ledger_violations():
+        problems.append(f"{name}: ledger {srv.ledger_violations()[:3]}")
+    if _owner_overlap(srv):
+        problems.append(f"{name}: chains in the radix AND the tiers "
+                        f"{_owner_overlap(srv)[:3]}")
+    if srv.mismatched:
+        problems.append(f"{name}: {len(srv.mismatched)} promoted pages "
+                        f"differ from the pages demoted")
+    if srv.checked < 1:
+        problems.append(f"{name}: no promoted page was checked")
+    if not fallbacks_ok and srv.tier_fallbacks:
+        problems.append(f"{name}: tier_fallbacks {srv.tier_fallbacks}")
+    if st["host_hits"] < 1 or st["disk_hits"] < 1 or st["dropped"]:
+        problems.append(f"{name}: tier stats {st}")
+    return st
+
+
+def phase_kv_tiers(card: str, params, cfg=None, dev=None,
+                   tenants: int = TIER_TENANTS, int8_layers=None) -> tuple:
+    """The paged engine's KV hierarchy on phase 3's weights: (1) the
+    tiered engine (``pages=64``, tiers of 32 host + 96 disk pages) after
+    ``warmup()`` serves two rounds of the tenants' traffic; every page a
+    promote installs is bitwise the page as it was before its first
+    demote, host and disk both hit, nothing falls back or drops, the
+    ledger is clean and no chain is in the radix and a tier at once;
+    (2) an untiered engine of 256 pages serves the same rounds, token for
+    token the same; (3) the int8 pool repeats (1) for two tenants; (4)
+    after a promote, graphed windows equal the eager loop bitwise; (5)
+    replica B (empty radix, a directory naming the untiered engine behind
+    a front door on localhost, ``peer_fetch=fetch_prefix``) serves round
+    2 with the untiered engine's tokens and pages; then the demote,
+    promote and adoption times and the time to first token by promote,
+    by adoption and by recompute. Kernel-1 launches are counted over
+    (1). ``cfg``/``dev`` default to Llama-3-8B on the card (a smaller
+    model on the CPU rehearses the control flow)."""
+    import hashlib
+    import shutil
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.models.disagg import fetch_prefix
+    from dcos_commons_tpu_torch.models.ingress import ServingFrontend
+    from dcos_commons_tpu_torch.models.paging import (
+        PageTierStore, PrefixDirectory, chain_keys, pack_page_frame)
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+
+    dev = dev or torch.device("cuda")
+    cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=2048)
+    v = cfg.vocab_size
+    rounds = tier_rounds(v, tenants)
+    watch = {ck for req in rounds[0]
+             for ck in chain_keys(req["prompt"][:TIER_SYS], 64)}
+    root = Path(__file__).resolve().parent / "build" / "kv_tier_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    problems, t_phase = [], time.perf_counter()
+    out = {}
+    try:
+        # (1) the tiered engine
+        store = PageTierStore(host_pages=TIER_HOST,
+                              disk_dir=str(root / "disk"),
+                              disk_pages=TIER_DISK)
+        srv = checked_server(cfg, params, pages=TIER_POOL, tiers=store,
+                             watch=watch, device=dev, **TIER_ENGINE)
+        warm = srv.warmup()
+        fd.flash_decode_paged.launches = 0
+        t0 = time.perf_counter()
+        tiered = serve_tier_rounds(srv, rounds)
+        _sync(dev)
+        tiered_s = time.perf_counter() - t0
+        launches = fd.flash_decode_paged.launches
+        st = _tier_engine_checks("tiered engine", srv, store, problems)
+        checked = srv.checked
+        if dev.type == "cuda" and launches < 1:
+            problems.append("flash_decode_paged never launched in phase 11")
+        stats = srv.page_stats()
+        # (2) the untiered engine behind a front door (replica A of (5))
+        directory = PrefixDirectory(max_age_s=600.0)
+        big = serving.PagedServer(cfg, params, pages=TIER_BIG_POOL,
+                                  directory=directory, device=dev,
+                                  **TIER_ENGINE)
+        fe = ServingFrontend(big, port=0, host="127.0.0.1")
+        big.replica_id = f"http://127.0.0.1:{fe.port}"
+        big.warmup()
+        flat = serve_tier_rounds(big, rounds)
+        distinct = {ck for reqs in rounds[:2] for r in reqs
+                    for ck in chain_keys(r["prompt"], 64)}
+        big_radix = big.radix.size()
+        for r in (0, 1):
+            diff = [rid for rid in flat[r] if flat[r][rid] != tiered[r][rid]]
+            if diff or sorted(flat[r]) != sorted(tiered[r]):
+                problems.append(f"round {r + 1}: tiered tokens differ from "
+                                f"the untiered engine's for {diff}")
+        # (4) graph vs eager after a promote: every radix page to the
+        # tiers, then two streams promote their prefixes and decode
+        srv._evict(srv.ledger.pages)
+        for req in rounds[1][:TIER_GRAPH_STREAMS]:   # served last
+            srv.submit(req["prompt"], 200, request_id=("graph",
+                                                       req["request_id"]))
+        promoted0 = srv.tier_promoted_pages
+        while srv._pending_tier or srv._prefill_q or srv._pending_first:
+            srv.step()
+        if srv.tier_promoted_pages - promoted0 < 16:
+            problems.append("graph check: the streams promoted "
+                            f"{srv.tier_promoted_pages - promoted0} pages")
+        try:
+            graph = _graph_vs_eager(srv, windows=TIER_GRAPH_WINDOWS, k=8)
+        except RuntimeError as e:        # reported with the other checks
+            problems.append(f"after a promote: {e}")
+        srv.abort_active()
+        # (5) replica B adopts round 2 from A over /v1/prefix
+        fe.start()
+        try:
+            def fetch(holder, prompt):
+                b.fetched = fetch_prefix(holder, prompt, timeout_s=120.0)
+                return b.fetched
+
+            b = checked_server(cfg, params, pages=TIER_POOL,
+                               directory=directory, replica_id="replica-b",
+                               peer_fetch=fetch, device=dev, **TIER_ENGINE)
+            b.warmup()
+            adopted = {}
+            for r in reversed(rounds[1]):
+                adopted[r["request_id"]] = b.drain(
+                    [dict(r)], decode_window=8)[r["request_id"]]
+            diff = [rid for rid in adopted if adopted[rid] != flat[1][rid]]
+            if diff:
+                problems.append(f"replica B's tokens differ from A's for "
+                                f"{diff}")
+            if b.directory_hits < 1 or b.mismatched or b.checked < 1:
+                problems.append(f"replica B: {b.directory_hits} directory "
+                                f"hits, {b.checked} pages checked, "
+                                f"{len(b.mismatched)} differ")
+            fleet_stats = b.page_stats()
+            # adoption of a 16-page prefix: a new turn of tenant 0
+            b.reset()
+            req3 = dict(rounds[2][0], request_id="fleet-16")
+            fleet = first_token(b, req3)
+        finally:
+            fe.stop()
+        del b, big, fe
+        gc.collect()
+        # times: recompute on an untiered 64-page engine, then the tiered
+        # engine's demote and promote through the host and the disk tier
+        rec = serving.PagedServer(cfg, params, pages=TIER_POOL, device=dev,
+                                  **TIER_ENGINE)
+        rec.warmup()
+        recompute = first_token(rec, dict(req3, request_id="recompute"))
+        del rec
+        srv.reset()
+        store.clear()
+        first_token(srv, dict(req3, request_id="seed"))
+        timings = {}
+        for tier, tstore in (("host", store), ("disk", PageTierStore(
+                host_pages=0, disk_dir=str(root / "disk_only"),
+                disk_pages=TIER_DISK))):
+            srv.tiers = tstore
+            _sync(dev)
+            t0 = time.perf_counter()
+            n = srv._evict(srv.ledger.pages)
+            dt = time.perf_counter() - t0
+            got = first_token(srv, dict(req3, request_id=f"promote-{tier}"))
+            if got["token"] != recompute["token"] or got["promoted_pages"] \
+                    != (len(req3["prompt"]) - 1) // 64:
+                problems.append(f"{tier} promote: {got}")
+            timings[tier] = {"demote_ms_per_page": dt / n * 1e3,
+                             "demoted_pages": n, **got,
+                             "promote_ms_per_page": got["promote_s"]
+                             / max(got["promoted_pages"], 1) * 1e3}
+        srv.tiers = store
+        if fleet["token"] != recompute["token"] or fleet["adopted_pages"] \
+                != TIER_SYS // 64:
+            problems.append(f"16-page adoption: {fleet}")
+        # blake2s over one page's frame: once in pack, once in unpack
+        frame = pack_page_frame({"chain": "c", "page_hash": "h",
+                                 "kv_quant": False,
+                                 "payload": srv._gather_span([0])})
+        t0 = time.perf_counter()
+        for _ in range(5):
+            hashlib.blake2s(frame).hexdigest()
+        blake_ms = (time.perf_counter() - t0) / 5 * 1e3
+        del srv
+        gc.collect()
+        # (3) int8 pages, two tenants
+        cfg8 = dataclasses.replace(cfg, kv_quant=True)
+        if int8_layers:
+            cfg8 = dataclasses.replace(cfg8, n_layers=int8_layers)
+            params8 = {**params, "layers": {
+                k: w[:int8_layers] for k, w in params["layers"].items()}}
+        else:
+            params8 = params
+        store8 = PageTierStore(host_pages=TIER_INT8_HOST,
+                               disk_dir=str(root / "disk_int8"),
+                               disk_pages=TIER_DISK)
+        reqs8 = [r[:TIER_INT8_TENANTS] for r in rounds[:2]]
+        s8 = checked_server(cfg8, params8, pages=TIER_POOL, tiers=store8,
+                            watch=watch, device=dev, **TIER_ENGINE)
+        s8.warmup()
+        s8.drain([dict(r) for r in reqs8[0]], decode_window=8)
+        s8._evict(s8.ledger.pages)         # 2 tenants fit: demote them
+        for r in reversed(reqs8[1]):
+            s8.drain([dict(r)], decode_window=8)
+        st8 = _tier_engine_checks("int8 engine", s8, store8, problems)
+        int8 = {"layers": cfg8.n_layers, "tenants": TIER_INT8_TENANTS,
+                "host_pages": TIER_INT8_HOST, "checked_pages": s8.checked,
+                "demoted": s8.tier_demoted_pages,
+                "promoted": s8.tier_promoted_pages, "tiers": st8}
+        del s8
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise RuntimeError("kv tiers phase: " + "; ".join(problems[:8]))
+    page_bytes = len(frame)
+    line = {"kv_tiers": {
+        "model": "llama3_8b" if cfg.n_layers == 32 else "rehearsal",
+        "layers": cfg.n_layers, "max_seq": cfg.max_seq,
+        "dtype": str(cfg.dtype).split(".")[-1],
+        **TIER_ENGINE, "pages": TIER_POOL, "host_pages": TIER_HOST,
+        "disk_pages": TIER_DISK, "tenants": tenants,
+        "system_tokens": TIER_SYS, "turn_tokens": list(TIER_TURN),
+        "max_new": TIER_NEW, "warmup_s": warm,
+        "two_rounds_s": tiered_s,
+        "demote_ms_per_page_host": timings["host"]["demote_ms_per_page"],
+        "demote_ms_per_page_disk": timings["disk"]["demote_ms_per_page"],
+        "promote_ms_per_page_host": timings["host"]["promote_ms_per_page"],
+        "promote_ms_per_page_disk": timings["disk"]["promote_ms_per_page"],
+        "blake2s_ms_per_page": blake_ms,
+        "blake2s_share_of_demote_host":
+            blake_ms / timings["host"]["demote_ms_per_page"],
+        "blake2s_share_of_promote_host":
+            blake_ms / timings["host"]["promote_ms_per_page"],
+        "blake2s_share_of_promote_disk":
+            blake_ms / timings["disk"]["promote_ms_per_page"],
+        "ttft_s_promote_host": timings["host"]["ttft_s"],
+        "ttft_s_promote_disk": timings["disk"]["ttft_s"],
+        "ttft_s_adopt_16_pages": fleet["ttft_s"],
+        "ttft_s_recompute": recompute["ttft_s"],
+        "adopt_ms_16_pages": fleet["promote_s"] * 1e3,
+        "recompute_ms_16_pages": sum(recompute["step_s"][:16]) * 1e3,
+        "ttft_request_tokens": len(req3["prompt"]),
+        "frame_bytes_per_page": page_bytes,
+        "bytes_framed": stats["tier_demoted_pages"] * page_bytes,
+        "counters": {k: stats[k] for k in (
+            "tier_demoted_pages", "tier_promoted_pages", "tier_fallbacks",
+            "tier_promote_s", "prefix_hits", "prefix_shared_pages")},
+        "tiers": st, "checked_pages": checked,
+        "tokens_equal_untiered": True,
+        "untiered_radix_pages": big_radix,
+        "distinct_prefix_pages": len(distinct),
+        "fleet": {k: fleet_stats[k] for k in (
+            "directory_hits", "directory_fallbacks",
+            "adopted_prefix_pages")}, "int8": int8,
+        "graph_vs_eager_after_promote": {
+            k: graph[k] for k in ("batch", "windows", "k", "tokens_equal",
+                                  "kv_bitwise_equal", "graph_step_ms",
+                                  "eager_step_ms")},
+        "launches": {"flash_decode_paged": launches},
+        "phase_s": time.perf_counter() - t_phase, "card": card}}
+    log(f"[kv_tiers] {line}")
+    return line, launches, rounds, tiered
+
+
+def phase_kv_tier_worker(card: str, rounds, want) -> tuple:
+    """The worker with ``WORKER_TIER_ARGS`` serves both rounds over HTTP
+    (in :func:`tier_worker_rounds`' waves): round-2 replies equal the tiered
+    engine's tokens, ``/v1/stats`` shows promoted pages and tier hits,
+    and no ``kv_tier_fallback`` or ``error`` event appears."""
+    import shutil
+    disk = Path(__file__).resolve().parent / "build" / "kv_tier_worker"
+    shutil.rmtree(disk, ignore_errors=True)
+    extra = [a.format(disk=disk) for a in WORKER_TIER_ARGS]
+    bodies = tier_worker_rounds(rounds)
+    try:
+        line, launches, replies, _ = phase_worker(
+            card, "worker_kv_tiers", extra, "PagedServer",
+            ("flash_decode_paged",), forbid=("paged_fallback",
+                                             "kv_tier_fallback"),
+            rounds=bodies)
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+    n = len(rounds[0])
+    got2 = replies[n:]
+    want2 = [want[1][r["request_id"]] for r in reversed(rounds[1])]
+    problems = [f"round 2 request {i}" for i, (g, w) in
+                enumerate(zip(got2, want2)) if g != w]
+    window = line["worker_kv_tiers"]["stats_window"]
+    if window.get("kv_tier_promoted", 0) < 1 or \
+            window.get("kv_tier_hits", 0) < 1:
+        problems.append(f"/v1/stats {window}")
+    if problems:
+        raise RuntimeError("kv tier worker: replies differ from the tiered "
+                           "engine's or no promote: " + "; ".join(problems))
+    return line, launches
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -2683,6 +3197,12 @@ def main() -> int:
     artifact = save_spec_draft(params)
     gc.collect()
     torch.cuda.empty_cache()
+    kv_line, kv_launches, kv_rounds, kv_want = timed_phase(
+        "11_kv_tiers", phase_kv_tiers, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kv_worker_line, kv_worker_launches = timed_phase(
+        "11_worker_kv_tiers", phase_kv_tier_worker, card, kv_rounds, kv_want)
     slots_line, slot_launches = timed_phase("5_serve_slots",
                                             phase_serve_slots, card, params)
     # the front door's handler closes over the front door, a cycle that
@@ -2759,7 +3279,10 @@ def main() -> int:
                        "spec": spec_launches["flash_decode_paged"],
                        "moe": moe_launches["flash_decode_paged"],
                        "worker_moe":
-                           moe_worker_launches["flash_decode_paged"]},
+                           moe_worker_launches["flash_decode_paged"],
+                       "kv_tiers": kv_launches,
+                       "worker_kv_tiers":
+                           kv_worker_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -2818,6 +3341,8 @@ def main() -> int:
     print(json.dumps({"spec": spec_summary}), flush=True)
     print(json.dumps(moe_line), flush=True)
     print(json.dumps(moe_worker_line), flush=True)
+    print(json.dumps(kv_line), flush=True)
+    print(json.dumps(kv_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

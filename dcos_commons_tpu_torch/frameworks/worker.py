@@ -8,6 +8,9 @@ of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
         [--spec-decode true --draft-checkpoint DIR --draft-k 4] [--out VOL]
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
         --serve --slots 8 --pages -1 --moe-experts 8 --moe-capacity-factor 0
+    python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \
+        --serve --slots 8 --pages 64 --kv-tier-host-pages 32 \
+        --kv-tier-disk-dir DIR --kv-tier-disk-pages 96 [--prefix-directory S]
     python -m dcos_commons_tpu_torch.frameworks.worker llama-train \\
         --steps 20 --seq 256 [--ckpt-every N] [--grad-accum N] --out VOL
     python -m dcos_commons_tpu_torch.frameworks.worker distill --preset 8b \\
@@ -37,6 +40,16 @@ timed decode through ``llama.generate_stepwise_moe``. Without
 coded ``moe_fallback`` (the reference's codes); with
 ``--prefill-seq-parallel`` MoE wins and ``longctx_fallback`` says so.
 
+``--kv-tier-host-pages H``, ``--kv-tier-disk-dir D --kv-tier-disk-pages
+M`` (with ``--pages``) give the paged engine a host/disk KV tier store
+(``models.paging.PageTierStore``): evicted radix pages demote there and
+promote back on a hit. A disk directory that cannot be used emits
+``kv_tier_fallback`` and the replica serves single-tier.
+``--prefix-directory S`` (> 0) keeps a ``PrefixDirectory`` with a
+staleness window of S seconds and adopts prefixes from siblings'
+``/v1/prefix`` (``models.disagg.fetch_prefix``); the replica publishes
+its chains under its front door's address.
+
 ``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
 a sealed draft artifact (``models.speculative.save_draft``): a
 ``spec_armed`` event, or a coded ``spec_fallback`` (the reference's
@@ -61,8 +74,7 @@ a module still to port exits 2 with a coded ``error`` event naming its
 ROADMAP Queue 1 item (peer weights: item 6; gangs and expert-parallel
 MoE training: item 7; pipelines, ring prefill and ring or Ulysses
 attention: item 9;
-disaggregation, the router, KV tiers, the prefix directory and live
-resharding: item 10). The weight server is an accelerant in the
+disaggregation, the router and live resharding: item 10). The weight server is an accelerant in the
 reference, so asking for it only emits ``weight_server_error``.
 """
 
@@ -114,15 +126,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("disagg_not_ported", f"--serve-role {role}: "
                         "disaggregated prefill/decode tiers are not "
                         "ported yet (ROADMAP Queue 1 item 10)")
-    disk = args.kv_tier_disk_pages if args.kv_tier_disk_dir else 0
-    if args.kv_tier_host_pages > 0 or disk > 0:
-        raise NotPorted("kv_tiers_not_ported", "--kv-tier-*: host and "
-                        "disk KV tiers are not ported yet (ROADMAP Queue 1 "
-                        "item 10)")
-    if args.prefix_directory > 0:
-        raise NotPorted("prefix_directory_not_ported", "--prefix-directory:"
-                        " the fleet prefix directory is not ported yet "
-                        "(ROADMAP Queue 1 item 10)")
 
 
 def _serving_arithmetic(args):
@@ -233,7 +236,8 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
                 pages=None if args.pages < 0 else args.pages,
                 page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk,
-                compile_cache=aot.from_env(), moe=moe, device=device)
+                compile_cache=aot.from_env(), moe=moe, device=device,
+                **_make_kv_tiers(args))
             if spec_wanted:
                 _arm_spec_decode(args, cfg, engine, registry)
             return engine, engine.page_stats()
@@ -248,6 +252,32 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
                "error": "speculative decode needs the paged engine "
                         "(--pages); serving solo"})
     return SlotServer(cfg, params, slots=args.slots, device=device), None
+
+
+def _make_kv_tiers(args) -> dict:
+    """``PagedServer`` tier and directory kwargs from the ``--kv-tier-*``
+    and ``--prefix-directory`` knobs. An unusable disk directory drops
+    the tier store with a ``kv_tier_fallback`` event and the replica
+    serves single-tier: the tiers are an economy, never a dependency.
+    The directory also wires ``disagg.fetch_prefix`` as the peer fetch."""
+    from ..models.disagg import fetch_prefix
+    from ..models.paging import PageTierStore, PrefixDirectory
+    kw: dict = {}
+    host = max(0, args.kv_tier_host_pages)
+    disk_dir = args.kv_tier_disk_dir or None
+    disk = max(0, args.kv_tier_disk_pages) if disk_dir else 0
+    if host or disk:
+        try:
+            kw["tiers"] = PageTierStore(host_pages=host, disk_dir=disk_dir,
+                                        disk_pages=disk)
+        except (OSError, ValueError) as e:
+            _emit({"event": "kv_tier_fallback", "error": str(e),
+                   "host_pages": host, "disk_dir": disk_dir,
+                   "disk_pages": disk})
+    if args.prefix_directory > 0:
+        kw["directory"] = PrefixDirectory(max_age_s=args.prefix_directory)
+        kw["peer_fetch"] = fetch_prefix
+    return kw
 
 
 def _arm_spec_decode(args, cfg, engine, registry) -> None:
@@ -456,6 +486,12 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
                                decode_window=args.decode_window,
                                metrics=registry)
     frontend.start()
+    if getattr(server, "directory", None) is not None:
+        # the directory key IS the adoption endpoint: publish claims under
+        # the address siblings fetch /v1/prefix from
+        import socket
+        server.replica_id = ("http://" + socket.gethostname()
+                             + f":{frontend.port}")
     # re-stamp the readiness marker now that the front door listens
     with open("serving.ready", "w") as f:
         f.write(f"ok {frontend.port}\n")
@@ -816,18 +852,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-tier-host-pages", type=int,
                    default=int(os.environ.get("KV_TIER_HOST_PAGES",
                                               "0")),
-                   help="not ported (ROADMAP Queue 1 item 10): > 0 exits 2")
+                   help="llama --serve --pages: host KV tier capacity in "
+                        "pages; evicted radix pages demote there (0 = off)")
     p.add_argument("--kv-tier-disk-dir",
                    default=os.environ.get("KV_TIER_DISK_DIR", ""),
-                   help="not ported (item 10)")
+                   help="llama --serve --pages: directory of the disk KV "
+                        "tier the host tier spills to (empty = none)")
     p.add_argument("--kv-tier-disk-pages", type=int,
                    default=int(os.environ.get("KV_TIER_DISK_PAGES",
                                               "0")),
-                   help="not ported (item 10): > 0 with a disk dir exits 2")
+                   help="llama --serve --pages: disk KV tier capacity in "
+                        "pages (overflow drops the coldest frame)")
     p.add_argument("--prefix-directory", type=float,
                    default=float(os.environ.get("PREFIX_DIRECTORY",
                                                 "0")),
-                   help="not ported (item 10): > 0 exits 2")
+                   help="llama --serve --pages: prefix-directory staleness "
+                        "window in seconds; > 0 publishes this replica's "
+                        "cached chains and adopts prefixes from siblings' "
+                        "/v1/prefix (0 = off)")
     p.add_argument("--spec-decode",
                    default=os.environ.get("SPEC_DECODE", "false"),
                    help="--serve --pages: arm speculative decode on the "

@@ -22,18 +22,24 @@ API (all JSON):
   the last window.
 * ``GET /v1/metrics``, ``/v1/metrics/prometheus``, ``/v1/traces``,
   ``/v1/trace/<id>`` → the registry and the trace store.
-* ``POST /v1/prefix`` → 404 "engine has no prefix export", as the
-  reference answers for an engine without ``export_prefix``: no engine
-  of the port exports a prefix yet (its KVSPAN frame is not ported).
+* ``POST /v1/prefix`` ``{"prompt": [ints]}`` → the longest
+  radix-resident full-page prefix of the prompt as a packed KVSPAN1 span
+  (octet-stream; 404 when nothing is cached, or for an engine without
+  ``export_prefix``; 400 on a bad body; 503 + Retry-After when the
+  export queue is full or the engine thread does not run the job within
+  ``export_timeout_s``): the fleet prefix-adoption fetch
+  (``models.disagg.fetch_prefix`` is the client). The handler enqueues a
+  job and parks; the engine thread runs it between steps, since the
+  export gathers device pages with radix references held.
 
 A paged engine with a draft armed (or armed once) adds the reference's
 speculative gauges (``spec_windows``, ``spec_proposed``,
-``spec_accepted``, ``spec_accept_rate``, ``spec_fallbacks``) to the load
-gauges and the registry.
+``spec_accepted``, ``spec_accept_rate``, ``spec_fallbacks``), and one
+with KV tiers the ``kv_tier_*`` gauges, to the load gauges and the
+registry.
 
 Not ported: the external-driver interface of the tensor-parallel gang
-loop (``start(drive=False)``, ``attach``, ``mark_driven``), and the KV
-tier gauges (no port engine has tiers).
+loop (``start(drive=False)``, ``attach``, ``mark_driven``).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from typing import Dict, List, Optional
 from ..metrics import MetricsRegistry
 from ..tracing import TRACE_HEADER, Tracer, parse_header
 from ..utils.stats import percentiles as _percentiles
+from .disagg import pack_span
 
 
 class _Pending:
@@ -113,6 +120,20 @@ class _Pending:
         return out
 
 
+class _Export:
+    """One ``/v1/prefix`` job: the handler thread parks on ``done``
+    while the engine thread runs ``export_prefix`` between steps and
+    lands the span (already on the host) here."""
+
+    __slots__ = ("prompt", "span", "error", "done")
+
+    def __init__(self, prompt: List[int]):
+        self.prompt = prompt
+        self.span: Optional[dict] = None
+        self.error: Optional[str] = None
+        self.done = threading.Event()
+
+
 class ServingFrontend:
     """Bounded-queue HTTP ingress over one engine (``SlotServer`` or
     ``PagedServer``)."""
@@ -150,6 +171,10 @@ class ServingFrontend:
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._lock = threading.Lock()                 # stats only
+        # /v1/prefix jobs for the engine thread (bounded: a sibling that
+        # cannot get its export promptly recomputes)
+        self._exports: "queue.Queue[_Export]" = queue.Queue(maxsize=8)
+        self.export_timeout_s = 30.0
         self._totals = {"requests": 0, "tokens": 0, "rejected": 0}
         # rolling-window load gauges (autoscaler input): completions and
         # sheds are stamped with time.monotonic() so load_gauges() can
@@ -167,8 +192,12 @@ class ServingFrontend:
         # lock — to_dict()'s contract — so reading self._lock is safe)
         for key in ("queue_depth", "queue_capacity", "completed", "shed",
                     "shed_rate", "ttft_p95_ms", "pages_free",
-                    "pages_total", "spec_windows", "spec_proposed",
-                    "spec_accepted", "spec_accept_rate", "spec_fallbacks"):
+                    "pages_total", "kv_tier_host_pages",
+                    "kv_tier_host_capacity", "kv_tier_disk_pages",
+                    "kv_tier_disk_capacity", "kv_tier_hits",
+                    "kv_tier_promoted", "kv_tier_demoted",
+                    "spec_windows", "spec_proposed", "spec_accepted",
+                    "spec_accept_rate", "spec_fallbacks"):
             self.metrics.gauge(f"ingress.{key}",
                                lambda k=key: self.load_gauges().get(k))
         frontend = self
@@ -219,9 +248,7 @@ class ServingFrontend:
 
             def do_POST(self):
                 if self.path == "/v1/prefix":
-                    # no port engine exports a prefix (module doc)
-                    self._json(404, {"error": "engine has no prefix "
-                                              "export"})
+                    self._prefix()
                     return
                 if self.path != "/v1/generate":
                     self._json(404, {"error": f"no route {self.path}"})
@@ -261,6 +288,53 @@ class ServingFrontend:
                     self._stream(pending)
                 else:
                     self._unary(pending)
+
+            def _prefix(self) -> None:
+                if not callable(getattr(frontend.engine,
+                                        "export_prefix", None)):
+                    self._json(404, {"error": "engine has no prefix "
+                                              "export"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    prompt = req.get("prompt")
+                    if (not isinstance(prompt, list) or not prompt
+                            or not all(isinstance(t, int)
+                                       for t in prompt)):
+                        raise ValueError("prompt must be a non-empty "
+                                         "list of ints")
+                except (ValueError, json.JSONDecodeError,
+                        AttributeError) as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                job = _Export([int(t) for t in prompt])
+                try:
+                    frontend._exports.put_nowait(job)
+                except queue.Full:
+                    self._json(503, {"error": "export queue full"},
+                               {"Retry-After": "1"})
+                    return
+                frontend._wake.set()
+                # a job the engine thread never runs answers 503, and the
+                # asker's recompute fallback covers it
+                if not job.done.wait(frontend.export_timeout_s):
+                    self._json(503, {"error": "prefix export timed out"},
+                               {"Retry-After": "1"})
+                    return
+                if job.error:
+                    self._json(500, {"error": job.error})
+                    return
+                if job.span is None:
+                    self._json(404, {"error": "no resident prefix"})
+                    return
+                body = pack_span(job.span)
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "application/octet-stream")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
             def _unary(self, pending: _Pending) -> None:
                 if not pending.done.wait(frontend.request_timeout_s):
@@ -435,9 +509,29 @@ class ServingFrontend:
                 self._window.append((time.monotonic(), t.get("ttft_ms"),
                                      t.get("tpot_ms")))
 
+    def _serve_exports(self) -> None:
+        """Drain ``/v1/prefix`` jobs (engine thread only: the export
+        gathers device pages with radix references held). Export is a
+        pure read: a failure answers that one job and never resets the
+        engine."""
+        while True:
+            try:
+                job = self._exports.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                job.span = self.engine.export_prefix(job.prompt)
+                if job.span is not None:
+                    self.metrics.counter("ingress.prefix_exports")
+            except Exception as e:
+                job.error = f"export error: {e}"
+            finally:
+                job.done.set()
+
     def _run_engine(self) -> None:
         while not self._stop.is_set():
             try:
+                self._serve_exports()
                 filled = self._fill_slots()
                 if self.engine.requests_active():
                     self.engine.step_many(self._decode_window)
@@ -548,6 +642,17 @@ class ServingFrontend:
             ledger = getattr(self.engine, "ledger", None)
             if ledger is not None:
                 out["pages_total"] = ledger.pages
+        tiers = getattr(self.engine, "tiers", None)
+        if tiers is not None:
+            # cold-tier occupancy and traffic beside the device pages
+            ts = tiers.stats()
+            out["kv_tier_host_pages"] = ts["host_pages"]
+            out["kv_tier_host_capacity"] = ts["host_capacity"]
+            out["kv_tier_disk_pages"] = ts["disk_pages"]
+            out["kv_tier_disk_capacity"] = ts["disk_capacity"]
+            out["kv_tier_hits"] = ts["host_hits"] + ts["disk_hits"]
+            out["kv_tier_promoted"] = self.engine.tier_promoted_pages
+            out["kv_tier_demoted"] = self.engine.tier_demoted_pages
         if getattr(self.engine, "spec_windows", 0) or \
                 getattr(self.engine, "draft_k", 0):
             # speculative decode armed (or armed once): tokens per target

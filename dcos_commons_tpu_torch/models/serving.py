@@ -45,10 +45,16 @@ Differences from the reference, all mechanical:
   reference): every decode step, prefill chunk and warm-up runs its FFN
   through ``llama.make_moe_ffn``, on the local path (every expert on the
   engine's device); each captured window holds the routing;
+* the KV hierarchy (``PagedServer(tiers=..., directory=...,
+  peer_fetch=...)``): an evicted radix page is gathered to the host (one
+  device-to-host copy per side, ordered after every write in flight)
+  and filed in a ``PageTierStore``; a hit promotes it back between
+  windows, and a directory hit adopts a sibling's pages, both as an
+  eager host-to-device ``index_copy_`` INTO the existing pool tensors,
+  never a new pool, since every captured window binds the pool;
 * not ported yet, and refused by the constructors (no such parameter):
-  tensor-parallel meshes and, for the paged engine, KV tiers, the prefix
-  directory, disaggregation, migration, ring prefill and expert-parallel
-  meshes.
+  tensor-parallel meshes and, for the paged engine, disaggregation,
+  migration, ring prefill and expert-parallel meshes.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ from ..ops.sampling import Sampler
 from ..parallel.aot import CompileCache, engine_key
 from ..parallel.moe import MoEConfig
 from . import llama
-from .paging import PagePool, PrefixRadix
+from .paging import (PagePool, PageTierStore, PrefixDirectory, PrefixRadix,
+                     chain_keys, page_hashes)
 
 
 @dataclasses.dataclass
@@ -544,6 +551,32 @@ def _copy_page(cache, src: int, dst: int) -> None:
         cache[:, dst] = cache[:, src]
 
 
+def _install_pages(cache, payload, phys: torch.Tensor) -> None:
+    """Write span pages ``payload`` ``[L, N, page, KV, D]`` (a QTensor
+    for int8 pools) into pool pages ``phys`` ``[N]`` IN PLACE: captured
+    windows bind the pool tensors, so a promote must never rebind
+    them."""
+    if isinstance(cache, QTensor):
+        cache.q.index_copy_(1, phys, payload.q)
+        cache.s.index_copy_(1, phys, payload.s)
+    else:
+        cache.index_copy_(1, phys, payload)
+
+
+def _payload_slice(side, a: int, b: int, like):
+    """Span payload pages ``[a:b)`` on the pool's device in its dtypes
+    (``like`` is the pool side), the value :func:`_install_pages`
+    writes (QTensor for int8 pools)."""
+    if isinstance(side, dict):
+        return QTensor(side["q"][:, a:b].to(like.q.device, like.q.dtype),
+                       side["s"][:, a:b].to(like.s.device, like.s.dtype))
+    return side[:, a:b].to(like.device, like.dtype)
+
+
+def _payload_shape(side) -> Tuple[int, ...]:
+    return tuple((side["q"] if isinstance(side, dict) else side).shape)
+
+
 class PagedServer(_Engine):
     """Block-paged, prefix-shared continuous batching.
 
@@ -571,6 +604,17 @@ class PagedServer(_Engine):
       rows, masked ones included) is one dispatch group, so streams
       match ``llama.generate_stepwise_moe`` only under
       ``parallel.moe.dropless``. A draft is refused.
+    * **KV hierarchy.** With ``tiers`` every radix eviction demotes the
+      victim's bytes to the :class:`~dcos_commons_tpu_torch.models.
+      paging.PageTierStore`; with ``directory`` and ``peer_fetch``
+      (``peer_fetch(holder, prompt_prefix) -> span or None``, e.g.
+      ``models.disagg.fetch_prefix``) a miss adopts a sibling's cached
+      prefix, published under ``replica_id``. Admission only PLANS a
+      promote or an adoption; the stream sits out one step and the plan
+      lands at the top of the next (:meth:`_tier_tick`), before any
+      window runs. Everything enters the radix through
+      :meth:`_radix_adopt`, which discards the chains' tier frames, so a
+      chain lives in the radix or in the tiers, never both.
 
     ``params`` must live on ``device``.
     """
@@ -581,6 +625,9 @@ class PagedServer(_Engine):
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None, prefix_cache: bool = True,
                  compile_cache: Optional[CompileCache] = None,
+                 tiers: Optional[PageTierStore] = None,
+                 directory: Optional[PrefixDirectory] = None,
+                 replica_id: str = "", peer_fetch=None,
                  moe: Optional[MoEConfig] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -638,6 +685,19 @@ class PagedServer(_Engine):
         self.spec_fallbacks = 0        # windows that failed and disarmed
         self.spec_draft_prefill_s = 0.0
         self.spec_window_s = 0.0
+        # the KV hierarchy (class doc) and its counters
+        self.tiers = tiers
+        self.directory = directory
+        self.replica_id = replica_id or f"paged-{id(self):x}"
+        self.peer_fetch = peer_fetch
+        self.tier_demoted_pages = 0    # pages gathered out on eviction
+        self.tier_promoted_pages = 0   # pages installed back from tiers
+        self.tier_fallbacks = 0        # planned promotes that recomputed
+        self.tier_promote_s = 0.0      # cumulative promote-install time
+        self.directory_hits = 0        # admissions served by a sibling
+        self.directory_fallbacks = 0   # stale hints -> recompute
+        self.adopted_prefix_pages = 0  # pages installed from siblings
+        self.exported_prefixes = 0     # prefix spans served to siblings
         # greedy engines at an identical (config, topology, geometry) key
         # share what carries no engine state, the rope table; each engine
         # captures its own graphs (parallel/aot.py). Sampled engines
@@ -678,7 +738,9 @@ class PagedServer(_Engine):
         failed step may leave the pool half-written); captured graphs
         survive. The radix is rebuilt too: its cached K/V is gone. An
         armed draft's cache is zeroed in place as well (the reference
-        re-allocates it; here the spec graphs bind it)."""
+        re-allocates it; here the spec graphs bind it). Pending promote
+        plans die with their streams; the tier FRAMES survive, still
+        bit-valid byte copies, so the cold cache stays warm."""
         _zero_(self.pool)
         if self._draft_cache is not None:
             _zero_(self._draft_cache)
@@ -701,6 +763,8 @@ class PagedServer(_Engine):
         self._prefill_pos = [0] * self.slots   # next position to prefill
         self._prefill_q: "deque[int]" = deque()
         self._decoding = [False] * self.slots  # prefill finished?
+        # promote/adoption plans admission queued for _tier_tick
+        self._pending_tier: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------ intake
 
@@ -766,9 +830,229 @@ class PagedServer(_Engine):
             placed.append((slot, self.requests[slot].request_id))
         return placed
 
+    # ------------------------------------------------------- KV hierarchy
+
     def _evict(self, need: int) -> int:
-        """The single release path for radix pages under pressure."""
-        return self.radix.evict(need)
+        """THE single release path for radix pages under pressure: a
+        tiered engine demotes each victim's bytes BEFORE its reference
+        drops."""
+        demoter = self._demote if self.tiers is not None else None
+        return self.radix.evict(need, demoter=demoter)
+
+    def _demote(self, page: int, prefix_tokens: List[int]) -> None:
+        """Demoter callback (``PrefixRadix.evict``): gather the victim's
+        device bytes and file them under the prefix's chain key while
+        the page still holds its last reference. Best-effort: a failed
+        gather loses the cold copy, never the evict."""
+        try:
+            hs = page_hashes(prefix_tokens, self.page_size)
+            ck = chain_keys(prefix_tokens, self.page_size)
+            self.tiers.put(ck[-1], {
+                "chain": ck[-1], "page_hash": hs[-1],
+                "kv_quant": bool(self.cfg.kv_quant),
+                "payload": self._gather_span([page])})
+            self.tier_demoted_pages += 1
+        except Exception:
+            pass
+
+    def _radix_adopt(self, prompt: List[int], pages: List[int]) -> int:
+        """THE single adopt path into the radix: insert, then discard the
+        tier frames of the re-acquired chains (one owner) and publish
+        the chains to the prefix directory."""
+        adopted = self.radix.insert(prompt, pages)
+        full = min(len(prompt) // self.page_size, len(pages))
+        if full and (self.tiers is not None or self.directory is not None):
+            cks = chain_keys(prompt[:full * self.page_size],
+                             self.page_size)
+            if self.tiers is not None:
+                for ck in cks:
+                    self.tiers.discard(ck)
+            if self.directory is not None:
+                self.directory.publish(self.replica_id, cks)
+        return adopted
+
+    def _tier_plan(self, prompt: List[int],
+                   matched_pages: int) -> Optional[Dict[str, Any]]:
+        """A plan covering full prompt pages PAST the radix match from a
+        colder source: consecutive demoted frames in the tier store
+        first, else the longest prefix a directory sibling claims; None
+        when only recompute remains. At least one prompt token stays
+        uncovered, as in the radix lookup."""
+        if self.tiers is None and self.directory is None:
+            return None
+        ps = self.page_size
+        max_cover = (len(prompt) - 1) // ps
+        if matched_pages >= max_cover:
+            return None
+        cks = chain_keys(prompt[:max_cover * ps], ps)
+        if self.tiers is not None:
+            cover = matched_pages
+            while cover < max_cover and self.tiers.has(cks[cover]):
+                cover += 1
+            if cover > matched_pages:
+                return {"kind": "tier", "base": matched_pages,
+                        "chains": cks[matched_pages:cover]}
+        if self.directory is not None and self.peer_fetch is not None:
+            for j in range(max_cover, matched_pages, -1):
+                holder = self.directory.lookup(cks[j - 1],
+                                               exclude=self.replica_id)
+                if holder is not None:
+                    return {"kind": "fleet", "base": matched_pages,
+                            "holder": holder, "cover": j}
+        return None
+
+    def _tier_tick(self) -> None:
+        """Land every pending plan: install the cold bytes into the
+        stream's own pages, adopt the covered prefix into the radix, and
+        only then queue the stream for prefill. A plan whose frames went
+        missing or corrupt (or whose hint went stale) recomputes from the
+        radix-matched position: the stream loses the shortcut, never
+        tokens."""
+        if not self._pending_tier:
+            return
+        plans, self._pending_tier = self._pending_tier, []
+        for plan in plans:
+            slot = plan["slot"]
+            if self.requests[slot] is not plan["req"]:
+                continue                       # aborted while deferred
+            t0 = time.perf_counter()
+            if plan["kind"] == "tier":
+                if not self._promote_from_tier(plan):
+                    self.tier_fallbacks += 1
+            elif not self._adopt_from_fleet(plan):
+                self.directory_fallbacks += 1
+            self.tier_promote_s += time.perf_counter() - t0
+            self._prefill_q.append(slot)
+
+    @staticmethod
+    def _concat_pages(sides: List[Any]):
+        """Stack per-page payloads ``[L, 1, page, KV, D]`` into one span
+        payload along the page axis (a ``{"q", "s"}`` dict for int8)."""
+        if isinstance(sides[0], dict):
+            return {"q": torch.cat([s["q"] for s in sides], dim=1),
+                    "s": torch.cat([s["s"] for s in sides], dim=1)}
+        return torch.cat(sides, dim=1)
+
+    def _span_fits(self, payload: Dict[str, Any], pages: int) -> bool:
+        want = (self.cfg.n_layers, pages, self.page_size,
+                self.cfg.n_kv_heads, self.cfg.head_dim)
+        return all(_payload_shape(payload[side]) == want
+                   for side in ("k", "v"))
+
+    def _install(self, payload: Dict[str, Any], a: int, b: int,
+                 phys: List[int]) -> None:
+        """Install payload pages ``[a:b)`` into pool pages ``phys``."""
+        idx = torch.tensor(phys, dtype=torch.long, device=self.device)
+        for side in ("k", "v"):
+            _install_pages(self.pool[side],
+                           _payload_slice(payload[side], a, b,
+                                          self.pool[side]), idx)
+
+    def _promote_from_tier(self, plan: Dict[str, Any]) -> bool:
+        """Install the longest verified run of demoted frames for the
+        plan's chains. ``take`` POPS each frame, so this promote is the
+        content's single owner the instant it holds the bytes."""
+        slot = plan["slot"]
+        prompt = self._prompts[slot]
+        ps = self.page_size
+        entries = []
+        for ck in plan["chains"]:
+            e = self.tiers.take(ck)
+            if (e is None
+                    or bool(e.get("kv_quant")) != bool(self.cfg.kv_quant)):
+                break                          # missing/corrupt: stop run
+            entries.append(e)
+        if not entries:
+            return False
+        m = len(entries)
+        base = plan["base"]
+        payload = {side: self._concat_pages([e["payload"][side]
+                                             for e in entries])
+                   for side in ("k", "v")}
+        if not self._span_fits(payload, m):
+            return False                       # foreign geometry: recompute
+        self._install(payload, 0, m,
+                      self._stream_pages[slot][base:base + m])
+        self._prefill_pos[slot] = (base + m) * ps
+        self.tier_promoted_pages += m
+        self._radix_adopt(prompt[:(base + m) * ps],
+                          self._stream_pages[slot][:base + m])
+        return True
+
+    def _adopt_from_fleet(self, plan: Dict[str, Any]) -> bool:
+        """Fetch the hinted sibling's prefix (digest-verified on the
+        wire) and install it like a tier promote. Any failure (the
+        holder died, evicted the prefix, or shipped something that does
+        not fit) is a recompute fallback, never an error."""
+        slot = plan["slot"]
+        prompt = self._prompts[slot]
+        ps = self.page_size
+        try:
+            span = self.peer_fetch(plan["holder"],
+                                   prompt[:plan["cover"] * ps])
+        except Exception:
+            span = None
+        if span is None:
+            return False
+        got = list(span.get("prompt", []))
+        if (int(span.get("page_size", ps)) != ps
+                or bool(span.get("kv_quant")) != bool(self.cfg.kv_quant)
+                or len(got) % ps
+                or got != prompt[:len(got)]):
+            return False
+        cover = min(plan["cover"], len(got) // ps)
+        base = plan["base"]
+        if cover <= base or not self._span_fits(span["payload"],
+                                                len(got) // ps):
+            return False
+        self._install(span["payload"], base, cover,
+                      self._stream_pages[slot][base:cover])
+        self._prefill_pos[slot] = cover * ps
+        self.directory_hits += 1
+        self.adopted_prefix_pages += cover - base
+        self._radix_adopt(prompt[:cover * ps],
+                          self._stream_pages[slot][:cover])
+        return True
+
+    def _gather_span(self, pages: List[int]) -> Dict[str, Any]:
+        """The pages ``pages`` on the host in logical order, ``[L, N,
+        page, KV, D]`` per side (q + scales for int8 pools) as CPU
+        tensors: one device-to-host copy per array, on the engine's
+        stream, so it reads after every write in flight to them."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+
+        def take(side):
+            if isinstance(side, QTensor):
+                return {"q": side.q.index_select(1, idx).cpu(),
+                        "s": side.s.index_select(1, idx).cpu()}
+            return side.index_select(1, idx).cpu()
+
+        return {"k": take(self.pool["k"]), "v": take(self.pool["v"])}
+
+    def export_prefix(self, prompt: List[int]) -> Optional[Dict[str, Any]]:
+        """Serve a sibling's prefix-adoption fetch: the longest
+        radix-cached full-page chain of ``prompt`` as a span on the host
+        (``first_token`` is the ``-1`` prefix-span sentinel), gathered
+        with the lookup's references held so no eviction frees the pages
+        mid-read. None when nothing is cached."""
+        if self.radix is None:
+            return None
+        prompt = list(prompt)
+        # lookup covers a PROPER prefix only; one sentinel token lets a
+        # prompt of exactly k full pages match all k
+        shared, _ = self.radix.lookup(prompt + [-1])
+        if not shared:
+            return None
+        try:
+            payload = self._gather_span(shared)
+        finally:
+            for p in shared:
+                self.ledger.unref(p)
+        self.exported_prefixes += 1
+        return {"version": 1,
+                "prompt": prompt[:len(shared) * self.page_size],
+                "first_token": -1, "page_size": self.page_size,
+                "kv_quant": bool(self.cfg.kv_quant), "payload": payload}
 
     def _admit(self, prompt: List[int], max_new: int,
                request_id: Any) -> Optional[int]:
@@ -783,6 +1067,8 @@ class PagedServer(_Engine):
         node = None
         if self.radix is not None:
             shared, node = self.radix.lookup(prompt)
+        plan = (self._tier_plan(prompt, len(shared))
+                if self.radix is not None else None)
         own_needed = total - len(shared)
         pages = self.ledger.alloc(own_needed)
         if pages is None and self.radix is not None:
@@ -795,7 +1081,7 @@ class PagedServer(_Engine):
             return None
         matched = len(shared) * ps
         start = matched
-        if node is not None:
+        if node is not None and plan is None:
             b = self.radix.boundary(node, prompt, matched)
             if b is not None:
                 src, valid = b
@@ -815,7 +1101,14 @@ class PagedServer(_Engine):
         self._decoding[slot] = False
         rid = request_id if request_id is not None else object()
         self.requests[slot] = _Request(rid, n, max_new, [])
-        self._prefill_q.append(slot)
+        if plan is not None:
+            # the stream defers ONE step: it joins the prefill queue when
+            # _tier_tick lands or abandons the plan
+            plan["slot"] = slot
+            plan["req"] = self.requests[slot]
+            self._pending_tier.append(plan)
+        else:
+            self._prefill_q.append(slot)
         return slot
 
     # ------------------------------------------------------------- decode
@@ -930,6 +1223,7 @@ class PagedServer(_Engine):
 
     def _decode(self, k: int) -> Dict[int, List[int]]:
         self._flush_pending()
+        self._tier_tick()
         for _ in range(k):
             self._prefill_tick()
             if not self._prefill_q:
@@ -959,6 +1253,7 @@ class PagedServer(_Engine):
                                  f"{self.pages_per_stream}]")
         timings: Dict[str, float] = {}
         dev = self.device
+        self._tier_tick()      # no plan may be pending across a capture
         t0 = time.perf_counter()
         row = torch.full((self.pages_per_stream,), self.scratch,
                          dtype=torch.int32, device=dev)
@@ -1125,6 +1420,7 @@ class PagedServer(_Engine):
         hears of a window. A failed window disarms the draft before
         re-raising: the caller's reset and retry then run solo."""
         self._flush_pending()
+        self._tier_tick()
         for _ in range(k):
             self._prefill_tick()
             if not self._prefill_q:
@@ -1198,7 +1494,7 @@ class PagedServer(_Engine):
             # full prompt pages hold prompt-determined K/V only; a
             # mid-window garbage write can only land in the final
             # allocated page, which is never a full prompt page
-            self.radix.insert(prompt, pages)
+            self._radix_adopt(prompt, pages)
         for p in pages:
             self.ledger.unref(p)
         self._stream_pages[slot] = []
@@ -1249,6 +1545,17 @@ class PagedServer(_Engine):
             "prefix_hits": self.radix.hits if self.radix else 0,
             "prefix_shared_pages": (self.radix.shared_pages
                                     if self.radix else 0),
+            "tier_demoted_pages": self.tier_demoted_pages,
+            "tier_promoted_pages": self.tier_promoted_pages,
+            "tier_fallbacks": self.tier_fallbacks,
+            "tier_promote_s": self.tier_promote_s,
+            "directory_hits": self.directory_hits,
+            "directory_fallbacks": self.directory_fallbacks,
+            "adopted_prefix_pages": self.adopted_prefix_pages,
+            "exported_prefixes": self.exported_prefixes,
+            "tiers": self.tiers.stats() if self.tiers is not None else None,
+            "directory": (self.directory.stats()
+                          if self.directory is not None else None),
             "spec": {
                 "armed": self._draft is not None,
                 "k": self.draft_k,

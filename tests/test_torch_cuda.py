@@ -27,7 +27,9 @@ bitwise equal to the eager loop for k 2 and 4, bf16 and int8-KV pools, a
 widening table; ``reset`` and disarm keeping the graphs valid; k draft
 launches of the slot kernel a window), the verify against successive
 kernel decode steps, and the batch-1 ``SpeculativeDecoder`` through the
-kernels.
+kernels; the KV tiers: windows captured before a promote replaying over
+the promoted pages equal to the eager loop, and promoted and adopted
+pages byte-equal to their source, bf16 and int8 pools.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -1376,3 +1378,119 @@ def test_moe_apply_local_on_the_card_matches_the_cpu(dev, routing, factor):
     # the same dropped rows
     assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
     assert abs(float(aux_got) - float(aux_want)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the KV hierarchy: promotes and adoptions write into the pool the graphs
+# bind
+
+
+def _tier_reqs(cfg, seed=7, lens=(40, 70, 50, 33), max_new=40):
+    rng = np.random.default_rng(seed)
+    return [{"prompt": [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+             "max_new": max_new, "request_id": i}
+            for i, n in enumerate(lens)]
+
+
+def _tiered(cfg, params, dev, tmp_path, **kw):
+    from dcos_commons_tpu_torch.models.paging import PageTierStore
+    tiers = PageTierStore(host_pages=3, disk_dir=str(tmp_path / "tier"),
+                          disk_pages=32)
+    return serving.PagedServer(cfg, params, slots=4, page_size=16,
+                               prefill_chunk=16, tiers=tiers, device=dev,
+                               **kw)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_graphs_captured_before_a_promote_read_the_promoted_pages(
+        dev, tmp_path, kv_quant):
+    """Serve four streams (capturing their windows), demote every cached
+    page to the host and disk tiers, serve the same prompts again: they
+    promote, and the windows captured before the promote replay over the
+    promoted pages with the eager loop's tokens, lengths and K/V."""
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = _tiered(cfg, params, dev, tmp_path)
+    reqs = _tier_reqs(cfg)
+    srv.drain([dict(r) for r in reqs], decode_window=8)
+    captured = set(srv._graphs)
+    # the tensors the graphs bind, held so their memory cannot be handed
+    # to a pool a faulty promote would allocate in their place
+    bound = dict(srv.pool)
+    srv._evict(srv.ledger.pages)
+    st = srv.tiers.stats()
+    assert st["host_pages"] == 3 and st["disk_pages"] > 0
+    srv.submit_many([dict(r, request_id=("again", r["request_id"]))
+                     for r in reqs])
+    while srv._pending_tier or srv._prefill_q or srv._pending_first:
+        srv.step()
+    assert srv.tier_promoted_pages > 0 and srv.tier_fallbacks == 0
+    st = srv.tiers.stats()
+    assert st["host_hits"] > 0 and st["disk_hits"] > 0
+    kv = _kv_clone(srv.pool)
+    want, ln, tok = _eager_windows(srv, kv, 3, 8)
+    got = _graphed_windows(srv, 3, 8)
+    # every 8-step window replayed a graph captured before the promote
+    windows = {key for key in srv._graphs if key[0] == 8}
+    assert windows and windows <= captured
+    for i, toks in got.items():
+        assert toks == want[:, i].tolist(), i
+    assert torch.equal(srv.lengths, ln) and torch.equal(srv.cur_tok, tok)
+    assert _kv_equal(srv.pool, kv)
+    assert all(srv.pool[side] is bound[side] for side in bound)
+    assert srv.ledger_violations() == []
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_promoted_and_adopted_pages_are_byte_equal_on_the_card(
+        dev, tmp_path, kv_quant):
+    """Pages gathered from the card before their demote come back bitwise
+    after the promote; a sibling adopting them through ``export_prefix``
+    installs the same bytes; both decode the recompute's tokens."""
+    from dcos_commons_tpu_torch.models.paging import (PrefixDirectory,
+                                                      chain_keys)
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = _tiered(cfg, params, dev, tmp_path)
+    req = _tier_reqs(cfg, lens=(70,), max_new=6)[0]
+    want = serving.PagedServer(cfg, params, slots=4, page_size=16,
+                               prefill_chunk=16, device=dev).drain(
+        [dict(req)])[0]
+    assert srv.drain([dict(req)])[0] == want
+
+    def cached(eng):
+        shared, _ = eng.radix.lookup(req["prompt"] + [-1])
+        try:
+            return eng._gather_span(shared)
+        finally:
+            for p in shared:
+                eng.ledger.unref(p)
+
+    def bits(payload):
+        out = []
+        for side in ("k", "v"):
+            val = payload[side]
+            for t in ([val["q"], val["s"]] if isinstance(val, dict)
+                      else [val]):
+                assert t.device.type == "cpu"
+                out.append(t.view(torch.uint8).numpy().tobytes())
+        return out
+
+    before = cached(srv)
+    srv._evict(srv.ledger.pages)
+    assert srv.tier_demoted_pages == 4
+    assert srv.drain([dict(req, request_id=1)])[1] == want
+    assert srv.tier_promoted_pages == 4
+    assert bits(cached(srv)) == bits(before)
+    directory = PrefixDirectory()
+    srv.directory, srv.replica_id = directory, "a"
+    directory.publish("a", chain_keys(req["prompt"], 16))
+    sib = serving.PagedServer(cfg, params, slots=4, page_size=16,
+                              prefill_chunk=16, directory=directory,
+                              replica_id="b", device=dev,
+                              peer_fetch=lambda h, p: srv.export_prefix(p))
+    assert sib.drain([dict(req, request_id=2)])[2] == want
+    assert sib.directory_hits == 1 and sib.adopted_prefix_pages == 4
+    assert bits(cached(sib)) == bits(before)

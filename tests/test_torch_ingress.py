@@ -2,7 +2,8 @@
 ingress.py:ServingFrontend``), mirroring ``TestServingFrontend`` of
 ``tests/test_serving.py``: concurrent HTTP requests over the port's
 ``SlotServer`` return the JAX solo greedy streams, chunked streaming,
-400/404, the bounded queue's 503 + Retry-After, ``/v1/prefix``'s 404, the
+400/404, the bounded queue's 503 + Retry-After, ``/v1/prefix`` (404 over
+a slot engine; over a paged one 404, 400, the cached span, 503), the
 metrics and trace routes, and one run over the port's ``PagedServer``.
 The front door's copies of jax-free modules (``metrics``, ``tracing``,
 ``utils.stats``) are held byte-equal to the JAX package's on the same
@@ -157,7 +158,7 @@ def test_http_rejects_bad_requests_and_routes():
             with pytest.raises(urllib.error.HTTPError) as e:
                 call()
             assert e.value.code == 404
-        # no port engine exports a prefix: the reference's own answer
+        # a slot engine exports no prefix: the reference's own answer
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(fe.port, {"prompt": [1, 2, 3]}, path="/v1/prefix")
         assert e.value.code == 404
@@ -218,6 +219,67 @@ def test_paged_engine_serves_behind_the_front_door():
         assert health["pages_free"] == engine.pages_free()
         assert health["load"]["pages_total"] == engine.total_pages
         assert engine.ledger_violations() == []
+    finally:
+        fe.stop()
+
+
+def _post_raw(port, payload, path):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def test_prefix_export_route():
+    """``POST /v1/prefix`` over a paged engine: 404 while nothing is
+    cached, 400 on a bad body, and once a request has retired the
+    cached full pages of the prompt as a KVSPAN1 span whose pages are
+    the engine's own; a job the engine thread never runs answers 503."""
+    from dcos_commons_tpu_torch.models.disagg import unpack_span
+    _, tcfg, _, tp = _model()
+    engine = ts.PagedServer(tcfg, tp, slots=2, page_size=8,
+                            prefill_chunk=8, device="cpu")
+    fe = _frontend(engine=engine).start()
+    prompt = _prompt(23, 20)
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post_raw(fe.port, {"prompt": prompt}, "/v1/prefix")
+        assert e.value.code == 404
+        assert json.loads(e.value.read())["error"] == "no resident prefix"
+        for bad in ({"prompt": []}, {"prompt": ["x"]}, {}):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post_raw(fe.port, bad, "/v1/prefix")
+            assert e.value.code == 400, bad
+        assert _post(fe.port, {"prompt": prompt, "max_new": 3})[1][
+            "tokens"] == _solo(prompt, 3)
+        status, ctype, body = _post_raw(fe.port, {"prompt": prompt + [1]},
+                                        "/v1/prefix")
+        assert status == 200 and ctype == "application/octet-stream"
+        span = unpack_span(body)
+        assert span["prompt"] == prompt[:16] and span["first_token"] == -1
+        shared, _ = engine.radix.lookup(prompt)
+        want = engine._gather_span(shared)
+        for p in shared:
+            engine.ledger.unref(p)
+        for side in ("k", "v"):
+            assert torch.equal(span["payload"][side], want[side])
+        assert engine.exported_prefixes == 1
+        _, m = _get(fe.port, "/v1/metrics")
+        assert m["counters"]["ingress.prefix_exports"] == 1
+    finally:
+        fe.stop()
+    # no engine thread: the job is never run, and the wait ends in a 503
+    fe = _frontend(engine=engine)
+    fe.export_timeout_s = 0.2
+    fe._http_thread = threading.Thread(target=fe._httpd.serve_forever,
+                                       daemon=True)
+    fe._http_thread.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post_raw(fe.port, {"prompt": prompt}, "/v1/prefix")
+        assert e.value.code == 503
+        assert e.value.headers.get("Retry-After") == "1"
     finally:
         fe.stop()
 

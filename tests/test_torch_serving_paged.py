@@ -246,9 +246,8 @@ def test_admission_validation():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tiers=object()), dict(directory=object()),
     dict(moe=MoEConfig(4)),
-    dict(longctx_ring=2), dict(peer_fetch=object()), dict(mesh=object()),
+    dict(longctx_ring=2), dict(mesh=object()),
     dict(key=object())])
 def test_constructor_refuses_features_not_ported(kw):
     """No such parameter (TypeError); ``moe`` is ported, and refused with

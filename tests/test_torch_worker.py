@@ -6,7 +6,10 @@ result has the reference's keys; as a subprocess with ``--serve --slots``
 answers ``POST /v1/generate`` with the tokens of a port engine built
 directly from the same seed, emits heartbeats and exits on SIGTERM; a
 page size that does not divide ``max_seq`` falls back to slots; every
-knob of a module not ported yet exits 2 with its coded error.
+knob of a module not ported yet exits 2 with its coded error; the KV tier
+and prefix-directory knobs build the reference's tier store and
+directory (``kv_tier_fallback`` on an unusable disk directory) and the
+served ``/v1/stats`` carries the ``kv_tier_*`` gauges.
 ``--spec-decode`` arms the paged engine from a sealed draft artifact
 (``spec_armed``) or gives the reference's coded ``spec_fallback``; a
 serving ``--out`` holding a checkpoint the JAX package wrote restores it
@@ -264,11 +267,6 @@ REFUSALS = [
     (3, "llama", ["--serve-role", "prefill"], {}, "disagg_not_ported"),
     (4, "llama", ["--serve-role", "decode"], {}, "disagg_not_ported"),
     (5, "llama", ["--serve-role", "router"], {}, "router_not_ported"),
-    (6, "llama", ["--kv-tier-host-pages", "8"], {}, "kv_tiers_not_ported"),
-    (7, "llama", ["--kv-tier-disk-dir", "tier", "--kv-tier-disk-pages", "8"],
-     {}, "kv_tiers_not_ported"),
-    (8, "llama", ["--prefix-directory", "5"], {},
-     "prefix_directory_not_ported"),
     (9, "llama", [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
      "weight_fetch_not_ported"),
     (13, "llama", [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1",
@@ -293,6 +291,127 @@ def test_unported_knob_exits_2_with_its_code(workload, args, env, code,
     assert len(errors) == 1 and errors[0]["code"] == code
     assert re.search(r"item [4-9]|item 10", errors[0]["error"])
     assert not any(e.get("event") == "serving" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# the KV hierarchy knobs
+
+
+# (index, name, flags): the index keeps each case's id as it was while
+# the knobs were refused ("{dir}" is the test's own directory)
+KV_TIER_CASES = [
+    (6, "kv_tiers", ["--kv-tier-host-pages", "8"]),
+    (7, "kv_tier_disk", ["--kv-tier-disk-dir", "{dir}/tier",
+                         "--kv-tier-disk-pages", "8"]),
+    (8, "prefix_directory", ["--prefix-directory", "5"]),
+]
+
+
+def _tier_engines(capsys, argv):
+    """The port's and the reference's ``_make_serving_engine`` on the
+    same flags, each on its own tiny engine, with each one's events."""
+    targs = tworker.build_parser().parse_args(["llama", *argv])
+    tcfg = tl.LlamaConfig.tiny()
+    tparams = tl.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    engine, stats = tworker._make_serving_engine(targs, tcfg, tparams, "cpu")
+    ours = _events(capsys)
+    jargs = jworker.build_parser().parse_args(["llama", *argv])
+    jcfg = jl.LlamaConfig.tiny()
+    jengine, jstats = jworker._make_serving_engine(
+        jargs, jcfg, jl.init_params(jcfg, jax.random.key(0)),
+        types.SimpleNamespace(size=1))
+    return engine, stats, ours, jengine, jstats, _events(capsys)
+
+
+@pytest.mark.parametrize("name,flags", [c[1:] for c in KV_TIER_CASES],
+                         ids=[f"{c[1]}-{c[0]}" for c in KV_TIER_CASES])
+def test_kv_tier_knobs_build_the_reference_engine(tmp_path, capsys, name,
+                                                  flags):
+    """``--kv-tier-host-pages`` builds a host ``PageTierStore``,
+    ``--kv-tier-disk-*`` one that spills to the directory, and
+    ``--prefix-directory`` wires a ``PrefixDirectory`` and
+    ``fetch_prefix``, each as the reference's worker does."""
+    from dcos_commons_tpu_torch.models.disagg import fetch_prefix
+    flags = [f.format(dir=tmp_path) for f in flags]
+    engine, stats, ours, jengine, jstats, ref = _tier_engines(
+        capsys, ["--serve", "--slots", "2", "--pages", "64", *flags])
+    assert ours == ref == []
+    assert stats["tiers"] == jstats["tiers"]
+    assert stats["directory"] == jstats["directory"]
+    if name == "prefix_directory":
+        assert engine.tiers is None
+        assert engine.directory.max_age_s == jengine.directory.max_age_s == 5
+        assert engine.peer_fetch is fetch_prefix
+        return
+    assert engine.directory is None and engine.peer_fetch is None
+    prompt = list(range(3, 73))               # one full page of 64
+    engine.drain([{"prompt": prompt, "max_new": 2, "request_id": 0}])
+    engine._evict(engine.ledger.pages)
+    st = engine.tiers.stats()
+    assert engine.tier_demoted_pages == 1
+    if name == "kv_tiers":
+        assert st["host_capacity"] == 8 and st["host_pages"] == 1
+        assert st["disk_capacity"] == 0
+    else:
+        assert st["host_capacity"] == 0 and st["disk_pages"] == 1
+        files = [p.name for p in (tmp_path / "tier").iterdir()]
+        assert files == [engine.tiers.chains()[0] + ".kvpage"]
+    again = engine.drain([{"prompt": prompt, "max_new": 2,
+                           "request_id": 1}])
+    assert again[1] == again[0] and engine.tier_promoted_pages == 1
+
+
+def test_unusable_disk_dir_falls_back_to_one_tier(tmp_path, capsys):
+    """A disk directory that cannot be made emits ``kv_tier_fallback``
+    with the reference's keys and the replica serves single-tier."""
+    (tmp_path / "file").write_text("not a directory")
+    engine, stats, ours, _, jstats, ref = _tier_engines(
+        capsys, ["--serve", "--slots", "2", "--pages", "64",
+                 "--kv-tier-host-pages", "4", "--kv-tier-disk-dir",
+                 str(tmp_path / "file" / "tier"),
+                 "--kv-tier-disk-pages", "8"])
+    assert [e["event"] for e in ours] == [e["event"] for e in ref] == [
+        "kv_tier_fallback"]
+    assert sorted(ours[0]) == sorted(ref[0])
+    assert ours[0]["disk_pages"] == 8 and ours[0]["host_pages"] == 4
+    assert engine.tiers is None and stats["tiers"] is None is jstats["tiers"]
+
+
+def test_served_stats_carry_the_kv_tier_gauges(tmp_path):
+    """The worker with tiers and a directory: the ``serving`` event's
+    page stats hold the tier store, ``/v1/stats`` the ``kv_tier_*``
+    gauges, and ``/v1/prefix`` answers the served prompt's cached pages
+    as a span."""
+    from dcos_commons_tpu_torch.models.disagg import unpack_span
+    w = _Worker(tmp_path, "--serve", "--slots", "2", "--serve-port", "0",
+                "--pages", "64", "--kv-tier-host-pages", "8",
+                "--prefix-directory", "5")
+    try:
+        serving = w.event("serving")
+        assert serving["paged"]["tiers"]["host_capacity"] == 8
+        assert serving["paged"]["directory"]["chains"] == 0
+        port = serving["port"]
+        prompt = list(range(3, 73))
+        assert len(_post(port, {"prompt": prompt, "max_new": 3})[
+            "tokens"]) == 3
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats",
+                                    timeout=20) as r:
+            window = json.loads(r.read())["window"]
+        assert window["kv_tier_host_capacity"] == 8
+        assert window["kv_tier_disk_capacity"] == 0
+        for key in ("kv_tier_host_pages", "kv_tier_disk_pages",
+                    "kv_tier_hits", "kv_tier_promoted", "kv_tier_demoted"):
+            assert window[key] == 0, key
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/prefix",
+            data=json.dumps({"prompt": prompt}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=20) as r:
+            span = unpack_span(r.read())
+        assert span["prompt"] == prompt[:64] and span["first_token"] == -1
+    finally:
+        w.stop()
 
 
 def test_multislice_is_refused(monkeypatch, capsys):
