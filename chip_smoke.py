@@ -71,6 +71,31 @@ Phases (any failure exits non-zero):
    --kv-tier-disk-dir DIR --kv-tier-disk-pages 96`` serves both rounds
    over HTTP with the in-process engine's round-2 tokens and tier hits
    in ``/v1/stats``;
+12. (right after phase 11, on phase 3's weights) disaggregated
+   prefill/decode serving, both tiers on the card over the same weights:
+   a prefill tier (``PagedServer(pages=64)``) behind ``PrefillWorker``
+   on 127.0.0.1 and a decode tier with phase 3's geometry (after
+   ``warmup()``; it captures its windows at first use, never while the
+   prefill tier works: in one process that capture fails) behind
+   ``ServingFrontend(drive=False)`` and
+   ``DisaggCoordinator(decode_window=8)``; phase 3's 12 requests at once
+   over ``POST /v1/generate``, two streamed (7,359 prompt tokens, 119
+   pages shipped): every reply phase 3's stream or off it only at a
+   near-tie, every adopted page bitwise its span's, 12 spans and no
+   fallback, both ledgers clean, kernel 1 counted on the decode tier and
+   no kernel launched by a prefill span; then 8 prompts shipped one by
+   one and adopted with 200 new tokens, graphed windows over them
+   bitwise the eager loop; then a coordinator whose only peer is a
+   closed port serves 2 requests co-located with their tokens; TTFT
+   through the pair beside phase 3's, and each shipment split into
+   prefill, gather, pack, HTTP, unpack and install ms with the blake2s
+   share; then (after phase 6) the worker pair, ``--serve-role prefill
+   --pages 64 --serve-port P`` and ``--serve-role decode --serve-peer
+   http://127.0.0.1:P --pages 64``: phase 6's 8 requests held to the
+   ``--pages 64`` worker's replies (near-tie rule), 8 spans and no
+   fallback in the decode heartbeat, ``role: prefill`` in the prefill
+   tier's ``/v1/healthz``, no kernel launched by the prefill process,
+   both ended with SIGTERM;
 5. (on phase 3's weights) serve Llama-3-8B through
    ``SlotServer(slots=8)`` behind the HTTP front door
    (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
@@ -138,7 +163,8 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
 ``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
-``worker_moe``, ``kv_tiers``, ``worker_kv_tiers`` and ``phase_s`` lines,
+``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
+``worker_disagg`` and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -156,6 +182,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -803,7 +830,8 @@ def phase_serve(card: str) -> dict:
         "peak_mem_gb": peak_gb, "page_stats": stats,
         "flash_vs_dense_max_abs_logit": diff,
         "flash_vs_dense_argmax_decided": int(decided.sum()),
-        "card": card}}, launches, params, {"queue": queue, "out": dict(out)}
+        "card": card}}, launches, params, {"queue": queue, "out": dict(out),
+                                           "ttft": ttft}
 
 
 # windows of 8 steps timed each way from one snapshot of 8 live streams
@@ -1121,39 +1149,14 @@ WORKER_BOOT_S = 600
 WORKER_VOCAB = 128256           # Llama-3-8B's
 
 
-def phase_worker(card: str, name: str, extra, engine: str, kernels,
-                 expect=(), forbid=("paged_fallback",), rounds=None):
-    """The process the scheduler starts: the port's worker
-    (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
-    ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
-    Reads its ``serving`` event (after each event of ``expect``; an event
-    of ``forbid`` or an ``error`` fails the phase), sends 8 concurrent
-    ``POST /v1/generate`` (64-1,500 prompt tokens, 32 new, one streamed),
-    checks ``/v1/healthz`` and ``/v1/stats``, waits for a heartbeat that
-    has seen them, and ends it with SIGTERM. Its kernel launches are the
-    worker's own counts while it served: the heartbeat's less those in
-    its ``serving`` event. ``rounds`` (lists of request bodies) replaces
-    the 8 requests: each round's requests are sent at once, round after
-    round, and the replies come back in that order. Returns (line,
-    launches, replies, events)."""
+def _event_reader(proc, events: list, forbid, who: str):
+    """Pump ``proc``'s stdout on a thread and return ``event(name,
+    timeout, where=...)``: the next JSON event of that name passing
+    ``where`` (every event read lands in ``events``); an ``error`` event
+    or one in ``forbid`` raises, as does the deadline or the process
+    ending first."""
     import queue
-    import signal
-
-    root = Path(__file__).resolve().parent
-    cwd = root / "build" / "worker_smoke"
-    cwd.mkdir(parents=True, exist_ok=True)
-    args = [*WORKER_ARGS, *extra]
-    cmd = [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
-           *args]
-    env = dict(os.environ, PYTHONPATH=str(root))
-    v = WORKER_VOCAB
-    rounds = rounds or [worker_bodies()]
-    bodies = [b for r in rounds for b in r]
-    t_start = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
-                            text=True)
     lines: "queue.Queue[str]" = queue.Queue()
-    events = []
 
     def pump():
         for raw in proc.stdout:
@@ -1174,17 +1177,69 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
                 e = json.loads(raw)
                 events.append(e)
                 if e.get("event") == "error" or e.get("event") in forbid:
-                    raise RuntimeError(f"worker: {e}")
+                    raise RuntimeError(f"{who}: {e}")
                 if e.get("event") == name and where(e):
                     return e
-        raise RuntimeError(f"worker: no {name} event within {timeout} s "
+        raise RuntimeError(f"{who}: no {name} event within {timeout} s "
                            f"(exit {proc.poll()})")
 
+    return event
+
+
+def _sigterm(proc) -> int:
+    """End a worker as the scheduler does (SIGTERM, then a kill after 60
+    s); its exit code."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait()
+
+
+def phase_worker(card: str, name: str, extra, engine: str, kernels,
+                 expect=(), forbid=("paged_fallback",), rounds=None,
+                 ready=None):
+    """The process the scheduler starts: the port's worker
+    (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
+    ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
+    Reads its ``serving`` event (after each event of ``expect``; an event
+    of ``forbid`` or an ``error`` fails the phase), sends 8 concurrent
+    ``POST /v1/generate`` (64-1,500 prompt tokens, 32 new, one streamed),
+    checks ``/v1/healthz`` and ``/v1/stats``, waits for a heartbeat that
+    has seen them, and ends it with SIGTERM. Its kernel launches are the
+    worker's own counts while it served: the heartbeat's less those in
+    its ``serving`` event. ``rounds`` (lists of request bodies) replaces
+    the 8 requests: each round's requests are sent at once, round after
+    round, and the replies come back in that order. ``ready`` (no
+    arguments) runs after the ``serving`` event, before the first
+    request. Returns (line, launches, replies, events)."""
+    import signal
+
+    root = Path(__file__).resolve().parent
+    cwd = root / "build" / "worker_smoke"
+    cwd.mkdir(parents=True, exist_ok=True)
+    args = [*WORKER_ARGS, *extra]
+    cmd = [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
+           *args]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    v = WORKER_VOCAB
+    rounds = rounds or [worker_bodies()]
+    bodies = [b for r in rounds for b in r]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    events = []
+    event = _event_reader(proc, events, forbid, "worker")
     try:
         for name_ in expect:
             event(name_, WORKER_BOOT_S)
         serving = event("serving", WORKER_BOOT_S)
         boot_s = time.perf_counter() - t_start
+        if ready is not None:
+            ready()
         port = serving["port"]
         replies, errors = [None] * len(bodies), []
 
@@ -1211,13 +1266,7 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
         beat = event("heartbeat", 60,
                      lambda e: e.get("requests", 0) >= len(bodies))
     finally:
-        if proc.poll() is None:
-            proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait()
+        rc = _sigterm(proc)
     problems = list(errors)
     if any(t.is_alive() for t in threads):
         problems.append("a request thread did not finish")
@@ -3144,6 +3193,551 @@ def phase_kv_tier_worker(card: str, rounds, want) -> tuple:
     return line, launches
 
 
+# --------------------------------------------------------------- phase 12
+
+# the prefill tier: a 64-page pool (the worker's --pages 64); the decode
+# tier: phase 3's geometry, default pages (slots x max_seq / page_size)
+DISAGG_PREFILL = dict(pages=64, page_size=64, prefill_chunk=64)
+DISAGG_DECODE = dict(slots=8, page_size=64, prefill_chunk=64)
+DISAGG_WINDOW = 8
+# the graph check: phase 3's first 8 prompts adopted with this budget
+DISAGG_GRAPH_NEW, DISAGG_GRAPH_WINDOWS = 200, 3
+# requests the dead-peer coordinator serves co-located
+DISAGG_FALLBACK_REQUESTS = ("r0", "prefix-a")
+WORKER_DISAGG_ARGS = ("--pages", "64")
+KERNEL_COUNTERS = ("flash_decode_paged", "flash_decode",
+                   "flash_attention_fwd")
+
+
+def _launch_counts() -> dict:
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    return {"flash_decode_paged": fd.flash_decode_paged.launches,
+            "flash_decode": fd.flash_decode.launches,
+            "flash_attention_fwd": fa.flash_attention_fwd.launches}
+
+
+def _zero_launches() -> None:
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.ops import flash_decode as fd
+    for kern in (fd.flash_decode_paged, fd.flash_decode,
+                 fa.flash_attention_fwd):
+        kern.launches = 0
+
+
+def _closed_port() -> int:
+    """A localhost port nothing listens on (bound, then released)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ShipTimes:
+    """Milliseconds of each part of a shipment, keyed by the prompt:
+    ``prefill_ms`` and ``gather_ms`` on the prefill tier, ``pack_ms``,
+    ``fetch_ms`` (the decode tier's whole ``KVShipper.fetch``),
+    ``unpack_ms``, ``install_ms`` on the decode tier, ``frame_bytes``."""
+
+    def __init__(self):
+        self.ms, self._lock = {}, threading.Lock()
+
+    def add(self, prompt, **parts) -> None:
+        with self._lock:
+            self.ms.setdefault(tuple(prompt), {}).update(parts)
+
+    def split(self, prompt) -> dict:
+        """One shipment's parts; ``wire_ms`` is the fetch less the prefill
+        tier's work and the unpack: the HTTP transfer and any wait for
+        the prefill tier's engine lock."""
+        t = dict(self.ms.get(tuple(prompt), {}))
+        if "fetch_ms" in t:
+            t["wire_ms"] = t["fetch_ms"] - sum(t.get(k, 0.0) for k in (
+                "prefill_ms", "gather_ms", "pack_ms", "unpack_ms"))
+        return t
+
+
+def disagg_tiers(cfg, params, dev, times: ShipTimes):
+    """The pair's engines and shipper, each timing its part of a
+    shipment into ``times`` around the port's own code: a prefill tier
+    (``DISAGG_PREFILL``), a decode tier (``DISAGG_DECODE``) that holds
+    every page an adoption installs, and the radix pages it shares,
+    against the span it adopted (counted in ``checked``, differing ones
+    in ``mismatched``), and a ``KVShipper``. The prefill tier's spans and
+    the decode tier's window captures never overlap on the card."""
+    from dcos_commons_tpu_torch.models import disagg, serving
+
+    # both tiers in one process: a decode window captured while the
+    # prefill tier works on the card from its HTTP thread is invalidated
+    # (cudaErrorStreamCaptureInvalidated), so a span's prefill and a
+    # window's capture take one lock
+    card_lock = threading.Lock()
+
+    class Prefill(serving.PagedServer):
+        def prefill_span(self, prompt, trace=None):
+            with card_lock:
+                self.gather_ms = 0.0
+                _sync(dev)
+                t0 = time.perf_counter()
+                span = super().prefill_span(prompt, trace)
+                total = (time.perf_counter() - t0) * 1e3
+            if span is not None:
+                times.add(prompt, prefill_ms=total - self.gather_ms,
+                          gather_ms=self.gather_ms)
+            return span
+
+        def _gather_span(self, pages):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = super()._gather_span(pages)
+            self.gather_ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+    class Decode(serving.PagedServer):
+        def __init__(self):
+            super().__init__(cfg, params, device=dev, **DISAGG_DECODE)
+            self.checked, self.mismatched, self.install_ms = 0, [], 0.0
+
+        def _capture(self, key, fn):
+            with card_lock:
+                return super()._capture(key, fn)
+
+        def _install(self, payload, a, b, phys):
+            _sync(dev)
+            t0 = time.perf_counter()
+            super()._install(payload, a, b, phys)
+            _sync(dev)
+            self.install_ms = (time.perf_counter() - t0) * 1e3
+
+        def adopt_pages(self, span, max_new=32, request_id=None):
+            self.install_ms = 0.0
+            slot = super().adopt_pages(span, max_new, request_id)
+            if slot is None or self.requests[slot] is None:
+                return slot
+            times.add(span["prompt"], install_ms=self.install_ms)
+            n = -(-len(span["prompt"]) // self.page_size)
+            got = self._gather_span(self._stream_pages[slot][:n])
+            for j in range(n):
+                self.checked += 1
+                if not _same_bits(_page_of(got, j),
+                                  _page_of(span["payload"], j)):
+                    self.mismatched.append((len(span["prompt"]), j))
+            return slot
+
+    class Shipper(disagg.KVShipper):
+        def fetch(self, peer, prompt, trace=None):
+            t0 = time.perf_counter()
+            span = super().fetch(peer, prompt, trace)
+            times.add(prompt, fetch_ms=(time.perf_counter() - t0) * 1e3)
+            return span
+
+    pre = Prefill(cfg, params, device=dev, **DISAGG_PREFILL)
+    dec = Decode()
+    return pre, dec, Shipper(timeout_s=600.0)
+
+
+def _timed_wire(times: ShipTimes):
+    """Time ``disagg.pack_span`` and ``unpack_span`` (the prefill tier's
+    handler and ``KVShipper.fetch`` call them by their module names)
+    into ``times``; returns the function that puts them back."""
+    from dcos_commons_tpu_torch.models import disagg
+    pack, unpack = disagg.pack_span, disagg.unpack_span
+
+    def timed_pack(span):
+        t0 = time.perf_counter()
+        frame = pack(span)
+        times.add(span["prompt"], pack_ms=(time.perf_counter() - t0) * 1e3,
+                  frame_bytes=len(frame))
+        return frame
+
+    def timed_unpack(data):
+        t0 = time.perf_counter()
+        span = unpack(data)
+        times.add(span["prompt"],
+                  unpack_ms=(time.perf_counter() - t0) * 1e3)
+        return span
+
+    disagg.pack_span, disagg.unpack_span = timed_pack, timed_unpack
+
+    def restore():
+        disagg.pack_span, disagg.unpack_span = pack, unpack
+    return restore
+
+
+def _serve_over_http(port, reqs, streamed=()) -> tuple:
+    """``reqs`` sent at once to ``POST /v1/generate`` (the indices in
+    ``streamed`` streamed): (replies, errors, wall s)."""
+    replies, errors = [None] * len(reqs), []
+
+    def hit(i):
+        try:
+            replies[i] = _http_generate(port, {
+                "prompt": reqs[i]["prompt"], "max_new": reqs[i]["max_new"],
+                "stream": i in streamed})
+        except urllib.error.HTTPError as e:
+            errors.append(f"request {i}: HTTP {e.code} {e.read()[:300]!r}")
+        except Exception as e:            # reported with the other checks
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=hit, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return replies, errors, time.perf_counter() - t0
+
+
+def _held_to(name, got, want, prompts, cfg, params, problems) -> list:
+    """Streams of ``got`` equal to ``want`` (both {request: tokens}), or,
+    where one differs, every token at a near-tie of the target
+    (:func:`stream_check`); returns the divergences."""
+    differ = {rid for rid in want if got.get(rid) != want[rid]}
+    if not differ:
+        return []
+    try:
+        return stream_check(name, {r: got.get(r) for r in differ},
+                            {r: want[r] for r in differ}, prompts, cfg,
+                            params)
+    except RuntimeError as e:
+        problems.append(str(e))
+        return []
+
+
+def phase_disagg(card: str, params, solo, cfg=None, dev=None) -> tuple:
+    """Disaggregated prefill/decode serving on phase 3's weights, both
+    tiers on one card over the same ``params``: a prefill tier
+    (``DISAGG_PREFILL``) behind ``PrefillWorker`` on 127.0.0.1, and a
+    decode tier with phase 3's geometry, after ``warmup()``, behind
+    ``ServingFrontend(drive=False)`` and ``DisaggCoordinator(decode_window
+    =8)``; the decode tier captures its windows at first use, never
+    while the prefill tier works (:func:`disagg_tiers`). Phase 3's 12 requests go to ``POST /v1/generate`` at once, two
+    streamed: every reply is phase 3's engine stream (or leaves it only at
+    a near-tie), every page an adoption installed or shared is bitwise
+    the span's, the tensors the graphs bind still the engine's (pool,
+    lengths, tokens, table), 12 spans shipped with no fallback, both
+    ledgers clean,
+    kernel 1 launched by the decode tier and no kernel by the prefill
+    tier. Then, serially through the prefill tier's HTTP, 8 prompts
+    adopted with 200 new tokens each: graphed windows over the adopted
+    streams equal the eager loop bitwise (and the ship split without
+    contention); then a coordinator whose only peer is a closed port
+    serves 2 requests co-located with their tokens. ``cfg``/``dev``
+    default to Llama-3-8B on the card (a smaller model on the CPU
+    rehearses the control flow)."""
+    import hashlib
+    import torch
+    from dcos_commons_tpu_torch.models import disagg, llama
+    from dcos_commons_tpu_torch.models.ingress import ServingFrontend
+
+    dev = dev or torch.device("cuda")
+    cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=2048)
+    queue = solo["queue"]
+    want = solo["out"]
+    prompts = {r["request_id"]: r["prompt"] for r in queue}
+    rid_of = {tuple(r["prompt"]): r["request_id"] for r in queue}
+    problems, t_phase = [], time.perf_counter()
+    # a device fault left by an earlier phase surfaces here, not in the
+    # decode tier's first capture; any thread still running is named
+    _sync(dev)
+    log(f"[disagg] card clean at the start; threads "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    times = ShipTimes()
+    restore = _timed_wire(times)
+    try:
+        pre, dec, shipper = disagg_tiers(cfg, params, dev, times)
+        warm = dec.warmup()
+        # the tensors the captured windows bind, held (so their memory
+        # cannot go to a pool an adoption might allocate in their place)
+        # and checked to be the engine's own after every stage
+        bound = {"pool": dict(dec.pool), "lengths": dec.lengths,
+                 "cur_tok": dec.cur_tok, "table": dec._table_buf}
+
+        def rebound(stage):
+            now = {"pool": dec.pool, "lengths": dec.lengths,
+                   "cur_tok": dec.cur_tok, "table": dec._table_buf}
+            moved = [k for k, t in bound.items() if (
+                any(now[k][s] is not t[s] for s in t) if k == "pool"
+                else now[k] is not t)]
+            if moved:
+                problems.append(f"{stage}: the decode tier rebound "
+                                f"{moved}")
+        worker = disagg.PrefillWorker(pre, port=0,
+                                      host="127.0.0.1").start()
+        peer = f"http://127.0.0.1:{worker.port}"
+        fe = ServingFrontend(dec, port=0, host="127.0.0.1",
+                             decode_window=DISAGG_WINDOW).start(drive=False)
+        coord = disagg.DisaggCoordinator(dec, fe, peer, shipper=shipper,
+                                         decode_window=DISAGG_WINDOW)
+        _zero_launches()
+        coord.start()
+        try:
+            replies, errors, wall = _serve_over_http(fe.port, queue,
+                                                     STREAMED)
+            launches = _launch_counts()
+            stats, health = coord.stats(), fe.health()
+            graphs_during = _graph_line(dec)
+        finally:
+            coord.stop()
+            fe.stop()
+        problems += errors
+        rebound("concurrent run")
+        got = {r["request_id"]: (replies[i] or {}).get("tokens")
+               for i, r in enumerate(queue)}
+        divergences = _held_to("disagg", got, want, prompts, cfg, params,
+                               problems)
+        if stats["spans_shipped"] != len(queue) or stats["peer_fallbacks"]:
+            problems.append(f"coordinator stats {stats}")
+        if dec.adopted_spans != len(queue) or dec.checked < 1:
+            problems.append(f"{dec.adopted_spans} adopted, {dec.checked} "
+                            f"pages checked, {len(dec.mismatched)} differ "
+                            f"from their span: {dec.mismatched[:4]}")
+        for name, eng in (("prefill", pre), ("decode", dec)):
+            if eng.ledger_violations():
+                problems.append(f"{name} ledger "
+                                f"{eng.ledger_violations()[:3]}")
+        if not health["ok"]:
+            problems.append(f"decode front door health {health}")
+        if dev.type == "cuda" and launches["flash_decode_paged"] < 1:
+            problems.append("flash_decode_paged never launched by the "
+                            "decode tier")
+        concurrent = {rid_of[k]: times.split(k) for k in times.ms}
+        ttft_pair = {r["request_id"]: (replies[i] or {}).get("ttft_ms")
+                     for i, r in enumerate(queue)}
+        # the prefill tier alone: one span, every kernel count unchanged
+        _zero_launches()
+        pre.prefill_span(queue[1]["prompt"])
+        _sync(dev)
+        prefill_launches = _launch_counts()
+        if any(prefill_launches.values()):
+            problems.append(f"the prefill tier launched {prefill_launches}")
+        # serially, without contention: 8 prompts shipped through the
+        # prefill tier's HTTP and adopted, then graphed vs eager
+        pre.reset()
+        dec.reset()
+        times.ms.clear()
+        for r in queue[:8]:
+            slot = dec.adopt_pages(shipper.fetch(peer, r["prompt"]),
+                                   max_new=DISAGG_GRAPH_NEW,
+                                   request_id=("graph", r["request_id"]))
+            if slot is None:
+                problems.append(f"graph check: {r['request_id']} found no "
+                                "room")
+        serial = {rid_of[k]: times.split(k) for k in times.ms}
+        try:
+            graph = _graph_vs_eager(dec, windows=DISAGG_GRAPH_WINDOWS,
+                                    k=DISAGG_WINDOW)
+        except RuntimeError as e:
+            problems.append(f"over adopted streams: {e}")
+            graph = {}
+        rebound("serial adoptions")
+        if dec.mismatched:
+            problems.append(f"{len(dec.mismatched)} adopted pages differ "
+                            f"from their span: {dec.mismatched[:4]}")
+        dec.reset()
+        worker.stop()
+        # a dead peer: every request degrades to the co-located path
+        fb_reqs = [r for r in queue
+                   if r["request_id"] in DISAGG_FALLBACK_REQUESTS]
+        fe = ServingFrontend(dec, port=0, host="127.0.0.1",
+                             decode_window=DISAGG_WINDOW).start(drive=False)
+        coord = disagg.DisaggCoordinator(
+            dec, fe, f"http://127.0.0.1:{_closed_port()}",
+            shipper=disagg.KVShipper(timeout_s=10.0),
+            decode_window=DISAGG_WINDOW).start()
+        try:
+            fb_replies, fb_errors, _ = _serve_over_http(fe.port, fb_reqs)
+            fb_stats = coord.stats()
+        finally:
+            coord.stop()
+            fe.stop()
+        problems += fb_errors
+        fb_got = {r["request_id"]: (fb_replies[i] or {}).get("tokens")
+                  for i, r in enumerate(fb_reqs)}
+        fb_div = _held_to("disagg fallback", fb_got,
+                          {rid: want[rid] for rid in fb_got}, prompts, cfg,
+                          params, problems)
+        if fb_stats["peer_fallbacks"] != len(fb_reqs) \
+                or fb_stats["spans_shipped"]:
+            problems.append(f"dead-peer coordinator stats {fb_stats}")
+        if dec.ledger_violations():
+            problems.append(f"decode ledger after the fallback "
+                            f"{dec.ledger_violations()[:3]}")
+        # blake2s over one 8 MiB page: pack and unpack each hash a span
+        page = bytes(cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 64 * 2
+                     * 2)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            hashlib.blake2s(page).hexdigest()
+        blake_ms = (time.perf_counter() - t0) / 5 * 1e3
+        page_bytes = len(page)
+        checked = dec.checked
+        del pre, dec
+        gc.collect()
+    finally:
+        restore()
+    if problems:
+        raise RuntimeError("disagg phase: " + "; ".join(problems[:8]))
+    ttft_colocated = {rid: s * 1e3 for rid, s in solo.get("ttft", {}).items()}
+
+    columns = ("prompt_tokens", "pages", "ttft_ms_pair",
+               "ttft_ms_colocated_phase3", "prefill_ms", "gather_ms",
+               "pack_ms", "wire_ms", "unpack_ms", "install_ms",
+               "frame_bytes", "blake2s_share_of_ship")
+
+    def per_request(split):
+        """{"columns": [...], request: [one value a column]}; the ship is
+        everything but the prefill, and pack and unpack each hash every
+        page once."""
+        out = {"columns": list(columns)}
+        for rid, t in split.items():
+            n = len(prompts[rid])
+            pages = -(-n // 64)
+            ship = sum(t.get(k, 0.0) for k in (
+                "gather_ms", "pack_ms", "wire_ms", "unpack_ms",
+                "install_ms"))
+            row = {"prompt_tokens": n, "pages": pages,
+                   "ttft_ms_pair": ttft_pair.get(rid),
+                   "ttft_ms_colocated_phase3": ttft_colocated.get(rid),
+                   "blake2s_share_of_ship": 2 * pages * blake_ms
+                   / max(ship, 1e-9), **t}
+            out[rid] = [row.get(c) for c in columns]
+        return out
+
+    def totals(split):
+        keys = ("prefill_ms", "gather_ms", "pack_ms", "wire_ms",
+                "unpack_ms", "install_ms", "fetch_ms", "frame_bytes")
+        return {k: sum(t.get(k, 0.0) for t in split.values()) for k in keys}
+
+    serial_tot = totals(serial)
+    serial_pages = sum(-(-len(prompts[rid]) // 64) for rid in serial)
+    pair = sorted(v for v in ttft_pair.values() if v is not None)
+    colo = sorted(ttft_colocated.values())
+    line = {"disagg": {
+        "model": "llama3_8b" if cfg.n_layers == 32 else "rehearsal",
+        "layers": cfg.n_layers, "max_seq": cfg.max_seq,
+        "prefill_tier": DISAGG_PREFILL, "decode_tier": DISAGG_DECODE,
+        "decode_window": DISAGG_WINDOW, "requests": len(queue),
+        "streamed": len(STREAMED),
+        "prompt_tokens": sum(len(p) for p in prompts.values()),
+        "pages_shipped": sum(-(-len(p) // 64) for p in prompts.values()),
+        "wall_s": wall, "warmup_s": warm,
+        "spans_shipped": stats["spans_shipped"],
+        "kv_bytes_shipped": stats["kv_bytes_shipped"],
+        "peer_fallbacks": stats["peer_fallbacks"],
+        "transfer_stalls": stats["transfer_stalls"],
+        "iterations": stats["iterations"],
+        "checked_pages": checked,
+        "near_tie_divergences": divergences,
+        "ttft_p50_ms_pair": pair[len(pair) // 2] if pair else None,
+        "ttft_p50_ms_colocated_phase3": colo[len(colo) // 2] if colo
+        else None,
+        "per_request_concurrent": per_request(concurrent),
+        "per_request_serial": per_request(serial),
+        "serial_ms_per_page": {k: v / serial_pages for k, v in
+                               serial_tot.items() if k.endswith("_ms")},
+        "blake2s_ms_per_page": blake_ms, "page_bytes": page_bytes,
+        "launches_decode_tier": launches,
+        "launches_prefill_span_alone": prefill_launches,
+        "graphs_during": graphs_during,
+        "graph_vs_eager_adopted": {k: graph.get(k) for k in (
+            "batch", "windows", "k", "tokens_equal", "kv_bitwise_equal",
+            "graph_step_ms", "eager_step_ms", "graphs_captured_here")},
+        "fallback": {"requests": len(fb_reqs), **fb_stats,
+                     "near_tie_divergences": fb_div},
+        "phase_s": time.perf_counter() - t_phase, "card": card}}
+    log(f"[disagg] {line}")
+    return line, launches["flash_decode_paged"]
+
+
+def phase_disagg_worker(card: str, want_replies, params) -> tuple:
+    """The pair as the scheduler starts it (``dist/disagg.yml``): a
+    prefill worker (``WORKER_ARGS`` + ``--pages 64 --serve-role prefill
+    --serve-port P``) and, once it serves, a decode worker pointed at it
+    (``--serve-role decode --serve-peer http://127.0.0.1:P``) through
+    :func:`phase_worker`: phase 6's 8 bodies, replies held to phase 6's
+    ``--pages 64`` worker's (exactly or at a near-tie), the decode
+    heartbeat's ``disagg`` with 8 spans and no fallback, both
+    ``/v1/healthz`` ok (the prefill tier's with ``role: prefill``), and
+    the prefill process launching no kernel. A ``disagg_fallback`` from
+    either process fails the phase; both end with SIGTERM."""
+    import signal
+    from dcos_commons_tpu_torch.models import llama
+
+    root = Path(__file__).resolve().parent
+    cwd = root / "build" / "worker_smoke_prefill"
+    cwd.mkdir(parents=True, exist_ok=True)
+    port = _closed_port()
+    args = [*WORKER_ARGS, *WORKER_DISAGG_ARGS, "--serve-role", "prefill",
+            "--serve-port", str(port)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
+         *args], cwd=cwd, env=dict(os.environ, PYTHONPATH=str(root)),
+        stdout=subprocess.PIPE, text=True)
+    event = _event_reader(proc, [], ("disagg_fallback", "paged_fallback"),
+                          "prefill worker")
+    bodies = worker_bodies()
+    pre_serving = {}
+    try:
+        def ready():
+            pre_serving.update(event("serving", WORKER_BOOT_S))
+
+        line, launches, replies, dec_events = phase_worker(
+            card, "worker_disagg", (*WORKER_DISAGG_ARGS, "--serve-role",
+                                    "decode", "--serve-peer",
+                                    f"http://127.0.0.1:{port}"),
+            "PagedServer", ("flash_decode_paged",),
+            forbid=("paged_fallback", "disagg_fallback"), ready=ready)
+        health = _http_get(port, "/v1/healthz")
+        beat = event("heartbeat", 60,
+                     lambda e: e.get("shipped_spans", 0) >= len(bodies))
+    finally:
+        rc = _sigterm(proc)
+    problems = []
+    dec_serving = next(e for e in dec_events if e.get("event") == "serving")
+    dec_beat = [e for e in dec_events if e.get("event") == "heartbeat"][-1]
+    disagg_st = dec_beat.get("disagg", {})
+    if dec_serving.get("role") != "decode" or pre_serving.get("role") \
+            != "prefill":
+        problems.append(f"roles {dec_serving.get('role')}, "
+                        f"{pre_serving.get('role')}")
+    if disagg_st.get("spans_shipped") != len(bodies) \
+            or disagg_st.get("peer_fallbacks"):
+        problems.append(f"decode heartbeat disagg {disagg_st}")
+    if not health.get("ok") or health.get("role") != "prefill":
+        problems.append(f"prefill /v1/healthz {health}")
+    pre_launches = {k: beat.get("launches", {}).get(k, 0)
+                    - pre_serving.get("launches", {}).get(k, 0)
+                    for k in KERNEL_COUNTERS}
+    if any(pre_launches.values()):
+        problems.append(f"the prefill worker launched {pre_launches}")
+    if rc != -signal.SIGTERM:
+        problems.append(f"prefill worker exited {rc} on SIGTERM")
+    divergences = _held_to(
+        "worker_disagg", dict(enumerate(replies)),
+        dict(enumerate(want_replies)),
+        {i: b["prompt"] for i, b in enumerate(bodies)},
+        llama.LlamaConfig.llama3_8b(max_seq=2048), params, problems)
+    if problems:
+        raise RuntimeError("worker_disagg phase: " + "; ".join(problems))
+    body = line["worker_disagg"]
+    body.update({"prefill_command": "python -m dcos_commons_tpu_torch."
+                                    "frameworks.worker " + " ".join(args),
+                 "prefill_cold_start": pre_serving.get("cold_start"),
+                 "prefill_healthz": health,
+                 "prefill_heartbeat": {k: beat.get(k) for k in (
+                     "shipped_spans", "pages_free", "pages_in_use_peak",
+                     "prefix_hits")},
+                 "prefill_launches": pre_launches,
+                 "prefill_exit_on_sigterm": rc,
+                 "disagg": disagg_st, "near_tie_divergences": divergences,
+                 "replies_equal_paged_worker": sum(
+                     a == b for a, b in zip(replies, want_replies))})
+    log(f"[worker_disagg] {line}")
+    return line, launches
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -3203,6 +3797,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kv_worker_line, kv_worker_launches = timed_phase(
         "11_worker_kv_tiers", phase_kv_tier_worker, card, kv_rounds, kv_want)
+    disagg_line, disagg_launches = timed_phase(
+        "12_disagg", phase_disagg, card, params, solo)
+    gc.collect()
+    torch.cuda.empty_cache()
     slots_line, slot_launches = timed_phase("5_serve_slots",
                                             phase_serve_slots, card, params)
     # the front door's handler closes over the front door, a cycle that
@@ -3215,6 +3813,9 @@ def main() -> int:
             f"6_{name}", phase_worker, card, name, extra, engine, names)
         worker_lines.append(line)
         worker_launches.update(launches)
+    disagg_worker_line, disagg_worker_launches = timed_phase(
+        "12_worker_disagg", phase_disagg_worker, card,
+        replies["worker_paged"], params)
     try:
         t0 = time.perf_counter()
         spec_worker_line, spec_worker_launches = timed_phase(
@@ -3282,7 +3883,10 @@ def main() -> int:
                            moe_worker_launches["flash_decode_paged"],
                        "kv_tiers": kv_launches,
                        "worker_kv_tiers":
-                           kv_worker_launches["flash_decode_paged"]},
+                           kv_worker_launches["flash_decode_paged"],
+                       "disagg": disagg_launches,
+                       "worker_disagg":
+                           disagg_worker_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -3343,6 +3947,8 @@ def main() -> int:
     print(json.dumps(moe_worker_line), flush=True)
     print(json.dumps(kv_line), flush=True)
     print(json.dumps(kv_worker_line), flush=True)
+    print(json.dumps(disagg_line), flush=True)
+    print(json.dumps(disagg_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

@@ -11,6 +11,11 @@ of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \
         --serve --slots 8 --pages 64 --kv-tier-host-pages 32 \
         --kv-tier-disk-dir DIR --kv-tier-disk-pages 96 [--prefix-directory S]
+    python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
+        --serve --slots 8 --pages 64 --serve-role prefill --serve-port P
+    python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
+        --serve --slots 8 --pages 64 --serve-role decode \\
+        --serve-peer http://HOST:P
     python -m dcos_commons_tpu_torch.frameworks.worker llama-train \\
         --steps 20 --seq 256 [--ckpt-every N] [--grad-accum N] --out VOL
     python -m dcos_commons_tpu_torch.frameworks.worker distill --preset 8b \\
@@ -50,6 +55,15 @@ staleness window of S seconds and adopts prefixes from siblings'
 ``/v1/prefix`` (``models.disagg.fetch_prefix``); the replica publishes
 its chains under its front door's address.
 
+``--serve-role prefill`` (with ``--slots`` and ``--pages``) serves the
+prefill tier of a disaggregated pair (``models.disagg.PrefillWorker``:
+``POST /v1/prefill`` answers packed KV spans); ``--serve-role decode
+--serve-peer URL[,URL...]`` serves the client front door and adopts the
+spans the prefill tier ships (``DisaggCoordinator``). Without
+``--slots``, without ``--pages``, with an infeasible paged engine or a
+decode tier without a peer, ``disagg_fallback`` says why and the replica
+serves co-located, as in the reference.
+
 ``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
 a sealed draft artifact (``models.speculative.save_draft``): a
 ``spec_armed`` event, or a coded ``spec_fallback`` (the reference's
@@ -73,9 +87,9 @@ What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
 ROADMAP Queue 1 item (peer weights: item 6; gangs and expert-parallel
 MoE training: item 7; pipelines, ring prefill and ring or Ulysses
-attention: item 9;
-disaggregation, the router and live resharding: item 10). The weight server is an accelerant in the
-reference, so asking for it only emits ``weight_server_error``.
+attention: item 9; the router and live resharding: item 10). The
+weight server is an accelerant in the reference, so asking for it only
+emits ``weight_server_error``.
 """
 
 from __future__ import annotations
@@ -115,17 +129,10 @@ def yaml_bool(value) -> bool:
 def _refuse_unported(args) -> None:
     """Raise :class:`NotPorted` for a serving knob whose module is not
     ported yet."""
-    if not args.serve:
-        return
-    role = args.serve_role
-    if role == "router":
+    if args.serve and args.serve_role == "router":
         raise NotPorted("router_not_ported", "--serve-role router: the "
                         "fleet router (models/router.py) is not ported "
                         "yet (ROADMAP Queue 1 item 10)")
-    if role != "colocated":
-        raise NotPorted("disagg_not_ported", f"--serve-role {role}: "
-                        "disaggregated prefill/decode tiers are not "
-                        "ported yet (ROADMAP Queue 1 item 10)")
 
 
 def _serving_arithmetic(args):
@@ -173,9 +180,10 @@ def _boot_serving_weights(args, template, init, registry=None):
     """Serving weights from, in the reference's order, a sibling's weight
     server (``WEIGHT_FETCH_PEERS``: not ported, refused, since serving
     the init in its place would be a different result), the newest
-    sharded checkpoint under ``--out`` restored into ``template`` (a tree
-    of uninitialised tensors, so the device never holds the weights
-    twice), or ``init()``. A checkpoint that fails its restore (pruned or
+    sharded checkpoint under ``--out`` restored into ``template()`` (a
+    tree of uninitialised tensors, built only when there is a checkpoint
+    to restore, so the device never holds the weights twice), or
+    ``init()``. A checkpoint that fails its restore (pruned or
     corrupt shards) falls through to the init with a
     ``weight_restore_fallback`` event. The restore's seconds land in the
     registry and the returned report, as in the reference."""
@@ -190,7 +198,7 @@ def _boot_serving_weights(args, template, init, registry=None):
     if step is not None:
         try:
             t0 = time.perf_counter()
-            params = ckpt.restore_sharded(args.out, template, step)
+            params = ckpt.restore_sharded(args.out, template(), step)
             dt = time.perf_counter() - t0
             report["restore_s"] = round(dt, 4)
             if registry is not None:
@@ -418,7 +426,7 @@ def run_llama(args) -> dict:
         registry = MetricsRegistry()
     if args.serve and args.quant == "none" and moe_cfg is None:
         params, boot_report = _boot_serving_weights(
-            args, llama.param_template(cfg, dev), init, registry)
+            args, lambda: llama.param_template(cfg, dev), init, registry)
     else:
         # int8 replicas keep their freshly quantized init, as in the
         # reference: quantized trees are outside the restore template,
@@ -441,6 +449,19 @@ def run_llama(args) -> dict:
               "tp": 1, "process_id": contract["process_id"]}
     if not args.serve:
         return result
+    if args.serve_role != "colocated":
+        # a disaggregated tier (dist/disagg.yml) never returns while
+        # healthy; a config it cannot run emits disagg_fallback and the
+        # replica serves co-located below. More than one process never
+        # gets here (distributed.initialize refuses it)
+        if args.slots > 0:
+            _serve_disagg(args, cfg, params, dev, registry, boot_report,
+                          result, moe_cfg)
+        else:
+            _emit({"event": "disagg_fallback", "role": args.serve_role,
+                   "reason": "disagg tiers need --slots on a "
+                             "single-process replica; serving "
+                             "co-located"})
     if args.slots > 0:
         _serve_slots(args, cfg, params, dev, registry, boot_report, result,
                      moe_cfg)
@@ -463,6 +484,34 @@ def run_llama(args) -> dict:
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
 
 
+def _serve_port(args) -> int:
+    """``--serve-port``; by default the reserved ``PORT_SERVE``, else
+    any."""
+    if args.serve_port >= 0:
+        return args.serve_port
+    return int(os.environ.get("PORT_SERVE", "0"))
+
+
+def _ready(port: int, registry, boot_report, compile_s: float,
+           t_admit: float) -> dict:
+    """Stamp ``serving.ready`` with the bound port and return the
+    ``cold_start`` report (its seconds also land in the registry)."""
+    registry.observe("autoscale.cold_start.compile_seconds", compile_s)
+    with open("serving.ready", "w") as f:
+        f.write(f"ok {port}\n")
+    admit_s = time.perf_counter() - t_admit
+    registry.observe("autoscale.cold_start.admit_seconds", admit_s)
+    cold_start_s = (boot_report["fetch_s"] + boot_report["restore_s"]
+                    + compile_s + admit_s)
+    registry.observe("autoscale.cold_start_seconds", cold_start_s)
+    return {"total_s": round(cold_start_s, 4),
+            "source": boot_report["source"],
+            "fetch_s": boot_report["fetch_s"],
+            "restore_s": boot_report["restore_s"],
+            "compile_s": round(compile_s, 4),
+            "admit_s": round(admit_s, 4)}
+
+
 def _serve_slots(args, cfg, params, dev, registry, boot_report,
                  result, moe_cfg=None) -> None:
     """Continuous batching behind the HTTP front door; never returns."""
@@ -476,13 +525,10 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
         # does not pay for it (other windows are captured at first use)
         warmup()
     compile_s = time.perf_counter() - t_compile
-    registry.observe("autoscale.cold_start.compile_seconds", compile_s)
     _start_weight_server(args)
-    port = args.serve_port
-    if port < 0:          # default: the reserved port, else any
-        port = int(os.environ.get("PORT_SERVE", "0"))
     t_admit = time.perf_counter()
-    frontend = ServingFrontend(server, port=port, max_queue=args.queue_limit,
+    frontend = ServingFrontend(server, port=_serve_port(args),
+                               max_queue=args.queue_limit,
                                decode_window=args.decode_window,
                                metrics=registry)
     frontend.start()
@@ -493,21 +539,10 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
         server.replica_id = ("http://" + socket.gethostname()
                              + f":{frontend.port}")
     # re-stamp the readiness marker now that the front door listens
-    with open("serving.ready", "w") as f:
-        f.write(f"ok {frontend.port}\n")
-    admit_s = time.perf_counter() - t_admit
-    registry.observe("autoscale.cold_start.admit_seconds", admit_s)
-    cold_start_s = (boot_report["fetch_s"] + boot_report["restore_s"]
-                    + compile_s + admit_s)
-    registry.observe("autoscale.cold_start_seconds", cold_start_s)
+    cold_start = _ready(frontend.port, registry, boot_report, compile_s,
+                        t_admit)
     _emit({"event": "serving", "slots": args.slots, "port": frontend.port,
-           "cold_start": {
-               "total_s": round(cold_start_s, 4),
-               "source": boot_report["source"],
-               "fetch_s": boot_report["fetch_s"],
-               "restore_s": boot_report["restore_s"],
-               "compile_s": round(compile_s, 4),
-               "admit_s": round(admit_s, 4)},
+           "cold_start": cold_start,
            **({"paged": page_stats} if page_stats else {}),
            **_device_report(server), **result})
     i = 0
@@ -521,6 +556,87 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
             if page_stats is not None:
                 hb["paged"] = server.page_stats()
             _emit(hb)
+        except Exception as e:
+            _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
+
+
+def _serve_disagg(args, cfg, params, dev, registry, boot_report, result,
+                  moe_cfg=None) -> bool:
+    """A disaggregated serving tier (``--serve-role prefill|decode``,
+    ``dist/disagg.yml``); never returns while healthy. The prefill tier
+    answers ``POST /v1/prefill`` with packed page spans
+    (``models.disagg.PrefillWorker``); the decode tier warms up, runs the
+    client front door with ``drive=False`` and a ``DisaggCoordinator``
+    shipping prompts to ``--serve-peer`` and adopting the returned pages
+    on pages free. A config the tier cannot run (no ``--pages``, an
+    infeasible paged engine, a decode tier without a peer) emits
+    ``disagg_fallback`` and returns False: the caller serves co-located.
+    A peer that dies later degrades per request (``peer_fallbacks``)."""
+    from ..models.disagg import DisaggCoordinator, PrefillWorker
+    from ..models.ingress import ServingFrontend
+    role = args.serve_role
+    if not args.pages:
+        _emit({"event": "disagg_fallback", "role": role,
+               "reason": "disagg tiers are paged-only: set "
+                         "--pages/SERVE_PAGES"})
+        return False
+    t_compile = time.perf_counter()
+    engine, page_stats = _make_serving_engine(args, cfg, params, dev,
+                                              registry, moe=moe_cfg)
+    if page_stats is None:
+        _emit({"event": "disagg_fallback", "role": role,
+               "reason": "paged engine infeasible (see paged_fallback)"})
+        return False
+    if role == "prefill":
+        compile_s = time.perf_counter() - t_compile
+        t_admit = time.perf_counter()
+        worker = PrefillWorker(engine, port=_serve_port(args),
+                               metrics=registry).start()
+        cold_start = _ready(worker.port, registry, boot_report, compile_s,
+                            t_admit)
+        _emit({"event": "serving", "role": "prefill", "port": worker.port,
+               "cold_start": cold_start, "paged": page_stats,
+               **_device_report(engine), **result})
+        i = 0
+        while True:
+            time.sleep(args.serve_interval)
+            i += 1
+            try:
+                _emit({"event": "heartbeat", "n": i, "role": "prefill",
+                       **engine.page_stats(), **_device_report(engine)})
+            except Exception as e:
+                _emit({"event": "heartbeat_error", "n": i,
+                       "error": str(e)})
+    peer = args.serve_peer.strip()
+    if not peer:
+        _emit({"event": "disagg_fallback", "role": role,
+               "reason": "no --serve-peer/SERVE_PEER: serving "
+                         "co-located"})
+        return False
+    engine.warmup()
+    compile_s = time.perf_counter() - t_compile
+    t_admit = time.perf_counter()
+    frontend = ServingFrontend(engine, port=_serve_port(args),
+                               max_queue=args.queue_limit,
+                               decode_window=args.decode_window,
+                               metrics=registry)
+    frontend.start(drive=False)
+    coord = DisaggCoordinator(engine, frontend, peer,
+                              decode_window=args.decode_window).start()
+    cold_start = _ready(frontend.port, registry, boot_report, compile_s,
+                        t_admit)
+    _emit({"event": "serving", "role": "decode", "port": frontend.port,
+           "peer": peer, "peers": coord.peers, "cold_start": cold_start,
+           "paged": page_stats, **_device_report(engine), **result})
+    i = 0
+    while True:
+        time.sleep(args.serve_interval)
+        i += 1
+        try:
+            _emit({"event": "heartbeat", "n": i, "role": "decode",
+                   **frontend.stats(), "load": frontend.load_gauges(),
+                   "paged": engine.page_stats(), "disagg": coord.stats(),
+                   **_device_report(engine)})
         except Exception as e:
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
 
@@ -937,8 +1053,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-role",
                    default=os.environ.get("SERVE_ROLE", "colocated"),
                    choices=["colocated", "prefill", "decode", "router"],
-                   help="--serve: tier role; only colocated is ported "
-                        "(the others are item 10 and exit 2)")
+                   help="--serve: tier role. 'prefill' answers "
+                        "/v1/prefill with packed KV page spans, chunked "
+                        "prefill flat out; 'decode' runs the client front "
+                        "door and adopts pages shipped from --serve-peer "
+                        "(dist/disagg.yml); both need --slots and --pages, "
+                        "else disagg_fallback and co-located serving. "
+                        "'router' is not ported (item 10: exit 2)")
     p.add_argument("--route-replicas",
                    default=os.environ.get("ROUTE_REPLICAS", ""),
                    help="router (not ported)")
@@ -969,7 +1090,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="router (not ported)")
     p.add_argument("--serve-peer",
                    default=os.environ.get("SERVE_PEER", ""),
-                   help="--serve-role decode's prefill tier (not ported)")
+                   help="--serve-role decode: the prefill tier's base "
+                        "URL(s), http://host:port, comma-separated for "
+                        "several (round-robin with /v1/healthz-gated "
+                        "per-peer fallback). Empty degrades loudly to "
+                        "co-located serving (disagg_fallback)")
     p.add_argument("--attn", default="auto",
                    choices=["auto", "dense", "flash", "ring", "ulysses"],
                    help="llama-train: attention (ring and ulysses are not "

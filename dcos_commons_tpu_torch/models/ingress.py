@@ -38,8 +38,13 @@ speculative gauges (``spec_windows``, ``spec_proposed``,
 with KV tiers the ``kv_tier_*`` gauges, to the load gauges and the
 registry.
 
-Not ported: the external-driver interface of the tensor-parallel gang
-loop (``start(drive=False)``, ``attach``, ``mark_driven``).
+External drivers: ``start(drive=False)`` starts the HTTP listener only,
+and the driver (``models.disagg.DisaggCoordinator``) owns the engine
+through ``drain_intake``, ``attach``, ``sync`` and ``fail_inflight``,
+stamping ``mark_driven`` every iteration; health is ok while the stamp
+is younger than ``driven_ttl_s``. As in the reference, such a front door
+never serves ``/v1/prefix`` exports (only its own engine loop drains
+them): a sibling's fetch times out into a 503 and recomputes.
 """
 
 from __future__ import annotations
@@ -185,6 +190,7 @@ class ServingFrontend:
         self._window: deque = deque(maxlen=1024)      # (t, ttft_ms, tpot_ms)
         self._sheds: deque = deque(maxlen=4096)       # t of each rejection
         self._engine_thread: Optional[threading.Thread] = None
+        self._driven_at: Optional[float] = None       # mark_driven()
         self._own_metrics = metrics is None
         # fold the rolling load gauges into the registry so one scrape
         # carries queue fill, shed rate, and window TTFT p95 alongside
@@ -558,19 +564,34 @@ class ServingFrontend:
 
     # ---------------------------------------------------------- lifecycle
 
-    def start(self) -> "ServingFrontend":
-        """Start the engine thread and the HTTP listener."""
-        self._engine_thread = threading.Thread(
-            target=self._run_engine, daemon=True, name="serving-engine")
-        self._engine_thread.start()
+    def start(self, drive: bool = True) -> "ServingFrontend":
+        """Start the engine thread and the HTTP listener; ``drive=False``
+        starts the listener only: an external driver owns the engine and
+        calls :meth:`mark_driven`."""
+        if drive:
+            self._engine_thread = threading.Thread(
+                target=self._run_engine, daemon=True, name="serving-engine")
+            self._engine_thread.start()
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name="serving-http")
         self._http_thread.start()
         return self
 
+    def mark_driven(self) -> None:
+        """An external driver stamps liveness each iteration; health stays
+        ok while the stamp is fresh (``driven_ttl_s``: generous, so a
+        first-request capture inside one iteration does not flap it)."""
+        self._driven_at = time.monotonic()
+
+    driven_ttl_s: float = 600.0
+
+    # ------------------------------------------- external-driver interface
+
     def drain_intake(self, budget: int) -> List[_Pending]:
-        """Pop up to ``budget`` queued requests (engine thread only)."""
+        """Pop up to ``budget`` queued requests for the engine's driver,
+        which submits them and calls :meth:`attach` with each one's
+        slot."""
         out = []
         while len(out) < budget:
             try:
@@ -578,6 +599,20 @@ class ServingFrontend:
             except queue.Empty:
                 break
         return out
+
+    def attach(self, slot: int, pending: _Pending) -> None:
+        """Bind a submitted request to its slot and fan out what the
+        submit already produced (a first token, an instant retire)."""
+        self._live[slot] = pending
+        self._sync()
+
+    def sync(self) -> None:
+        """Fan freshly decoded tokens out to their request streams."""
+        self._sync()
+
+    def fail_inflight(self, error: str) -> None:
+        """Fail every in-flight request and reset the engine."""
+        self._fail_inflight(error)
 
     def stop(self) -> None:
         self._stop.set()
@@ -606,6 +641,9 @@ class ServingFrontend:
     def health(self) -> dict:
         alive = (self._engine_thread is not None
                  and self._engine_thread.is_alive())
+        if not alive and self._driven_at is not None:
+            # driven from outside: a fresh stamp is serving
+            alive = time.monotonic() - self._driven_at < self.driven_ttl_s
         out = {"ok": alive, "slots": self.engine.slots,
                "free": len(self.engine.free_slots()),
                "queued": self._queue.qsize()}

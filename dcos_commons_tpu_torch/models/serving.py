@@ -52,9 +52,13 @@ Differences from the reference, all mechanical:
   windows, and a directory hit adopts a sibling's pages, both as an
   eager host-to-device ``index_copy_`` INTO the existing pool tensors,
   never a new pool, since every captured window binds the pool;
+* disaggregation (:meth:`PagedServer.prefill_span`,
+  :meth:`PagedServer.adopt_pages`): a foreign span installs with the same
+  in-place ``index_copy_``, and the adopted stream's length and first
+  token are written into the bound ``lengths`` and ``cur_tok``;
 * not ported yet, and refused by the constructors (no such parameter):
-  tensor-parallel meshes and, for the paged engine, disaggregation,
-  migration, ring prefill and expert-parallel meshes.
+  tensor-parallel meshes and, for the paged engine, migration, ring
+  prefill and expert-parallel meshes.
 """
 
 from __future__ import annotations
@@ -698,6 +702,10 @@ class PagedServer(_Engine):
         self.directory_fallbacks = 0   # stale hints -> recompute
         self.adopted_prefix_pages = 0  # pages installed from siblings
         self.exported_prefixes = 0     # prefix spans served to siblings
+        # disaggregation (prefill_span / adopt_pages)
+        self.shipped_spans = 0         # spans this prefill tier produced
+        self.adopted_spans = 0         # foreign spans installed here
+        self.adopt_shared_pages = 0    # span pages the radix already held
         # greedy engines at an identical (config, topology, geometry) key
         # share what carries no engine state, the rope table; each engine
         # captures its own graphs (parallel/aot.py). Sampled engines
@@ -1111,6 +1119,176 @@ class PagedServer(_Engine):
             self._prefill_q.append(slot)
         return slot
 
+    # ----------------------------------------------------- disaggregation
+
+    def prefill_span(self, prompt: List[int],
+                     trace=None) -> Optional[Dict[str, Any]]:
+        """The prefill tier's whole job: run ``prompt`` through chunked
+        prefill flat out (every chunk back to back, no decode, no slot
+        occupied) and return the finished span: the prompt's K/V pages on
+        the host (:meth:`_gather_span`) and the first generated token. The
+        span's full prompt pages enter this engine's radix before its
+        working references drop, so a repeated system prompt skips the
+        compute next time. None when the pool is exhausted (transient);
+        ValueError for a prompt this engine can never prefill. ``trace``
+        (an incoming ``tracing.TraceContext``) gets one
+        ``engine.prefill_span`` span."""
+        t_pre0 = time.perf_counter()
+        prompt = list(prompt)
+        n = len(prompt)
+        if not prompt:
+            raise ValueError("empty prompt")
+        if n + 1 > self.cfg.max_seq:
+            # the decode side must have room for >= 1 generated token
+            raise ValueError(f"prompt {n} leaves no decode room in "
+                             f"max_seq {self.cfg.max_seq}")
+        ps = self.page_size
+        span_pages = -(-n // ps)
+        if span_pages > self.total_pages:
+            raise ValueError(f"prompt {n} needs {span_pages} pages but "
+                             f"the pool holds {self.total_pages}")
+        shared: List[int] = []
+        node = None
+        if self.radix is not None:
+            shared, node = self.radix.lookup(prompt)
+        own_needed = span_pages - len(shared)
+        pages = self.ledger.alloc(own_needed)
+        if pages is None and self.radix is not None:
+            self._evict(own_needed - self.ledger.free_count())
+            pages = self.ledger.alloc(own_needed)
+        if pages is None:
+            for p in shared:
+                self.ledger.unref(p)
+            return None
+        matched = len(shared) * ps
+        start = matched
+        if node is not None:
+            b = self.radix.boundary(node, prompt, matched)
+            if b is not None:
+                src, valid = b
+                for side in ("k", "v"):
+                    _copy_page(self.pool[side], src, pages[0])
+                start = matched + valid
+        stream_pages = shared + pages
+        row = np.full((self.pages_per_stream,), self.scratch, np.int32)
+        row[:span_pages] = stream_pages
+        tbl = torch.from_numpy(row).to(self.device)
+        while start < n:
+            logits, start = self._chunk(tbl, prompt, start)
+        first = int(self._select(logits)[0])
+        payload = self._gather_span(stream_pages)
+        if self.radix is not None:
+            self._radix_adopt(prompt, stream_pages)
+        for p in stream_pages:
+            self.ledger.unref(p)
+        self.shipped_spans += 1
+        tracer = self.tracer
+        if tracer is not None and trace is not None:
+            tracer.record("engine.prefill_span", t_pre0,
+                          time.perf_counter(), parent=trace,
+                          prompt_len=n, pages=span_pages,
+                          shared_pages=len(shared))
+        return {"version": 1, "prompt": prompt, "first_token": first,
+                "page_size": ps, "kv_quant": bool(self.cfg.kv_quant),
+                "payload": payload}
+
+    def adopt_pages(self, span: Dict[str, Any], max_new: int = 32,
+                    request_id: Any = None) -> Optional[int]:
+        """Install a foreign prefill span (a peer's :meth:`prefill_span`,
+        possibly shipped by ``models.disagg``) under the ledger's
+        refcounts and start the stream decode-active at its first token.
+        Admission is gated on pages free as in :meth:`submit`: the stream
+        index, or None when streams or pages are exhausted. Full prompt
+        pages the radix already holds are shared by reference and their
+        payload is never written; the rest install IN PLACE into the pool
+        (:meth:`_install`), and the length and first token are written
+        into the bound ``lengths`` and ``cur_tok``, since captured windows
+        read those very tensors. ValueError for a span this engine can
+        never admit, raised before any reservation; a failure after the
+        reservation gives every reference back before re-raising. As in
+        the reference, an armed draft's cache is not prefilled here."""
+        t_adopt0 = time.perf_counter()
+        prompt = list(span["prompt"])
+        n = len(prompt)
+        first = int(span["first_token"])
+        if int(span.get("page_size", self.page_size)) != self.page_size:
+            raise ValueError(
+                f"span page_size {span.get('page_size')} != pool page "
+                f"size {self.page_size}; tiers must agree")
+        if bool(span.get("kv_quant")) != bool(self.cfg.kv_quant):
+            raise ValueError("span/pool kv_quant mismatch: shipped "
+                             "pages are raw pool bytes, tiers must "
+                             "run the same KV dtype")
+        reason = self._validate_item({"prompt": prompt,
+                                      "max_new": max_new})
+        if reason is not None:
+            raise ValueError(reason)
+        ps = self.page_size
+        span_pages = -(-n // ps)
+        payload = span["payload"]
+        if not self._span_fits(payload, span_pages):
+            want = (self.cfg.n_layers, span_pages, ps, self.cfg.n_kv_heads,
+                    self.cfg.head_dim)
+            raise ValueError(f"span payload shape "
+                             f"{_payload_shape(payload['k'])} != pool page "
+                             f"shape {want}")
+        self._flush_pending()
+        free = self.free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        total = -(-(n + max_new) // ps)
+        shared: List[int] = []
+        if self.radix is not None:
+            shared, _ = self.radix.lookup(prompt)
+        own_needed = total - len(shared)
+        pages = self.ledger.alloc(own_needed)
+        if pages is None and self.radix is not None:
+            self._evict(own_needed - self.ledger.free_count())
+            pages = self.ledger.alloc(own_needed)
+        if pages is None:
+            for p in shared:
+                self.ledger.unref(p)
+            return None
+        matched = len(shared)
+        try:
+            # the shipped K/V for prompt pages past the radix match; the
+            # decode-tail pages start blank, as any stream's
+            install = span_pages - matched
+            if install > 0:
+                self._install(payload, matched, span_pages,
+                              pages[:install])
+        except Exception:
+            # an aborted transfer: every reservation unwinds
+            for p in shared:
+                self.ledger.unref(p)
+            for p in pages:
+                self.ledger.unref(p)
+            raise
+        stream_pages = shared + pages
+        row = self._tables[slot]
+        row[:] = self.scratch
+        row[:total] = stream_pages
+        self._stream_pages[slot] = stream_pages
+        self._prompts[slot] = prompt
+        self._prefill_pos[slot] = n
+        self._decoding[slot] = True
+        self.lengths[slot] = n
+        self.cur_tok[slot] = first
+        rid = request_id if request_id is not None else object()
+        self.requests[slot] = _Request(rid, n, max_new, [first])
+        self.adopted_spans += 1
+        self.adopt_shared_pages += matched
+        tracer = self.tracer
+        if tracer is not None:
+            ctx = getattr(rid, "trace", None)
+            if ctx is not None:
+                tracer.record("engine.adopt_span", t_adopt0,
+                              time.perf_counter(), parent=ctx,
+                              pages=span_pages, shared_pages=matched)
+        self._maybe_retire(slot)
+        return slot
+
     # ------------------------------------------------------------- decode
 
     def _flush_pending(self) -> None:
@@ -1130,6 +1308,23 @@ class PagedServer(_Engine):
             self._decoding[slot] = True
             self._maybe_retire(slot)
 
+    def _chunk(self, tbl: torch.Tensor, prompt: List[int],
+               start: int) -> Tuple[torch.Tensor, int]:
+        """One fixed-shape prefill chunk of ``prompt`` from ``start``
+        through the page-table row ``tbl``: (logits at the prompt's last
+        position when the chunk reaches it, the chunk's end)."""
+        n = len(prompt)
+        c = self.prefill_chunk
+        end = min(start + c, n)
+        chunk = np.zeros((1, c), np.int32)
+        chunk[0, :end - start] = prompt[start:end]
+        li = (n - 1 - start) if end >= n else 0
+        logits, self.pool = llama.prefill_chunk_paged(
+            self.cfg, self.params, self.pool, tbl,
+            torch.from_numpy(chunk).to(self.device), start, n, li,
+            self.scratch, rope=self._rope, ffn_override=self._ffn)
+        return logits, end
+
     def _prefill_tick(self) -> None:
         """Run ONE fixed-shape prefill chunk for the stream at the head
         of the prefill queue."""
@@ -1140,21 +1335,11 @@ class PagedServer(_Engine):
         slot = self._prefill_q[0]
         prompt = self._prompts[slot]
         n = len(prompt)
-        c = self.prefill_chunk
-        start = self._prefill_pos[slot]
-        end = min(start + c, n)
-        chunk = np.zeros((1, c), np.int32)
-        chunk[0, :end - start] = prompt[start:end]
-        last = end >= n
-        li = (n - 1 - start) if last else 0
-        dev = self.device
-        logits, self.pool = llama.prefill_chunk_paged(
-            self.cfg, self.params, self.pool,
-            torch.tensor(self._tables[slot], device=dev),
-            torch.tensor(chunk, device=dev), start, n, li,
-            self.scratch, rope=self._rope, ffn_override=self._ffn)
+        logits, end = self._chunk(
+            torch.tensor(self._tables[slot], device=self.device), prompt,
+            self._prefill_pos[slot])
         self._prefill_pos[slot] = end
-        if last:
+        if end >= n:
             toks = self._select(logits)
             self.lengths[slot] = n
             self.cur_tok[slot] = toks[0]
@@ -1238,14 +1423,15 @@ class PagedServer(_Engine):
                                 lambda: self._window(k, mp))
         return self._emit(host, active)
 
-    def warmup(self, widths=(1,)) -> Dict[str, float]:
+    def warmup(self, widths=(1,), window: int = 1) -> Dict[str, float]:
         """The cold-start ``compile`` phase before admission: one prefill
-        chunk, then the one-step window of each decode-table width in
-        ``widths`` captured as a CUDA graph (on CUDA) and run once, every
-        write landing on the scratch page and no length or token
-        advancing. Windows of other sizes or widths are captured at
-        first use. Returns ``{phase: seconds}`` with the reference's
-        keys (``chunk``, ``step_w<w>``)."""
+        chunk, then the ``window``-step decode window (one step by
+        default) of each decode-table width in ``widths`` captured as a
+        CUDA graph (on CUDA) and run once, every write landing on the
+        scratch page and no length or token advancing. Windows of other
+        sizes or widths are captured at first use. Returns ``{phase:
+        seconds}`` with the reference's keys (``chunk``, ``step_w<w>``;
+        ``step<k>_w<w>`` for a window of k > 1 steps)."""
         widths = [int(w) for w in widths]
         for w in widths:
             if not 1 <= w <= self.pages_per_stream:
@@ -1264,11 +1450,13 @@ class PagedServer(_Engine):
             self.scratch, rope=self._rope, ffn_override=self._ffn)
         logits.cpu()
         timings["chunk"] = time.perf_counter() - t0
+        k = max(int(window), 1)
         for w in widths:
             t1 = time.perf_counter()
             self._table(w).fill_(self.scratch)
-            self._run_window((1, w), [], lambda: self._window(1, w))
-            timings[f"step_w{w}"] = time.perf_counter() - t1
+            self._run_window((k, w), [], lambda: self._window(k, w))
+            timings[f"step{k if k > 1 else ''}_w{w}"] = (time.perf_counter()
+                                                         - t1)
         return timings
 
     # ----------------------------------------------- speculative decoding
@@ -1545,6 +1733,9 @@ class PagedServer(_Engine):
             "prefix_hits": self.radix.hits if self.radix else 0,
             "prefix_shared_pages": (self.radix.shared_pages
                                     if self.radix else 0),
+            "shipped_spans": self.shipped_spans,
+            "adopted_spans": self.adopted_spans,
+            "adopt_shared_pages": self.adopt_shared_pages,
             "tier_demoted_pages": self.tier_demoted_pages,
             "tier_promoted_pages": self.tier_promoted_pages,
             "tier_fallbacks": self.tier_fallbacks,

@@ -29,7 +29,10 @@ launches of the slot kernel a window), the verify against successive
 kernel decode steps, and the batch-1 ``SpeculativeDecoder`` through the
 kernels; the KV tiers: windows captured before a promote replaying over
 the promoted pages equal to the eager loop, and promoted and adopted
-pages byte-equal to their source, bf16 and int8 pools.
+pages byte-equal to their source, bf16 and int8 pools; disaggregation:
+a span adopted in place (the bound pool, lengths, tokens and table kept,
+its pages bitwise the span's, the co-located engine's stream) and
+graphed windows over adopted streams equal to the eager loop.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -1494,3 +1497,109 @@ def test_promoted_and_adopted_pages_are_byte_equal_on_the_card(
     assert sib.drain([dict(req, request_id=2)])[2] == want
     assert sib.directory_hits == 1 and sib.adopted_prefix_pages == 4
     assert bits(cached(sib)) == bits(before)
+
+
+# ---------------------------------------------------------------------------
+# disaggregation: spans adopted into a pool the graphs bind
+
+
+def _pair_on_card(cfg, params, dev):
+    return [serving.PagedServer(cfg, params, slots=4, page_size=16,
+                                prefill_chunk=16, device=dev)
+            for _ in range(2)]
+
+
+def _shipped(pre, prompt):
+    from dcos_commons_tpu_torch.models.disagg import pack_span, unpack_span
+    return unpack_span(pack_span(pre.prefill_span(prompt)))
+
+
+def _span_bits(payload, a=0, b=None):
+    out = []
+    for side in ("k", "v"):
+        val = payload[side]
+        for t in ([val["q"], val["s"]] if isinstance(val, dict) else [val]):
+            out.append(t[:, a:b].contiguous().view(torch.uint8).cpu()
+                       .numpy().tobytes())
+    return out
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_adoption_installs_in_place_on_the_card(dev, kv_quant):
+    """An adoption writes into the very tensors the engine was built with
+    (pool, lengths, tokens, table buffer): the installed pages read back
+    bitwise the span's payload; a window right after it emits the token
+    after ``first``; ``max_new=1`` retires at once; each adopted stream
+    is the co-located engine's stream for its prompt."""
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pre, dec = _pair_on_card(cfg, params, dev)
+    colocated = serving.PagedServer(cfg, params, slots=4, page_size=16,
+                                    prefill_chunk=16, device=dev)
+    dec.warmup()
+    bound = {"pool": dict(dec.pool), "lengths": dec.lengths,
+             "cur_tok": dec.cur_tok, "table": dec._table_buf}
+    for req in _tier_reqs(cfg, seed=9, max_new=12):
+        prompt = req["prompt"]
+        want = colocated.drain([dict(req)], decode_window=8)[
+            req["request_id"]]
+        span = _shipped(pre, prompt)
+        assert span["first_token"] == want[0]
+        slot = dec.adopt_pages(span, max_new=12, request_id="a")
+        n = -(-len(prompt) // 16)
+        got = dec._gather_span(dec._stream_pages[slot][:n])
+        assert _span_bits(got) == _span_bits(span["payload"])
+        assert dec.requests[slot].tokens == [want[0]]
+        assert int(dec.lengths[slot]) == len(prompt)
+        assert int(dec.cur_tok[slot]) == want[0]
+        assert dec.step_many(8)[slot] == want[1:9]
+        assert dec.drain([], decode_window=8)["a"] == want
+        dec.finished.clear()
+        one = dec.adopt_pages(span, max_new=1, request_id="one")
+        assert one is not None and dec.requests[one] is None
+        assert dec.finished.pop("one") == want[:1]
+        assert not dec.requests_active()
+    assert dec.adopted_spans == 8 and dec.adopt_shared_pages > 0
+    assert all(dec.pool[s] is bound["pool"][s] for s in bound["pool"])
+    assert dec.lengths is bound["lengths"]
+    assert dec.cur_tok is bound["cur_tok"]
+    assert dec._table_buf is bound["table"]
+    assert dec.ledger_violations() == [] and pre.ledger_violations() == []
+
+
+@pytest.mark.parametrize("k,kv_quant,warm", [(1, False, True),
+                                              (8, True, False),
+                                              (8, False, True)])
+def test_graphed_windows_over_adopted_streams_equal_the_eager_loop(
+        dev, k, kv_quant, warm):
+    """Four streams adopted from a prefill tier decode through the graphs
+    as the eager loop does (tokens, lengths, K/V bitwise). ``warm``: every
+    width's k-step window was captured at warm-up, before the adoption
+    (``warmup(widths, window=k)``), and nothing is captured after it;
+    else the windows are captured at first use, over adopted pages."""
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pre, dec = _pair_on_card(cfg, params, dev)
+    dec.warmup(widths=range(1, dec.pages_per_stream + 1),
+               window=k if warm else 1)
+    captured = set(dec._graphs)
+    bound = dict(dec.pool)
+    for req in _tier_reqs(cfg):
+        assert dec.adopt_pages(_shipped(pre, req["prompt"]), max_new=40,
+                               request_id=req["request_id"]) is not None
+    assert len(dec._active()) == 4
+    kv = _kv_clone(dec.pool)
+    want, ln, tok = _eager_windows(dec, kv, 3, k)
+    got = _graphed_windows(dec, 3, k)
+    for i, toks in got.items():
+        assert toks == want[:, i].tolist(), i
+    assert torch.equal(dec.lengths, ln) and torch.equal(dec.cur_tok, tok)
+    assert _kv_equal(dec.pool, kv)
+    if warm:
+        assert set(dec._graphs) == captured
+        assert {key for key in captured if key[0] == k} == {
+            (k, w) for w in range(1, dec.pages_per_stream + 1)}
+    assert all(dec.pool[side] is bound[side] for side in bound)
+    assert dec.ledger_violations() == []

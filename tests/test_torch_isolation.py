@@ -58,7 +58,7 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("ops.flash_attention", "ops.losses", "models.train",
                  "models.ingress", "metrics", "tracing", "utils.stats",
                  "parallel.aot", "parallel.distributed",
-                 "frameworks.worker"):
+                 "frameworks.worker", "models.disagg"):
         assert f"dcos_commons_tpu_torch.{name}" in mods
 
 

@@ -1,7 +1,8 @@
 """``PagedServer.warmup``, the engines' static decode state and
 ``init_quantized_params`` in the port, against the JAX package where it
-has a counterpart: warm-up's phases carry the reference's keys, write
-nothing but the scratch page and change no later token; the tensors a
+has a counterpart: warm-up's phases carry the reference's keys (and a
+warmed k-step window ``step<k>_w<w>``), write nothing but the scratch
+page and change no later token; the tensors a
 decode window reads or writes stay the same tensors across windows and
 ``reset`` (which zeroes them in place, so a fresh engine's tokens
 follow); and the host-side int8 init equals quantizing the plain init."""
@@ -77,6 +78,33 @@ def test_warmup_writes_only_the_scratch_page(kv_quant):
                for b, a in zip(before, after))
     assert torch.equal(srv.lengths, lengths)
     assert torch.equal(srv.cur_tok, toks)
+    assert srv.ledger_violations() == []
+
+
+@pytest.mark.parametrize("window", [4, 8])
+def test_a_warm_window_of_k_steps_touches_only_scratch(window):
+    """``warmup(widths, window=k)`` runs (on CUDA: captures) the k-step
+    window of each width: keys ``step<k>_w<w>``; mid-service it writes
+    only the scratch page, moves no length or token, and the streams
+    then decode the cold engine's tokens."""
+    cfg, params = _tiny()
+    cold = ts.PagedServer(cfg, params, device="cpu", **KW)
+    srv = ts.PagedServer(cfg, params, device="cpu", **KW)
+    reqs = _reqs()[:2]
+    want = cold.drain([dict(r) for r in reqs], decode_window=window)
+    srv.submit_many([dict(r) for r in reqs])
+    for _ in range(5):
+        srv.step()
+    before = _pool_pages(srv.pool)
+    lengths, toks = srv.lengths.clone(), srv.cur_tok.clone()
+    got = srv.warmup(widths=(1, 2, 4), window=window)
+    assert list(got) == ["chunk"] + [f"step{window}_w{w}" for w in (1, 2, 4)]
+    after = _pool_pages(srv.pool)
+    for b, a in zip(before, after):
+        np.testing.assert_array_equal(b[:, :srv.scratch], a[:, :srv.scratch])
+    assert torch.equal(srv.lengths, lengths)
+    assert torch.equal(srv.cur_tok, toks)
+    assert srv.drain([], decode_window=window) == want
     assert srv.ledger_violations() == []
 
 

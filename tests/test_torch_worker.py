@@ -6,7 +6,10 @@ result has the reference's keys; as a subprocess with ``--serve --slots``
 answers ``POST /v1/generate`` with the tokens of a port engine built
 directly from the same seed, emits heartbeats and exits on SIGTERM; a
 page size that does not divide ``max_seq`` falls back to slots; every
-knob of a module not ported yet exits 2 with its coded error; the KV tier
+knob of a module not ported yet exits 2 with its coded error; the
+disaggregated roles serve as a prefill/decode pair with the co-located
+engine's tokens, and each ``disagg_fallback`` reason (and a dead peer)
+serves co-located; the KV tier
 and prefix-directory knobs build the reference's tier store and
 directory (``kv_tier_fallback`` on an unusable disk directory) and the
 served ``/v1/stats`` carries the ``kv_tier_*`` gauges.
@@ -258,14 +261,13 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 
 
 # (index, workload, args, env, code): the index keeps each case's id as
-# it was while speculative decoding, the checkpoint restore, profiling and
-# MoE serving were refused (MoE training stays refused: it needs the mesh)
+# it was while speculative decoding, the checkpoint restore, profiling,
+# MoE serving and the disaggregated roles (3, 4) were refused (MoE
+# training stays refused: it needs the mesh)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
      "longctx_not_ported"),
-    (3, "llama", ["--serve-role", "prefill"], {}, "disagg_not_ported"),
-    (4, "llama", ["--serve-role", "decode"], {}, "disagg_not_ported"),
     (5, "llama", ["--serve-role", "router"], {}, "router_not_ported"),
     (9, "llama", [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
      "weight_fetch_not_ported"),
@@ -291,6 +293,130 @@ def test_unported_knob_exits_2_with_its_code(workload, args, env, code,
     assert len(errors) == 1 and errors[0]["code"] == code
     assert re.search(r"item [4-9]|item 10", errors[0]["error"])
     assert not any(e.get("event") == "serving" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated roles
+
+
+def _direct_paged(prompts, max_new, **kw):
+    """The tokens of a paged engine built directly from the worker's seed:
+    the co-located ``--pages 64`` worker's replies."""
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    srv = ts.PagedServer(cfg, params, slots=2, device="cpu",
+                         **{"pages": 64, **kw})
+    return [srv.drain([{"prompt": p, "max_new": max_new,
+                        "request_id": i}], decode_window=8)[i]
+            for i, p in enumerate(prompts)]
+
+
+def _healthz(port):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/healthz",
+                                timeout=20) as r:
+        return json.loads(r.read())
+
+
+SERVE = ["--serve", "--slots", "2", "--serve-port", "0"]
+# (name, flags, reason, engine served co-located): each disagg_fallback
+# reason of the reference's worker, after which the replica serves
+DISAGG_FALLBACKS = [
+    ("no_slots", ["--serve", "--slots", "0", "--serve-role", "prefill"],
+     "--slots", None),
+    ("no_pages", [*SERVE, "--serve-role", "prefill"], "paged-only",
+     "slots"),
+    ("infeasible", [*SERVE, "--serve-role", "decode", "--pages", "64",
+                    "--page-size", "48", "--serve-peer",
+                    "http://127.0.0.1:9"], "infeasible", "slots"),
+    ("no_peer", [*SERVE, "--serve-role", "decode", "--pages", "64"],
+     "serve-peer", "paged"),
+]
+
+
+@pytest.mark.parametrize("flags,reason,engine",
+                         [c[1:] for c in DISAGG_FALLBACKS],
+                         ids=[c[0] for c in DISAGG_FALLBACKS])
+def test_disagg_fallback_serves_colocated(tmp_path, flags, reason, engine):
+    """A tier config the reference cannot run emits ``disagg_fallback``
+    (``role``, ``reason``) and the replica serves co-located: the slot
+    engine, the paged engine, or with ``--slots 0`` the heartbeat
+    decode."""
+    w = _Worker(tmp_path, *flags)
+    try:
+        fb = w.event("disagg_fallback")
+        assert sorted(fb) == ["event", "reason", "role"]
+        assert reason in fb["reason"] and fb["role"] in ("prefill",
+                                                         "decode")
+        serving = w.event("serving")
+        assert "role" not in serving
+        if engine is None:
+            assert serving["slots"] == 0
+            w.event("heartbeat")
+        else:
+            assert ("paged" in serving) == (engine == "paged")
+            got = _post(serving["port"], {"prompt": PROMPTS[0],
+                                          "max_new": 4})["tokens"]
+            if engine == "paged":
+                assert [got] == _direct_paged(PROMPTS[:1], 4)
+            else:
+                assert len(got) == 4
+    finally:
+        w.stop()
+
+
+@pytest.mark.parametrize("peer", ["prefill_worker", "dead"])
+def test_disagg_pair_serves_the_colocated_tokens(tmp_path, peer):
+    """A prefill worker and a decode worker pointed at it: the decode
+    front door answers the co-located ``--pages 64`` engine's tokens,
+    its heartbeat counts the shipped spans and no fallback, and the
+    prefill tier's ``/v1/healthz`` and heartbeat name its role. Pointed
+    at a dead peer instead, the decode worker serves every request
+    co-located and counts each in ``peer_fallbacks``."""
+    workers = []
+    try:
+        if peer == "dead":
+            url = "http://127.0.0.1:9"
+        else:
+            (tmp_path / "prefill").mkdir()
+            workers.append(_Worker(tmp_path / "prefill", *SERVE,
+                                   "--pages", "64", "--serve-role",
+                                   "prefill"))
+            pre = workers[0].event("serving")
+            assert pre["role"] == "prefill" and pre["paged"]["pages"] == 64
+            assert (tmp_path / "prefill" / "serving.ready").read_text() == \
+                f"ok {pre['port']}\n"
+            url = f"http://127.0.0.1:{pre['port']}"
+        (tmp_path / "decode").mkdir()
+        dec = _Worker(tmp_path / "decode", *SERVE, "--pages", "64",
+                      "--serve-role", "decode", "--serve-peer", url)
+        workers.append(dec)
+        serving = dec.event("serving")
+        assert serving["role"] == "decode" and serving["peers"] == [url]
+        assert serving["peer"] == url and "cold_start" in serving
+        got = [_post(serving["port"], {"prompt": p, "max_new": 6})["tokens"]
+               for p in PROMPTS]
+        assert _healthz(serving["port"])["ok"]
+        hb = dec.event("heartbeat", where=lambda e: e.get("requests") == 2)
+        assert hb["role"] == "decode" and hb["tokens"] == 12
+        shipped = 0 if peer == "dead" else 2
+        assert hb["disagg"]["spans_shipped"] == shipped
+        assert hb["disagg"]["peer_fallbacks"] == 2 - shipped
+        assert hb["paged"]["adopted_spans"] == shipped
+        if peer != "dead":
+            hz = _healthz(pre["port"])
+            assert hz["role"] == "prefill" and hz["ok"]
+            assert hz["shipped_spans"] == 2
+            beat = workers[0].event("heartbeat",
+                                    where=lambda e: e["shipped_spans"] == 2)
+            assert beat["role"] == "prefill"
+        for w in workers:
+            assert w.stop() == -signal.SIGTERM
+    finally:
+        for w in workers:
+            if w.proc.poll() is None:
+                w.proc.kill()
+    assert got == _direct_paged(PROMPTS, 6)
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +642,8 @@ def test_serving_weights_restore_a_jax_checkpoint_bitwise(tmp_path, capsys):
         ["llama", "--serve", "--out", str(tmp_path / "vol")])
     template = tl.param_template(tl.LlamaConfig.tiny(), "cpu")
     params, report = tworker._boot_serving_weights(
-        args, template, lambda: pytest.fail("restored, not initialised"))
+        args, lambda: template,
+        lambda: pytest.fail("restored, not initialised"))
     assert report["source"] == "disk" and report["step"] == 4
     assert report["restore_s"] >= 0 and report["fetch_s"] == 0.0
     want = params_from_jax(jax.device_get(jp), device="cpu")
@@ -530,6 +657,20 @@ def test_serving_weights_restore_a_jax_checkpoint_bitwise(tmp_path, capsys):
     assert not [e for e in _events(capsys) if "fallback" in e["event"]]
 
 
+def test_no_checkpoint_builds_no_restore_template(tmp_path):
+    """Without a checkpoint under ``--out`` (or without ``--out``) the
+    weights are the init and no restore template is built: at 8B a
+    template is another 16 GB on the card beside the init."""
+    init = {"w": torch.zeros(1)}
+    for argv in (["llama", "--serve"],
+                 ["llama", "--serve", "--out", str(tmp_path / "empty")]):
+        args = tworker.build_parser().parse_args(argv)
+        params, report = tworker._boot_serving_weights(
+            args, lambda: pytest.fail("a template without a checkpoint"),
+            lambda: init)
+        assert params is init and report["source"] == "init"
+
+
 def test_a_corrupt_checkpoint_falls_back_to_the_init(tmp_path, capsys):
     _save_jax_checkpoint(tmp_path / "vol")
     shard = tmp_path / "vol" / "step-00000004-p0" / "norm.o0.bin"
@@ -539,7 +680,8 @@ def test_a_corrupt_checkpoint_falls_back_to_the_init(tmp_path, capsys):
     args = tworker.build_parser().parse_args(
         ["llama", "--serve", "--out", str(tmp_path / "vol")])
     params, report = tworker._boot_serving_weights(
-        args, tl.param_template(tl.LlamaConfig.tiny(), "cpu"), lambda: init)
+        args, lambda: tl.param_template(tl.LlamaConfig.tiny(), "cpu"),
+        lambda: init)
     assert params is init and report["source"] == "init"
     ours = [e for e in _events(capsys) if "fallback" in e["event"]]
     jworker._boot_serving_weights(
