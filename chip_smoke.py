@@ -96,6 +96,39 @@ Phases (any failure exits non-zero):
    fallback in the decode heartbeat, ``role: prefill`` in the prefill
    tier's ``/v1/healthz``, no kernel launched by the prefill process,
    both ended with SIGTERM;
+13. (right after phase 12, on phase 3's weights) live migration, one
+   thread driving every engine: a victim and a survivor with phase 3's
+   geometry after ``warmup()``; phase 3's 12 requests on the victim in
+   windows of 8 until 4 streams decode with 4 or more tokens while one
+   still prefills, then ``MigrationManager(ring=HashRing, on_redirect)``
+   drains the victim (DECSTATE frames, ``import_stream``,
+   ``release_stream``) and the survivor takes the requests not admitted
+   yet and finishes every stream: each phase 3's or off it only at a
+   near-tie, ``failed`` 0, the prefilling streams resubmitted, every
+   imported page bitwise its frame's, no bound tensor rebound, both
+   ledgers clean, kernel 1 counted on each piece of the path from 0
+   just before it to just after it (no warmup, no eager check window);
+   then 8 decoding
+   streams of 200 new tokens drained and graphed windows over them
+   bitwise the eager loop; one stream shipped over HTTP to a
+   ``MigrateReceiver``; a drain refused by a survivor with every slot
+   taken (the victim finishes the stream); a sampled stream moved with
+   ``adopt_rng=True`` continuing the victim's own stream in graphed
+   windows; ms a page by part (gather, pack, unpack, install; blake2s
+   apart) and the pause a stream; then (after phase 12's worker pair)
+   the fleet of ``dist/fleet.yml``: two ``--pages -1 --page-size 64
+   --prefill-chunk 64`` decode workers and a ``--serve-role router``
+   worker in front, under ``--route-policy affinity`` and under
+   ``random`` (tenant classes without a TTFT SLO), then affinity under
+   the deployed classes (a 500 ms TTFT SLO), each arm on a fresh pair,
+   4 tenants x 3 turns one at a time: every reply equal to a direct
+   call to its replica, every affinity route on its ring primary or a
+   counted hot spill, each tenant on one replica and strictly more
+   radix hits under affinity, a tenant past its bucket shed with 429, a
+   replica swapped out and back in under 4 streams with none dropped,
+   the router never initializing CUDA, kernel 1 in both workers (the
+   heartbeats read around the routed traffic, never across a direct
+   call);
 5. (on phase 3's weights) serve Llama-3-8B through
    ``SlotServer(slots=8)`` behind the HTTP front door
    (``ServingFrontend`` on 127.0.0.1, decode window 8): a dozen
@@ -164,7 +197,7 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
-``worker_disagg`` and ``phase_s`` lines,
+``worker_disagg``, ``migrate``, ``fleet`` and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -908,8 +941,9 @@ def _graph_vs_eager(srv, windows=STEADY_WINDOWS, k=STEADY_K) -> dict:
     ``step_many(k)``, which replays the engine's graphs (a width not seen
     yet is captured on the way). Each window is timed unprofiled on the
     host clock through its host transfer; the step time is the median
-    window's over ``k``. Raises unless both give the same tokens and
-    lengths and write bitwise the same K/V."""
+    window's over ``k``; ``graph_launches`` counts the kernels that the
+    graphed windows alone launched. Raises unless both give the same
+    tokens and lengths and write bitwise the same K/V."""
     import numpy as np
     import torch
     from dcos_commons_tpu_torch.ops.quant import QTensor
@@ -924,12 +958,15 @@ def _graph_vs_eager(srv, windows=STEADY_WINDOWS, k=STEADY_K) -> dict:
         eager_ms.append((time.perf_counter() - t0) * 1e3)
     kv, ln, tok = state["kv"], state["ln"], state["tok"]
     captured_before = len(srv._graphs)
+    launched_before = _launch_counts()
     graph_ms, graphed = [], []
     for _ in range(windows):
         t0 = time.perf_counter()
         out = srv.step_many(k)
         graph_ms.append((time.perf_counter() - t0) * 1e3)
         graphed.append(out)
+    graph_launches = {name: n - launched_before[name]
+                      for name, n in _launch_counts().items()}
     want = np.concatenate(eager)
     problems = []
     for i in active:
@@ -963,6 +1000,7 @@ def _graph_vs_eager(srv, windows=STEADY_WINDOWS, k=STEADY_K) -> dict:
             "graph_window_ms": graph_ms, "eager_window_ms": eager_ms,
             "speedup": med_eager / med,
             "graphs_captured_here": len(srv._graphs) - captured_before,
+            "graph_launches": graph_launches,
             "tokens_equal": True, "kv_bitwise_equal": bitwise,
             "kv_max_abs_diff": max_diff}
 
@@ -3738,6 +3776,769 @@ def phase_disagg_worker(card: str, want_replies, params) -> tuple:
     return line, launches
 
 
+# --------------------------------------------------------------- phase 13
+
+MIGRATE_ENGINE = dict(slots=8, page_size=64, prefill_chunk=64)
+MIGRATE_WINDOW = 8
+# the drain point of phase 3's drive (windows of 8, submitting as slots
+# free): at least this many streams decoding with at least this many
+# tokens, and at least one stream still prefilling. With 8 slots and one
+# prefill chunk a step, at most 5 of phase 3's streams decode while one
+# still prefills, so the drain of 8 decoding streams is the graph check's
+MIGRATE_MIN_DECODING, MIGRATE_MIN_TOKENS = 4, 4
+# the graph check: phase 3's first 8 prompts with this budget, each
+# decoding when drained, then windows of 8 on the survivor
+MIGRATE_GRAPH_NEW, MIGRATE_GRAPH_WINDOWS = 200, 3
+MIGRATE_HTTP_REQUEST = "r2"        # the stream shipped over HTTP
+MIGRATE_REFUSED_REQUEST = "r4"     # the stream no destination can take
+MIGRATE_SAMPLED_NEW = 64           # the adopt_rng stream's budget
+
+
+class MigrateTimes:
+    """Milliseconds of each part of every stream's move: ``gather_ms``
+    (victim, D2H) with the pages it gathered, ``pack_ms`` and
+    ``frame_bytes``, ``unpack_ms``, ``install_ms`` (survivor, H2D)."""
+
+    def __init__(self):
+        self.ms = {}
+        self.pages = 0
+        self.frames = 0
+
+    def add(self, key, value) -> None:
+        self.ms[key] = self.ms.get(key, 0.0) + value
+
+    def per_page(self) -> dict:
+        return {k: v / max(self.pages, 1) for k, v in self.ms.items()
+                if k.endswith("_ms")}
+
+
+def migrate_engines(cfg, params, dev, times: MigrateTimes):
+    """A victim and a survivor with phase 3's geometry, each timing its
+    part of a move into ``times`` around the port's own code. The
+    survivor keeps every state it imported (to hold the installed pages
+    to the frame's after the drain) and notes any import that rebound a
+    tensor the captured windows read."""
+    from dcos_commons_tpu_torch.models import serving
+
+    class Victim(serving.PagedServer):
+        def _gather_span(self, pages):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = super()._gather_span(pages)
+            times.add("gather_ms", (time.perf_counter() - t0) * 1e3)
+            times.pages += len(pages)
+            return out
+
+    class Survivor(serving.PagedServer):
+        def __init__(self):
+            super().__init__(cfg, params, device=dev, **MIGRATE_ENGINE)
+            self.imported, self.rebound = [], []
+
+        def bound(self):
+            return [self.pool["k"], self.pool["v"], self.lengths,
+                    self.cur_tok, self._table_buf]
+
+        def _install(self, payload, a, b, phys):
+            _sync(dev)
+            t0 = time.perf_counter()
+            super()._install(payload, a, b, phys)
+            _sync(dev)
+            times.add("install_ms", (time.perf_counter() - t0) * 1e3)
+
+        def import_stream(self, state, request_id=None, adopt_rng=False):
+            before = self.bound()
+            slot = super().import_stream(state, request_id, adopt_rng)
+            if any(x is not y for x, y in zip(before, self.bound())):
+                self.rebound.append(request_id)
+            if slot is not None:
+                self.imported.append((slot, state))
+            return slot
+
+        def check_imports(self) -> tuple:
+            """(pages checked, [(request, page)] differing from the
+            frame); forgets the states."""
+            checked, bad = 0, []
+            for slot, state in self.imported:
+                r = self.requests[slot]
+                n = -(-(len(state["prompt"]) + len(state["tokens"]) - 1)
+                      // self.page_size)
+                got = self._gather_span(self._stream_pages[slot][:n])
+                for j in range(n):
+                    checked += 1
+                    if not _same_bits(_page_of(got, j),
+                                      _page_of(state["payload"], j)):
+                        bad.append((getattr(r, "request_id", slot), j))
+            self.imported = []
+            return checked, bad
+
+    return Victim(cfg, params, device=dev, **MIGRATE_ENGINE), Survivor()
+
+
+def _timed_decstate(times: MigrateTimes):
+    """Time ``migrate.pack_decstate`` and ``unpack_decstate`` (the
+    manager and the receiver call them by their module names) into
+    ``times``; returns the function that puts them back."""
+    from dcos_commons_tpu_torch.models import migrate
+    pack, unpack = migrate.pack_decstate, migrate.unpack_decstate
+
+    def timed_pack(state, **kw):
+        t0 = time.perf_counter()
+        frame = pack(state, **kw)
+        times.add("pack_ms", (time.perf_counter() - t0) * 1e3)
+        times.add("frame_bytes", len(frame))
+        times.frames += 1
+        return frame
+
+    def timed_unpack(data):
+        t0 = time.perf_counter()
+        state = unpack(data)
+        times.add("unpack_ms", (time.perf_counter() - t0) * 1e3)
+        return state
+
+    migrate.pack_decstate, migrate.unpack_decstate = timed_pack, timed_unpack
+
+    def restore():
+        migrate.pack_decstate, migrate.unpack_decstate = pack, unpack
+    return restore
+
+
+def _decode_until(srv, slot, tokens) -> None:
+    """Windows of 8 until the stream in ``slot`` holds ``tokens``."""
+    while srv.requests[slot] is not None \
+            and len(srv.requests[slot].tokens) < tokens:
+        srv.step_many(MIGRATE_WINDOW)
+
+
+def _prefilling(srv) -> list:
+    return [r.request_id for i, r in enumerate(srv.requests)
+            if r is not None and srv._prefill_pos[i] < r.prompt_len]
+
+
+def phase_migrate(card: str, params, solo, cfg=None, dev=None) -> tuple:
+    """Live migration on phase 3's weights, one thread driving every
+    engine (no capture overlaps another engine's work): a victim and a
+    survivor with phase 3's geometry, each after ``warmup()``. Phase 3's
+    12 requests run on the victim in windows of 8 until
+    ``MIGRATE_MIN_DECODING`` streams decode with ``MIGRATE_MIN_TOKENS``
+    tokens or more while one still prefills; then
+    ``MigrationManager(ring=HashRing, on_redirect=...)`` drains the victim
+    onto the survivor, which takes the requests not yet admitted and
+    finishes every stream: each equal to phase 3's or off it only at a
+    near-tie, the receipt with ``failed`` 0 and the prefilling stream
+    ``resubmitted``, every imported page bitwise its frame's, the bound
+    tensors the survivor's own, both ledgers clean. Then 8 streams of 200
+    new tokens drained while decoding and graphed windows over them
+    bitwise the eager loop; one stream exported, packed and shipped over
+    HTTP to a ``MigrateReceiver`` over the survivor; a drain refused by a
+    survivor with every slot taken (the victim finishes the stream); and
+    a sampled stream moved with ``adopt_rng=True`` continuing the victim's
+    own stream in graphed windows. ``cfg``/``dev`` default to Llama-3-8B
+    on the card (a smaller model on the CPU rehearses the control
+    flow)."""
+    import hashlib
+    import torch
+    from dcos_commons_tpu_torch.models import llama, migrate, router, serving
+    from dcos_commons_tpu_torch.ops.sampling import make_sampler
+
+    dev = dev or torch.device("cuda")
+    cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=2048)
+    queue = solo["queue"]
+    want = solo["out"]
+    prompts = {r["request_id"]: r["prompt"] for r in queue}
+    by_rid = {r["request_id"]: r for r in queue}
+    problems, t_phase = [], time.perf_counter()
+    _sync(dev)
+    times = MigrateTimes()
+    restore = _timed_decstate(times)
+    try:
+        victim, survivor = migrate_engines(cfg, params, dev, times)
+        warm = {"victim": victim.warmup(), "survivor": survivor.warmup()}
+        redirects = []
+        mgr = migrate.MigrationManager(
+            ring=router.HashRing(["victim", "survivor"]),
+            page_size=MIGRATE_ENGINE["page_size"],
+            on_redirect=lambda src, dst: redirects.append((src, dst)))
+        _zero_launches()
+        # 1. phase 3's requests on the victim up to the drain point
+        pending, windows = [dict(r) for r in queue], 0
+        while True:
+            placed = victim.submit_many(pending)
+            pending = pending[len(placed):]
+            decoding = {r.request_id: len(r.tokens) for r in victim.requests
+                        if r is not None and len(r.tokens)
+                        >= MIGRATE_MIN_TOKENS}
+            prefilling = _prefilling(victim)
+            if len(decoding) >= MIGRATE_MIN_DECODING and prefilling:
+                break
+            if not (pending or victim.requests_active()):
+                raise RuntimeError("migrate phase: phase 3's drive never "
+                                   "reached the drain point")
+            victim.step_many(MIGRATE_WINDOW)
+            windows += 1
+        live = {r.request_id: len(r.tokens) for r in victim.requests
+                if r is not None}
+        launches_victim = _launch_counts()["flash_decode_paged"]
+        t0 = time.perf_counter()
+        receipt = mgr.drain(victim, "victim", [("survivor", survivor)])
+        drain_s = time.perf_counter() - t0
+        got = dict(victim.finished)
+        if victim.requests_active():
+            problems.append("the victim kept a stream after the drain")
+        checked, bad = survivor.check_imports()
+        # the requests not admitted yet are the survivor's new traffic
+        before = _launch_counts()["flash_decode_paged"]
+        got.update(survivor.drain(pending, decode_window=MIGRATE_WINDOW))
+        launches_survivor = _launch_counts()["flash_decode_paged"] - before
+        # kernel 1 on each main-path piece, counted from 0 just before it
+        # and read just after it: the warmups and the eager check windows
+        # fall outside every piece
+        pieces = {"drain": _launch_counts()["flash_decode_paged"]}
+        divergences = _held_to("migrate", got, want, prompts, cfg, params,
+                               problems)
+        if receipt["failed"] or receipt["resubmitted"] < 1 \
+                or receipt["migrated"] < MIGRATE_MIN_DECODING:
+            problems.append(f"drain receipt {receipt}")
+        if len(redirects) != receipt["migrated"] + receipt["resubmitted"]:
+            problems.append(f"{len(redirects)} redirects for {receipt}")
+        for name, eng in (("victim", victim), ("survivor", survivor)):
+            if eng.ledger_violations():
+                problems.append(f"{name} ledger "
+                                f"{eng.ledger_violations()[:3]}")
+        if dev.type == "cuda" and launches_survivor < 1:
+            problems.append("flash_decode_paged never launched on the "
+                            "survivor")
+        drained_pages, drained_ms = times.pages, dict(times.ms)
+        # 2. 8 decoding streams drained, then graphed vs eager windows
+        victim.reset()
+        survivor.reset()
+        _zero_launches()
+        for r in queue[:8]:
+            victim.submit(r["prompt"], MIGRATE_GRAPH_NEW,
+                          request_id=("graph", r["request_id"]))
+        while victim._prefill_q or victim._pending_first:
+            victim.step()
+        victim.step_many(MIGRATE_WINDOW)
+        receipt8 = mgr.drain(victim, "victim", [("survivor", survivor)])
+        pieces["drain_8_decoding"] = _launch_counts()["flash_decode_paged"]
+        if receipt8["migrated"] != 8:
+            problems.append(f"8-stream drain receipt {receipt8}")
+        checked8, bad8 = survivor.check_imports()
+        checked, bad = checked + checked8, bad + bad8
+        try:
+            graph = _graph_vs_eager(survivor, windows=MIGRATE_GRAPH_WINDOWS,
+                                    k=MIGRATE_WINDOW)
+        except RuntimeError as e:
+            problems.append(f"over imported streams: {e}")
+            graph = {}
+        pieces["drain_8_decoding"] += graph.get("graph_launches", {}).get(
+            "flash_decode_paged", 0)
+        victim.reset()
+        survivor.reset()
+        # 3. one stream over HTTP into a MigrateReceiver
+        rid = MIGRATE_HTTP_REQUEST
+        recv = migrate.MigrateReceiver(survivor, port=0,
+                                       host="127.0.0.1").start()
+        imported_before = survivor.migrated_in
+        _zero_launches()
+        try:
+            slot = victim.submit(prompts[rid], 32, request_id=rid)
+            _decode_until(victim, slot, 8)
+            state = victim.export_stream(slot)
+            frame = migrate.pack_decstate(state, tenant="gold",
+                                          request_id=rid)
+            t0 = time.perf_counter()
+            body = migrate.ship_stream(f"http://127.0.0.1:{recv.port}",
+                                       frame, timeout_s=600.0)
+            http_ms = (time.perf_counter() - t0) * 1e3
+            health = _http_get(recv.port, "/v1/healthz")
+        finally:
+            recv.stop()
+        victim.release_stream(slot)
+        checked_h, bad_h = survivor.check_imports()
+        checked, bad = checked + checked_h, bad + bad_h
+        http_got = survivor.drain([], decode_window=MIGRATE_WINDOW)
+        pieces["http"] = _launch_counts()["flash_decode_paged"]
+        http_div = _held_to("migrate http", {rid: http_got.get(rid)},
+                            {rid: want[rid]}, prompts, cfg, params, problems)
+        if not body.get("ok") \
+                or health.get("migrated_in") != imported_before + 1:
+            problems.append(f"receiver answered {body}, healthz {health}")
+        # 4. a survivor with every slot taken refuses; the victim goes on
+        survivor.reset()
+        victim.reset()
+        filler = [{"prompt": by_rid[r["request_id"]]["prompt"][:64],
+                   "max_new": 400, "request_id": ("fill", i)}
+                  for i, r in enumerate(queue[:8])]
+        survivor.submit_many(filler)
+        while survivor._prefill_q or survivor._pending_first:
+            survivor.step()
+        rid = MIGRATE_REFUSED_REQUEST
+        _zero_launches()
+        slot = victim.submit(prompts[rid], 32, request_id=rid)
+        _decode_until(victim, slot, 8)
+        refused = migrate.MigrationManager(page_size=64).drain(
+            victim, "victim", [("survivor", survivor)])
+        kept = victim.requests[slot] is not None
+        refused_got = victim.drain([], decode_window=MIGRATE_WINDOW)
+        pieces["refused"] = _launch_counts()["flash_decode_paged"]
+        refused_div = _held_to("migrate refused", {rid: refused_got.get(rid)},
+                               {rid: want[rid]}, prompts, cfg, params,
+                               problems)
+        if refused["failed"] != 1 or not kept:
+            problems.append(f"refused drain {refused}, victim kept the "
+                            f"stream: {kept}")
+        for name, eng in (("victim", victim), ("survivor", survivor)):
+            if eng.ledger_violations():
+                problems.append(f"{name} ledger after the refusal "
+                                f"{eng.ledger_violations()[:3]}")
+        rebound = list(survivor.rebound)
+        if rebound:
+            problems.append(f"imports rebound a bound tensor: {rebound[:4]}")
+        mig_stats = mgr.stats()
+        per_page, shipped = times.per_page(), dict(
+            bytes=times.ms.get("frame_bytes", 0.0), frames=times.frames,
+            pages=times.pages)
+        del victim, survivor
+        gc.collect()
+        # 5. a sampled stream with adopt_rng, in graphed windows
+        sampler = make_sampler(0.9, top_k=50)
+
+        def sampled(seed):
+            return serving.PagedServer(
+                cfg, params, sampler=sampler, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed),
+                **MIGRATE_ENGINE)
+
+        sv, sd = sampled(SEED + 13), sampled(SEED + 14)
+        sv.warmup()
+        sd.warmup()
+        gen = sd.generator
+        _zero_launches()
+        slot = sv.submit(prompts["r0"], MIGRATE_SAMPLED_NEW,
+                         request_id="sampled")
+        _decode_until(sv, slot, 8)
+        state = migrate.unpack_decstate(migrate.pack_decstate(
+            sv.export_stream(slot)))
+        new = sd.import_stream(state, request_id="sampled", adopt_rng=True)
+        same_gen = sd.generator is gen and torch.equal(
+            gen.get_state(), sv.generator.get_state())
+        # the victim's own continuation is the check, not the path
+        pieces["adopt_rng"] = _launch_counts()["flash_decode_paged"]
+        want_s, got_s = [], []
+        for _ in range(3):
+            want_s += sv.step_many(MIGRATE_WINDOW)[slot]
+            before = _launch_counts()["flash_decode_paged"]
+            got_s += sd.step_many(MIGRATE_WINDOW)[new]
+            pieces["adopt_rng"] += (_launch_counts()["flash_decode_paged"]
+                                    - before)
+        rng_line = {"slot": new, "same_generator": same_gen,
+                    "tokens": len(got_s), "equal": got_s == want_s,
+                    "graphs": sd.graph_stats()["graphs"]}
+        if new != slot or not same_gen or got_s != want_s \
+                or (dev.type == "cuda" and rng_line["graphs"] < 1):
+            problems.append(f"adopt_rng: {rng_line}, {got_s[:8]} vs "
+                            f"{want_s[:8]}")
+        del sv, sd
+        gc.collect()
+        launches = sum(pieces.values())
+        if dev.type == "cuda" and not all(pieces.values()):
+            problems.append(f"kernel 1 launches by piece {pieces}")
+        # blake2s a page: pack and unpack each hash a frame's body once
+        page_bytes = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 64 * 4
+        blob = bytes(4 * page_bytes)
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            hashlib.blake2s(blob).hexdigest()
+            reps.append((time.perf_counter() - t0) / 4 * 1e3)
+        blake_ms = min(reps)
+    finally:
+        restore()
+    if bad:
+        problems.append(f"{len(bad)} imported pages differ from their "
+                        f"frame: {bad[:4]}")
+    if problems:
+        raise RuntimeError("migrate phase: " + "; ".join(problems[:8]))
+    line = {"migrate": {
+        "model": "llama3_8b" if cfg.n_layers == 32 else "rehearsal",
+        "layers": cfg.n_layers, "max_seq": cfg.max_seq,
+        "engine": MIGRATE_ENGINE, "decode_window": MIGRATE_WINDOW,
+        "warmup_s": warm,
+        "drain": {"windows_before": windows, "live": live,
+                  "prefilling": [str(r) for r in prefilling],
+                  "receipt": receipt, "drain_s": drain_s,
+                  "pages": drained_pages,
+                  "ms_per_page": {k: v / max(drained_pages, 1)
+                                  for k, v in drained_ms.items()
+                                  if k.endswith("_ms")},
+                  "near_tie_divergences": divergences},
+        "drain_8_decoding": receipt8,
+        "streams_migrated": {"drain": receipt["migrated"],
+                             "drain_8_decoding": receipt8["migrated"],
+                             "http": 1, "adopt_rng": 1},
+        "resubmitted": mig_stats["resubmitted"],
+        "failed": {"drains": mig_stats["failed"],
+                   "refused_drain": refused["failed"]},
+        "bytes_shipped": shipped["bytes"], "frames": shipped["frames"],
+        "pages_shipped": shipped["pages"],
+        "pause_ms": mig_stats["pause_ms"],
+        "ms_per_page": per_page,
+        "blake2s_ms_per_page": blake_ms,
+        "blake2s_share_of_pack_unpack": 2 * blake_ms / max(
+            per_page.get("pack_ms", 0.0) + per_page.get("unpack_ms", 0.0),
+            1e-9),
+        "checked_pages": checked,
+        "graph_vs_eager_imported": {k: graph.get(k) for k in (
+            "batch", "windows", "k", "tokens_equal", "kv_bitwise_equal",
+            "graph_step_ms", "eager_step_ms", "graphs_captured_here")},
+        "http": {"request": MIGRATE_HTTP_REQUEST, "ms": http_ms,
+                 "frame_bytes": len(frame), "receiver": body,
+                 "near_tie_divergences": http_div},
+        "refused": {"request": MIGRATE_REFUSED_REQUEST, **refused,
+                    "near_tie_divergences": refused_div},
+        "adopt_rng": rng_line,
+        "launches_victim_before_drain": launches_victim,
+        "launches_survivor": launches_survivor,
+        "launches_by_piece": pieces,
+        "launches_phase": launches,
+        "phase_s": time.perf_counter() - t_phase, "card": card}}
+    log(f"[migrate] {line}")
+    return line, launches
+
+
+FLEET_TENANTS, FLEET_TURNS, FLEET_NEW = 4, 3, 16
+# the A/B arms' classes: gold admits the traffic (burst 100,000, never
+# refilled); free admits a tenant twice, then sheds it. No class sets a
+# TTFT SLO, so the A/B reads placement alone: a cold 512-1,024-token
+# prompt at 8B (prefill chunks of 64, first-use captures) answers past
+# the deployed 500 ms SLO, and the pressure that reads spills tenants
+FLEET_CLASSES = "gold:10:0:100000,free:1:0:2"
+# the deployed classes (frameworks/jax/scenarios.py TENANT_CLASSES,
+# fleet.yml's --tenant-classes), TTFT SLO included: the third arm
+DEPLOYED_CLASSES = "gold:10:50:100:500,bronze:1:5:10"
+FLEET_RESIZE_STREAMS, FLEET_RESIZE_NEW = 4, 64
+# dist/fleet.yml's decode replica (DISAGG_PAGES -1: a slot-equivalent
+# pool of 256 pages): with 64 pages the radix's cached prefixes alone
+# read as occupancy past the router's 0.85 spill pressure
+FLEET_WORKER_ARGS = ("--pages", "-1", "--page-size", "64",
+                     "--prefill-chunk", "64")
+
+
+def fleet_traffic(v: int) -> tuple:
+    """4 tenants from the seed, each a 512-1,024-token system prompt;
+    turns[t][i] is tenant i's turn t (32-128 more tokens, 16 new), and
+    ``resize`` one more turn each for the resize (64 new, streamed)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    systems = [_prompt(rng, int(rng.integers(512, 1025)), v)
+               for _ in range(FLEET_TENANTS)]
+    turns = [[{"prompt": systems[i] + _prompt(rng, int(rng.integers(
+        32, 129)), v), "max_new": FLEET_NEW, "tenant": f"tenant-{i}",
+        "qos": "gold"} for i in range(FLEET_TENANTS)]
+        for _ in range(FLEET_TURNS)]
+    resize = [{"prompt": systems[i] + _prompt(rng, int(rng.integers(
+        32, 129)), v), "max_new": FLEET_RESIZE_NEW, "tenant": f"tenant-{i}",
+        "qos": "gold", "stream": True} for i in range(FLEET_RESIZE_STREAMS)]
+    return turns, resize
+
+
+def _spawn(args, cwd: Path):
+    root = Path(__file__).resolve().parent
+    cwd.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
+         *args], cwd=cwd, env=dict(os.environ, PYTHONPATH=str(root)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def _gpu_pids() -> list:
+    """PIDs with a context on the card, as ``nvidia-smi`` lists them
+    (empty where the container hides them)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except Exception:
+        return []
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _beat_launches(event) -> int:
+    return event.get("launches", {}).get("flash_decode_paged", 0)
+
+
+def _fleet_arm(name: str, policy: str, turns, worker_args,
+               classes=FLEET_CLASSES, resize=None) -> dict:
+    """One arm: two freshly booted decode workers (cold radixes) and a
+    router worker over them with ``policy`` and ``classes``; the turns
+    one request at a time through the router. Returns the arm's replies,
+    hits, kernel-1 launches of the routed traffic (the heartbeats read
+    before and after each routed piece, never across a direct call),
+    boot seconds, router stats and, with ``resize``, the shed and resize
+    results; every process ends with SIGTERM."""
+    root = Path(__file__).resolve().parent / "build" / f"fleet_{name}"
+    procs, out = [], {"policy": policy, "classes": classes}
+    try:
+        t0 = time.perf_counter()
+        workers = []
+        for i in range(2):
+            proc = _spawn([*worker_args, *FLEET_WORKER_ARGS],
+                          root / f"worker{i}")
+            procs.append(proc)
+            events = []
+            workers.append((proc, _event_reader(
+                proc, events, ("paged_fallback",), f"fleet worker {i}"),
+                events))
+        serving, boot = [], []
+        for proc, event, _ in workers:
+            serving.append(event("serving", WORKER_BOOT_S))
+            boot.append(time.perf_counter() - t0)
+        urls = [f"http://127.0.0.1:{s['port']}" for s in serving]
+        t1 = time.perf_counter()
+        rproc = _spawn(["llama", "--serve", "--serve-role", "router",
+                        "--route-replicas", ",".join(urls),
+                        "--route-policy", policy, "--page-size", "64",
+                        "--serve-port", "0", "--serve-interval", "2",
+                        "--tenant-classes", classes], root / "router")
+        procs.append(rproc)
+        r_events = []
+        r_event = _event_reader(rproc, r_events, ("router_config_error",),
+                                "router")
+        r_serving = r_event("serving", 120)
+        boot.append(time.perf_counter() - t1)
+        rport = r_serving["port"]
+        replies = []
+        for turn in turns:
+            for body in turn:
+                replies.append(_http_generate(rport, body))
+        served = {u: sum(r["replica"] == u for r in replies) for u in urls}
+        beats = [event("heartbeat", 60,
+                       lambda e, n=served[u]: e.get("requests", 0) >= n)
+                 for (proc, event, _), u in zip(workers, urls)]
+        launches = [_beat_launches(b) - _beat_launches(s)
+                    for b, s in zip(beats, serving)]
+        out.update(urls=urls, replies=replies, served=served,
+                   hits=[b["paged"]["prefix_hits"] for b in beats],
+                   ttft_p95_ms=[_http_get(s["port"], "/v1/healthz")[
+                       "load"].get("ttft_p95_ms") for s in serving],
+                   boot_s=boot, router_serving=r_serving)
+        # every reply equals a direct call to the replica that served it
+        direct = [_http_generate(int(r["replica"].rsplit(":", 1)[1]), {
+            "prompt": b["prompt"], "max_new": b["max_new"]})["tokens"]
+            for r, b in zip(replies, [b for t in turns for b in t])]
+        out["direct_equal"] = [r["tokens"] == d
+                               for r, d in zip(replies, direct)]
+        if resize:
+            # a tenant past its bucket gets the reference's 429
+            flood = {"prompt": turns[0][0]["prompt"][:64], "max_new": 1,
+                     "tenant": "flood", "qos": "free"}
+            codes = []
+            for _ in range(3):
+                try:
+                    _http_generate(rport, flood)
+                    codes.append(200)
+                except urllib.error.HTTPError as e:
+                    codes.append((e.code, e.headers.get("Retry-After")))
+            out["shed"] = codes
+            marks = []
+            for (proc, event, _), s in zip(workers, serving):
+                n = _http_get(s["port"], "/v1/stats")["requests"]
+                marks.append(_beat_launches(event(
+                    "heartbeat", 60, lambda e, n=n: e.get("requests", 0)
+                    >= n)))
+            # one replica swapped out and back in under 4 streams
+            res, errors = [None] * len(resize), []
+
+            def hit(i):
+                try:
+                    res[i] = _http_generate(rport, resize[i])
+                except Exception as e:     # reported with the checks
+                    errors.append(f"resize stream {i}: {e!r}")
+
+            threads = [threading.Thread(target=hit, args=(i,))
+                       for i in range(len(resize))]
+            for t in threads:
+                t.start()
+            time.sleep(0.5)
+            swaps = [_http_post(rport, "/v1/replicas",
+                                {"replicas": urls[1:]}),
+                     _http_post(rport, "/v1/replicas", {"replicas": urls})]
+            for t in threads:
+                t.join(timeout=600)
+            for i, ((proc, event, _), s) in enumerate(zip(workers, serving)):
+                n = _http_get(s["port"], "/v1/stats")["requests"]
+                launches[i] += _beat_launches(event(
+                    "heartbeat", 60, lambda e, n=n: e.get("requests", 0)
+                    >= n)) - marks[i]
+            # each stream ran beside the others; its direct call runs
+            # alone: held to it by the near-tie rule
+            out["resize"] = {
+                "errors": errors, "swaps": swaps,
+                "tokens": [len(r["tokens"]) if r else None for r in res],
+                "replies": [r["tokens"] if r else None for r in res],
+                "direct": [_http_generate(
+                    int(r["replica"].rsplit(":", 1)[1]),
+                    {"prompt": b["prompt"], "max_new": b["max_new"]}
+                )["tokens"] if r else None for r, b in zip(res, resize)]}
+        stats = _http_get(rport, "/v1/routestats")
+        rbeat = r_event("heartbeat", 60,
+                        lambda e: e.get("routed", 0) >= stats["routed"])
+        out.update(stats=stats, router_heartbeat_cuda=rbeat.get(
+            "cuda_initialized"), gpu_pids=_gpu_pids(), router_pid=rproc.pid,
+            launches=launches)
+    finally:
+        out["exit"] = [_sigterm(p) for p in procs]
+    return out
+
+
+def _http_post(port: int, path: str, body: dict) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
+                cfg=None) -> tuple:
+    """The fleet as ``dist/fleet.yml`` deploys it: two decode workers
+    (``worker_args`` + ``FLEET_WORKER_ARGS``, fleet.yml's ``--pages -1
+    --page-size 64 --prefill-chunk 64``, Llama-3-8B) and a router worker
+    (``--serve-role router --route-replicas ... --page-size 64
+    --tenant-classes ...``) in front, in three arms, each on a freshly
+    booted pair: ``affinity`` and ``random`` under ``FLEET_CLASSES``,
+    and ``slo``, affinity under the deployed ``DEPLOYED_CLASSES`` (a 500
+    ms TTFT SLO). 4 tenants x 3 turns (:func:`fleet_traffic`), one
+    request at a time: every reply equals a direct call to the replica
+    that served it; under affinity each request lands on its ring
+    primary unless the router counted it a hot spill, and under
+    ``FLEET_CLASSES`` each tenant lands on one replica and the fleet's
+    radix hits (``paged.prefix_hits`` in the workers' heartbeats) are
+    strictly more than under random; the affinity arm's router sheds a
+    tenant past its bucket with 429, and swaps a replica out and back in
+    under 4 streams with no stream dropped; the router never initializes
+    CUDA, and kernel 1 runs in the decode workers. The resize's streams,
+    which ran side by side, are held to their direct calls by the
+    near-tie rule over ``params`` (the workers' weights: both from the
+    seed). ``cfg`` defaults to Llama-3-8B; a rehearsal on the CPU passes
+    its own, and ``--device cpu`` in ``worker_args``."""
+    import signal
+    from dcos_commons_tpu_torch.models import llama, router
+    cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=2048)
+    args = list(worker_args)
+    on_card = not ("--device" in args
+                   and args[args.index("--device") + 1] == "cpu")
+    turns, resize = fleet_traffic(cfg.vocab_size)
+    bodies = [b for t in turns for b in t]
+    t_phase = time.perf_counter()
+    arms = {"affinity": _fleet_arm("affinity", "affinity", turns,
+                                   worker_args, resize=resize),
+            "random": _fleet_arm("random", "random", turns, worker_args),
+            "slo": _fleet_arm("slo", "affinity", turns, worker_args,
+                              classes=DEPLOYED_CLASSES)}
+    problems = []
+    aff, rnd = arms["affinity"], arms["random"]
+    for p, arm in arms.items():
+        if not all(arm["direct_equal"]):
+            problems.append(f"{p}: replies differ from a direct call "
+                            f"{arm['direct_equal']}")
+        if any(len(r["tokens"]) != FLEET_NEW for r in arm["replies"]):
+            problems.append(f"{p}: short replies")
+        if arm["router_heartbeat_cuda"] is not False \
+                or arm["router_pid"] in arm["gpu_pids"]:
+            problems.append(f"{p}: the router touched the card "
+                            f"({arm['router_heartbeat_cuda']}, pids "
+                            f"{arm['gpu_pids']})")
+        if arm["exit"] != [-signal.SIGTERM] * 3:
+            problems.append(f"{p}: exits {arm['exit']}")
+        if arm["stats"]["dropped_streams"]:
+            problems.append(f"{p}: dropped {arm['stats']}")
+        # a worker the ring gave no tenant may launch nothing
+        if on_card and (sum(arm["launches"]) < 1 or any(
+                n < 1 for n, u in zip(arm["launches"], arm["urls"])
+                if arm["served"][u])):
+            problems.append(f"{p}: kernel 1 launches {arm['launches']} "
+                            f"for {arm['served']}")
+        if arm["policy"] != "affinity":
+            continue
+        # on the ring's primary, or a hot spill the router counted
+        ring = router.HashRing(arm["urls"])
+        off = [(r["replica"], r["routed"]) for r, b in zip(
+            arm["replies"], bodies)
+            if (r["replica"] == ring.preference(router.route_key(
+                b["prompt"], 64))[0]) != (r["routed"] == "affinity")
+            or r["routed"] not in ("affinity", "spill_hot")]
+        arm["spills_hot"] = sum(r["routed"] == "spill_hot"
+                                for r in arm["replies"])
+        if off or arm["stats"]["spills_hot"] != arm["spills_hot"]:
+            problems.append(f"{p}: routes off the ring {off[:4]}, "
+                            f"{arm['spills_hot']} hot spills against "
+                            f"{arm['stats']['spills_hot']} counted")
+    landed = {}
+    for r, b in zip(aff["replies"], bodies):
+        landed.setdefault(b["tenant"], set()).add(r["replica"])
+    if any(len(s) != 1 for s in landed.values()):
+        problems.append(f"affinity spread a tenant: {landed}")
+    if sum(aff["hits"]) <= sum(rnd["hits"]):
+        problems.append(f"radix hits affinity {aff['hits']} <= random "
+                        f"{rnd['hits']}")
+    if [c if isinstance(c, int) else c[0] for c in aff["shed"]] \
+            != [200, 200, 429] or not aff["shed"][2][1]:
+        problems.append(f"shed {aff['shed']}")
+    rz = aff["resize"]
+    if rz["errors"] or rz["tokens"] != [FLEET_RESIZE_NEW] * len(resize) \
+            or aff["stats"]["rebalances"] != 2:
+        problems.append(f"resize {rz['errors']}, tokens {rz['tokens']}, "
+                        f"rebalances {aff['stats']['rebalances']}")
+    resize_div = _held_to(
+        "fleet resize", dict(enumerate(rz.pop("replies"))),
+        dict(enumerate(rz.pop("direct"))),
+        {i: b["prompt"] for i, b in enumerate(resize)}, cfg, params,
+        problems)
+    if problems:
+        raise RuntimeError("fleet phase: " + "; ".join(problems[:8]))
+
+    def summary(arm):
+        st = arm["stats"]
+        return {"replies": len(arm["replies"]), "served": arm["served"],
+                "radix_hits": arm["hits"],
+                "radix_hits_total": sum(arm["hits"]),
+                "classes": arm["classes"],
+                "affinity_rate": st["affinity_rate"],
+                "spills_hot": st["spills_hot"],
+                "replica_ttft_p95_ms": arm["ttft_p95_ms"],
+                "rebalances": st["rebalances"],
+                "dropped_streams": st["dropped_streams"],
+                "router_ttft_ms": st["ttft_ms"],
+                "ttft_p50_ms": st["ttft_ms"].get("p50"),
+                "boot_s": {"worker0": arm["boot_s"][0],
+                           "worker1": arm["boot_s"][1],
+                           "router": arm["boot_s"][2]},
+                "launches_per_worker": arm["launches"],
+                "direct_equal": sum(arm["direct_equal"]),
+                "router_cuda_initialized": arm["router_heartbeat_cuda"]}
+
+    line = {"fleet": {
+        "model": "llama3_8b" if cfg.n_layers == 32 else "rehearsal",
+        "workers": 2,
+        "worker_command": "python -m dcos_commons_tpu_torch.frameworks."
+                          "worker " + " ".join([*worker_args,
+                                                *FLEET_WORKER_ARGS]),
+        "router_command": "python -m dcos_commons_tpu_torch.frameworks."
+                          "worker llama --serve --serve-role router "
+                          "--route-replicas URL,URL --route-policy POLICY "
+                          "--page-size 64 --tenant-classes CLASSES",
+        "tenants": FLEET_TENANTS, "turns": FLEET_TURNS, "new": FLEET_NEW,
+        **{p: summary(arm) for p, arm in arms.items()},
+        "shed": aff["shed"],
+        "resize": {**rz, "streams": len(resize),
+                   "near_tie_divergences": resize_div},
+        "phase_s": time.perf_counter() - t_phase, "card": card}}
+    log(f"[fleet] {line}")
+    return line, sum(sum(arm["launches"]) for arm in arms.values())
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -3801,6 +4602,10 @@ def main() -> int:
         "12_disagg", phase_disagg, card, params, solo)
     gc.collect()
     torch.cuda.empty_cache()
+    migrate_line, migrate_launches = timed_phase(
+        "13_migrate", phase_migrate, card, params, solo)
+    gc.collect()
+    torch.cuda.empty_cache()
     slots_line, slot_launches = timed_phase("5_serve_slots",
                                             phase_serve_slots, card, params)
     # the front door's handler closes over the front door, a cycle that
@@ -3816,6 +4621,8 @@ def main() -> int:
     disagg_worker_line, disagg_worker_launches = timed_phase(
         "12_worker_disagg", phase_disagg_worker, card,
         replies["worker_paged"], params)
+    fleet_line, fleet_launches = timed_phase("13_fleet", phase_fleet, card,
+                                             params)
     try:
         t0 = time.perf_counter()
         spec_worker_line, spec_worker_launches = timed_phase(
@@ -3886,7 +4693,9 @@ def main() -> int:
                            kv_worker_launches["flash_decode_paged"],
                        "disagg": disagg_launches,
                        "worker_disagg":
-                           disagg_worker_launches["flash_decode_paged"]},
+                           disagg_worker_launches["flash_decode_paged"],
+                       "migrate": migrate_launches,
+                       "fleet": fleet_launches},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -3949,6 +4758,8 @@ def main() -> int:
     print(json.dumps(kv_worker_line), flush=True)
     print(json.dumps(disagg_line), flush=True)
     print(json.dumps(disagg_worker_line), flush=True)
+    print(json.dumps(migrate_line), flush=True)
+    print(json.dumps(fleet_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

@@ -16,6 +16,10 @@ of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
         --serve --slots 8 --pages 64 --serve-role decode \\
         --serve-peer http://HOST:P
+    python -m dcos_commons_tpu_torch.frameworks.worker llama --serve \\
+        --serve-role router --route-replicas http://HOST:P,http://HOST:Q \\
+        --page-size 64 [--route-policy affinity|random] \\
+        [--tenant-classes gold:10:50:100:250,free:1:2:4]
     python -m dcos_commons_tpu_torch.frameworks.worker llama-train \\
         --steps 20 --seq 256 [--ckpt-every N] [--grad-accum N] --out VOL
     python -m dcos_commons_tpu_torch.frameworks.worker distill --preset 8b \\
@@ -64,6 +68,14 @@ spans the prefill tier ships (``DisaggCoordinator``). Without
 decode tier without a peer, ``disagg_fallback`` says why and the replica
 serves co-located, as in the reference.
 
+``--serve-role router`` runs the fleet front door (``models.router``,
+``dist/fleet.yml``): prefix-affinity routing across ``--route-replicas``
+with per-tenant admission from ``--tenant-classes``. It carries no model:
+it builds no weights, touches no device (its heartbeat says
+``cuda_initialized: false``), and ``--page-size`` must match the decode
+tier's. A bad ``--tenant-classes`` emits ``router_config_error`` and the
+router serves with admission open.
+
 ``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
 a sealed draft artifact (``models.speculative.save_draft``): a
 ``spec_armed`` event, or a coded ``spec_fallback`` (the reference's
@@ -87,7 +99,7 @@ What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
 ROADMAP Queue 1 item (peer weights: item 6; gangs and expert-parallel
 MoE training: item 7; pipelines, ring prefill and ring or Ulysses
-attention: item 9; the router and live resharding: item 10). The
+attention: item 9; live resharding: item 10). The
 weight server is an accelerant in the reference, so asking for it only
 emits ``weight_server_error``.
 """
@@ -124,15 +136,6 @@ def yaml_bool(value) -> bool:
     if isinstance(value, str):
         return value.strip().lower() in ("true", "yes", "1")
     return bool(value)
-
-
-def _refuse_unported(args) -> None:
-    """Raise :class:`NotPorted` for a serving knob whose module is not
-    ported yet."""
-    if args.serve and args.serve_role == "router":
-        raise NotPorted("router_not_ported", "--serve-role router: the "
-                        "fleet router (models/router.py) is not ported "
-                        "yet (ROADMAP Queue 1 item 10)")
 
 
 def _serving_arithmetic(args):
@@ -379,11 +382,14 @@ def _init_target(cfg, dev: torch.device, quant: str = "none"):
 def run_llama(args) -> dict:
     """Llama inference on one device: the solo decode rate, then with
     ``--serve`` a serving loop that never returns while healthy."""
+    if args.serve and args.serve_role == "router":
+        # the router tier is pure control plane: no model, no device; the
+        # front door comes up before anything can fail
+        return _serve_router(args)
     from .._device import resolve_device
     from ..models import llama
     from ..parallel import distributed
 
-    _refuse_unported(args)
     moe_cfg = _serving_arithmetic(args) if args.serve else None
     contract = distributed.initialize()
     dev = resolve_device(args.device)
@@ -556,6 +562,55 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
             if page_stats is not None:
                 hb["paged"] = server.page_stats()
             _emit(hb)
+        except Exception as e:
+            _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
+
+
+def _serve_router(args) -> dict:
+    """The fleet front door (``SERVE_ROLE=router``, ``dist/fleet.yml``):
+    prefix-affinity consistent-hash routing across the decode replicas of
+    ``--route-replicas``, per-tenant token-bucket admission from
+    ``--tenant-classes``, the streaming relay with health- and
+    load-aware spill (``models.router``). Never returns while healthy.
+
+    The router carries no model: ``--page-size`` only parameterizes the
+    affinity hash and MUST match the decode tier's page size, or requests
+    hash to keys the replicas' radixes never cache under. Resizes of the
+    decode tier land through ``POST /v1/replicas``."""
+    from ..models.router import Router, parse_qos_classes
+    replicas = [p.strip() for p in args.route_replicas.split(",")
+                if p.strip()]
+    try:
+        classes = parse_qos_classes(args.tenant_classes)
+    except ValueError as e:
+        # a bad knob must not crash-loop the front door: serve with
+        # admission wide open and say so
+        _emit({"event": "router_config_error", "error": str(e),
+               "tenant_classes": args.tenant_classes})
+        classes = {}
+    router = Router(replicas, port=_serve_port(args),
+                    page_size=args.page_size,
+                    affinity_pages=args.route_affinity_pages,
+                    vnodes=args.route_vnodes, classes=classes,
+                    policy=args.route_policy,
+                    spill_pressure=args.route_spill_pressure,
+                    spill_floor=args.route_spill_floor,
+                    max_tenants=args.tenant_max_tracked).start()
+    with open("serving.ready", "w") as f:
+        f.write(f"ok {router.port}\n")
+    _emit({"event": "serving", "role": "router", "port": router.port,
+           "replicas": replicas, "policy": args.route_policy,
+           "classes": sorted(classes)})
+    i = 0
+    while True:
+        time.sleep(args.serve_interval)
+        i += 1
+        try:
+            # what this heartbeat adds to the reference's: proof that
+            # the router never touched the card
+            _emit({"event": "heartbeat", "n": i, "role": "router",
+                   **router.stats(),
+                   "cuda_initialized": torch.cuda.is_initialized()})
         except Exception as e:
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
 
@@ -1053,41 +1108,70 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-role",
                    default=os.environ.get("SERVE_ROLE", "colocated"),
                    choices=["colocated", "prefill", "decode", "router"],
-                   help="--serve: tier role. 'prefill' answers "
-                        "/v1/prefill with packed KV page spans, chunked "
-                        "prefill flat out; 'decode' runs the client front "
-                        "door and adopts pages shipped from --serve-peer "
-                        "(dist/disagg.yml); both need --slots and --pages, "
-                        "else disagg_fallback and co-located serving. "
-                        "'router' is not ported (item 10: exit 2)")
+                   help="llama --serve: tier role. 'prefill' answers "
+                        "/v1/prefill with packed KV page spans, "
+                        "chunked prefill flat-out; 'decode' runs the "
+                        "client front door and adopts pages shipped "
+                        "from --serve-peer (dist/disagg.yml); both need "
+                        "--slots and --pages, else disagg_fallback and "
+                        "co-located serving; 'router' "
+                        "runs the model-free fleet front door — "
+                        "prefix-affinity routing across "
+                        "--route-replicas (dist/fleet.yml, "
+                        "models/router.py); the default serves both "
+                        "phases co-located on one engine")
     p.add_argument("--route-replicas",
                    default=os.environ.get("ROUTE_REPLICAS", ""),
-                   help="router (not ported)")
+                   help="llama --serve --serve-role router: decode "
+                        "replica base URLs, comma-separated (from "
+                        "`tpuctl endpoints serve`). Resizes land at "
+                        "runtime via POST /v1/replicas")
     p.add_argument("--route-policy",
                    default=os.environ.get("ROUTE_POLICY", "affinity"),
                    choices=["affinity", "random"],
-                   help="router (not ported)")
+                   help="router: prefix-affinity consistent hashing, "
+                        "or uniform random (the A/B control arm)")
     p.add_argument("--route-affinity-pages", type=int,
                    default=int(os.environ.get("ROUTE_AFFINITY_PAGES",
                                               "1")),
-                   help="router (not ported)")
+                   help="router: full prompt pages hashed into the "
+                        "affinity key (1 = the shared system-prompt "
+                        "page; more pins deeper prefixes)")
     p.add_argument("--route-vnodes", type=int,
                    default=int(os.environ.get("ROUTE_VNODES", "64")),
-                   help="router (not ported)")
+                   help="router: virtual nodes per replica on the "
+                        "hash ring (more = smoother balance, bigger "
+                        "ring)")
     p.add_argument("--route-spill-pressure", type=float,
                    default=float(os.environ.get("ROUTE_SPILL_PRESSURE",
                                                 "0.85")),
-                   help="router (not ported)")
+                   help="router: back-pressure (scheduler/elastic.py "
+                        "backpressure() over the replica's /v1/healthz "
+                        "load gauges) above which the affinity target "
+                        "counts as hot and requests spill to the "
+                        "least-loaded healthy replica")
     p.add_argument("--route-spill-floor", type=int,
                    default=int(os.environ.get("ROUTE_SPILL_FLOOR", "0")),
-                   help="router (not ported)")
+                   help="router: minimum QoS-class priority allowed to "
+                        "spill on HOT (spill on DOWN applies to all "
+                        "classes — availability is not a paid feature)")
     p.add_argument("--tenant-classes",
                    default=os.environ.get("TENANT_CLASSES", ""),
-                   help="router (not ported)")
+                   help="router: per-tenant QoS classes, "
+                        "name:priority:rate:burst[:ttft_slo_ms] "
+                        "comma-separated, e.g. "
+                        "'gold:10:50:100:250,free:1:2:4'. priority "
+                        "shares the scheduler's priority: integer "
+                        "scale; rate/burst parameterize each tenant's "
+                        "token bucket; empty = admission wide open")
     p.add_argument("--tenant-max-tracked", type=int,
                    default=int(os.environ.get("TENANT_MAX_TRACKED",
                                               "4096")),
-                   help="router (not ported)")
+                   help="router: LRU cap on tracked per-tenant state "
+                        "(buckets + counters), bounding memory against "
+                        "unique-X-Tenant floods; an idle tenant "
+                        "evicted past the cap restarts from a fresh "
+                        "burst on return")
     p.add_argument("--serve-peer",
                    default=os.environ.get("SERVE_PEER", ""),
                    help="--serve-role decode: the prefill tier's base "

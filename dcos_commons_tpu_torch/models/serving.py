@@ -56,9 +56,17 @@ Differences from the reference, all mechanical:
   :meth:`PagedServer.adopt_pages`): a foreign span installs with the same
   in-place ``index_copy_``, and the adopted stream's length and first
   token are written into the bound ``lengths`` and ``cur_tok``;
+* live migration (:meth:`PagedServer.export_stream`,
+  :meth:`PagedServer.import_stream`, :meth:`PagedServer.release_stream`):
+  an exported stream's pages are gathered after every write in flight;
+  an imported stream installs IN PLACE like an adopted span, with its
+  length and last token written into the bound ``lengths`` and
+  ``cur_tok``; the RNG state a stream carries is the engine
+  generator's ``get_state()``, not a JAX key, and ``adopt_rng`` restores
+  it into that same generator (the captured windows registered it);
 * not ported yet, and refused by the constructors (no such parameter):
-  tensor-parallel meshes and, for the paged engine, migration, ring
-  prefill and expert-parallel meshes.
+  tensor-parallel meshes and, for the paged engine, ring prefill and
+  expert-parallel meshes.
 """
 
 from __future__ import annotations
@@ -706,6 +714,9 @@ class PagedServer(_Engine):
         self.shipped_spans = 0         # spans this prefill tier produced
         self.adopted_spans = 0         # foreign spans installed here
         self.adopt_shared_pages = 0    # span pages the radix already held
+        # live migration (export_stream / import_stream / release_stream)
+        self.migrated_out = 0          # streams released to a survivor
+        self.migrated_in = 0           # streams imported mid-decode
         # greedy engines at an identical (config, topology, geometry) key
         # share what carries no engine state, the rope table; each engine
         # captures its own graphs (parallel/aot.py). Sampled engines
@@ -1289,6 +1300,189 @@ class PagedServer(_Engine):
         self._maybe_retire(slot)
         return slot
 
+    # ----------------------------------------------------- live migration
+
+    def export_stream(self, slot: int) -> Optional[Dict[str, Any]]:
+        """Freeze the decode stream in ``slot`` at a window boundary and
+        return its portable state: the K/V pages of every position written
+        so far (:meth:`_gather_span`, ordered after every write in
+        flight) and what a destination needs to resume token-exact: the
+        prompt, every generated token, the budget and the generator's
+        state (None on a greedy engine). A pure READ: the victim keeps its
+        pages and bookkeeping and keeps decoding until
+        :meth:`release_stream`, so a failed migration leaves the stream
+        untouched. None for an empty slot or a stream still prefilling
+        (the caller re-submits its prompt instead).
+
+        The pool holds ``prompt_len + len(tokens) - 1`` written positions
+        (the last token's K/V is written by the destination's next decode
+        step, as it would be here), so that, not the reserved span, is
+        what ships; the last page may be partial."""
+        self._flush_pending()           # a window boundary, never mid-flush
+        if not (0 <= slot < self.slots):
+            return None
+        r = self.requests[slot]
+        if r is None or not self._decoding[slot] or not r.tokens:
+            return None
+        n = r.prompt_len
+        ps = self.page_size
+        kv_len = n + len(r.tokens) - 1
+        pages = self._stream_pages[slot][:-(-kv_len // ps)]
+        rng = (self.generator.get_state().numpy()
+               if self.generator is not None else None)
+        return {"version": 1, "prompt": list(self._prompts[slot]),
+                "tokens": list(r.tokens), "max_new": int(r.budget),
+                "page_size": ps, "kv_quant": bool(self.cfg.kv_quant),
+                "rng_key": rng, "payload": self._gather_span(pages)}
+
+    def _rng_state(self, rng: Any) -> torch.Tensor:
+        """The shipped RNG state as this engine's generator takes it: a
+        uint8 array the size of its own state, else ValueError (a JAX key,
+        or a CPU generator's state on a CUDA engine)."""
+        if self.generator is None:
+            raise ValueError("adopt_rng: this engine samples nothing (no "
+                             "generator to restore the state into)")
+        own = self.generator.get_state()
+        arr = np.asarray(rng.cpu() if isinstance(rng, torch.Tensor)
+                         else rng)
+        if arr.dtype != np.uint8 or arr.shape != tuple(own.shape):
+            raise ValueError(
+                f"adopt_rng: shipped rng_key {arr.dtype.name}"
+                f"{list(arr.shape)} is not this engine's generator state "
+                f"(uint8{list(own.shape)})")
+        return torch.from_numpy(np.array(arr))
+
+    def import_stream(self, state: Dict[str, Any], request_id: Any = None,
+                      adopt_rng: bool = False) -> Optional[int]:
+        """Adopt a migrated decode stream (a victim's
+        :meth:`export_stream`, possibly shipped as a DECSTATE frame by
+        ``models.migrate``) and resume it mid-stream: it joins the decode
+        batch at position ``prompt + generated - 1`` with its tokens,
+        budget and identity, so a greedy continuation is token-exact.
+
+        The transaction is :meth:`adopt_pages`'s: config, shape and RNG
+        mismatches raise ValueError BEFORE any reservation; no free slot
+        or pages returns None; a failure after the reservation gives every
+        reference back before re-raising. Full prompt pages the radix
+        holds are shared; the rest install IN PLACE (:meth:`_install`),
+        and the length and last token are written into the bound
+        ``lengths`` and ``cur_tok``. ``adopt_rng`` sets the engine's own
+        generator to the shipped state (engine-global, so only sensible
+        when the destination carries no other sampled stream)."""
+        t_mig0 = time.perf_counter()
+        prompt = list(state["prompt"])
+        tokens = [int(t) for t in state["tokens"]]
+        n = len(prompt)
+        max_new = int(state["max_new"])
+        if not tokens:
+            raise ValueError("decode state carries no generated tokens; "
+                             "ship a prefill span instead")
+        if int(state.get("page_size", self.page_size)) != self.page_size:
+            raise ValueError(
+                f"stream page_size {state.get('page_size')} != pool page "
+                f"size {self.page_size}; tiers must agree")
+        if bool(state.get("kv_quant")) != bool(self.cfg.kv_quant):
+            raise ValueError("stream/pool kv_quant mismatch: shipped "
+                             "pages are raw pool bytes, tiers must run "
+                             "the same KV dtype")
+        reason = self._validate_item({"prompt": prompt,
+                                      "max_new": max_new})
+        if reason is not None:
+            raise ValueError(reason)
+        if len(tokens) >= max_new or n + len(tokens) >= self.cfg.max_seq:
+            raise ValueError("stream already complete; nothing to "
+                             "resume: deliver its tokens instead")
+        ps = self.page_size
+        kv_len = n + len(tokens) - 1
+        span_pages = -(-kv_len // ps)
+        payload = state["payload"]
+        if not self._span_fits(payload, span_pages):
+            want = (self.cfg.n_layers, span_pages, ps, self.cfg.n_kv_heads,
+                    self.cfg.head_dim)
+            raise ValueError(f"stream payload shape "
+                             f"{_payload_shape(payload['k'])} != pool page "
+                             f"shape {want}")
+        rng = None
+        if adopt_rng and state.get("rng_key") is not None:
+            rng = self._rng_state(state["rng_key"])
+        self._flush_pending()
+        free = self.free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        total = -(-(n + max_new) // ps)
+        shared: List[int] = []
+        if self.radix is not None:
+            # full PROMPT pages dedupe as at adoption: the shipped span
+            # covers every shared page (kv_len >= n)
+            shared, _ = self.radix.lookup(prompt)
+        own_needed = total - len(shared)
+        pages = self.ledger.alloc(own_needed)
+        if pages is None and self.radix is not None:
+            self._evict(own_needed - self.ledger.free_count())
+            pages = self.ledger.alloc(own_needed)
+        if pages is None:
+            for p in shared:
+                self.ledger.unref(p)
+            return None
+        matched = len(shared)
+        try:
+            install = span_pages - matched
+            if install > 0:
+                self._install(payload, matched, span_pages,
+                              pages[:install])
+        except Exception:
+            # an aborted install: every reservation unwinds, and the
+            # victim, which still holds the stream, resumes untouched
+            for p in shared:
+                self.ledger.unref(p)
+            for p in pages:
+                self.ledger.unref(p)
+            raise
+        stream_pages = shared + pages
+        row = self._tables[slot]
+        row[:] = self.scratch
+        row[:total] = stream_pages
+        self._stream_pages[slot] = stream_pages
+        self._prompts[slot] = prompt
+        self._prefill_pos[slot] = n
+        self._decoding[slot] = True
+        self.lengths[slot] = kv_len
+        self.cur_tok[slot] = tokens[-1]
+        rid = request_id if request_id is not None else object()
+        self.requests[slot] = _Request(rid, n, max_new, list(tokens))
+        if rng is not None:
+            self.generator.set_state(rng)
+        self.migrated_in += 1
+        tracer = self.tracer
+        if tracer is not None:
+            ctx = getattr(rid, "trace", None)
+            if ctx is not None:
+                tracer.record("engine.import_stream", t_mig0,
+                              time.perf_counter(), parent=ctx,
+                              pages=span_pages, shared_pages=matched,
+                              generated=len(tokens))
+        self._maybe_retire(slot)
+        return slot
+
+    def release_stream(self, slot: int) -> bool:
+        """Confirm a migration: drop the victim's copy of the stream
+        WITHOUT recording a result (the destination owns it now). Every
+        page unrefs through :meth:`_release`, and a stream that finished
+        prefilling adopts its full prompt pages into the radix first, as
+        at retirement. A stream still prefilling also leaves the prefill
+        queue. Call only after the adoption committed."""
+        if not (0 <= slot < self.slots) or self.requests[slot] is None:
+            return False
+        decoded = self._decoding[slot]
+        self.requests[slot] = None
+        self._pending_first.pop(slot, None)
+        if slot in self._prefill_q:
+            self._prefill_q.remove(slot)
+        self._release(slot, adopt=decoded)
+        self.migrated_out += 1
+        return True
+
     # ------------------------------------------------------------- decode
 
     def _flush_pending(self) -> None:
@@ -1736,6 +1930,8 @@ class PagedServer(_Engine):
             "shipped_spans": self.shipped_spans,
             "adopted_spans": self.adopted_spans,
             "adopt_shared_pages": self.adopt_shared_pages,
+            "migrated_out": self.migrated_out,
+            "migrated_in": self.migrated_in,
             "tier_demoted_pages": self.tier_demoted_pages,
             "tier_promoted_pages": self.tier_promoted_pages,
             "tier_fallbacks": self.tier_fallbacks,

@@ -32,7 +32,12 @@ the promoted pages equal to the eager loop, and promoted and adopted
 pages byte-equal to their source, bf16 and int8 pools; disaggregation:
 a span adopted in place (the bound pool, lengths, tokens and table kept,
 its pages bitwise the span's, the co-located engine's stream) and
-graphed windows over adopted streams equal to the eager loop.
+graphed windows over adopted streams equal to the eager loop; live
+migration: streams exported from a graphed engine and imported through
+the DECSTATE frame into another (the bound pool, lengths, tokens and
+table kept, the pages bitwise the frame's) decode through the graphs as
+the eager loop does, and a sampled stream imported with ``adopt_rng``
+continues the victim's own stream inside a graph.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -1603,3 +1608,94 @@ def test_graphed_windows_over_adopted_streams_equal_the_eager_loop(
             (k, w) for w in range(1, dec.pages_per_stream + 1)}
     assert all(dec.pool[side] is bound[side] for side in bound)
     assert dec.ledger_violations() == []
+
+
+# ---------------------------------------------------------------------------
+# live migration: streams imported into a pool the graphs bind
+
+
+def _migrated(victim, slot):
+    from dcos_commons_tpu_torch.models.migrate import (pack_decstate,
+                                                       unpack_decstate)
+    return unpack_decstate(pack_decstate(victim.export_stream(slot)))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_imported_streams_decode_through_the_graphs_as_eager(dev, kv_quant):
+    """Four streams frozen on a graphed victim and imported into a warmed
+    survivor: the survivor's bound tensors are the same objects, each
+    imported page reads back bitwise the frame's, and graphed windows
+    over the imported streams equal the eager loop (tokens, lengths, K/V
+    bitwise)."""
+    cfg = _cfg(kv_quant=kv_quant)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    victim, survivor = _pair_on_card(cfg, params, dev)
+    victim.warmup()
+    survivor.warmup(widths=range(1, survivor.pages_per_stream + 1),
+                    window=8)
+    _live(victim, cfg, seed=11, max_new=56)
+    victim.step_many(8)
+    bound = {"pool": dict(survivor.pool), "lengths": survivor.lengths,
+             "cur_tok": survivor.cur_tok, "table": survivor._table_buf}
+    for slot in victim._active():
+        state = _migrated(victim, slot)
+        new = survivor.import_stream(state, request_id=slot)
+        n = -(-(len(state["prompt"]) + len(state["tokens"]) - 1) // 16)
+        got = survivor._gather_span(survivor._stream_pages[new][:n])
+        assert _span_bits(got) == _span_bits(state["payload"])
+        assert victim.release_stream(slot)
+    assert len(survivor._active()) == 4
+    assert survivor.page_stats()["migrated_in"] == 4
+    kv = _kv_clone(survivor.pool)
+    want, ln, tok = _eager_windows(survivor, kv, 3, 8)
+    got = _graphed_windows(survivor, 3, 8)
+    for i, toks in got.items():
+        assert toks == want[:, i].tolist(), i
+    assert torch.equal(survivor.lengths, ln)
+    assert torch.equal(survivor.cur_tok, tok)
+    assert _kv_equal(survivor.pool, kv)
+    assert all(survivor.pool[s] is bound["pool"][s] for s in bound["pool"])
+    assert survivor.lengths is bound["lengths"]
+    assert survivor.cur_tok is bound["cur_tok"]
+    assert survivor._table_buf is bound["table"]
+    assert victim.ledger_violations() == []
+    assert survivor.ledger_violations() == []
+
+
+def test_adopt_rng_continues_the_victims_stream_inside_a_graph(dev):
+    """A sampled stream imported with ``adopt_rng=True`` into an engine
+    with no other sampled stream: the destination's own generator takes
+    the victim's state, and its graphed windows draw the tokens the
+    victim's graphed windows draw from that state. A CPU generator's
+    state is refused before any reservation."""
+    from dcos_commons_tpu_torch.ops.sampling import make_sampler
+    cfg = _cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def sampled(seed):
+        return serving.PagedServer(
+            cfg, params, slots=4, page_size=16, prefill_chunk=16,
+            sampler=make_sampler(0.9, top_k=50),
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+
+    victim, dest = sampled(3), sampled(4)
+    gen = dest.generator
+    _live(victim, cfg, seed=12, lens=(40,), max_new=60)
+    victim.step_many(8)
+    state = _migrated(victim, 0)
+    cpu_state = dict(state, rng_key=torch.Generator().get_state().numpy())
+    free = dest.pages_free()
+    with pytest.raises(ValueError, match="adopt_rng"):
+        dest.import_stream(cpu_state, adopt_rng=True)
+    assert dest.pages_free() == free and not dest.requests_active()
+    assert dest.import_stream(state, request_id="s", adopt_rng=True) == 0
+    assert dest.generator is gen
+    assert torch.equal(gen.get_state(), victim.generator.get_state())
+    want = _graphed_windows(victim, 3, 8)[0]
+    got = _graphed_windows(dest, 3, 8)[0]
+    assert got == want
+    assert dest.graph_stats()["graphs"] >= 1
+    assert torch.equal(gen.get_state(), victim.generator.get_state())

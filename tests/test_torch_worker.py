@@ -30,6 +30,7 @@ import sys
 import threading
 import time
 import types
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -262,13 +263,12 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 
 # (index, workload, args, env, code): the index keeps each case's id as
 # it was while speculative decoding, the checkpoint restore, profiling,
-# MoE serving and the disaggregated roles (3, 4) were refused (MoE
-# training stays refused: it needs the mesh)
+# MoE serving, the disaggregated roles (3, 4) and the router role (5)
+# were refused (MoE training stays refused: it needs the mesh)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
      "longctx_not_ported"),
-    (5, "llama", ["--serve-role", "router"], {}, "router_not_ported"),
     (9, "llama", [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
      "weight_fetch_not_ported"),
     (13, "llama", [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1",
@@ -752,3 +752,94 @@ def test_the_worker_serves_spec_decode_from_a_restored_checkpoint(tmp_path):
     want = [srv.drain([{"prompt": p, "max_new": 6, "request_id": i}],
                       decode_window=8)[i] for i, p in enumerate(PROMPTS)]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the router role
+
+
+@pytest.fixture(scope="module")
+def replica():
+    """A tiny paged replica behind the port's front door on 127.0.0.1,
+    built from the worker's seed: what ``--pages 64`` serves."""
+    from dcos_commons_tpu_torch.models.ingress import ServingFrontend
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    srv = ts.PagedServer(cfg, params, slots=2, pages=64, device="cpu")
+    fe = ServingFrontend(srv, port=0, host="127.0.0.1").start()
+    yield f"http://127.0.0.1:{fe.port}"
+    fe.stop()
+
+
+def _router_stats(port):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/routestats",
+                                timeout=20) as r:
+        return json.loads(r.read())
+
+
+def test_router_role_relays_a_replica(tmp_path, replica):
+    """``--serve-role router`` serves the model-free front door: a
+    ``serving`` event with ``role: router``, the replica's own tokens
+    relayed through it, a ``role: router`` heartbeat with its route
+    stats, and no CUDA touched; no ``router_not_ported`` is left."""
+    assert "router_not_ported" not in WORKER_SRC
+    w = _Worker(tmp_path, "--serve", "--serve-role", "router",
+                "--route-replicas", replica, "--page-size", "64",
+                "--serve-port", "0")
+    try:
+        serving = w.event("serving")
+        assert serving["role"] == "router"
+        assert serving["replicas"] == [replica]
+        assert serving["policy"] == "affinity" and serving["classes"] == []
+        port = serving["port"]
+        assert (tmp_path / "serving.ready").read_text() == f"ok {port}\n"
+        got = [_post(port, {"prompt": p, "max_new": 6}) for p in PROMPTS]
+        assert [g["replica"] for g in got] == [replica] * 2
+        assert [g["routed"] for g in got] == ["affinity"] * 2
+        hb = w.event("heartbeat", where=lambda e: e.get("routed") == 2)
+        assert hb["role"] == "router" and hb["dropped_streams"] == 0
+        assert hb["cuda_initialized"] is False
+        assert w.stop() == -signal.SIGTERM
+    finally:
+        if w.proc.poll() is None:
+            w.proc.kill()
+    assert [g["tokens"] for g in got] == _direct_paged(PROMPTS, 6)
+
+
+def test_router_bad_tenant_classes_serves_open(tmp_path, replica):
+    """A ``--tenant-classes`` the parser refuses emits
+    ``router_config_error`` and the router serves with admission open;
+    a good one sheds a tenant past its burst with the reference's 429."""
+    w = _Worker(tmp_path, "--serve", "--serve-role", "router",
+                "--route-replicas", replica, "--page-size", "64",
+                "--serve-port", "0", "--tenant-classes", "gold:10:50")
+    try:
+        err = w.event("router_config_error")
+        assert "TENANT_CLASSES" in err["error"]
+        assert err["tenant_classes"] == "gold:10:50"
+        serving = w.event("serving")
+        assert serving["classes"] == []
+        body = {"prompt": PROMPTS[0], "max_new": 2, "tenant": "t",
+                "qos": "gold"}
+        for _ in range(3):
+            assert len(_post(serving["port"], body)["tokens"]) == 2
+        assert _router_stats(serving["port"])["sheds"] == 0
+    finally:
+        w.stop()
+    (tmp_path / "good").mkdir()
+    w = _Worker(tmp_path / "good", "--serve", "--serve-role", "router",
+                "--route-replicas", replica, "--page-size", "64",
+                "--serve-port", "0", "--tenant-classes", "gold:10:0:1")
+    try:
+        serving = w.event("serving")
+        assert serving["classes"] == ["gold"]
+        body = {"prompt": PROMPTS[0], "max_new": 2, "tenant": "t",
+                "qos": "gold"}
+        assert _post(serving["port"], body)["qos"] == "gold"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(serving["port"], body)
+        assert e.value.code == 429 and e.value.headers["Retry-After"]
+        assert _router_stats(serving["port"])["sheds"] == 1
+    finally:
+        w.stop()
