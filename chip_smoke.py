@@ -192,12 +192,34 @@ Phases (any failure exits non-zero):
    through kernels 3-5 (head_dim 8 zero-padded to 64), one launch of
    each a layer a step.
 
+14. (after phase 6) scale-up through the weight server at Llama-3-8B:
+   worker A (``--pages 64 --out VOL_A`` with ``WEIGHT_SERVE_PORT``) boots
+   from the init, seeds step 0, serves it and answers phase 6's 8
+   requests; worker B (``--out VOL_B``, ``WEIGHT_FETCH_PEERS`` at A)
+   mirrors and restores it (``source: peer``, VOL_B's step equal to
+   VOL_A's) and answers them with A's replies (near-tie rule),
+   kernel 1 counted around its requests; A's seed-save, B's fetch and
+   restore seconds and GB/s. Cut: 8 of the 32 layers at full width
+   (``CUT_WORKER``; at 32 layers the phase took 485 s), so B's replies
+   are held to A's. Then (after phase 9, the card free of the 8B
+   weights) ResNet-50 at full width and depth: the fp32 train pass at
+   batch 8, 224x224, card against CPU (logits, loss, batch-norm state,
+   every gradient), then bf16 at batch 256 (``BATCH_PER_HOST``): 3
+   warm-up and 20 timed steps, step ms, images/s, MFU against 989 TFLOP/s
+   by bench.py's 3 x 4.09 GFLOP an image, peak memory, the loss stream,
+   one step's device split (convolutions, batch norm and elementwise,
+   the optimizer) and idle share; then the worker's ``resnet --depth 50
+   --batch 256 --steps 8 --out VOL`` (Adam count 9), its resume to 12,
+   ``mnist --steps 200 --out VOL2`` and its resume to 250. No kernel is
+   new in phase 14.
+
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
 ``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
-``worker_disagg``, ``migrate``, ``fleet`` and ``phase_s`` lines,
+``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``resnet``,
+``worker_resnet`` and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -1185,6 +1207,7 @@ WORKER_ENGINES = (
 )
 WORKER_BOOT_S = 600
 WORKER_VOCAB = 128256           # Llama-3-8B's
+WORKER_MODULE = ("-m", "dcos_commons_tpu_torch.frameworks.worker")
 
 
 def _event_reader(proc, events: list, forbid, who: str):
@@ -1239,7 +1262,8 @@ def _sigterm(proc) -> int:
 
 def phase_worker(card: str, name: str, extra, engine: str, kernels,
                  expect=(), forbid=("paged_fallback",), rounds=None,
-                 ready=None):
+                 ready=None, env=None, cwd=None, worker_args=WORKER_ARGS,
+                 launch=WORKER_MODULE):
     """The process the scheduler starts: the port's worker
     (``python -m dcos_commons_tpu_torch.frameworks.worker`` with
     ``WORKER_ARGS`` and ``extra``, serving with ``engine``) on the card.
@@ -1253,16 +1277,21 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
     the 8 requests: each round's requests are sent at once, round after
     round, and the replies come back in that order. ``ready`` (no
     arguments) runs after the ``serving`` event, before the first
-    request. Returns (line, launches, replies, events)."""
+    request. ``env`` adds to the worker's environment, ``cwd`` replaces
+    its working directory, ``worker_args`` the flags before ``extra``
+    (with ``--device cpu`` there, no kernel launch is required),
+    ``launch`` the interpreter arguments that start the worker. Returns
+    (line, launches, replies, events)."""
     import signal
 
     root = Path(__file__).resolve().parent
-    cwd = root / "build" / "worker_smoke"
+    cwd = cwd or root / "build" / "worker_smoke"
     cwd.mkdir(parents=True, exist_ok=True)
-    args = [*WORKER_ARGS, *extra]
-    cmd = [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
-           *args]
-    env = dict(os.environ, PYTHONPATH=str(root))
+    args = [*worker_args, *extra]
+    on_card = not ("--device" in args
+                   and args[args.index("--device") + 1] == "cpu")
+    cmd = [sys.executable, *launch, *args]
+    env = dict(os.environ, PYTHONPATH=str(root), **(env or {}))
     v = WORKER_VOCAB
     rounds = rounds or [worker_bodies()]
     bodies = [b for r in rounds for b in r]
@@ -1322,7 +1351,7 @@ def phase_worker(card: str, name: str, extra, engine: str, kernels,
     launches = {k: beat.get("launches", {}).get(k, 0) - at_serving.get(k, 0)
                 for k in kernels}
     for k, n in launches.items():
-        if n < 1:
+        if n < 1 and on_card:
             problems.append(f"{k} never launched while the worker served")
     if ("paged" in serving) != (engine == "PagedServer"):
         problems.append(f"the worker served another engine: {serving}")
@@ -4539,6 +4568,460 @@ def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
     return line, sum(sum(arm["launches"]) for arm in arms.values())
 
 
+# --------------------------------------------------------------- phase 14
+
+# ResNet-50 as the resnet service trains it: frameworks/jax/scenarios.py
+# BATCH_PER_HOST and bench.py's RESNET_BATCH, 224x224 bf16
+RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE = 50, 256, 224
+RESNET_WARMUP, RESNET_STEPS = 3, 20
+# bench.py:37's count: forward + backward, 3 x 4.09 GFLOP an image
+RESNET_FLOP_PER_IMAGE = 3 * 4.09e9
+# card vs CPU, the same port functions in fp32 (TF32 off): logits and
+# each batch-norm state leaf within 1e-3 of their largest value, the loss
+# within 1e-4; every eval-mode gradient (no batch statistics) within 1e-3
+# of the tree's largest (1e-4 before call 2 measured 1.28e-4: without
+# batch statistics the init's running ones leave the 16 blocks' sums
+# unnormalised); the train-mode gradient's cosine >= 0.999 and
+# each element within 5e-2 of the largest: cuDNN and the CPU sum in other
+# orders, and the batch statistics amplify that through 16 blocks (call
+# 1: 0.0225 and 0.99973, as the CPU tests find against JAX)
+RESNET_CHECK_BATCH = 8
+RESNET_LOGIT_TOL, RESNET_LOSS_RTOL = 1e-3, 1e-4
+RESNET_EVAL_GRAD_TOL = 1e-3     # call 2: 1.28e-4
+RESNET_GRAD_TOL, RESNET_GRAD_COSINE = 5e-2, 0.999
+RESNET_WORKER_STEPS, RESNET_WORKER_RESUMED = 8, 12
+MNIST_STEPS, MNIST_RESUMED = 200, 250
+# kernel-name fragments of the convolutions (cuDNN, and the head's
+# product); the first family that matches wins
+RESNET_FAMILIES = (("convolution", ("conv", "xmma", "implicit", "fprop",
+                                    "dgrad", "wgrad", "cudnn", "cutlass",
+                                    "gemm", "nvjet", "sm90_", "sm80_")),
+                   ("elementwise", ("",)))
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def resnet_grads(cfg, params, state, x, y):
+    """(loss, logits, new state, {leaf: gradient}) of one train pass, and
+    {leaf: gradient} of the eval-mode loss over ``state``."""
+    import torch
+    from dcos_commons_tpu_torch.models import resnet, train
+    from dcos_commons_tpu_torch.ops.losses import softmax_cross_entropy
+    leaves = train._leaves(params)
+    names = [k for k, _ in _named(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, (_, new_state) = resnet.loss_fn(cfg, params, state, (x, y))
+        grads = torch.autograd.grad(loss, leaves)
+        eval_loss = softmax_cross_entropy(
+            resnet.forward(cfg, params, state, x, train=False)[0], y)[0]
+        eval_grads = torch.autograd.grad(eval_loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    with torch.no_grad():
+        logits, _ = resnet.forward(cfg, params, state, x)
+    return (loss.detach(), logits, train._detached(new_state),
+            dict(zip(names, grads)), dict(zip(names, eval_grads)))
+
+
+def resnet_card_vs_cpu(dev, depth=RESNET_DEPTH, size=RESNET_SIZE,
+                       batch=RESNET_CHECK_BATCH, width=64) -> dict:
+    """The fp32 ResNet's train pass on the card and through the same port
+    functions on the CPU (which the tier-1 tests hold to JAX), on the same
+    init and batch: logits, loss, new batch-norm state and every gradient
+    of the train-mode and of the eval-mode loss."""
+    import numpy as np
+    import torch
+    from dcos_commons_tpu_torch.models import resnet
+    cfg = resnet.ResNetConfig(depth=depth, n_classes=1000, width=width,
+                              dtype=torch.float32)
+    params, state = resnet.init_params(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, size, size, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,)).astype(np.int32))
+    t0 = time.perf_counter()
+    want = resnet_grads(cfg, params, state, x, y)
+    cpu_s = time.perf_counter() - t0
+    got = resnet_grads(cfg, _tree_to(params, dev), _tree_to(state, dev),
+                       x.to(dev), y.to(dev))
+    loss_w, logits_w, state_w, grads_w, eval_w = want
+    loss_g, logits_g, state_g, grads_g, eval_g = [
+        _tree_to(t, "cpu") if isinstance(t, dict) else t.cpu() for t in got]
+    out = {"depth": depth, "batch": batch, "size": size, "cpu_s": cpu_s}
+    out["logits_err"] = float((logits_g - logits_w).abs().max()
+                              / logits_w.abs().max())
+    out["loss_rel_err"] = abs(float(loss_g) / float(loss_w) - 1)
+    out["state_err"] = max(
+        float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        for (_, a), (_, b) in zip(_named(state_g), _named(state_w)))
+    scale = max(float(g.abs().max()) for g in grads_w.values())
+    out["grad_err"] = max(float((grads_g[k] - g).abs().max())
+                          for k, g in grads_w.items()) / scale
+    a = torch.cat([g.flatten() for g in grads_w.values()]).double()
+    b = torch.cat([grads_g[k].flatten() for k in grads_w]).double()
+    out["grad_cosine"] = float(a @ b / (a.norm() * b.norm()))
+    scale = max(float(g.abs().max()) for g in eval_w.values())
+    out["eval_grad_err"] = max(float((eval_g[k] - g).abs().max())
+                               for k, g in eval_w.items()) / scale
+    problems = []
+    if out["logits_err"] > RESNET_LOGIT_TOL:
+        problems.append(f"logits {out['logits_err']}")
+    if out["loss_rel_err"] > RESNET_LOSS_RTOL:
+        problems.append(f"loss {out['loss_rel_err']}")
+    if out["state_err"] > RESNET_LOGIT_TOL:
+        problems.append(f"batch-norm state {out['state_err']}")
+    if out["grad_err"] > RESNET_GRAD_TOL \
+            or out["grad_cosine"] < RESNET_GRAD_COSINE:
+        problems.append(f"gradients {out['grad_err']}, cosine "
+                        f"{out['grad_cosine']}")
+    if out["eval_grad_err"] > RESNET_EVAL_GRAD_TOL:
+        problems.append(f"eval-mode gradients {out['eval_grad_err']}")
+    if problems:
+        raise RuntimeError("resnet card vs CPU: " + "; ".join(problems))
+    return out
+
+
+def _resnet_family(name: str) -> str:
+    low = name.lower()
+    return next(fam for fam, keys in RESNET_FAMILIES
+                if any(k in low for k in keys))
+
+
+def resnet_split(step, opt, params, opt_state, state, batch) -> dict:
+    """One train step split on the device: forward, backward and the
+    optimizer by CUDA events around the step's own parts (two steps), then
+    one step under ``torch.profiler``: device busy time, the idle share,
+    and the kernels' time by family (convolutions, the batch-norm and
+    other elementwise passes, the optimizer's update)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dcos_commons_tpu_torch.models import resnet, train
+    from tools.torch_profile_decode import _device_us
+
+    cfg, x, y = batch
+    leaves = train._leaves(params)
+    phase_ms = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for t in leaves:
+            t.requires_grad_(True)
+        ev[0].record()
+        loss, (_, state) = resnet.loss_fn(cfg, params, state, (x, y))
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        for t in leaves:
+            t.requires_grad_(False)
+        train.apply_updates(opt, params, list(grads), opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(phase_ms):
+            phase_ms[name] += ev[i].elapsed_time(ev[i + 1]) / 2
+        state = train._detached(state)
+        del grads, loss
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, (state, (x, y)))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the step's record_function ranges also come back as device-side
+    # spans: they are read as ranges, not summed with the kernels
+    ranges = {e.key: _device_us(e) / 1e3 for e in prof.key_averages()
+              if e.key.startswith("train_step.")}
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("train_step.")]
+    busy = sum(_device_us(e) for e in events) / 1e3
+    fam = {name: 0.0 for name, _ in RESNET_FAMILIES}
+    for e in events:
+        fam[_resnet_family(e.key)] += _device_us(e) / 1e3
+    opt_ms = ranges.get("train_step.optimizer", 0.0)
+    top = sorted(events, key=_device_us, reverse=True)[:10]
+    return {"phase_ms_events": phase_ms, "wall_ms_profiled": wall_ms,
+            "range_spans_ms": ranges,
+            "device_busy_ms": busy or None,
+            "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            "device_ms": {"convolution": fam["convolution"],
+                          "optimizer_span": opt_ms or None,
+                          "batch_norm_elementwise_and_optimizer":
+                              fam["elementwise"]} if busy else None,
+            "top_device": [{"name": e.key[:80], "count": e.count,
+                            "ms": _device_us(e) / 1e3}
+                           for e in top if _device_us(e)]}
+
+
+def phase_resnet(card: str, dev="cuda", depth=RESNET_DEPTH,
+                 batch=RESNET_BATCH, size=RESNET_SIZE, steps=RESNET_STEPS,
+                 check=None) -> dict:
+    """ResNet-50 at full width and depth, bf16, as the ``resnet`` service
+    trains it: first the fp32 train pass held card against CPU
+    (:func:`resnet_card_vs_cpu`, or ``check``), then, with
+    ``cudnn.benchmark`` on as in the worker, ``RESNET_WARMUP`` warm-up and
+    ``steps`` timed steps on one fixed synthetic batch
+    (``make_optimizer(lr=0.1)``, the ``has_aux_state`` step): step ms,
+    images/s, MFU against the bf16 peak by bench.py's FLOP count, peak
+    device memory, the loss stream (finite), and one step's device split
+    (:func:`resnet_split`)."""
+    import math
+    import torch
+    from dcos_commons_tpu_torch.models import resnet, train
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    parity = (check if check is not None else resnet_card_vs_cpu)(dev)
+    parity_s = time.perf_counter() - t0
+    cfg = resnet.ResNetConfig(depth=depth, n_classes=1000)
+    # as the worker's resnet: cuDNN picks each conv's algorithm by timing
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = on_card
+    gen = torch.Generator(device=dev)
+    params, state = resnet.init_params(cfg, gen.manual_seed(SEED),
+                                       device=dev)
+    opt = train.make_optimizer(lr=0.1)
+    step = train.make_train_step(
+        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1]), opt,
+        has_aux_state=True)
+    opt_state = train.init_opt_state(opt, params)
+    x = torch.randn((batch, size, size, 3), dtype=torch.bfloat16,
+                    generator=gen.manual_seed(SEED + 1), device=dev)
+    y = torch.randint(0, 1000, (batch,), dtype=torch.int32,
+                      generator=gen.manual_seed(SEED + 100), device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    for _ in range(RESNET_WARMUP):
+        params, opt_state, state, out = step(params, opt_state,
+                                             (state, (x, y)))
+        losses.append(out["loss"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt_state, state, out = step(params, opt_state,
+                                             (state, (x, y)))
+        losses.append(out["loss"])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"resnet phase: losses {losses}")
+    ips = batch * steps / wall
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    split = (resnet_split(step, opt, params, opt_state, state, (cfg, x, y))
+             if on_card else None)
+    torch.backends.cudnn.benchmark = benchmark
+    line = {"resnet": {
+        "model": f"resnet{depth}", "batch": batch, "image": size,
+        "dtype": "bf16", "optimizer": "AdamW lr 0.1 (make_optimizer)",
+        "card_vs_cpu_fp32": parity, "card_vs_cpu_s": parity_s,
+        "warmup_steps": RESNET_WARMUP, "steps": steps,
+        "step_ms": wall / steps * 1e3, "images_per_sec": ips,
+        "flop_per_image": RESNET_FLOP_PER_IMAGE,
+        "flop_count": "bench.py:37, 3 x 4.09 GFLOP an image",
+        "mfu": ips * RESNET_FLOP_PER_IMAGE / BF16_OPS_PER_S,
+        "peak_mem_gb": peak, "losses": losses, "split": split,
+        "card": card}}
+    log(f"[resnet] {line}")
+    return line
+
+
+def phase_resnet_worker(card: str, depth=RESNET_DEPTH, batch=RESNET_BATCH,
+                        steps=RESNET_WORKER_STEPS,
+                        resumed=RESNET_WORKER_RESUMED,
+                        mnist=(MNIST_STEPS, MNIST_RESUMED),
+                        extra=()) -> dict:
+    """The worker's ``resnet --depth 50 --batch 256 --steps 8 --out VOL``
+    (Adam count 9 saved at step 8: the warm-up's update is kept), its
+    relaunch with ``--steps 12`` (``resumed`` at 8, 4 steps, count 13),
+    then ``mnist --steps 200 --out VOL2`` and its relaunch with ``--steps
+    250`` (``resumed`` at 200, 50 steps)."""
+    import math
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "resnet_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    vol, vol2 = base / "vol", base / "vol2"
+    problems, runs = [], {}
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        rc, events = _worker_run([*args, *extra], base)
+        done = [e for e in events if e.get("event") == "done"]
+        runs[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                      "resumed": [e["step"] for e in events
+                                  if e.get("event") == "resumed"],
+                      "done": done[0] if done else None}
+        if rc != 0 or not done:
+            problems.append(f"{name}: exit {rc}, {events[-2:]}")
+            return {}
+        return done[0]
+
+    rn = ["resnet", "--depth", str(depth), "--batch", str(batch)]
+    done = run("resnet", [*rn, "--steps", str(steps), "--out", str(vol)])
+    if done and (done["steps"] != steps
+                 or not math.isfinite(done["final_loss"] or math.nan)
+                 or _saved_counts(vol, steps) != (steps + 1,) * 2):
+        problems.append(f"resnet: {done}, counts "
+                        f"{_saved_counts(vol, steps)}")
+    done = run("resnet_resumed", [*rn, "--steps", str(resumed), "--out",
+                                  str(vol)])
+    if done and (runs["resnet_resumed"]["resumed"] != [steps]
+                 or done["steps"] != resumed - steps
+                 or _saved_counts(vol, resumed) != (resumed + 1,) * 2):
+        problems.append(f"resnet_resumed: {runs['resnet_resumed']}")
+    m_steps, m_resumed = mnist
+    done = run("mnist", ["mnist", "--steps", str(m_steps), "--out",
+                         str(vol2)])
+    if done and (done["steps"] != m_steps
+                 or not math.isfinite(done["final_loss"])):
+        problems.append(f"mnist: {done}")
+    done = run("mnist_resumed", ["mnist", "--steps", str(m_resumed),
+                                 "--out", str(vol2)])
+    if done and (runs["mnist_resumed"]["resumed"] != [m_steps]
+                 or done["steps"] != m_resumed - m_steps):
+        problems.append(f"mnist_resumed: {runs['mnist_resumed']}")
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("resnet worker phase: " + "; ".join(problems))
+    line = {"worker_resnet": {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   f"resnet --depth {depth} --batch {batch} --steps "
+                   f"{steps} --out VOL, then --steps {resumed}; mnist "
+                   f"--steps {m_steps} --out VOL2, then --steps {m_resumed}",
+        "runs": runs, "card": card}}
+    log(f"[worker_resnet] {line}")
+    return line
+
+
+# phase 14b at 8B width with PEER_LAYERS of the 32 layers: at full depth
+# the phase took 485 s (seed save 90 s, fetch 276 s, restore 75 s of 16.06
+# GB), past what the script's 1,200 s allow beside the other phases. The
+# worker has no layer knob; this launcher cuts its 8b preset in the
+# worker's own process and runs the worker's main.
+PEER_LAYERS = 8
+CUT_WORKER = (
+    "import dataclasses, sys\n"
+    "from dcos_commons_tpu_torch.models import llama\n"
+    "full = llama.LlamaConfig.llama3_8b\n"
+    "n = int(sys.argv.pop(1))\n"
+    "llama.LlamaConfig.llama3_8b = staticmethod(\n"
+    "    lambda **kw: dataclasses.replace(full(**kw), n_layers=n))\n"
+    "from dcos_commons_tpu_torch.frameworks import worker\n"
+    "sys.exit(worker.main(sys.argv[1:]))\n")
+
+
+def phase_peer_boot(card: str, worker_args=WORKER_ARGS,
+                    layers=PEER_LAYERS, dev="cuda", cfg=None) -> tuple:
+    """Scale-up through the weight server, as ``dist/llama.yml``'s decode
+    tier boots a sibling, at 8B width with ``layers`` layers
+    (``CUT_WORKER``): worker A (``WORKER_ARGS --pages 64 --out VOL_A`` with
+    ``WEIGHT_SERVE_PORT``) boots from the init, seeds step 0, serves it
+    and answers phase 6's 8 requests; worker B (the same with ``--out
+    VOL_B`` and ``WEIGHT_FETCH_PEERS`` at A) mirrors A's step into VOL_B,
+    restores from it (``source: peer``) and, through
+    :func:`phase_worker`, answers the same requests, held to A's replies
+    (exactly or at a near-tie of the cut model). VOL_B's committed
+    manifest equals VOL_A's and B's restore held every shard to its
+    digest, so the step's files are byte-equal. A fetch or restore
+    fallback fails the phase. B's kernel-1 launches are counted around its
+    requests only. ``cfg`` is the model the workers serve, for the
+    near-tie rule (default: the cut 8b preset)."""
+    import shutil
+    import signal
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+
+    root = Path(__file__).resolve().parent
+    base = root / "build" / "peer_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    (base / "a").mkdir(parents=True)
+    vol_a, vol_b = base / "a" / "vol", base / "b" / "vol"
+    launch = ("-c", CUT_WORKER, str(layers))
+    args_a = [*worker_args, "--pages", "64", "--out", str(vol_a)]
+    proc = subprocess.Popen(
+        [sys.executable, *launch, *args_a], cwd=base / "a",
+        env=dict(os.environ, PYTHONPATH=str(root), WEIGHT_SERVE_PORT="0"),
+        stdout=subprocess.PIPE, text=True)
+    event = _event_reader(proc, [], ("weight_server_error",
+                                     "paged_fallback"), "peer worker A")
+    bodies = worker_bodies()
+    try:
+        t0 = time.perf_counter()
+        loaded_a = event("weights_loaded", WORKER_BOOT_S)
+        served = event("weight_server", WORKER_BOOT_S)
+        a_serving = event("serving", WORKER_BOOT_S)
+        a_boot_s = time.perf_counter() - t0
+        a_replies, a_errors, _ = _serve_over_http(
+            a_serving["port"], bodies, WORKER_STREAMED)
+        line, launches, replies, events_b = phase_worker(
+            card, "worker_peer", ("--pages", "64", "--out", str(vol_b)),
+            "PagedServer", ("flash_decode_paged",),
+            forbid=("paged_fallback", "weight_fetch_fallback",
+                    "weight_restore_fallback"),
+            env={"WEIGHT_FETCH_PEERS": f"http://127.0.0.1:{served['port']}"},
+            cwd=base / "b", worker_args=worker_args, launch=launch)
+        health = _http_get(a_serving["port"], "/v1/healthz")
+    finally:
+        rc = _sigterm(proc)
+    problems = list(a_errors)
+    loaded_b = next(e for e in events_b
+                    if e.get("event") == "weights_loaded")
+    if loaded_a.get("source") != "init" or served.get("steps") != [0]:
+        problems.append(f"worker A: {loaded_a}, {served}")
+    if loaded_b.get("source") != "peer" \
+            or line["worker_peer"]["cold_start"]["source"] != "peer":
+        problems.append(f"worker B booted from {loaded_b}")
+    step = "step-00000000-p0"
+    man_a = json.loads((vol_a / step / "manifest.json").read_text())
+    man_b = json.loads((vol_b / step / "manifest.json").read_text())
+    files = [s for e in man_a["leaves"].values() for s in e["shards"]]
+    n_bytes = sum(s["bytes"] for s in files)
+    if man_a != man_b or sorted(p.name for p in (vol_b / step).iterdir()) \
+            != sorted([s["file"] for s in files] + ["manifest.json"]):
+        problems.append("VOL_B's step 0 differs from VOL_A's")
+    if not health.get("ok") or rc != -signal.SIGTERM:
+        problems.append(f"worker A: /v1/healthz {health}, exit {rc}")
+    want = [(r or {}).get("tokens") for r in a_replies]
+    divergences = []
+    if replies != want:
+        # the cut model A and B serve, as the worker initialises it
+        cfg = cfg or dataclasses.replace(
+            llama.LlamaConfig.llama3_8b(max_seq=2048), n_layers=layers)
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        divergences = _held_to(
+            "worker_peer", dict(enumerate(replies)), dict(enumerate(want)),
+            {i: b["prompt"] for i, b in enumerate(bodies)}, cfg, params,
+            problems)
+        del params
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("worker_peer phase: " + "; ".join(problems))
+    body = line["worker_peer"]
+    body.update({
+        "model": f"llama3_8b width, {layers} of 32 layers",
+        "peer_command": "WEIGHT_SERVE_PORT=0 python -m dcos_commons_tpu_torch"
+                        ".frameworks.worker " + " ".join(args_a),
+        "peer_boot_to_serving_s": a_boot_s,
+        "seed_save_s": served["seed_save_s"],
+        "step_bytes": n_bytes, "shards": len(files),
+        "fetch_s": loaded_b["fetch_s"], "restore_s": loaded_b["restore_s"],
+        "fetch_gb_per_s": n_bytes / 1e9 / max(loaded_b["fetch_s"], 1e-9),
+        "restore_gb_per_s": n_bytes / 1e9 / max(loaded_b["restore_s"],
+                                                1e-9),
+        "near_tie_divergences": divergences,
+        "replies_equal_worker_a": sum(a == b for a, b in zip(replies, want))})
+    log(f"[worker_peer] {line}")
+    return line, launches
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -4618,6 +5101,8 @@ def main() -> int:
             f"6_{name}", phase_worker, card, name, extra, engine, names)
         worker_lines.append(line)
         worker_launches.update(launches)
+    peer_line, peer_launches = timed_phase("14_worker_peer",
+                                           phase_peer_boot, card)
     disagg_worker_line, disagg_worker_launches = timed_phase(
         "12_worker_disagg", phase_disagg_worker, card,
         replies["worker_paged"], params)
@@ -4645,6 +5130,13 @@ def main() -> int:
         "10_worker_moe", phase_moe_worker, card, moe_worker_want)
     training_line, fa_launches = timed_phase("4_train", phase_train, card)
     llama_train_line = timed_phase("9_llama_train", phase_llama_train, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_line = timed_phase("14_resnet", phase_resnet, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_worker_line = timed_phase("14_worker_resnet", phase_resnet_worker,
+                                     card)
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -4695,7 +5187,8 @@ def main() -> int:
                        "worker_disagg":
                            disagg_worker_launches["flash_decode_paged"],
                        "migrate": migrate_launches,
-                       "fleet": fleet_launches},
+                       "fleet": fleet_launches,
+                       "worker_peer": peer_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -4760,6 +5253,9 @@ def main() -> int:
     print(json.dumps(disagg_worker_line), flush=True)
     print(json.dumps(migrate_line), flush=True)
     print(json.dumps(fleet_line), flush=True)
+    print(json.dumps(peer_line), flush=True)
+    print(json.dumps(resnet_line), flush=True)
+    print(json.dumps(resnet_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

@@ -1,7 +1,11 @@
 """Task-side worker of the port: what a scheduled pod instance runs (port
-of ``frameworks/jax/worker.py``: its ``llama``, ``llama-train`` and
-``distill`` workloads).
+of ``frameworks/jax/worker.py``: its ``mnist``, ``resnet``, ``llama``,
+``llama-train`` and ``distill`` workloads).
 
+    python -m dcos_commons_tpu_torch.frameworks.worker mnist --steps 200 \
+        --out VOL
+    python -m dcos_commons_tpu_torch.frameworks.worker resnet --steps 200 \
+        --batch 256 [--depth 50] [--lr 0.1] [--emit-every N] --out VOL
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset tiny
     python -m dcos_commons_tpu_torch.frameworks.worker llama --preset 8b \\
         --serve --slots 8 [--pages 64] [--quant int8] [--kv-quant] \\
@@ -79,10 +83,25 @@ router serves with admission open.
 ``--spec-decode true --draft-checkpoint DIR`` arms the paged engine with
 a sealed draft artifact (``models.speculative.save_draft``): a
 ``spec_armed`` event, or a coded ``spec_fallback`` (the reference's
-codes) and solo serving. A serving worker whose ``--out`` holds a
-sharded checkpoint (``parallel.checkpoint``) restores its weights from
-it (``weights_loaded`` with ``source`` ``disk``), or emits
-``weight_restore_fallback`` and serves the init.
+codes) and solo serving.
+
+Serving weights come, in the reference's order, from a hot sibling's
+weight server (``WEIGHT_FETCH_PEERS=URL[,URL...]``, within
+``WEIGHT_FETCH_TIMEOUT_S``; ``models.weights``: mirrored into ``--out``
+when it is set, then restored; ``source`` ``peer``), from the newest
+sharded checkpoint under ``--out`` (``source`` ``disk``), or from the
+init; a failed fetch emits ``weight_fetch_fallback``, a failed restore
+``weight_restore_fallback``, and the boot goes on to the next source.
+``WEIGHT_SERVE_PORT`` (or ``PORT_WEIGHTS``) with ``--out`` serves this
+replica's committed steps to its siblings (``weight_server``; step 0 is
+seeded from the serving weights when none is committed), or emits
+``weight_server_error`` and serving goes on.
+
+``mnist`` trains the MNIST MLP on synthetic batches and ``resnet`` a
+ResNet (``--depth``, default 50) on one fixed synthetic 224x224 batch,
+both on one device, checkpointing into ``--out`` under the reference's
+keys and resuming from it (``resumed``); ``resnet`` keeps the warm-up
+step's update, so the two packages resume each other's checkpoints.
 
 ``llama-train`` trains the tiny Llama on one device under the fault
 sentinel (``frameworks.sentinel``: SIGTERM flush and exit 143, NaN
@@ -97,11 +116,9 @@ workload in ``torch.profiler`` and writes a Chrome trace there.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (peer weights: item 6; gangs and expert-parallel
-MoE training: item 7; pipelines, ring prefill and ring or Ulysses
-attention: item 9; live resharding: item 10). The
-weight server is an accelerant in the reference, so asking for it only
-emits ``weight_server_error``.
+ROADMAP Queue 1 item (gangs, ``resnet`` across slices and
+expert-parallel MoE training: item 7; pipelines, ring prefill and ring
+or Ulysses attention: item 9; live resharding: item 10).
 """
 
 from __future__ import annotations
@@ -180,32 +197,64 @@ def _serving_arithmetic(args):
 
 
 def _boot_serving_weights(args, template, init, registry=None):
-    """Serving weights from, in the reference's order, a sibling's weight
-    server (``WEIGHT_FETCH_PEERS``: not ported, refused, since serving
-    the init in its place would be a different result), the newest
-    sharded checkpoint under ``--out`` restored into ``template()`` (a
-    tree of uninitialised tensors, built only when there is a checkpoint
-    to restore, so the device never holds the weights twice), or
-    ``init()``. A checkpoint that fails its restore (pruned or
-    corrupt shards) falls through to the init with a
-    ``weight_restore_fallback`` event. The restore's seconds land in the
-    registry and the returned report, as in the reference."""
+    """Serving weights from, in the reference's order: a hot sibling's
+    weight server (``WEIGHT_FETCH_PEERS``, within
+    ``WEIGHT_FETCH_TIMEOUT_S``); the newest sharded checkpoint under
+    ``--out``; or ``init()``. A restore reads into ``template()``, a tree
+    of uninitialised tensors built only for a restore, so the device
+    never holds the weights twice.
+
+    With ``--out`` a peer boot first mirrors the peer's newest step into
+    the local directory (dot-tmp + rename), then restores from it, so the
+    new replica serves its own siblings and restarts from disk; without
+    it the peer's shards stream straight into the template. A failed
+    fetch emits ``weight_fetch_fallback`` and a failed restore
+    ``weight_restore_fallback``, and the boot goes on to the next source.
+    The fetch and restore seconds land in the registry
+    (``autoscale.cold_start.{fetch,restore}_seconds``) and the returned
+    report, as in the reference."""
     from ..parallel import checkpoint as ckpt
-    if any(p.strip() for p in
-           os.environ.get("WEIGHT_FETCH_PEERS", "").split(",")):
-        raise NotPorted("weight_fetch_not_ported", "WEIGHT_FETCH_PEERS: "
-                        "peer weight fetch (models/weights.py) is not "
-                        "ported yet (ROADMAP Queue 1 item 6)")
+
     report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
+
+    def obs(phase, dt):
+        report[f"{phase}_s"] = round(dt, 4)
+        if registry is not None:
+            registry.observe(f"autoscale.cold_start.{phase}_seconds", dt)
+
+    peers = [p.strip() for p in
+             os.environ.get("WEIGHT_FETCH_PEERS", "").split(",")
+             if p.strip()]
+    timeout_s = float(os.environ.get("WEIGHT_FETCH_TIMEOUT_S") or 120.0)
+    if peers:
+        from ..models import weights as weights_mod
+        try:
+            if args.out:
+                t0 = time.perf_counter()
+                step = weights_mod.mirror_from_peers(
+                    peers, args.out, timeout_s=timeout_s)
+                obs("fetch", time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                params = ckpt.restore_sharded(args.out, template(), step)
+                obs("restore", time.perf_counter() - t0)
+            else:
+                t0 = time.perf_counter()
+                params = weights_mod.restore_from_peers(
+                    peers, template(), timeout_s=timeout_s,
+                    metrics=registry)
+                obs("restore", time.perf_counter() - t0)
+            report["source"] = "peer"
+            return params, report
+        except (weights_mod.WeightFetchError, ckpt.CheckpointCorrupt,
+                OSError) as e:
+            _emit({"event": "weight_fetch_fallback", "error": str(e),
+                   "peers": peers})
     step = ckpt.latest_step(args.out) if args.out else None
     if step is not None:
         try:
             t0 = time.perf_counter()
             params = ckpt.restore_sharded(args.out, template(), step)
-            dt = time.perf_counter() - t0
-            report["restore_s"] = round(dt, 4)
-            if registry is not None:
-                registry.observe("autoscale.cold_start.restore_seconds", dt)
+            obs("restore", time.perf_counter() - t0)
             report["source"] = "disk"
             report["step"] = step
             return params, report
@@ -215,15 +264,36 @@ def _boot_serving_weights(args, template, init, registry=None):
     return init(), report
 
 
-def _start_weight_server(args) -> None:
-    """The weight server is an accelerant in the reference: asking for it
-    emits ``weight_server_error`` and serving goes on."""
+def _start_weight_server(args, params, registry=None):
+    """Expose this replica's checkpoint steps to booting siblings
+    (``WEIGHT_SERVE_PORT``/``PORT_WEIGHTS`` with ``--out``): a replica
+    whose ``--out`` holds no committed step seeds step 0 with its
+    serving weights first, so a tier's first replica is already a valid
+    peer for the second. Returns the started ``WeightServer``, or None.
+    A port or directory it cannot use emits ``weight_server_error`` and
+    serving goes on: weight serving is an accelerant, never a liveness
+    dependency."""
     port = (os.environ.get("WEIGHT_SERVE_PORT")
             or os.environ.get("PORT_WEIGHTS"))
-    if args.out and port is not None:
-        _emit({"event": "weight_server_error",
-               "error": "the weight server (models/weights.py) is not "
-                        "ported yet (ROADMAP Queue 1 item 6)"})
+    if not args.out or port is None:
+        return None
+    from ..models import weights as weights_mod
+    from ..parallel import checkpoint as ckpt
+    try:
+        seed_save_s = 0.0
+        if ckpt.latest_step(args.out) is None:
+            t0 = time.perf_counter()
+            ckpt.save_sharded(args.out, 0, params)
+            seed_save_s = time.perf_counter() - t0
+        server = weights_mod.WeightServer(args.out, port=int(port),
+                                          metrics=registry).start()
+        _emit({"event": "weight_server", "port": server.port,
+               "steps": server.steps(),
+               "seed_save_s": round(seed_save_s, 4)})
+        return server
+    except (OSError, ValueError) as e:
+        _emit({"event": "weight_server_error", "error": str(e)})
+        return None
 
 
 def _make_serving_engine(args, cfg, params, device, registry=None,
@@ -520,8 +590,9 @@ def _ready(port: int, registry, boot_report, compile_s: float,
 
 def _serve_slots(args, cfg, params, dev, registry, boot_report,
                  result, moe_cfg=None) -> None:
-    """Continuous batching behind the HTTP front door; never returns."""
-    from ..models.ingress import ServingFrontend
+    """Continuous batching behind the HTTP front door, with the weight
+    server (:func:`_start_weight_server`) beside it, stopped if serving
+    ends; never returns while healthy."""
     t_compile = time.perf_counter()
     server, page_stats = _make_serving_engine(args, cfg, params, dev,
                                               registry, moe=moe_cfg)
@@ -531,7 +602,20 @@ def _serve_slots(args, cfg, params, dev, registry, boot_report,
         # does not pay for it (other windows are captured at first use)
         warmup()
     compile_s = time.perf_counter() - t_compile
-    _start_weight_server(args)
+    weight_server = _start_weight_server(args, params, registry)
+    try:
+        _serve_front_door(args, server, page_stats, registry, boot_report,
+                          result, compile_s)
+    finally:
+        if weight_server is not None:
+            weight_server.stop()
+
+
+def _serve_front_door(args, server, page_stats, registry, boot_report,
+                      result, compile_s) -> None:
+    """The co-located front door over ``server`` and its heartbeats;
+    never returns while healthy."""
+    from ..models.ingress import ServingFrontend
     t_admit = time.perf_counter()
     frontend = ServingFrontend(server, port=_serve_port(args),
                                max_queue=args.queue_limit,
@@ -725,6 +809,14 @@ def _restore_train(out_dir: str, params, opt_state, step: int):
     return tree["params"], train.opt_state_from_tree(tree["opt_state"])
 
 
+def _peak_mem(dev: torch.device) -> dict:
+    """Peak device memory (CUDA only): what the port's training results
+    add to the reference's."""
+    if dev.type != "cuda":
+        return {}
+    return {"peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
 def _train_device_report(dev: torch.device) -> dict:
     """The flash-attention kernels' launches in this process and the peak
     device memory (CUDA only)."""
@@ -733,8 +825,161 @@ def _train_device_report(dev: torch.device) -> dict:
         return {}
     return {"launches": {name: getattr(fa, name).launches for name in (
                 "flash_attention_fwd", "flash_attention_bwd_dkdv",
-                "flash_attention_bwd_dq")},
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+                "flash_attention_bwd_dq")}, **_peak_mem(dev)}
+
+
+def run_mnist(args) -> dict:
+    """The MNIST MLP on one device on synthetic MNIST-shaped data (no
+    dataset download): a new batch of 256 each step from a generator on
+    the device, params-only checkpoints every ``steps // 4`` steps and at
+    the end, and a resume from the newest one with a fresh optimizer
+    state, as in the reference."""
+    from .._device import resolve_device
+    from ..models import mlp, train
+    from ..parallel import checkpoint as ckpt
+    from ..parallel import distributed
+
+    contract = distributed.initialize()
+    dev = resolve_device(args.device)
+    cfg = mlp.MLPConfig(in_dim=784, hidden=(512, 256), n_classes=10)
+    params = mlp.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = train.make_optimizer(lr=1e-3)
+    step_fn = train.make_train_step(lambda p, b: mlp.loss_fn(cfg, p, b), opt)
+    opt_state = train.init_opt_state(opt, params)
+
+    start = 0
+    if args.out and (resume := ckpt.latest_step(args.out)) is not None:
+        params = ckpt.restore_sharded(args.out, {"params": params},
+                                      resume)["params"]
+        opt_state = train.init_opt_state(opt, params)
+        start = resume
+        _emit({"event": "resumed", "step": start})
+
+    def save(step):
+        os.makedirs(args.out, exist_ok=True)
+        ckpt.save_sharded(args.out, step, {"params": params})
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = 256
+    t0 = time.perf_counter()
+    loss = None
+    for step in range(start, args.steps):
+        x = torch.randn((batch, 784), generator=gen, device=dev)
+        y = torch.randint(0, 10, (batch,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        params, opt_state, out = step_fn(params, opt_state, (x, y))
+        loss = out["loss"]
+        if args.out and (step + 1) % max(1, args.steps // 4) == 0:
+            save(step + 1)
+    loss = float(loss) if loss is not None else 0.0
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    steps_run = max(args.steps - start, 1)
+    result = {"workload": "mnist", "steps": steps_run, "final_loss": loss,
+              "examples_per_sec": round(batch * steps_run / dt, 1),
+              "process_id": contract["process_id"], **_peak_mem(dev)}
+    if args.out:
+        save(args.steps)
+    return result
+
+
+def _resnet_tree(params, opt_state, state) -> dict:
+    """What a resnet checkpoint holds, in the reference's layout."""
+    from ..models import train
+    return {"params": params, "opt_state": train.opt_state_tree(opt_state),
+            "state": state}
+
+
+def run_resnet(args) -> dict:
+    """ResNet training on one device (the reference's data-parallel
+    trainer on a mesh of one): one fixed synthetic ImageNet-shaped batch
+    ``[batch, 224, 224, 3]`` bf16 and its labels, drawn from generators
+    seeded as the reference's keys (``1 + pid``, ``100 + pid``; torch
+    draws other numbers). The warm-up step is a real update on the fresh
+    init; a resume restores the full state (params, optimizer state and
+    batch-norm statistics) over the warm-up's outputs, so a fresh
+    ``--steps N`` saves Adam count ``N + 1`` and the two packages resume
+    each other's checkpoints. More than one slice (``MEGASCALE_NUM_SLICES
+    > 1``) needs the mesh and is refused."""
+    from .._device import resolve_device
+    from ..models import resnet, train
+    from ..parallel import checkpoint as ckpt
+    from ..parallel import distributed
+
+    num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
+    if num_slices > 1:
+        raise NotPorted("multislice_not_ported", f"MEGASCALE_NUM_SLICES="
+                        f"{num_slices}: data parallelism across slices "
+                        "needs the device mesh, not ported yet (ROADMAP "
+                        "Queue 1 item 7)")
+    contract = distributed.initialize()
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # the shapes never change: let cuDNN time each conv's algorithms
+        # once, as XLA autotunes the reference's
+        torch.backends.cudnn.benchmark = True
+    cfg = resnet.ResNetConfig(depth=args.depth, n_classes=1000)
+    params, state = resnet.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = train.make_optimizer(lr=args.lr or 0.1)
+    step_fn = train.make_train_step(
+        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1]), opt,
+        has_aux_state=True)
+    opt_state = train.init_opt_state(opt, params)
+    pid = contract["process_id"]
+    x = torch.randn((args.batch, 224, 224, 3), dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(1 + pid),
+                    device=dev)
+    y = torch.randint(0, 1000, (args.batch,), dtype=torch.int32,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          100 + pid), device=dev)
+
+    # the warm-up is a real update; a resume restores over its outputs
+    params, opt_state, state, out = step_fn(params, opt_state,
+                                            (state, (x, y)))
+    float(out["loss"])
+    start = 0
+    if args.out and (rstep := ckpt.latest_step(args.out)) is not None:
+        tree = ckpt.restore_sharded(
+            args.out, _resnet_tree(params, opt_state, state), rstep)
+        params, state = tree["params"], tree["state"]
+        opt_state = train.opt_state_from_tree(tree["opt_state"])
+        start = rstep
+        _emit({"event": "resumed", "step": start})
+
+    def save(step):
+        ckpt.save_sharded(args.out, step,
+                          _resnet_tree(params, opt_state, state))
+
+    steps_run = max(args.steps - start, 0)
+    ckpt_every = max(1, args.steps // 4)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for step in range(start, args.steps):
+        params, opt_state, state, out = step_fn(params, opt_state,
+                                                (state, (x, y)))
+        if args.emit_every and (step + 1) % args.emit_every == 0:
+            # a host sync a step: opt-in, as in the reference
+            _emit({"event": "progress", "step": step + 1,
+                   "loss": float(out["loss"])})
+        if args.out and (step + 1) % ckpt_every == 0:
+            save(step + 1)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    if steps_run == 0:
+        # resumed at or past the target: nothing ran, and `out` is the
+        # discarded warm-up of a fresh init
+        loss, ips = None, 0.0
+    else:
+        loss = float(out["loss"])
+        ips = x.shape[0] * steps_run / dt
+        if args.out:
+            save(args.steps)
+    return {"workload": "resnet", "depth": args.depth, "steps": steps_run,
+            "final_loss": loss, "global_batch": args.batch,
+            "images_per_sec_per_chip": round(ips, 2), "process_id": pid,
+            **_peak_mem(dev)}
 
 
 def run_llama_train(args) -> dict:
@@ -971,8 +1216,8 @@ def run_distill(args) -> dict:
             "process_id": contract["process_id"], **device_report}
 
 
-WORKLOADS = {"llama": run_llama, "llama-train": run_llama_train,
-             "distill": run_distill}
+WORKLOADS = {"mnist": run_mnist, "resnet": run_resnet, "llama": run_llama,
+             "llama-train": run_llama_train, "distill": run_distill}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -984,9 +1229,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device the model runs on (cuda, cuda:N or "
                         "cpu); never falls back to the CPU on its own")
     p.add_argument("--steps", type=int, default=20,
-                   help="llama-train, distill: optimizer steps")
+                   help="mnist, resnet, llama-train, distill: optimizer "
+                        "steps")
     p.add_argument("--batch", type=int, default=32,
-                   help="distill: sequences a step")
+                   help="resnet: images a step; distill: sequences a step")
+    p.add_argument("--depth", type=int, default=50,
+                   help="resnet depth (18 for CPU smoke tests)")
     p.add_argument("--preset", default="tiny",
                    choices=["tiny", "400m", "8b"])
     p.add_argument("--kv-quant", action="store_true",
@@ -1210,12 +1458,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ep", type=int, default=0,
                    help="llama-train: expert-parallel size (not ported, "
                         "item 7: > 1 exits 2)")
+    p.add_argument("--lr", type=float, default=0.0,
+                   help="resnet: learning-rate override (0 = default "
+                        "0.1)")
     p.add_argument("--emit-every", type=int, default=0,
-                   help="distill: emit a {event: progress, step, loss} "
-                        "line every N steps (0 = off)")
+                   help="resnet, distill: emit a {event: progress, step, "
+                        "loss} line every N steps (0 = off; a host sync "
+                        "each time)")
     p.add_argument("--out", default="",
                    help="the task's volume: created if absent; --serve "
-                        "restores the newest sharded checkpoint in it; "
+                        "restores the newest sharded checkpoint in it (and "
+                        "serves it with WEIGHT_SERVE_PORT); mnist, resnet, "
                         "llama-train and distill checkpoint into it and "
                         "resume from it")
     p.add_argument("--ckpt-every", type=int, default=0,
@@ -1231,7 +1484,9 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
-    if num_slices > 1:
+    if num_slices > 1 and args.workload != "resnet":
+        # only the data-parallel trainer spans slices in the reference;
+        # its own refusal (multislice_not_ported) waits for the mesh
         print(f"error: workload {args.workload!r} does not support "
               f"multislice (MEGASCALE_NUM_SLICES={num_slices}); "
               "use the resnet dp trainer or drop tpu.slices",

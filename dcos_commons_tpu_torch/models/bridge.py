@@ -1,5 +1,6 @@
-"""Carry JAX-side trees into the port: parameters, slot caches, page
-pools and the optimizer state.
+"""Carry JAX-side trees into the port: parameters (Llama, the MLP, the
+ResNet with its batch-norm state), slot caches, page pools and the
+optimizer state.
 
 Inputs are trees of numpy arrays (``jax.device_get`` of a parameter
 pytree or a page pool): dicts, arrays, and quantized leaves with ``q``
@@ -47,6 +48,13 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
     """The JAX Llama parameter pytree (as numpy) as the port's dict, with
     the same keys and the stacked ``[L, ...]`` ``x @ W`` layout."""
     return _convert(tree, resolve_device(device))
+
+
+def resnet_from_jax(params: Any, state: Any, device: DeviceLike = "cuda"):
+    """The JAX ResNet's ``(params, bn_state)`` (as numpy) as the port's,
+    bit for bit: the same keys, HWIO conv weights and dtypes."""
+    dev = resolve_device(device)
+    return _convert(params, dev), _convert(state, dev)
 
 
 def pool_from_jax(pool: Any, device: DeviceLike = "cuda") -> Any:

@@ -14,10 +14,11 @@ the rate is 0 at step 0.
 
 Unlike the reference, whose jitted step donates and returns new arrays,
 :func:`make_train_step`'s step updates the parameters and the optimizer
-state IN PLACE and returns the same objects. There is no mesh yet, and
-no ``has_aux_state`` (the ResNet batch-norm pattern). The step's backward
-and optimizer update run under ``train_step.backward`` and
-``train_step.optimizer`` profiler ranges.
+state IN PLACE and returns the same objects. There is no mesh yet.
+``has_aux_state`` is the ResNet batch-norm pattern: the loss returns a
+new state tree beside its metric, and the step hands it back detached.
+The step's backward and optimizer update run under
+``train_step.backward`` and ``train_step.optimizer`` profiler ranges.
 
 :class:`OptState` keeps its counts as Python ints; :func:`opt_state_tree`
 and :func:`opt_state_from_tree` map it to and from the tree of the
@@ -191,11 +192,23 @@ def _split(batch: torch.Tensor, n: int) -> List[torch.Tensor]:
     return list(batch.chunk(n, dim=0))
 
 
+def _detached(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1,
+                    has_aux_state: bool = False) -> Callable:
     """Build ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "metric"})``; ``loss_fn(params, batch)`` returns
     ``(loss, metric)``. Params and state are updated in place.
+
+    ``has_aux_state``: ``loss_fn(params, batch)`` returns ``(loss,
+    (metric, aux))`` (``batch`` is ``(state, data)`` for the ResNet), and
+    the step returns ``(params, opt_state, aux, {"loss", "metric"})``
+    with ``aux``'s tensors detached.
 
     ``grad_accum > 1`` splits the batch tensor's leading axis into that
     many microbatches, runs their backward passes one after another,
@@ -204,26 +217,35 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     means."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if grad_accum > 1 and has_aux_state:
+        # sequential microbatches would thread a stale state through the
+        # loss; the reference refuses the combination too
+        raise NotImplementedError(
+            "grad_accum > 1 with has_aux_state is not supported")
 
     def grads_of(params, leaves, batch):
         loss, metric = loss_fn(params, batch)
+        aux = None
+        if has_aux_state:
+            metric, aux = metric
         with record_function("train_step.backward"):
             grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), metric.detach(), grads
+        return loss.detach(), metric.detach(), grads, aux
 
     def step(params, opt_state, batch):
         leaves = _leaves(params)
+        aux = None
         for t in leaves:
             t.requires_grad_(True)
         try:
             if grad_accum == 1:
-                loss, metric, grads = grads_of(params, leaves, batch)
+                loss, metric, grads, aux = grads_of(params, leaves, batch)
             else:
                 sums = [torch.zeros_like(t, dtype=torch.float32)
                         for t in leaves]
                 loss = metric = 0.0
                 for mb in _split(batch, grad_accum):
-                    l_mb, m_mb, g_mb = grads_of(params, leaves, mb)
+                    l_mb, m_mb, g_mb, _ = grads_of(params, leaves, mb)
                     for acc, g in zip(sums, g_mb):
                         acc += g.float()
                     loss = loss + l_mb
@@ -237,6 +259,9 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                 t.requires_grad_(False)
         with record_function("train_step.optimizer"):
             apply_updates(optimizer, params, list(grads), opt_state)
-        return params, opt_state, {"loss": loss, "metric": metric}
+        out = {"loss": loss, "metric": metric}
+        if has_aux_state:
+            return params, opt_state, _detached(aux), out
+        return params, opt_state, out
 
     return step

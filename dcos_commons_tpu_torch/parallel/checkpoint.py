@@ -25,13 +25,14 @@ package restores in the other bitwise:
   digest, so a truncated or bit-flipped shard raises
   :class:`CheckpointCorrupt` at restore;
 * commit: shards and manifest go into a dot-tmp directory, fsynced, then
-  ``os.rename``; keep-prune drops this process's older steps.
+  ``os.rename``; keep-prune drops this process's older steps. Shards are
+  hashed and written ``RESTORE_WORKERS`` (4) at a time.
 
 One process: :func:`latest_step` and :func:`save_sharded` refuse a gang
 of processes (``parallel.distributed``), which waits for tensor
-parallelism (ROADMAP Queue 1 item 7). Restore reads shard files a
-bounded window ahead (``workers``) and accepts another byte source
-(``reader`` + ``manifest``). A checkpoint saved sharded over several
+parallelism (ROADMAP Queue 1 item 7). Restore reads and verifies shard
+files a bounded window ahead (``workers``) and accepts another byte
+source (``reader`` + ``manifest``). A checkpoint saved sharded over several
 devices restores by assembling its shards on the host.
 """
 
@@ -206,14 +207,21 @@ def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    leaves: Dict[str, dict] = {}
-    for key, leaf in _flatten(tree):
-        entry, fname, raw = _leaf_entry(key, leaf)
+    def write(item: Tuple[str, Any]) -> dict:
+        entry, fname, raw = _leaf_entry(*item)
         with open(os.path.join(tmp, fname), "wb") as f:
             f.write(raw)
             f.flush()
             os.fsync(f.fileno())
-        leaves[key] = entry
+        return entry
+
+    # leaves copied to the host, hashed and written a few at a time (the
+    # digest and the write release the interpreter lock); the manifest
+    # keeps the walk's order
+    flat = _flatten(tree)
+    with ThreadPoolExecutor(max_workers=_restore_workers(None)) as pool:
+        entries = list(pool.map(write, flat))
+    leaves = {key: entry for (key, _), entry in zip(flat, entries)}
 
     manifest = {"step": step, "process": pid, "num_processes": 1,
                 "leaves": leaves}
@@ -315,6 +323,8 @@ class _ShardStream:
 
 
 def _restore_workers(workers: Optional[int]) -> int:
+    """Shards read, verified or written at once: ``workers``, else
+    ``RESTORE_WORKERS`` (4)."""
     if workers is not None:
         return max(1, int(workers))
     return max(1, int(os.environ.get("RESTORE_WORKERS", "4") or 4))
@@ -377,24 +387,28 @@ def restore_sharded(out_dir: Optional[str], template: Any,
 
     flat = _flatten(template)
     # plan the tensors' shard files in consumption order so the stream
-    # can read ahead
+    # can read ahead; each is verified in the thread that read it
     order: List[str] = []
-    seen = set()
+    metas: Dict[str, dict] = {}
     for key, leaf in flat:
         entry = manifest["leaves"].get(key)
         if entry is None:
             continue
         for meta in entry["shards"]:
-            if meta["file"] not in seen:
-                seen.add(meta["file"])
+            if meta["file"] not in metas:
+                metas[meta["file"]] = meta
                 if isinstance(leaf, torch.Tensor):
                     order.append(meta["file"])
-    stream = _ShardStream(reader, order, _restore_workers(workers))
+
+    def read_verified(fname: str) -> bytes:
+        raw = reader(fname)
+        _verify_shard(metas[fname], raw, source)
+        return raw
+
+    stream = _ShardStream(read_verified, order, _restore_workers(workers))
 
     def fetch(meta: dict) -> bytes:
-        raw = stream.fetch(meta["file"])
-        _verify_shard(meta, raw, source)
-        return raw
+        return stream.fetch(meta["file"])
 
     try:
         out = [_restore_leaf(key, leaf, manifest, step, fetch)

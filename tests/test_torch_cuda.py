@@ -37,7 +37,9 @@ migration: streams exported from a graphed engine and imported through
 the DECSTATE frame into another (the bound pool, lengths, tokens and
 table kept, the pages bitwise the frame's) decode through the graphs as
 the eager loop does, and a sampled stream imported with ``adopt_rng``
-continues the victim's own stream inside a graph.
+continues the victim's own stream inside a graph; ResNet-18's fp32 train
+pass on the card against the CPU, and a tiny replica booting from a
+sibling's weight server onto the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -1699,3 +1701,110 @@ def test_adopt_rng_continues_the_victims_stream_inside_a_graph(dev):
     assert got == want
     assert dest.graph_stats()["graphs"] >= 1
     assert torch.equal(gen.get_state(), victim.generator.get_state())
+
+
+# ---------------------------------------------------------------------------
+# ResNet and the peer weight boot
+
+
+def _resnet_pass(cfg, params, state, x, y):
+    from dcos_commons_tpu_torch.models import resnet
+    leaves = train._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, (_, new_state) = resnet.loss_fn(cfg, params, state, (x, y))
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    with torch.no_grad():
+        logits, _ = resnet.forward(cfg, params, state, x)
+    return loss.detach(), logits, train._detached(new_state), grads
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_resnet_fp32_on_the_card_matches_the_cpu(dev):
+    """ResNet-18 (width 64) at 64x64, batch 4, fp32 with TF32 off: the
+    train pass on the card (cuDNN, channels-last) against the same port
+    functions on the CPU, which the tier-1 tests hold to JAX. Logits and
+    the new batch-norm state within 1e-4 of their largest value, every
+    gradient within 1e-3 of the tree's largest (cuDNN sums in another
+    order, which batch norm amplifies)."""
+    from dcos_commons_tpu_torch.models import resnet
+    cfg = resnet.ResNetConfig(depth=18, n_classes=100, dtype=torch.float32)
+    params, state = resnet.init_params(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 100, (4,)).astype(np.int32))
+    want = _resnet_pass(cfg, params, state, x, y)
+    got = _resnet_pass(cfg, _to(params, dev), _to(state, dev), x.to(dev),
+                       y.to(dev))
+    loss_w, logits_w, state_w, grads_w = want
+    loss_g, logits_g, state_g, grads_g = got
+    assert logits_g.device.type == dev.type
+    assert float(loss_g) == pytest.approx(float(loss_w), rel=1e-5)
+    torch.testing.assert_close(logits_g.cpu(), logits_w, rtol=1e-4,
+                               atol=1e-4 * float(logits_w.abs().max()))
+    for blk, bs in state_w.items():
+        for bn, st in bs.items():
+            for k, v in st.items():
+                g = state_g[blk][bn][k].cpu()
+                assert float((g - v).abs().max()) <= 1e-4 * max(
+                    1.0, float(v.abs().max())), (blk, bn, k)
+    scale = max(float(g.abs().max()) for g in grads_w)
+    for g, w in zip(grads_g, grads_w):
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * scale
+
+
+def test_a_tiny_replica_boots_from_a_peer_onto_the_card(dev, tmp_path,
+                                                        monkeypatch):
+    """A sibling's weight server over a checkpoint of tiny serving
+    weights: the worker's boot path mirrors the step into ``--out`` and
+    restores it onto the card (``source: peer``) bit for bit, and the
+    paged engine over the restored weights gives the tokens of the same
+    engine over the source's weights copied to the card."""
+    from dcos_commons_tpu_torch.models import weights
+    from dcos_commons_tpu_torch.parallel import checkpoint
+    cfg = llama.LlamaConfig.tiny()
+    src = llama.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    checkpoint.save_sharded(str(tmp_path / "src"), 2, src)
+    srv = weights.WeightServer(str(tmp_path / "src"), port=0,
+                               host="127.0.0.1").start()
+    try:
+        monkeypatch.setenv("WEIGHT_FETCH_PEERS",
+                           f"http://127.0.0.1:{srv.port}")
+        args = worker.build_parser().parse_args(
+            ["llama", "--serve", "--out", str(tmp_path / "out")])
+        params, report = worker._boot_serving_weights(
+            args, lambda: llama.param_template(cfg, dev),
+            lambda: pytest.fail("booted from the peer, not the init"))
+    finally:
+        srv.stop()
+    assert report["source"] == "peer" and report["fetch_s"] > 0
+    for k, v in src.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                assert params[k][kk].device.type == dev.type
+                assert torch.equal(params[k][kk].cpu(), vv), (k, kk)
+        else:
+            assert torch.equal(params[k].cpu(), v), k
+    prompts = [[5, 17, 99, 3, 250, 1, 42], [7] * 20]
+
+    def tokens(p, device):
+        # head_dim 8 is outside the paged kernel's gate: the dense decode
+        eng = serving.PagedServer(dataclasses.replace(cfg,
+                                                      decode_attn="dense"),
+                                  p, slots=2, pages=64, device=device)
+        return [eng.drain([{"prompt": q, "max_new": 6, "request_id": i}],
+                          decode_window=8)[i] for i, q in enumerate(prompts)]
+
+    assert tokens(params, dev) == tokens(_to(src, dev), dev)

@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("ops.flash_attention", "ops.losses", "models.train",
                  "models.ingress", "metrics", "tracing", "utils.stats",
                  "parallel.aot", "parallel.distributed",
-                 "frameworks.worker", "models.disagg"):
+                 "frameworks.worker", "models.disagg", "models.resnet",
+                 "models.mlp", "models.weights"):
         assert f"dcos_commons_tpu_torch.{name}" in mods
 
 

@@ -7,6 +7,7 @@ answers ``POST /v1/generate`` with the tokens of a port engine built
 directly from the same seed, emits heartbeats and exits on SIGTERM; a
 page size that does not divide ``max_seq`` falls back to slots; every
 knob of a module not ported yet exits 2 with its coded error; the
+weight server seeds step 0 and serves it (a taken port is reported); the
 disaggregated roles serve as a prefill/decode pair with the co-located
 engine's tokens, and each ``disagg_fallback`` reason (and a dead peer)
 serves co-located; the KV tier
@@ -25,6 +26,7 @@ import os
 import queue
 import re
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -56,7 +58,8 @@ WORKER_SRC = (ROOT / "dcos_commons_tpu_torch" / "frameworks"
 ENV_KNOBS = sorted(set(re.findall(r'os\.environ\.get\("([A-Z_]+)"',
                                   WORKER_SRC)) - {
     # read at run time, not by the parser
-    "WEIGHT_FETCH_PEERS", "WEIGHT_SERVE_PORT", "PORT_WEIGHTS",
+    "WEIGHT_FETCH_PEERS", "WEIGHT_FETCH_TIMEOUT_S", "WEIGHT_SERVE_PORT",
+    "PORT_WEIGHTS",
     "PORT_SERVE", "MEGASCALE_NUM_SLICES", "TASK_NAME",
     "POD_INSTANCE_INDEX", "TPU_PROFILE_DIR", "RESHARD_ENABLE"})
 
@@ -251,29 +254,47 @@ def test_page_size_that_does_not_divide_max_seq_serves_slots(tmp_path):
 
 
 def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
-    w = _Worker(tmp_path, "--serve", "--slots", "1", "--serve-port", "0",
-                "--out", "vol", env={"WEIGHT_SERVE_PORT": "0"})
-    try:
-        err = w.event("weight_server_error")
-        assert "item 6" in err["error"]
-        assert w.event("serving")["slots"] == 1
-    finally:
-        w.stop()
+    """``WEIGHT_SERVE_PORT`` with ``--out``: the init-booted replica seeds
+    step 0 and serves it (``weight_server`` with ``steps [0]``); a port
+    already taken emits ``weight_server_error``, and either way the
+    replica serves."""
+    with socket.socket() as taken:
+        taken.bind(("0.0.0.0", 0))
+        taken.listen(1)
+        for port, name in (("0", "weight_server"),
+                           (str(taken.getsockname()[1]),
+                            "weight_server_error")):
+            cwd = tmp_path / name
+            cwd.mkdir()
+            w = _Worker(cwd, "--serve", "--slots", "1", "--serve-port", "0",
+                        "--out", "vol", env={"WEIGHT_SERVE_PORT": port})
+            try:
+                event = w.event(name)
+                assert w.event("serving")["slots"] == 1
+            finally:
+                w.stop()
+            if name == "weight_server":
+                assert event["steps"] == [0] and event["port"] > 0
+                assert (cwd / "vol" / "step-00000000-p0"
+                        / "manifest.json").exists()
+            else:
+                assert "in use" in event["error"]
 
 
 # (index, workload, args, env, code): the index keeps each case's id as
 # it was while speculative decoding, the checkpoint restore, profiling,
-# MoE serving, the disaggregated roles (3, 4) and the router role (5)
-# were refused (MoE training stays refused: it needs the mesh)
+# MoE serving, the disaggregated roles (3, 4), the router role (5) and the
+# peer weight fetch (9) were refused (MoE training and ResNet across
+# slices stay refused: they need the mesh)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
      "longctx_not_ported"),
-    (9, "llama", [], {"WEIGHT_FETCH_PEERS": "http://peer:1"},
-     "weight_fetch_not_ported"),
     (13, "llama", [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1",
                        "JAX_PROCESS_ID": "0", "JAX_NUM_PROCESSES": "2"},
      "not_ported"),
+    (14, "resnet", [], {"MEGASCALE_NUM_SLICES": "2"},
+     "multislice_not_ported"),
 ]
 
 
