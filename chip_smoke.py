@@ -117,7 +117,8 @@ Phases (any failure exits non-zero):
    windows; ms a page by part (gather, pack, unpack, install; blake2s
    apart) and the pause a stream; then (after phase 12's worker pair)
    the fleet of ``dist/fleet.yml``: two ``--pages -1 --page-size 64
-   --prefill-chunk 64`` decode workers and a ``--serve-role router``
+   --prefill-chunk 64`` decode workers (8B width cut to ``FLEET_LAYERS``,
+   4 of 32 layers, through ``CUT_WORKER``) and a ``--serve-role router``
    worker in front, under ``--route-policy affinity`` and under
    ``random`` (tenant classes without a TTFT SLO), then affinity under
    the deployed classes (a 500 ms TTFT SLO), each arm on a fresh pair,
@@ -199,8 +200,9 @@ Phases (any failure exits non-zero):
    mirrors and restores it (``source: peer``, VOL_B's step equal to
    VOL_A's) and answers them with A's replies (near-tie rule),
    kernel 1 counted around its requests; A's seed-save, B's fetch and
-   restore seconds and GB/s. Cut: 8 of the 32 layers at full width
-   (``CUT_WORKER``; at 32 layers the phase took 485 s), so B's replies
+   restore seconds and GB/s. Cut: 2 of the 32 layers at full width
+   (``CUT_WORKER``; at 32 layers the phase took 485 s, at 8 91 s, at 4
+   73-91 s), so B's replies
    are held to A's. Then (after phase 9, the card free of the 8B
    weights) ResNet-50 at full width and depth: the fp32 train pass at
    batch 8, 224x224, card against CPU (logits, loss, batch-norm state,
@@ -212,14 +214,40 @@ Phases (any failure exits non-zero):
    --batch 256 --steps 8 --out VOL`` (Adam count 9), its resume to 12,
    ``mnist --steps 200 --out VOL2`` and its resume to 250. No kernel is
    new in phase 14.
+15. (right after phase 13a, on phase 3's weights) tensor-parallel serving
+   over a process mesh: ``TP_WORLD`` (2) ranks started by
+   ``parallel.distributed.launch_local`` share the card over gloo (NCCL
+   refuses two ranks on one device), each drawing the 8B weights from
+   the seed and keeping its Megatron shard (``init_params(mesh=)``);
+   ``PagedServer(mesh=)`` at phase 3's geometry serves phase 3's 12
+   requests and ``SlotServer(mesh=)`` the 4 of them in
+   ``TP_SLOT_REQUESTS``, with the kernel counts zeroed just before
+   and read just after on each rank (kernels 1, 2 and 3 on the rank's 16
+   query and 4 KV heads); every rank's streams must equal rank 0's, and
+   each, teacher-forced through the parent's single-device weights, may
+   leave phase 3's solo stream only at a near-tie; then fp32 at
+   ``TP_FP32_LAYERS`` (4) of the 32 layers at full width, both engines
+   token-equal to the single-device fp32 engines; an eager B=8 decode
+   step with the collectives' host share (two ranks sharing one card
+   over gloo: not a TP speed number); the ``tp`` line. Then (after phase
+   14b) the worker gang: two ``python -m
+   dcos_commons_tpu_torch.frameworks.worker llama --preset 8b --serve
+   --slots 8`` processes with the ``JAX_*`` contract, 8B width cut to 2
+   of 32 layers (phase 14b's cut, ``CUT_WORKER``): rank 0 answers phase
+   6's 8 requests, its ``/v1/stats`` carries the gang counters, rank 1's
+   heartbeats ``gang_iterations``, every reply equal to the single-device
+   slot engine of the cut model or off it only at a near-tie, kernels 2
+   and 3 counted on each rank while it served; the ``worker_tp`` line.
+   Phase 2 also holds kernels 1 and 2 at one rank's heads (B=8, H=16,
+   KV=4), bf16 and int8.
 
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
 ``worker``, ``worker_paged``, ``worker_spec``, ``worker_distilled``,
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
-``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``resnet``,
-``worker_resnet`` and ``phase_s`` lines,
+``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``tp``,
+``worker_tp``, ``resnet``, ``worker_resnet`` and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -340,17 +368,23 @@ OTHER_LENS = (2048, 5, 129, 1000, 0, 77, 1024, 9)
 REPEATS = 20
 
 
-def decode_inputs(kind: str, int8: bool, lens, seed: int, ps: int = 64):
-    """Kernel inputs at the 8B decode shape (H=32, KV=8, D=128, B=8):
-    paged, (q, k, v, table, kv_len) over a shuffled table of a
-    2048-position span; slots, (q, k, v, kv_len) over a 2048-position
-    cache read in place."""
+# the decode kernels' head counts: Llama-3-8B's, and one rank's share of
+# them under tp=2 (phase 15: the GQA group stays 4)
+HEADS_8B, HEADS_TP2 = (32, 8), (16, 4)
+
+
+def decode_inputs(kind: str, int8: bool, lens, seed: int, ps: int = 64,
+                  heads=HEADS_8B):
+    """Kernel inputs at the 8B decode shape (H=32, KV=8, D=128, B=8; or
+    ``heads`` (H, KV)): paged, (q, k, v, table, kv_len) over a shuffled
+    table of a 2048-position span; slots, (q, k, v, kv_len) over a
+    2048-position cache read in place."""
     import torch
     from dcos_commons_tpu_torch.ops.quant import quantize
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, kv, d, span = 8, 32, 8, 128, 2048
+    (h, kv), b, d, span = heads, 8, 128, 2048
     q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
     if kind == "paged":
         mp = span // ps
@@ -401,29 +435,31 @@ def decode_repeat_check(name: str, run, args, other_args, plain) -> None:
 
 
 def flash_decode_case(ps: int, int8: bool, flush, run=None,
-                      plain: bool = True) -> dict:
-    """Kernel 1 vs its plain version at the 8B decode shape: ragged
-    streams over a shuffled page table; ``run(q, k, v, table, kv_len)``
-    defaults to the wrapper's launch (another version of the source can
-    stand in), ``plain`` False skips timing the plain version."""
+                      plain: bool = True, heads=HEADS_8B) -> dict:
+    """Kernel 1 vs its plain version at the 8B decode shape (or
+    ``heads``): ragged streams over a shuffled page table; ``run(q, k, v,
+    table, kv_len)`` defaults to the wrapper's launch (another version of
+    the source can stand in), ``plain`` False skips timing the plain
+    version."""
     import torch
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.models.llama import _gather_pages
     from dcos_commons_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device("cuda")
-    b, h, kv, d, mp = 8, 32, 8, 128, 2048 // ps
+    (h, kv), b, d, mp = heads, 8, 128, 2048 // ps
     q, k, v, table, kv_len = decode_inputs("paged", int8, KV_LENS,
-                                           SEED + ps + int8, ps)
+                                           SEED + ps + int8, ps, heads)
     run = run or (lambda *a: fd._launch_paged(*a, d ** -0.5))
-    name = f"flash_decode_paged ps={ps} int8={int8}"
+    name = f"flash_decode_paged ps={ps} int8={int8} heads={heads}"
     got = run(q, k, v, table, kv_len)
     want = fd.flash_decode_paged_reference(q, k, v, table, kv_len)
     torch.cuda.synchronize()
     max_err = decode_check(name, got, want, KV_LENS)
     decode_repeat_check(
         name, run, (q, k, v, table, kv_len),
-        decode_inputs("paged", int8, OTHER_LENS, SEED + 100 + ps, ps),
+        decode_inputs("paged", int8, OTHER_LENS, SEED + 100 + ps, ps,
+                      heads),
         fd.flash_decode_paged_reference)
 
     # yardstick: SDPA over pre-gathered (dequantized) pages, masked at
@@ -452,7 +488,7 @@ def flash_decode_case(ps: int, int8: bool, flush, run=None,
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * mp * 4 + b * 4
     out = {"page_size": ps, "pages": "int8" if int8 else "bf16",
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "heads": list(heads), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_max_abs_err": lib_err,
            "bitwise_equal_launches": REPEATS + 2, "second_call": "ok",
            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
@@ -461,26 +497,28 @@ def flash_decode_case(ps: int, int8: bool, flush, run=None,
 
 
 def slot_decode_case(int8: bool, kv_lens, flush, run=None,
-                     plain: bool = True) -> dict:
-    """Kernel 2 vs its plain version at the 8B slot shape: B=8 slots of a
-    2048-position cache read in place; ``run(q, k, v, kv_len)`` and
-    ``plain`` as for ``flash_decode_case``."""
+                     plain: bool = True, heads=HEADS_8B) -> dict:
+    """Kernel 2 vs its plain version at the 8B slot shape (or ``heads``):
+    B=8 slots of a 2048-position cache read in place; ``run(q, k, v,
+    kv_len)`` and ``plain`` as for ``flash_decode_case``."""
     import torch
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.ops import flash_decode as fd
     from dcos_commons_tpu_torch.ops.quant import dequantize
 
     dev = torch.device("cuda")
-    b, h, kv, d, s = 8, 32, 8, 128, 2048
-    q, k, v, kv_len = decode_inputs("slots", int8, kv_lens, SEED + 7 + int8)
+    (h, kv), b, d, s = heads, 8, 128, 2048
+    q, k, v, kv_len = decode_inputs("slots", int8, kv_lens, SEED + 7 + int8,
+                                    heads=heads)
     run = run or (lambda *a: fd._launch_slots(*a, d ** -0.5))
-    name = f"flash_decode int8={int8} lens={kv_lens}"
+    name = f"flash_decode int8={int8} lens={kv_lens} heads={heads}"
     got = run(q, k, v, kv_len)
     want = fd.flash_decode_reference(q, k, v, kv_len)
     torch.cuda.synchronize()
     max_err = decode_check(name, got, want, kv_lens)
     decode_repeat_check(name, run, (q, k, v, kv_len),
-                        decode_inputs("slots", int8, OTHER_LENS, SEED + 107),
+                        decode_inputs("slots", int8, OTHER_LENS, SEED + 107,
+                                      heads=heads),
                         fd.flash_decode_reference)
 
     # yardstick: SDPA over the (dequantized) cache masked at kv_len; timed
@@ -509,7 +547,7 @@ def slot_decode_case(int8: bool, kv_lens, flush, run=None,
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * 4
     out = {"cache": "int8" if int8 else "bf16", "kv_len": list(kv_lens),
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "heads": list(heads), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_max_abs_err": lib_err,
            "bitwise_equal_launches": REPEATS + 2, "second_call": "ok",
            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
@@ -522,6 +560,9 @@ PAGED_CASES = ((64, False), (64, True), (128, False), (128, True),
                (16, False))
 SLOT_CASES = ((False, KV_LENS), (True, KV_LENS), (True, EDGE_LENS),
               (False, EDGE_LENS))
+# one rank's heads under tp=2 (phase 15), bf16 and int8
+TP_PAGED_CASES = ((64, False), (64, True))
+TP_SLOT_CASES = ((False, KV_LENS), (True, KV_LENS))
 
 
 # (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
@@ -691,10 +732,14 @@ def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
 
 def phase_kernels(flush):
     cases = [flash_decode_case(ps, int8, flush) for ps, int8 in PAGED_CASES]
+    cases += [flash_decode_case(ps, int8, flush, heads=HEADS_TP2)
+              for ps, int8 in TP_PAGED_CASES]
     for c in cases:
         log(f"[kernel] flash_decode_paged {json.dumps(c)}")
     slot_cases = [slot_decode_case(int8, lens, flush)
                   for int8, lens in SLOT_CASES]
+    slot_cases += [slot_decode_case(int8, lens, flush, heads=HEADS_TP2)
+                   for int8, lens in TP_SLOT_CASES]
     for c in slot_cases:
         log(f"[kernel] flash_decode {json.dumps(c)}")
     fa_cases = {"fwd": [flash_attention_fwd_case(shape, flush)
@@ -2042,6 +2087,28 @@ def _worker_run(args, cwd, timeout=TRAIN_TIMEOUT_S, on_event=None):
     return rc, events
 
 
+def _side_by_side(*chains) -> None:
+    """Run independent chains of worker runs (each a function of no
+    arguments) at once, one thread each: the worker processes share
+    nothing but the card, and most of each run is its process's start.
+    The first exception of a chain is raised after every chain ended."""
+    errors = []
+
+    def guarded(chain):
+        try:
+            chain()
+        except BaseException as e:       # re-raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(c,)) for c in chains]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
 def _one(events, name):
     found = [e for e in events if e.get("event") == name]
     if len(found) != 1:
@@ -2161,10 +2228,11 @@ def phase_llama_train(card: str) -> dict:
     same volume (``resumed`` at 3, 2 steps), and a long ``--ckpt-every
     1`` run SIGTERM'd after its first ``checkpoint`` (``sigterm``,
     ``preempted`` with ``flushed_step``, exit 143) whose relaunch resumes
-    at the flushed step; kernels 3-5 launch 0 times in these runs. Then
+    at the flushed step; kernels 3-5 launch 0 times in these runs. And
     ``--attn flash --steps 2``, which the reference runs through its
     kernel at this shape: kernels 3-5 launch once a layer for the
-    warm-up and each step."""
+    warm-up and each step. The three chains (fresh and resumed, SIGTERM
+    and relaunch, flash) run side by side (:func:`_side_by_side`)."""
     import math
     import shutil
     import signal
@@ -2188,20 +2256,23 @@ def phase_llama_train(card: str) -> dict:
                                 f"{want_launches} each")
         return rc, events, done[0] if done else {}
 
-    rc, _, done = run("fresh", ["--steps", str(LT_FRESH), "--out", str(vol)])
-    if rc != 0 or done.get("steps_run") != LT_FRESH \
-            or not math.isfinite(done.get("final_loss") or math.nan):
-        problems.append(f"fresh: exit {rc}, {done}")
-    elif _saved_counts(vol, LT_FRESH) != (LT_FRESH + 1,) * 2:
-        problems.append(f"fresh: counts {_saved_counts(vol, LT_FRESH)}")
-    rc, events, done = run("resumed", ["--steps", str(LT_RESUMED), "--out",
-                                       str(vol)])
-    resumed = [e["step"] for e in events if e.get("event") == "resumed"]
-    if rc != 0 or resumed != [LT_FRESH] \
-            or done.get("steps_run") != LT_RESUMED - LT_FRESH:
-        problems.append(f"resumed: exit {rc}, resumed at {resumed}, {done}")
+    def resume_chain():
+        rc, _, done = run("fresh", ["--steps", str(LT_FRESH), "--out",
+                                    str(vol)])
+        if rc != 0 or done.get("steps_run") != LT_FRESH \
+                or not math.isfinite(done.get("final_loss") or math.nan):
+            problems.append(f"fresh: exit {rc}, {done}")
+        elif _saved_counts(vol, LT_FRESH) != (LT_FRESH + 1,) * 2:
+            problems.append(f"fresh: counts {_saved_counts(vol, LT_FRESH)}")
+        rc, events, done = run("resumed", ["--steps", str(LT_RESUMED),
+                                           "--out", str(vol)])
+        resumed = [e["step"] for e in events if e.get("event") == "resumed"]
+        if rc != 0 or resumed != [LT_FRESH] \
+                or done.get("steps_run") != LT_RESUMED - LT_FRESH:
+            problems.append(f"resumed: exit {rc}, resumed at {resumed}, "
+                            f"{done}")
 
-    sent = []
+    sent, flushed = [], []
 
     def preempt(proc, event):
         # once: the flush emits a checkpoint event too
@@ -2209,27 +2280,33 @@ def phase_llama_train(card: str) -> dict:
             sent.append(event["step"])
             proc.send_signal(signal.SIGTERM)
 
-    rc, events, done = run("sigterm", ["--steps", "1000000", "--ckpt-every",
-                                       "1", "--out", str(vol2)],
-                           on_event=preempt)
-    pre = [e for e in events if e.get("event") == "preempted"]
-    flushed = pre[0]["flushed_step"] if pre else None
-    if rc != 143 or "sigterm" not in runs["sigterm"]["events"] \
-            or len(pre) != 1 or done.get("resume_step") != flushed:
-        problems.append(f"sigterm: exit {rc}, events "
-                        f"{runs['sigterm']['events'][-6:]}, {done}")
-    else:
-        rc, events, done = run("relaunch", ["--steps", str(flushed + 2),
+    def sigterm_chain():
+        rc, events, done = run("sigterm", ["--steps", "1000000",
+                                           "--ckpt-every", "1", "--out",
+                                           str(vol2)], on_event=preempt)
+        pre = [e for e in events if e.get("event") == "preempted"]
+        flushed.append(pre[0]["flushed_step"] if pre else None)
+        if rc != 143 or "sigterm" not in runs["sigterm"]["events"] \
+                or len(pre) != 1 or done.get("resume_step") != flushed[0]:
+            problems.append(f"sigterm: exit {rc}, events "
+                            f"{runs['sigterm']['events'][-6:]}, {done}")
+            return
+        rc, events, done = run("relaunch", ["--steps", str(flushed[0] + 2),
                                             "--out", str(vol2)])
         resumed = [e["step"] for e in events if e.get("event") == "resumed"]
-        if rc != 0 or resumed != [flushed] or done.get("steps_run") != 2:
+        if rc != 0 or resumed != [flushed[0]] or done.get("steps_run") != 2:
             problems.append(f"relaunch: exit {rc}, resumed at {resumed}, "
                             f"{done}")
-    rc, _, done = run("flash", ["--attn", "flash", "--steps", str(LT_FLASH)],
-                      want_launches=(LT_FLASH + 1) * LT_LAYERS)
-    if rc != 0 or done.get("steps_run") != LT_FLASH \
-            or not math.isfinite(done.get("final_loss") or math.nan):
-        problems.append(f"flash: exit {rc}, {done}")
+
+    def flash_run():
+        rc, _, done = run("flash", ["--attn", "flash", "--steps",
+                                    str(LT_FLASH)],
+                          want_launches=(LT_FLASH + 1) * LT_LAYERS)
+        if rc != 0 or done.get("steps_run") != LT_FLASH \
+                or not math.isfinite(done.get("final_loss") or math.nan):
+            problems.append(f"flash: exit {rc}, {done}")
+
+    _side_by_side(resume_chain, sigterm_chain, flash_run)
     shutil.rmtree(base, ignore_errors=True)
     if problems:
         raise RuntimeError("llama-train phase: " + "; ".join(problems))
@@ -2239,7 +2316,7 @@ def phase_llama_train(card: str) -> dict:
         "head_dim": 8,
         "attn": "auto (dense, the reference's auto under its train mesh); "
                 "flash (kernels 3-5, head_dim padded to 64)",
-        "flushed_step": flushed, "runs": runs, "card": card}}
+        "flushed_step": flushed[0], "runs": runs, "card": card}}
     log(f"[llama_train] {line}")
     return line
 
@@ -4249,6 +4326,11 @@ FLEET_RESIZE_STREAMS, FLEET_RESIZE_NEW = 4, 64
 # dist/fleet.yml's decode replica (DISAGG_PAGES -1: a slot-equivalent
 # pool of 256 pages): with 64 pages the radix's cached prefixes alone
 # read as occupancy past the router's 0.85 spill pressure
+# the fleet's workers at 8B width with FLEET_LAYERS of the 32 layers
+# (``CUT_WORKER``): at 32 the phase took 127-132 s of the script's 1,200,
+# at 8 93 s, and placement, radix hits, spills and the resize do not
+# need the depth
+FLEET_LAYERS = 4
 FLEET_WORKER_ARGS = ("--pages", "-1", "--page-size", "64",
                      "--prefill-chunk", "64")
 
@@ -4271,12 +4353,12 @@ def fleet_traffic(v: int) -> tuple:
     return turns, resize
 
 
-def _spawn(args, cwd: Path):
+def _spawn(args, cwd: Path, launch=WORKER_MODULE):
     root = Path(__file__).resolve().parent
     cwd.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen(
-        [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
-         *args], cwd=cwd, env=dict(os.environ, PYTHONPATH=str(root)),
+        [sys.executable, *launch, *args], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=str(root)),
         stdout=subprocess.PIPE, text=True)
 
 
@@ -4298,7 +4380,8 @@ def _beat_launches(event) -> int:
 
 
 def _fleet_arm(name: str, policy: str, turns, worker_args,
-               classes=FLEET_CLASSES, resize=None) -> dict:
+               classes=FLEET_CLASSES, resize=None,
+               launch=WORKER_MODULE) -> dict:
     """One arm: two freshly booted decode workers (cold radixes) and a
     router worker over them with ``policy`` and ``classes``; the turns
     one request at a time through the router. Returns the arm's replies,
@@ -4313,7 +4396,7 @@ def _fleet_arm(name: str, policy: str, turns, worker_args,
         workers = []
         for i in range(2):
             proc = _spawn([*worker_args, *FLEET_WORKER_ARGS],
-                          root / f"worker{i}")
+                          root / f"worker{i}", launch)
             procs.append(proc)
             events = []
             workers.append((proc, _event_reader(
@@ -4429,8 +4512,8 @@ def _http_post(port: int, path: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
-                cfg=None) -> tuple:
+def phase_fleet(card: str, params=None, worker_args=WORKER_ARGS,
+                cfg=None, layers=None, dev="cuda") -> tuple:
     """The fleet as ``dist/fleet.yml`` deploys it: two decode workers
     (``worker_args`` + ``FLEET_WORKER_ARGS``, fleet.yml's ``--pages -1
     --page-size 64 --prefill-chunk 64``, Llama-3-8B) and a router worker
@@ -4450,11 +4533,18 @@ def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
     CUDA, and kernel 1 runs in the decode workers. The resize's streams,
     which ran side by side, are held to their direct calls by the
     near-tie rule over ``params`` (the workers' weights: both from the
-    seed). ``cfg`` defaults to Llama-3-8B; a rehearsal on the CPU passes
-    its own, and ``--device cpu`` in ``worker_args``."""
+    seed; built here from ``cfg`` when None and a stream differs).
+    ``cfg`` defaults to Llama-3-8B's width at ``layers`` (default
+    ``FLEET_LAYERS``) of its 32 layers, the workers' cut through
+    ``CUT_WORKER``; a rehearsal on the CPU passes its own, and ``--device
+    cpu`` in ``worker_args``."""
     import signal
+    import torch
     from dcos_commons_tpu_torch.models import llama, router
-    cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=2048)
+    layers = layers or FLEET_LAYERS
+    cfg = cfg or dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(max_seq=2048), n_layers=layers)
+    launch = ("-c", CUT_WORKER, str(layers))
     args = list(worker_args)
     on_card = not ("--device" in args
                    and args[args.index("--device") + 1] == "cpu")
@@ -4462,10 +4552,12 @@ def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
     bodies = [b for t in turns for b in t]
     t_phase = time.perf_counter()
     arms = {"affinity": _fleet_arm("affinity", "affinity", turns,
-                                   worker_args, resize=resize),
-            "random": _fleet_arm("random", "random", turns, worker_args),
+                                   worker_args, resize=resize,
+                                   launch=launch),
+            "random": _fleet_arm("random", "random", turns, worker_args,
+                                 launch=launch),
             "slo": _fleet_arm("slo", "affinity", turns, worker_args,
-                              classes=DEPLOYED_CLASSES)}
+                              classes=DEPLOYED_CLASSES, launch=launch)}
     problems = []
     aff, rnd = arms["affinity"], arms["random"]
     for p, arm in arms.items():
@@ -4520,9 +4612,12 @@ def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
             or aff["stats"]["rebalances"] != 2:
         problems.append(f"resize {rz['errors']}, tokens {rz['tokens']}, "
                         f"rebalances {aff['stats']['rebalances']}")
+    got, want = (dict(enumerate(rz.pop(k))) for k in ("replies", "direct"))
+    if params is None and got != want:
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     resize_div = _held_to(
-        "fleet resize", dict(enumerate(rz.pop("replies"))),
-        dict(enumerate(rz.pop("direct"))),
+        "fleet resize", got, want,
         {i: b["prompt"] for i, b in enumerate(resize)}, cfg, params,
         problems)
     if problems:
@@ -4549,7 +4644,8 @@ def phase_fleet(card: str, params, worker_args=WORKER_ARGS,
                 "router_cuda_initialized": arm["router_heartbeat_cuda"]}
 
     line = {"fleet": {
-        "model": "llama3_8b" if cfg.n_layers == 32 else "rehearsal",
+        "model": (f"llama3_8b width, {cfg.n_layers} of 32 layers"
+                  if cfg.dim == 4096 else "rehearsal"),
         "workers": 2,
         "worker_command": "python -m dcos_commons_tpu_torch.frameworks."
                           "worker " + " ".join([*worker_args,
@@ -4840,8 +4936,9 @@ def phase_resnet_worker(card: str, depth=RESNET_DEPTH, batch=RESNET_BATCH,
     """The worker's ``resnet --depth 50 --batch 256 --steps 8 --out VOL``
     (Adam count 9 saved at step 8: the warm-up's update is kept), its
     relaunch with ``--steps 12`` (``resumed`` at 8, 4 steps, count 13),
-    then ``mnist --steps 200 --out VOL2`` and its relaunch with ``--steps
-    250`` (``resumed`` at 200, 50 steps)."""
+    and beside them (:func:`_side_by_side`) ``mnist --steps 200 --out
+    VOL2`` and its relaunch with ``--steps 250`` (``resumed`` at 200, 50
+    steps)."""
     import math
     import shutil
     base = Path(__file__).resolve().parent / "build" / "resnet_smoke"
@@ -4863,30 +4960,37 @@ def phase_resnet_worker(card: str, depth=RESNET_DEPTH, batch=RESNET_BATCH,
             return {}
         return done[0]
 
-    rn = ["resnet", "--depth", str(depth), "--batch", str(batch)]
-    done = run("resnet", [*rn, "--steps", str(steps), "--out", str(vol)])
-    if done and (done["steps"] != steps
-                 or not math.isfinite(done["final_loss"] or math.nan)
-                 or _saved_counts(vol, steps) != (steps + 1,) * 2):
-        problems.append(f"resnet: {done}, counts "
-                        f"{_saved_counts(vol, steps)}")
-    done = run("resnet_resumed", [*rn, "--steps", str(resumed), "--out",
-                                  str(vol)])
-    if done and (runs["resnet_resumed"]["resumed"] != [steps]
-                 or done["steps"] != resumed - steps
-                 or _saved_counts(vol, resumed) != (resumed + 1,) * 2):
-        problems.append(f"resnet_resumed: {runs['resnet_resumed']}")
+    def resnet_chain():
+        rn = ["resnet", "--depth", str(depth), "--batch", str(batch)]
+        done = run("resnet", [*rn, "--steps", str(steps), "--out",
+                              str(vol)])
+        if done and (done["steps"] != steps
+                     or not math.isfinite(done["final_loss"] or math.nan)
+                     or _saved_counts(vol, steps) != (steps + 1,) * 2):
+            problems.append(f"resnet: {done}, counts "
+                            f"{_saved_counts(vol, steps)}")
+        done = run("resnet_resumed", [*rn, "--steps", str(resumed), "--out",
+                                      str(vol)])
+        if done and (runs["resnet_resumed"]["resumed"] != [steps]
+                     or done["steps"] != resumed - steps
+                     or _saved_counts(vol, resumed) != (resumed + 1,) * 2):
+            problems.append(f"resnet_resumed: {runs['resnet_resumed']}")
+
     m_steps, m_resumed = mnist
-    done = run("mnist", ["mnist", "--steps", str(m_steps), "--out",
-                         str(vol2)])
-    if done and (done["steps"] != m_steps
-                 or not math.isfinite(done["final_loss"])):
-        problems.append(f"mnist: {done}")
-    done = run("mnist_resumed", ["mnist", "--steps", str(m_resumed),
-                                 "--out", str(vol2)])
-    if done and (runs["mnist_resumed"]["resumed"] != [m_steps]
-                 or done["steps"] != m_resumed - m_steps):
-        problems.append(f"mnist_resumed: {runs['mnist_resumed']}")
+
+    def mnist_chain():
+        done = run("mnist", ["mnist", "--steps", str(m_steps), "--out",
+                             str(vol2)])
+        if done and (done["steps"] != m_steps
+                     or not math.isfinite(done["final_loss"])):
+            problems.append(f"mnist: {done}")
+        done = run("mnist_resumed", ["mnist", "--steps", str(m_resumed),
+                                     "--out", str(vol2)])
+        if done and (runs["mnist_resumed"]["resumed"] != [m_steps]
+                     or done["steps"] != m_resumed - m_steps):
+            problems.append(f"mnist_resumed: {runs['mnist_resumed']}")
+
+    _side_by_side(resnet_chain, mnist_chain)
     shutil.rmtree(base, ignore_errors=True)
     if problems:
         raise RuntimeError("resnet worker phase: " + "; ".join(problems))
@@ -4902,10 +5006,13 @@ def phase_resnet_worker(card: str, depth=RESNET_DEPTH, batch=RESNET_BATCH,
 
 # phase 14b at 8B width with PEER_LAYERS of the 32 layers: at full depth
 # the phase took 485 s (seed save 90 s, fetch 276 s, restore 75 s of 16.06
-# GB), past what the script's 1,200 s allow beside the other phases. The
-# worker has no layer knob; this launcher cuts its 8b preset in the
-# worker's own process and runs the worker's main.
-PEER_LAYERS = 8
+# GB), past what the script's 1,200 s allow beside the other phases; at 8
+# layers 91-94 s, at 4 73-91 s (its disk and hashing time varies most
+# from machine to machine), cut to 2 to keep the script with phase 15
+# under 1,100 s. The worker has no layer
+# knob; this launcher cuts its 8b preset in the worker's own process and
+# runs the worker's main.
+PEER_LAYERS = 2
 CUT_WORKER = (
     "import dataclasses, sys\n"
     "from dcos_commons_tpu_torch.models import llama\n"
@@ -5022,6 +5129,394 @@ def phase_peer_boot(card: str, worker_args=WORKER_ARGS,
     return line, launches
 
 
+# --------------------------------------------------------------- phase 15
+
+# phase 15a's gang: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), Llama-3-8B in bf16 at full width and depth, then
+# fp32 at TP_FP32_LAYERS of the 32 layers (the decode kernels take bf16,
+# so the fp32 engines read the dense path on both sides)
+TP_WORLD = 2
+TP_FP32_LAYERS = 4
+# the slot engine serves these of phase 3's 12 requests (one wave of its
+# 8 slots, prompts of 64-1,500 tokens), in bf16 and in fp32: at all 12
+# its eager bf16 drain took 40 s of the script's 1,200
+TP_SLOT_REQUESTS = ("r0", "r1", "prefix-a", "prefix-b")
+# eager decode windows of 8 steps timed at B=8 on the paged engine
+TP_STEADY_WINDOWS = 2
+TP_TIMEOUT_S = 900
+# phase 15b: the worker gang at 8B width with TP_WORKER_LAYERS of the 32
+# layers, the cut of phase 14b (``CUT_WORKER``)
+TP_WORKER_LAYERS = PEER_LAYERS
+
+
+def _tree_gb(tree) -> float:
+    from dcos_commons_tpu_torch.ops.quant import QTensor
+    if isinstance(tree, dict):
+        return sum(_tree_gb(v) for v in tree.values())
+    if isinstance(tree, QTensor):
+        return _tree_gb(tree.q) + _tree_gb(tree.s)
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def tp_steady_streams(srv) -> None:
+    """Reset ``srv`` and bring 8 streams of 1-64 prompt tokens to
+    decoding (one prefill chunk each: a gang's eager chunk costs what a
+    step does), max_new 200."""
+    import numpy as np
+    srv.reset()
+    rng = np.random.default_rng(SEED + 1)
+    srv.submit_many([{"prompt": _prompt(rng, n, srv.cfg.vocab_size),
+                      "max_new": 200, "request_id": i} for i, n in
+                     enumerate((1, 9, 17, 25, 33, 41, 49, 64))])
+    while srv._prefill_q or srv._pending_first:
+        srv.step()
+    if len(srv._active()) != 8:
+        raise RuntimeError(f"expected 8 decoding streams, got "
+                           f"{srv._active()}")
+
+
+def tp_rank(queue: list, slot_ids, cfg_kw: dict, fp32_layers: int,
+            steady_windows: int, device: str = "cuda") -> dict:
+    """One rank of phase 15a's gang (run by ``launch_local`` in a process
+    of its own): this rank's shard of the 8B weights from the seed
+    (``init_params(mesh=)``: every rank draws the whole tree and keeps its
+    slice), ``PagedServer(mesh=)`` at phase 3's geometry draining
+    ``queue`` and ``SlotServer(mesh=)`` draining its requests in
+    ``slot_ids``, each with the kernel counts zeroed just before and read
+    just after; an eager B=8 decode timing with the collectives' host
+    seconds; then both engines in fp32 at ``fp32_layers`` layers on the
+    same queues. Returns streams, counts, memory and times. ``device``
+    ``"cpu"`` rehearses it on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MeshSpec(tp=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg = llama.LlamaConfig.llama3_8b(**cfg_kw)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+        mesh=mesh)
+    _sync(dev)
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "layout": mesh.layout, "world": mesh.size,
+           "init_s": time.perf_counter() - t0,
+           "weight_gb": _tree_gb(params)}
+    slot_queue = [r for r in queue if r["request_id"] in slot_ids]
+    engines = (("paged", queue, lambda c, p: serving.PagedServer(
+                   c, p, slots=8, page_size=64, prefill_chunk=64,
+                   device=dev, mesh=mesh)),
+               ("slots", slot_queue, lambda c, p: serving.SlotServer(
+                   c, p, slots=8, device=dev, mesh=mesh)))
+    for name, reqs, make in engines:
+        srv = make(cfg, params)
+        if name == "paged":
+            srv.warmup()
+        _zero_launches()
+        c0 = mesh.collectives
+        t0 = time.perf_counter()
+        got = srv.drain([dict(r) for r in reqs], decode_window=8)
+        _sync(dev)
+        out[name] = {"streams": got, "wall_s": time.perf_counter() - t0,
+                     "launches": _launch_counts(),
+                     "collectives": mesh.collectives - c0,
+                     "graphs": srv.graph_stats()["off_reason"]}
+        if name == "paged":
+            out[name]["ledger"] = srv.ledger_violations()
+            out[name]["page_stats"] = srv.page_stats()
+            tp_steady_streams(srv)
+            c0, s0 = mesh.collectives, mesh.collective_s
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(steady_windows):
+                srv.step_many(8)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            steps = 8 * steady_windows
+            out["eager_step"] = {
+                "step_ms": wall / steps * 1e3,
+                "collectives_per_step": (mesh.collectives - c0) / steps,
+                "collective_ms_per_step": (mesh.collective_s - s0)
+                / steps * 1e3,
+                "collective_share": (mesh.collective_s - s0) / wall}
+        del srv
+        if cuda:
+            torch.cuda.empty_cache()
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers,
+                                dtype=torch.float32, decode_attn="dense")
+    p32 = llama.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+        mesh=mesh)
+    for name, reqs, make in engines:
+        srv = make(cfg32, p32)
+        out[name]["fp32_streams"] = srv.drain([dict(r) for r in reqs],
+                                              decode_window=8)
+        del srv
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                          if cuda else None)
+    return out
+
+
+def tp_fp32_reference(queue, slot_ids, cfg_kw, layers, dev) -> dict:
+    """The single-device fp32 engines the gang's fp32 streams must
+    equal: the same seed, width, layers and queues."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(**cfg_kw),
+                              n_layers=layers, dtype=torch.float32,
+                              decode_attn="dense")
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    out = {"paged": serving.PagedServer(
+               cfg, params, slots=8, page_size=64, prefill_chunk=64,
+               device=dev).drain([dict(r) for r in queue], decode_window=8),
+           "slots": serving.SlotServer(cfg, params, slots=8,
+                                       device=dev).drain(
+               [dict(r) for r in queue if r["request_id"] in slot_ids],
+               decode_window=8)}
+    del params
+    return out
+
+
+def phase_tp(card: str, params, solo, cfg_kw=None, dev="cuda") -> tuple:
+    """Phase 15a: tensor-parallel serving over a process mesh of
+    ``TP_WORLD`` ranks sharing the card (``tp_rank``). Every rank's
+    streams must equal rank 0's; each bf16 stream, teacher-forced through
+    the parent's single-device weights (phase 3's), may leave phase 3's
+    solo stream only at a near-tie; the fp32 streams must equal the
+    single-device fp32 engines' token for token; kernel 1 must launch on
+    every rank in the paged run, kernels 2 and 3 in the slot run.
+    Returns (line, {kernel: launches summed over the ranks})."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+
+    cfg_kw = cfg_kw or {"max_seq": 2048}
+    dev = torch.device(dev)
+    queue = solo["queue"]
+    cfg = llama.LlamaConfig.llama3_8b(**cfg_kw)
+    t0 = time.perf_counter()
+    ranks = launch_local(tp_rank, TP_WORLD, queue, TP_SLOT_REQUESTS,
+                         cfg_kw, TP_FP32_LAYERS, TP_STEADY_WINDOWS,
+                         dev.type, timeout_s=TP_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    head, problems = ranks[0], []
+    for r in ranks[1:]:
+        for name in ("paged", "slots"):
+            for key in ("streams", "fp32_streams"):
+                if r[name][key] != head[name][key]:
+                    problems.append(f"rank {r['rank']}'s {name} {key} "
+                                    "differ from rank 0's")
+    prompts = {q["request_id"]: q["prompt"] for q in queue}
+    divergences = {}
+    for name, ids in (("paged", sorted(prompts)),
+                      ("slots", sorted(TP_SLOT_REQUESTS))):
+        got = head[name]["streams"]
+        if sorted(got) != ids or any(len(t) != 32 for t in got.values()):
+            problems.append(f"{name}: streams {sorted(got)}")
+            continue
+        divergences[name] = stream_check(
+            f"tp {name}", got, {i: solo["out"][i] for i in ids}, prompts,
+            cfg, params)
+    want32 = tp_fp32_reference(queue, TP_SLOT_REQUESTS, cfg_kw,
+                               TP_FP32_LAYERS, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for name in ("paged", "slots"):
+        if head[name]["fp32_streams"] != want32[name]:
+            off = [rid for rid in want32[name]
+                   if head[name]["fp32_streams"].get(rid)
+                   != want32[name][rid]]
+            problems.append(f"fp32 {name} streams differ from the "
+                            f"single-device engine's: {off}")
+    for r in ranks:
+        need = {"paged": ("flash_decode_paged",),
+                "slots": ("flash_decode", "flash_attention_fwd")}
+        for name, kerns in need.items():
+            for k in kerns:
+                if r[name]["launches"][k] < 1 and dev.type == "cuda":
+                    problems.append(f"rank {r['rank']}: {k} never launched "
+                                    f"in the {name} run")
+            if r[name]["graphs"] != "tp":
+                problems.append(f"rank {r['rank']} {name}: graphs "
+                                f"{r[name]['graphs']}")
+        if r["paged"]["ledger"]:
+            problems.append(f"rank {r['rank']} ledger {r['paged']['ledger']}")
+    if problems:
+        raise RuntimeError("tp phase: " + "; ".join(problems))
+    launches = {k: sum(r[name]["launches"][k] for r in ranks
+                       for name in ("paged", "slots"))
+                for k in ("flash_decode_paged", "flash_decode",
+                          "flash_attention_fwd")}
+    tp_line = {"backend": head["backend"], "world": len(ranks),
+               "devices": [r["device"] for r in ranks],
+               "weight_gb_per_rank": [r["weight_gb"] for r in ranks],
+               "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+               "card": card}
+    log(f"[tp] {json.dumps(tp_line)}")
+    line = {"tp": {
+        **tp_line,
+        "model": "llama3_8b", "max_seq": cfg.max_seq, "dtype": "bf16",
+        "layers": cfg.n_layers, "tp": len(ranks),
+        "layout": head["layout"], "init_s": [r["init_s"] for r in ranks],
+        "gang_s": gang_s,
+        "requests": {"paged": len(queue), "slots": len(TP_SLOT_REQUESTS)},
+        "paged_wall_s": head["paged"]["wall_s"],
+        "slots_wall_s": head["slots"]["wall_s"],
+        "collectives": {n: head[n]["collectives"] for n in ("paged",
+                                                            "slots")},
+        "eager_step_b8": {
+            **head["eager_step"], "prompt_lens": "1-64",
+            "label": "two ranks sharing one card over gloo (not a TP "
+                     "speed number)"},
+        "launches_per_rank": [{n: r[n]["launches"] for n in ("paged",
+                                                             "slots")}
+                              for r in ranks],
+        "near_tie_divergences": divergences,
+        "fp32_layers": TP_FP32_LAYERS, "fp32_token_equal": True,
+        "graphs": "eager under tp (gloo is not captured)",
+        "page_stats_rank0": head["paged"]["page_stats"]}}
+    log(f"[tp] {line}")
+    return line, launches
+
+
+def _tp_worker_procs(base: Path, worker_args, layers: int, env=None):
+    """The two gang workers, each with the rank contract (cut to
+    ``layers`` layers by ``CUT_WORKER``): [(proc, events, event)]."""
+    from dcos_commons_tpu_torch.parallel.distributed import free_port
+    root = Path(__file__).resolve().parent
+    addr = f"127.0.0.1:{free_port()}"
+    out = []
+    for rank in range(TP_WORLD):
+        cwd = base / f"r{rank}"
+        cwd.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CUT_WORKER, str(layers), *worker_args],
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=str(root),
+                              JAX_COORDINATOR_ADDRESS=addr,
+                              JAX_PROCESS_ID=str(rank),
+                              JAX_NUM_PROCESSES=str(TP_WORLD),
+                              POD_INSTANCE_INDEX=str(rank), **(env or {})),
+            stdout=subprocess.PIPE, text=True)
+        events = []
+        out.append((proc, events, _event_reader(
+            proc, events, ("paged_fallback",), f"gang worker {rank}")))
+    return out
+
+
+def phase_tp_worker(card: str, worker_args=WORKER_ARGS,
+                    layers=TP_WORKER_LAYERS, dev="cuda", cfg=None) -> tuple:
+    """Phase 15b: ``dist/llama.yml``'s gang, two ``python -m
+    dcos_commons_tpu_torch.frameworks.worker llama --preset 8b --serve
+    --slots 8`` processes with the ``JAX_*`` contract on the card, 8B
+    width cut to ``layers`` layers (phase 14b's cut). Rank 0 answers phase
+    6's 8 requests (one streamed); its ``/v1/stats`` must show them and
+    the gang's counters, rank 1's heartbeats ``gang_iterations``; every
+    reply equals the single-device ``SlotServer`` of the cut model or
+    leaves it only at a near-tie; each rank's kernel counts are its own
+    while it served. Returns (line, {kernel: launches over the ranks})."""
+    import shutil
+    import signal
+    import torch
+    from dcos_commons_tpu_torch.models import llama, serving
+
+    base = Path(__file__).resolve().parent / "build" / "tp_worker"
+    shutil.rmtree(base, ignore_errors=True)
+    bodies = worker_bodies()
+    t0 = time.perf_counter()
+    gang = _tp_worker_procs(base, worker_args, layers)
+    try:
+        serving_ev = [event("serving", WORKER_BOOT_S)
+                      for _, _, event in gang]
+        boot_s = time.perf_counter() - t0
+        port = serving_ev[0]["port"]
+        replies, errors, wall = _serve_over_http(port, bodies,
+                                                 WORKER_STREAMED)
+        stats = _http_get(port, "/v1/stats")
+        health = _http_get(port, "/v1/healthz")
+        beats = [gang[0][2]("heartbeat", 60,
+                            lambda e: e.get("requests", 0) >= len(bodies))]
+        it0 = stats.get("gang_iterations", 0)
+        beats.append(gang[1][2]("heartbeat", 60,
+                                lambda e: e.get("gang_iterations", 0)
+                                >= it0))
+    finally:
+        rcs = [_sigterm(proc) for proc, _, _ in gang]
+    problems = list(errors)
+    kerns = ("flash_decode", "flash_attention_fwd")
+    launches = {}
+    for rank, (ev, beat) in enumerate(zip(serving_ev, beats)):
+        if not (ev.get("gang") and ev.get("tp") == TP_WORLD
+                and ev.get("process_id") == rank):
+            problems.append(f"rank {rank} serving event {ev}")
+        if not beat.get("gang_iterations") or beat.get("gang_errors"):
+            problems.append(f"rank {rank} heartbeat {beat}")
+        for k in kerns:
+            n = beat.get("launches", {}).get(k, 0) - ev.get(
+                "launches", {}).get(k, 0)
+            launches[k] = launches.get(k, 0) + n
+            if n < 1 and torch.device(dev).type == "cuda":
+                problems.append(f"rank {rank}: {k} never launched while "
+                                "the gang served")
+    if stats.get("requests") != len(bodies) or not stats.get(
+            "gang_iterations") or stats.get("gang_errors"):
+        problems.append(f"/v1/stats {stats}")
+    if not health.get("ok") or any(rc != -signal.SIGTERM for rc in rcs):
+        problems.append(f"/v1/healthz {health}, exits {rcs}")
+    got = {i: (r or {}).get("tokens") for i, r in enumerate(replies)}
+    if any(t is None or len(t) != 32 for t in got.values()):
+        problems.append(f"replies {[len(t or []) for t in got.values()]}")
+    cfg = cfg or dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(max_seq=2048), n_layers=layers)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    want = serving.SlotServer(cfg, params, slots=8, device=dev).drain(
+        [{"prompt": b["prompt"], "max_new": 32, "request_id": i}
+         for i, b in enumerate(bodies)], decode_window=8)
+    divergences = _held_to("worker_tp", got, want,
+                           {i: b["prompt"] for i, b in enumerate(bodies)},
+                           cfg, params, problems)
+    del params
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("worker_tp phase: " + "; ".join(problems))
+    n_tok = sum(len(t) for t in got.values())
+    line = {"worker_tp": {
+        "command": "JAX_COORDINATOR_ADDRESS=127.0.0.1:P JAX_PROCESS_ID=r "
+                   f"JAX_NUM_PROCESSES={TP_WORLD} python -m "
+                   "dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(worker_args),
+        "model": f"llama3_8b width, {layers} of 32 layers",
+        "tp": TP_WORLD, "backend": serving_ev[0]["mesh"]["backend"],
+        "devices": [e["mesh"]["device"] for e in serving_ev],
+        "weight_gb_per_rank": [e["weight_gb"] for e in serving_ev],
+        "boot_to_serving_s": boot_s, "requests": len(bodies),
+        "tokens_out": n_tok, "wall_s": wall,
+        "output_tok_s": n_tok / wall,
+        "ttft_p50_ms": stats["ttft_ms"]["p50"],
+        "tpot_p50_ms": stats["tpot_ms"]["p50"],
+        "gang_iterations": [b["gang_iterations"] for b in beats],
+        "collectives_per_rank": [b.get("collectives") for b in beats],
+        "launches": launches,
+        "peak_mem_gb_per_rank": [b.get("peak_mem_gb") for b in beats],
+        "replies_equal_single_device": sum(
+            got[i] == want[i] for i in want),
+        "near_tie_divergences": divergences, "card": card}}
+    log(f"[worker_tp] {line}")
+    return line, launches
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -5089,6 +5584,9 @@ def main() -> int:
         "13_migrate", phase_migrate, card, params, solo)
     gc.collect()
     torch.cuda.empty_cache()
+    tp_line, tp_launches = timed_phase("15_tp", phase_tp, card, params, solo)
+    gc.collect()
+    torch.cuda.empty_cache()
     slots_line, slot_launches = timed_phase("5_serve_slots",
                                             phase_serve_slots, card, params)
     # the front door's handler closes over the front door, a cycle that
@@ -5103,11 +5601,12 @@ def main() -> int:
         worker_launches.update(launches)
     peer_line, peer_launches = timed_phase("14_worker_peer",
                                            phase_peer_boot, card)
+    worker_tp_line, worker_tp_launches = timed_phase(
+        "15_worker_tp", phase_tp_worker, card)
     disagg_worker_line, disagg_worker_launches = timed_phase(
         "12_worker_disagg", phase_disagg_worker, card,
         replies["worker_paged"], params)
-    fleet_line, fleet_launches = timed_phase("13_fleet", phase_fleet, card,
-                                             params)
+    fleet_line, fleet_launches = timed_phase("13_fleet", phase_fleet, card)
     try:
         t0 = time.perf_counter()
         spec_worker_line, spec_worker_launches = timed_phase(
@@ -5188,7 +5687,8 @@ def main() -> int:
                            disagg_worker_launches["flash_decode_paged"],
                        "migrate": migrate_launches,
                        "fleet": fleet_launches,
-                       "worker_peer": peer_launches["flash_decode_paged"]},
+                       "worker_peer": peer_launches["flash_decode_paged"],
+                       "tp": tp_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -5200,7 +5700,9 @@ def main() -> int:
                        "worker_distilled":
                            distilled_launches["flash_decode"],
                        "moe": moe_launches["flash_decode"],
-                       "worker_moe": moe_worker_launches["flash_decode"]},
+                       "worker_moe": moe_worker_launches["flash_decode"],
+                       "tp": tp_launches["flash_decode"],
+                       "worker_tp": worker_tp_launches["flash_decode"]},
                       slot_cases, decode_tol),
         _kernel_entry("flash_attention_fwd", csrc + "flash_attention_fwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:62",
@@ -5212,7 +5714,10 @@ def main() -> int:
                        "worker_distilled":
                            distilled_launches["flash_attention_fwd"],
                        "training": fa_launches["flash_attention_fwd"],
-                       "distill": distill_launches["flash_attention_fwd"]},
+                       "distill": distill_launches["flash_attention_fwd"],
+                       "tp": tp_launches["flash_attention_fwd"],
+                       "worker_tp":
+                           worker_tp_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
                       csrc + "flash_attention_bwd.cu",
@@ -5254,6 +5759,8 @@ def main() -> int:
     print(json.dumps(migrate_line), flush=True)
     print(json.dumps(fleet_line), flush=True)
     print(json.dumps(peer_line), flush=True)
+    print(json.dumps(tp_line), flush=True)
+    print(json.dumps(worker_tp_line), flush=True)
     print(json.dumps(resnet_line), flush=True)
     print(json.dumps(resnet_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main

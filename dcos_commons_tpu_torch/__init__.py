@@ -22,8 +22,10 @@ the worker that serves it and the decode windows as CUDA graphs:
                ledger, the ``SlotServer`` and ``PagedServer`` engines,
                the HTTP front door ``ServingFrontend`` and the JAX
                bridge (parameters, caches, pools, optimizer state);
-* ``parallel`` the engines' compile cache keys (``aot``) and the
-               scheduler's rank contract (``distributed``);
+* ``parallel`` the engines' compile cache keys (``aot``), the
+               scheduler's rank contract and the process group
+               (``distributed``), the tensor-parallel process mesh
+               (``mesh``) and the sharded checkpoints;
 * ``frameworks.worker``  the task-side worker (``python -m
                dcos_commons_tpu_torch.frameworks.worker llama ...``);
 * ``metrics``, ``tracing``, ``utils.stats``  the front door's registry,

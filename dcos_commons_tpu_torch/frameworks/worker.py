@@ -114,9 +114,25 @@ fused linear-KL head, and seals it under ``--out/draft`` for
 ``--spec-decode``. ``--profile-dir`` (or ``TPU_PROFILE_DIR``) wraps the
 workload in ``torch.profiler`` and writes a Chrome trace there.
 
+Under the rank contract with ``JAX_NUM_PROCESSES`` N > 1, ``llama``
+serves as a tensor-parallel gang (``dist/llama.yml``): every process
+forms the gloo process group, builds ``MeshSpec(tp=N)`` (one device a
+process, ``cuda:(rank % device_count)``; NCCL for the device collectives
+when no two ranks share a card), draws the weights from the seed and
+keeps its Megatron shard (or restores its own shards from ``--out``),
+reports ``"tp": N``, and with ``--slots`` serves through the rank-0 gang
+loop (``models.serving_gang``): rank 0 owns the front door
+(``serving.ready``, ``/v1/stats`` with the gang counters), every rank
+runs the lock-step loop and its heartbeats. ``--serve-role
+prefill|decode`` on a gang emits ``disagg_fallback`` and serves
+co-located; ``--moe-experts`` (item 9) and ``WEIGHT_FETCH_PEERS`` /
+``WEIGHT_SERVE_PORT`` (``peer_weights_not_ported``, item 10e) on a gang,
+and the training workloads on a gang (``gang_not_ported``, item 7), are
+refused before any process group forms.
+
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (gangs, ``resnet`` across slices and
+ROADMAP Queue 1 item (training on a gang, ``resnet`` across slices and
 expert-parallel MoE training: item 7; pipelines, ring prefill and ring
 or Ulysses attention: item 9; live resharding: item 10).
 """
@@ -153,6 +169,26 @@ def yaml_bool(value) -> bool:
     if isinstance(value, str):
         return value.strip().lower() in ("true", "yes", "1")
     return bool(value)
+
+
+def _gang_size() -> int:
+    """The processes the scheduler's rank contract asks for (no process
+    group is formed, nothing is contacted)."""
+    from ..parallel import distributed
+    contract = distributed.env_contract()
+    return contract["num_processes"] if contract else 1
+
+
+def _refuse_gang(workload: str) -> None:
+    """Training over a gang of processes (data- or tensor-parallel)
+    waits for the mesh's training half: refused before any process group
+    forms."""
+    n = _gang_size()
+    if n > 1:
+        raise NotPorted("gang_not_ported", f"{workload} over {n} processes: "
+                        "training on a process mesh is not ported yet "
+                        "(ROADMAP Queue 1 item 7; the port serves llama on "
+                        "a gang)")
 
 
 def _serving_arithmetic(args):
@@ -196,7 +232,8 @@ def _serving_arithmetic(args):
     return moe_cfg
 
 
-def _boot_serving_weights(args, template, init, registry=None):
+def _boot_serving_weights(args, template, init, registry=None, mesh=None,
+                          specs=None):
     """Serving weights from, in the reference's order: a hot sibling's
     weight server (``WEIGHT_FETCH_PEERS``, within
     ``WEIGHT_FETCH_TIMEOUT_S``); the newest sharded checkpoint under
@@ -212,7 +249,11 @@ def _boot_serving_weights(args, template, init, registry=None):
     ``weight_restore_fallback``, and the boot goes on to the next source.
     The fetch and restore seconds land in the registry
     (``autoscale.cold_start.{fetch,restore}_seconds``) and the returned
-    report, as in the reference."""
+    report, as in the reference. On a gang (``mesh``, with the tree's
+    ``specs``) each rank restores its own shards from its own step
+    directory, at the newest step every rank holds, and the ranks agree
+    on the outcome: if one cannot restore, every rank takes ``init()``;
+    a gang never fetches from a peer (refused before boot)."""
     from ..parallel import checkpoint as ckpt
 
     report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
@@ -251,17 +292,39 @@ def _boot_serving_weights(args, template, init, registry=None):
                    "peers": peers})
     step = ckpt.latest_step(args.out) if args.out else None
     if step is not None:
+        params, error = None, None
+        t0 = time.perf_counter()
         try:
-            t0 = time.perf_counter()
-            params = ckpt.restore_sharded(args.out, template(), step)
-            obs("restore", time.perf_counter() - t0)
+            params = ckpt.restore_sharded(args.out, template(), step,
+                                          mesh=mesh, specs=specs)
+        except (FileNotFoundError, ckpt.CheckpointCorrupt) as e:
+            error = str(e)
+        dt = time.perf_counter() - t0
+        failed = _failed_ranks(error is not None, mesh)
+        if not failed:
+            obs("restore", dt)
             report["source"] = "disk"
             report["step"] = step
             return params, report
-        except (FileNotFoundError, ckpt.CheckpointCorrupt) as e:
-            _emit({"event": "weight_restore_fallback", "error": str(e),
-                   "step": step})
+        # a gang serves one set of weights: if any rank could not
+        # restore, every rank takes the init
+        del params
+        _emit({"event": "weight_restore_fallback",
+               "error": error or f"gang ranks {failed} could not restore "
+                                 f"step {step}",
+               "step": step})
     return init(), report
+
+
+def _failed_ranks(failed: bool, mesh) -> list:
+    """The ranks of the gang whose flag is set, agreed over its gloo
+    group; ``[0]`` or ``[]`` for one process."""
+    if mesh is None or mesh.size == 1:
+        return [0] if failed else []
+    import numpy as np
+    from ..parallel.mesh import host_all_gather
+    rows = host_all_gather(np.array([int(failed)], np.int64))
+    return [r for r, row in enumerate(rows) if row[0]]
 
 
 def _start_weight_server(args, params, registry=None):
@@ -297,7 +360,7 @@ def _start_weight_server(args, params, registry=None):
 
 
 def _make_serving_engine(args, cfg, params, device, registry=None,
-                         moe=None):
+                         moe=None, mesh=None):
     """``PagedServer`` with ``--pages`` (sharing the process-wide compile
     cache; ``moe`` from :func:`_serving_arithmetic`), ``SlotServer``
     otherwise. A paged config the model cannot satisfy falls back to the
@@ -306,7 +369,7 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
     event instead of serving a replica that fails its first request.
     ``--spec-decode`` arms the paged engine (:func:`_arm_spec_decode`);
     without one it emits ``spec_fallback`` with ``spec_needs_paged`` and
-    serves solo."""
+    serves solo. ``mesh`` builds a gang member's engine."""
     from ..models.serving import PagedServer, SlotServer
     from ..parallel import aot
     spec_wanted = yaml_bool(args.spec_decode)
@@ -318,7 +381,7 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
                 page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk,
                 compile_cache=aot.from_env(), moe=moe, device=device,
-                **_make_kv_tiers(args))
+                mesh=mesh, **_make_kv_tiers(args))
             if spec_wanted:
                 _arm_spec_decode(args, cfg, engine, registry)
             return engine, engine.page_stats()
@@ -332,7 +395,8 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
         _emit({"event": "spec_fallback", "code": "spec_needs_paged",
                "error": "speculative decode needs the paged engine "
                         "(--pages); serving solo"})
-    return SlotServer(cfg, params, slots=args.slots, device=device), None
+    return SlotServer(cfg, params, slots=args.slots, device=device,
+                      mesh=mesh), None
 
 
 def _make_kv_tiers(args) -> dict:
@@ -437,21 +501,28 @@ def _target_config(args):
     return llama.LlamaConfig.tiny(kv_quant=kv_quant)
 
 
-def _init_target(cfg, dev: torch.device, quant: str = "none"):
+def _init_target(cfg, dev: torch.device, quant: str = "none", mesh=None):
     """The serving target's weights, from seed 0: a draft distilled from
-    them fits the target ``llama --serve`` builds on the same device."""
+    them fits the target ``llama --serve`` builds on the same device.
+    Under a ``mesh`` this rank's shard of the same weights: every rank
+    draws the whole tree from the same seed and keeps its slice, as the
+    reference's ranks do."""
     from ..models import llama
     if quant == "int8":
         # init + quantize on the host CPU: no bf16 weight on the device
         return llama.init_quantized_params(
-            cfg, torch.Generator().manual_seed(0), device=dev)
+            cfg, torch.Generator().manual_seed(0), device=dev, mesh=mesh)
     return llama.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        mesh=mesh)
 
 
 def run_llama(args) -> dict:
-    """Llama inference on one device: the solo decode rate, then with
-    ``--serve`` a serving loop that never returns while healthy."""
+    """Llama inference: the solo decode rate, then with ``--serve`` a
+    serving loop that never returns while healthy. One process drives one
+    device; under a rank contract of N > 1 processes the weights shard
+    over a ``tp=N`` process mesh (``llama.shard_params``) and ``--slots``
+    serves through the rank-0 gang loop (:func:`_serve_gang`)."""
     if args.serve and args.serve_role == "router":
         # the router tier is pure control plane: no model, no device; the
         # front door comes up before anything can fail
@@ -459,10 +530,27 @@ def run_llama(args) -> dict:
     from .._device import resolve_device
     from ..models import llama
     from ..parallel import distributed
+    from ..parallel.mesh import MeshSpec
 
     moe_cfg = _serving_arithmetic(args) if args.serve else None
+    n = _gang_size()
+    if n > 1:
+        # refused before the process group forms
+        if moe_cfg is not None:
+            raise NotImplementedError(
+                f"--moe-experts on a gang of {n}: expert-parallel MoE "
+                "serving is not ported yet (ROADMAP Queue 1 item 9)")
+        if os.environ.get("WEIGHT_FETCH_PEERS", "").strip() or (
+                os.environ.get("WEIGHT_SERVE_PORT")
+                or os.environ.get("PORT_WEIGHTS")) is not None:
+            raise NotPorted("peer_weights_not_ported", f"a gang of {n}: "
+                            "peer weight fetch and serve of sharded "
+                            "weights (GANGSTATE) are not ported yet "
+                            "(ROADMAP Queue 1 item 10e)")
     contract = distributed.initialize()
-    dev = resolve_device(args.device)
+    gang = (MeshSpec(tp=contract["num_processes"]).build(args.device)
+            if contract["num_processes"] > 1 else None)
+    dev = gang.device if gang is not None else resolve_device(args.device)
     kv_quant = args.kv_quant
     cfg = _target_config(args)
     gen_len = args.gen_len
@@ -481,9 +569,9 @@ def run_llama(args) -> dict:
                                                moe_cfg)
         elif chunked:
             toks = llama.generate_chunked(cfg, params, prompt, gen_len,
-                                          chunk=16)
+                                          chunk=16, mesh=gang)
         else:
-            toks = llama.generate(cfg, params, prompt, gen_len)
+            toks = llama.generate(cfg, params, prompt, gen_len, mesh=gang)
         toks.cpu()
         return round(exec_len / max(time.perf_counter() - t0, 1e-9), 2)
 
@@ -493,7 +581,7 @@ def run_llama(args) -> dict:
             return llama.init_moe_params(
                 cfg, moe_cfg.num_experts,
                 torch.Generator(device=dev).manual_seed(0), device=dev)
-        return _init_target(cfg, dev, args.quant)
+        return _init_target(cfg, dev, args.quant, gang)
 
     registry = None
     boot_report = {"source": "init", "fetch_s": 0.0, "restore_s": 0.0}
@@ -502,7 +590,8 @@ def run_llama(args) -> dict:
         registry = MetricsRegistry()
     if args.serve and args.quant == "none" and moe_cfg is None:
         params, boot_report = _boot_serving_weights(
-            args, lambda: llama.param_template(cfg, dev), init, registry)
+            args, lambda: llama.param_template(cfg, dev, mesh=gang), init,
+            registry, mesh=gang, specs=llama.param_specs(cfg))
     else:
         # int8 replicas keep their freshly quantized init, as in the
         # reference: quantized trees are outside the restore template,
@@ -518,19 +607,27 @@ def run_llama(args) -> dict:
         os.makedirs(args.out, exist_ok=True)
     with open("serving.ready", "w") as f:
         f.write("ok\n")
+    # tp counts processes: a rank drives one device, and claims no other
     result = {"workload": "llama", "preset": args.preset,
               "quant": args.quant, "kv_quant": kv_quant,
               "weight_gb": round(_nbytes(params) / 1e9, 2),
               "tokens_per_sec": tokens_per_sec,
-              "tp": 1, "process_id": contract["process_id"]}
+              "tp": gang.size if gang is not None else 1,
+              "process_id": contract["process_id"]}
+    if gang is not None:
+        result["mesh"] = {"backend": gang.backend, "device": str(dev)}
     if not args.serve:
         return result
     if args.serve_role != "colocated":
         # a disaggregated tier (dist/disagg.yml) never returns while
         # healthy; a config it cannot run emits disagg_fallback and the
-        # replica serves co-located below. More than one process never
-        # gets here (distributed.initialize refuses it)
-        if args.slots > 0:
+        # replica serves co-located below
+        if gang is not None:
+            _emit({"event": "disagg_fallback", "role": args.serve_role,
+                   "reason": "disagg tiers need --slots on a "
+                             "single-process replica; serving "
+                             "co-located"})
+        elif args.slots > 0:
             _serve_disagg(args, cfg, params, dev, registry, boot_report,
                           result, moe_cfg)
         else:
@@ -538,6 +635,8 @@ def run_llama(args) -> dict:
                    "reason": "disagg tiers need --slots on a "
                              "single-process replica; serving "
                              "co-located"})
+    if args.slots > 0 and gang is not None:
+        _serve_gang(args, contract, cfg, params, gang, registry, result)
     if args.slots > 0:
         _serve_slots(args, cfg, params, dev, registry, boot_report, result,
                      moe_cfg)
@@ -648,6 +747,51 @@ def _serve_front_door(args, server, page_stats, registry, boot_report,
             _emit(hb)
         except Exception as e:
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
+
+
+def _serve_gang(args, contract, cfg, params, mesh, registry, result) -> None:
+    """Serving on a gang of processes: rank 0 runs the HTTP front door
+    with ``drive=False``, and every rank runs the lock-step broadcast /
+    submit / step loop (``models.serving_gang``) over an engine built
+    the same way on every rank (greedy). Never returns while healthy."""
+    from ..models.ingress import ServingFrontend
+    from ..models.serving_gang import GangServingDriver
+    rank = contract["process_id"]
+    server, page_stats = _make_serving_engine(args, cfg, params, mesh.device,
+                                              registry, mesh=mesh)
+    warmup = getattr(server, "warmup", None)
+    if warmup is not None:
+        # under tp the warm-up runs eagerly, the same calls on every rank
+        warmup()
+    frontend = None
+    if rank == 0:
+        frontend = ServingFrontend(server, port=_serve_port(args),
+                                   max_queue=args.queue_limit,
+                                   metrics=registry)
+        frontend.start(drive=False)
+        frontend.mark_driven()
+        with open("serving.ready", "w") as f:
+            f.write(f"ok {frontend.port}\n")
+        _emit({"event": "serving", "slots": args.slots,
+               "port": frontend.port, "gang": True,
+               **({"paged": page_stats} if page_stats else {}),
+               **_device_report(server), **result})
+    else:
+        _emit({"event": "serving", "slots": args.slots, "gang": True,
+               "rank": rank, **_device_report(server), **result})
+    driver = GangServingDriver(
+        server, frontend, num_processes=contract["num_processes"],
+        process_id=rank, mesh=mesh, decode_window=args.decode_window)
+    beat = {"n": 0}
+
+    def on_heartbeat(stats):
+        beat["n"] += 1
+        _emit({"event": "heartbeat", "n": beat["n"], **stats,
+               "collectives": mesh.collectives,
+               "collective_s": round(mesh.collective_s, 4),
+               **_device_report(server)})
+
+    driver.run(heartbeat_s=args.serve_interval, on_heartbeat=on_heartbeat)
 
 
 def _serve_router(args) -> dict:
@@ -839,6 +983,7 @@ def run_mnist(args) -> dict:
     from ..parallel import checkpoint as ckpt
     from ..parallel import distributed
 
+    _refuse_gang(args.workload)
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     cfg = mlp.MLPConfig(in_dim=784, hidden=(512, 256), n_classes=10)
@@ -913,6 +1058,7 @@ def run_resnet(args) -> dict:
                         f"{num_slices}: data parallelism across slices "
                         "needs the device mesh, not ported yet (ROADMAP "
                         "Queue 1 item 7)")
+    _refuse_gang(args.workload)
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -1016,6 +1162,7 @@ def run_llama_train(args) -> dict:
         raise NotPorted("reshard_not_ported", "RESHARD_ENABLE: restart-free "
                         "resharding is not ported yet (ROADMAP Queue 1 item "
                         "10)")
+    _refuse_gang(args.workload)
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     seq = args.seq
@@ -1147,6 +1294,7 @@ def run_distill(args) -> dict:
     from ..parallel import checkpoint as ckpt
     from ..parallel import distributed
 
+    _refuse_gang(args.workload)
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     cfg_t = _target_config(args)

@@ -44,10 +44,27 @@ def _convert(tree: Any, device: torch.device) -> Any:
     return tensor_from_numpy(tree, device)
 
 
-def params_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
+def params_from_jax(tree: Any, device: DeviceLike = "cuda", mesh=None,
+                    cfg=None) -> Any:
     """The JAX Llama parameter pytree (as numpy) as the port's dict, with
-    the same keys and the stacked ``[L, ...]`` ``x @ W`` layout."""
-    return _convert(tree, resolve_device(device))
+    the same keys and the stacked ``[L, ...]`` ``x @ W`` layout. With a
+    ``mesh`` (and the model's ``cfg``) this rank's shard of it
+    (``llama.shard_params``): each leaf is sliced on the host before it
+    moves, so the device holds the shard only."""
+    dev = resolve_device(device)
+    if mesh is None or mesh.size == 1:
+        return _convert(tree, dev)
+    from .llama import shard_params
+    return _move(shard_params(_convert(tree, torch.device("cpu")), mesh,
+                              cfg), dev)
+
+
+def _move(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q.to(device), tree.s.to(device))
+    return tree.to(device)
 
 
 def resnet_from_jax(params: Any, state: Any, device: DeviceLike = "cuda"):

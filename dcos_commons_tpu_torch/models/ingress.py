@@ -705,13 +705,20 @@ class ServingFrontend:
             out["spec_fallbacks"] = self.engine.spec_fallbacks
         return out
 
+    # an external driver's counters (``models.serving_gang``), merged
+    # into stats()
+    stats_extra = None
+
     def stats(self) -> dict:
         with self._lock:
             totals = dict(self._totals)
             window = list(self._window)
         ttft = [t for _, t, _ in window if t is not None]
         tpot = [t for _, _, t in window if t is not None]
-        return {**totals, "queued": self._queue.qsize(),
-                "ttft_ms": _percentiles(ttft),
-                "tpot_ms": _percentiles(tpot),
-                "window": self.load_gauges()}
+        out = {**totals, "queued": self._queue.qsize(),
+               "ttft_ms": _percentiles(ttft),
+               "tpot_ms": _percentiles(tpot),
+               "window": self.load_gauges()}
+        if self.stats_extra is not None:
+            out.update(self.stats_extra())
+        return out

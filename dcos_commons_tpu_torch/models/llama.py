@@ -23,6 +23,17 @@ paged prefill chunk and ``extend_step`` take, and
 ``generate_stepwise_moe`` the greedy reference the MoE engine is held
 to.
 
+Tensor parallelism (serving): ``param_specs`` is the reference's
+Megatron layout over the ``tp`` axis and ``shard_params`` slices this
+rank's part of every leaf (``init_params(..., mesh=)`` draws each leaf
+whole and slices it at once). The serving forwards, the caches and the
+pools take ``mesh=`` (a ``parallel.mesh.Mesh``): each rank computes its
+own query and KV heads and its own FFN columns, the residual stream stays
+replicated, the row-parallel outputs (``wo``, ``w_down``) and the
+vocab-parallel embedding are all-reduced and the column-parallel
+``lm_head`` logits all-gathered in rank order, so every rank holds the
+same bits after each collective. A mesh of one process is no mesh.
+
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
 and ``loss_fn`` (next-token loss, fused linear cross-entropy by
@@ -43,7 +54,7 @@ is dropped (``.at[].set``), and rope lookups past the table clamp.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,14 +62,17 @@ import torch.utils.checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import gqa_attention
-from ..ops.flash_attention import HEAD_DIMS, flash_attention
+from ..ops.flash_attention import (HEAD_DIMS, flash_attention,
+                                   flash_attention_tp)
 from ..ops.flash_decode import (flash_decode, flash_decode_paged,
+                                flash_decode_paged_tp, flash_decode_tp,
                                 supports_decode, supports_decode_paged)
 from ..ops.losses import fused_linear_cross_entropy, softmax_cross_entropy
 from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
 from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_at_many,
                           apply_rope_positions, rope_frequencies)
+from ..parallel.mesh import Mesh, Spec, scale_spec, shard_slices, tp_size
 from ..parallel.moe import MoEConfig, moe_apply_local
 
 Params = Dict[str, Any]
@@ -143,14 +157,27 @@ _INIT_ROWS = 1 << 14
 
 
 def param_template(cfg: LlamaConfig, device: DeviceLike = "cuda",
-                   num_experts: int = 0) -> Params:
+                   num_experts: int = 0, mesh: Optional[Mesh] = None
+                   ) -> Params:
     """The parameter tree of uninitialised tensors: the reference's keys,
     shapes (stacked [L, ...] layer weights) and ``cfg.dtype``.
     :func:`init_params` fills it; a checkpoint restore takes it as its
     template, with no random draws. With ``num_experts`` the tree of
     :func:`init_moe_params`: the dense FFN (never allocated) replaced by
     ``router`` [L, D, E] fp32, ``w_in`` [L, E, D, F] and ``w_out``
-    [L, E, F, D]."""
+    [L, E, F, D]. With a ``mesh``, this rank's shard shapes."""
+    if tp_size(mesh) > 1:
+        dev = resolve_device(device)
+        full = shard_params(param_template(cfg, "meta", num_experts), mesh,
+                            cfg)
+
+        def alloc(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
+
+        return {"embed": alloc(full["embed"]),
+                "layers": {k: alloc(v) for k, v in full["layers"].items()},
+                "norm": alloc(full["norm"]),
+                "lm_head": alloc(full["lm_head"])}
     dev = resolve_device(device)
     d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
     qd = cfg.n_heads * cfg.head_dim
@@ -200,22 +227,54 @@ def _init_attention(cfg: LlamaConfig, params: Params,
     _normal_(layers["wo"], generator, (qd ** -0.5) / (2 * cfg.n_layers) ** 0.5)
 
 
+def _draws(cfg: LlamaConfig) -> List[Tuple[Tuple[str, ...], Optional[float]]]:
+    """The dense tree's random leaves in draw order, each with its scale
+    (None: fan-in ** -0.5)."""
+    qd = cfg.n_heads * cfg.head_dim
+    L = cfg.n_layers
+    return [(("embed",), cfg.dim ** -0.5),
+            (("layers", "wq"), None), (("layers", "wk"), None),
+            (("layers", "wv"), None),
+            (("layers", "wo"), (qd ** -0.5) / (2 * L) ** 0.5),
+            (("layers", "w_gate"), None), (("layers", "w_up"), None),
+            (("layers", "w_down"), (cfg.ffn_dim ** -0.5) / (2 * L) ** 0.5),
+            (("lm_head",), None)]
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: DeviceLike = "cuda") -> Params:
+                device: DeviceLike = "cuda",
+                mesh: Optional[Mesh] = None) -> Params:
     """Scaled-normal init with the reference's shapes and scales; stacked
     [L, ...] layer weights. ``generator`` must live on ``device``. Torch
     and JAX draw different numbers from one seed: parity tests take the
-    JAX weights through ``models.bridge.params_from_jax`` instead."""
+    JAX weights through ``models.bridge.params_from_jax`` instead.
+
+    With a ``mesh`` each leaf is drawn whole, in the same order, and
+    sliced to this rank's shard before the next is drawn: bitwise
+    ``shard_params(init_params(...), mesh, cfg)``, with one whole leaf at
+    a time on the device."""
+    if tp_size(mesh) > 1:
+        _check_tp(cfg, tp_size(mesh))
+        dev = resolve_device(device)
+        full = param_template(cfg, "meta")
+        specs = param_specs(cfg)
+        out = {"embed": None, "layers": dict.fromkeys(full["layers"]),
+               "norm": None, "lm_head": None}
+        for path, scale in _draws(cfg):
+            leaf = torch.empty(_get(full, path).shape, dtype=cfg.dtype,
+                               device=dev)
+            _normal_(leaf, generator, scale)
+            _set(out, path, _shard(leaf, _get(specs, path), mesh))
+            del leaf
+        for path in (("layers", "attn_norm"), ("layers", "ffn_norm"),
+                     ("norm",)):
+            _set(out, path, torch.ones(_get(full, path).shape,
+                                       dtype=cfg.dtype, device=dev))
+        return out
     params = param_template(cfg, device)
     layers = params["layers"]
-    L = cfg.n_layers
-    # drawn in the order the keys are listed, as before the template
-    _init_attention(cfg, params, generator)
-    for name in ("w_gate", "w_up"):
-        _normal_(layers[name], generator)
-    _normal_(layers["w_down"], generator,
-             (cfg.ffn_dim ** -0.5) / (2 * L) ** 0.5)
-    _normal_(params["lm_head"], generator)
+    for path, scale in _draws(cfg):
+        _normal_(_get(params, path), generator, scale)
     for norm in (layers["attn_norm"], layers["ffn_norm"], params["norm"]):
         norm.fill_(1)
     return params
@@ -278,14 +337,18 @@ def quantize_params(params: Params) -> Params:
 
 
 def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
-                          device: DeviceLike = "cuda") -> Params:
+                          device: DeviceLike = "cuda",
+                          mesh: Optional[Mesh] = None) -> Params:
     """:func:`init_params` then :func:`quantize_params`, both on the
     host CPU with ``generator`` (a CPU generator), then only the int8
     payloads, their scales and the norm gains move to ``device``: no bf16
     weight stack is ever allocated there. Bitwise equal to
-    ``quantize_params(init_params(cfg, generator, "cpu"))``."""
+    ``quantize_params(init_params(cfg, generator, "cpu"))``; with a
+    ``mesh``, this rank's shard of it, sliced on the host."""
     dev = resolve_device(device)
-    host = quantize_params(init_params(cfg, generator, device="cpu"))
+    host = shard_params(quantize_params(init_params(cfg, generator,
+                                                    device="cpu")),
+                        mesh, cfg)
 
     def move(w):
         if isinstance(w, QTensor):
@@ -299,15 +362,140 @@ def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel shards
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """Megatron-style tp sharding, the reference's: column-parallel
+    in-projections (``wq``/``wk``/``wv``/``w_gate``/``w_up``, and
+    ``lm_head`` over the vocabulary), row-parallel out-projections
+    (``wo``/``w_down``), the embedding row-sharded over the vocabulary,
+    norms replicated."""
+    col, row = (None, None, "tp"), (None, "tp", None)
+    return {
+        "embed": ("tp", None),
+        "layers": {"attn_norm": (), "wq": col, "wk": col, "wv": col,
+                   "wo": row, "ffn_norm": (), "w_gate": col, "w_up": col,
+                   "w_down": row},
+        "norm": (),
+        "lm_head": (None, "tp"),
+    }
+
+
+def _check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """tp must divide every sharded dimension (the GQA group then stays
+    whole on each rank)."""
+    for name in ("n_heads", "n_kv_heads", "ffn_dim", "vocab_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"tp={tp} does not divide {name}="
+                             f"{getattr(cfg, name)}")
+
+
+def _get(tree: Params, path: Tuple[str, ...]) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree: Params, path: Tuple[str, ...], value: Any) -> None:
+    _get(tree, path[:-1])[path[-1]] = value
+
+
+def _shard(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` under ``spec``: a tensor of its own
+    (the whole leaf can be freed), or ``t`` itself when replicated."""
+    out = t
+    for dim, (start, n) in enumerate(shard_slices(t.shape, spec, mesh)):
+        if n != t.shape[dim]:
+            out = out.narrow(dim, start, n)
+    return out if out is t else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_leaf(leaf: QArray, spec: Spec, mesh: Mesh) -> QArray:
+    """:func:`_shard` of one leaf, a ``QTensor``'s scales under
+    ``parallel.mesh.scale_spec``."""
+    if isinstance(leaf, QTensor):
+        return QTensor(_shard(leaf.q, spec, mesh),
+                       _shard(leaf.s, scale_spec(spec, tuple(leaf.s.shape)),
+                              mesh))
+    return _shard(leaf, spec, mesh)
+
+
+def shard_params(params: Params, mesh: Optional[Mesh],
+                 cfg: LlamaConfig) -> Params:
+    """This rank's shard of every leaf under :func:`param_specs`,
+    ``QTensor``s included. Each whole leaf is dropped from the returned
+    tree as soon as it is sliced (the caller's references keep theirs);
+    a mesh of one returns ``params``. MoE trees are refused: their expert
+    banks shard over ``ep`` (ROADMAP Queue 1 item 9)."""
+    tp = tp_size(mesh)
+    if tp == 1:
+        return params
+    if "router" in params["layers"]:
+        raise NotImplementedError(
+            "MoE trees shard over the ep axis, which is not ported yet "
+            "(ROADMAP Queue 1 item 9)")
+    _check_tp(cfg, tp)
+    specs = param_specs(cfg)
+    out = {"embed": None, "layers": dict.fromkeys(params["layers"]),
+           "norm": None, "lm_head": None}
+    for key in ("embed", "norm", "lm_head"):
+        out[key] = shard_leaf(params[key], specs[key], mesh)
+    for key, leaf in params["layers"].items():
+        out["layers"][key] = shard_leaf(leaf, specs["layers"][key], mesh)
+    return out
+
+
+def local_kv_heads(cfg: LlamaConfig, mesh: Optional[Mesh]) -> int:
+    """The KV heads one rank holds."""
+    tp = tp_size(mesh)
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} does not divide n_kv_heads="
+                         f"{cfg.n_kv_heads}")
+    return cfg.n_kv_heads // tp
+
+
+def _reduce(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A row-parallel partial product summed over ``tp``."""
+    return x if tp_size(mesh) == 1 else mesh.all_reduce(x, "tp")
+
+
+def _embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+           mesh: Optional[Mesh]) -> torch.Tensor:
+    """The token embedding; vocab-parallel under tp: each rank looks up
+    the tokens in its row range, zeros elsewhere, and the all-reduce
+    adds the one nonzero row to zeros, which is exact."""
+    if tp_size(mesh) == 1:
+        return qtake(params["embed"], tokens, cfg.dtype)
+    rows = params["embed"].shape[0]
+    local = tokens.long() - mesh.coords["tp"] * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    x = qtake(params["embed"], local.clamp(0, rows - 1), cfg.dtype)
+    return mesh.all_reduce(torch.where(inside, x, torch.zeros_like(x)), "tp")
+
+
+def _lm_head(x: torch.Tensor, params: Params,
+             mesh: Optional[Mesh]) -> torch.Tensor:
+    """fp32 logits; under tp each rank's vocabulary columns gathered in
+    rank order."""
+    logits = qmm(x, params["lm_head"])
+    if tp_size(mesh) > 1:
+        logits = mesh.all_gather(logits, "tp", dim=-1)
+    return logits.float()
+
+
+# ---------------------------------------------------------------------------
 # KV storage: the padded slot cache and the block-paged pool
 
 
 def _kv_zeros(cfg: LlamaConfig, rows: int, length: int,
-              device: DeviceLike) -> Cache:
+              device: DeviceLike, mesh: Optional[Mesh] = None) -> Cache:
     """Zeroed K and V [L, rows, length, KV, D] (int8 payload +
-    per-position bf16 scales under ``cfg.kv_quant``)."""
+    per-position bf16 scales under ``cfg.kv_quant``); under tp the
+    rank's KV heads, the scales with their payload."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, rows, length, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, rows, length, local_kv_heads(cfg, mesh),
+             cfg.head_dim)
     if cfg.kv_quant:
         sshape = shape[:-1] + (1,)
         return {side: QTensor(torch.zeros(shape, dtype=torch.int8,
@@ -320,16 +508,20 @@ def _kv_zeros(cfg: LlamaConfig, rows: int, length: int,
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
-                  device: DeviceLike = "cuda") -> Cache:
-    """The padded slot cache [L, batch, max_seq, KV, D]."""
-    return _kv_zeros(cfg, batch, max_seq, device)
+                  device: DeviceLike = "cuda",
+                  mesh: Optional[Mesh] = None) -> Cache:
+    """The padded slot cache [L, batch, max_seq, KV, D] (KV: the rank's
+    heads under tp; every rank holds every slot)."""
+    return _kv_zeros(cfg, batch, max_seq, device, mesh)
 
 
 def init_page_pool(cfg: LlamaConfig, pages: int, page_size: int,
-                   device: DeviceLike = "cuda") -> Pool:
-    """KV page pool [L, pages, page_size, KV, D]. Who owns which page is
-    host bookkeeping (``models.paging.PagePool``)."""
-    return _kv_zeros(cfg, pages, page_size, device)
+                   device: DeviceLike = "cuda",
+                   mesh: Optional[Mesh] = None) -> Pool:
+    """KV page pool [L, pages, page_size, KV, D] (KV: the rank's heads
+    under tp; every rank holds every page). Who owns which page is host
+    bookkeeping (``models.paging.PagePool``), the same on every rank."""
+    return _kv_zeros(cfg, pages, page_size, device, mesh)
 
 
 def _dense(cache: QArray, dtype: torch.dtype) -> torch.Tensor:
@@ -416,27 +608,38 @@ def _page_write(cache: QArray, rows: torch.Tensor, phys: torch.Tensor,
         cache.index_put_(idx, rows.to(cache.dtype))
 
 
-def _use_flash_decode(cfg: LlamaConfig, device: torch.device) -> bool:
+def _use_flash_decode(cfg: LlamaConfig, device: torch.device,
+                      mesh: Optional[Mesh] = None) -> bool:
     """Route decode attention (slot cache and paged pool): ``auto`` takes
     the CUDA kernel on a CUDA device and the dense read on the CPU;
     ``flash`` forces the kernel wrapper; ``dense`` the dense read. The
-    reference's lane-128 conditions do not carry over."""
+    reference's lane-128 conditions do not carry over; its mesh rule
+    does: the kernel serves no mesh, a mesh of one, or a tp-only mesh
+    whose axis divides the KV heads (each rank runs it on its heads), and
+    a forced ``flash`` on any other mesh raises."""
     mode = cfg.decode_attn
     if mode not in ("auto", "dense", "flash"):
         # a typo'd mode must not silently measure the dense path
         raise ValueError(f"decode_attn={mode!r}: expected one of 'auto', "
                          "'dense', 'flash'")
+    mesh_ok = (mesh is None or mesh.size == 1
+               or (all(n == 1 for ax, n in mesh.shape.items() if ax != "tp")
+                   and cfg.n_kv_heads % mesh.shape["tp"] == 0))
+    if mode == "flash" and not mesh_ok:
+        raise ValueError(
+            f"decode_attn='flash' needs an unsharded or tp-only mesh whose "
+            f"axis divides the KV heads; got {dict(mesh.shape)}")
     if mode == "dense":
         return False
-    return mode == "flash" or device.type == "cuda"
+    return mode == "flash" or (device.type == "cuda" and mesh_ok)
 
 
 def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
                  tokens: torch.Tensor, rope_fn: Callable, cache_write,
                  attn: Callable, logit_index: Optional[int] = None,
                  all_positions: bool = False,
-                 ffn_override: Optional[FfnOverride] = None
-                 ) -> torch.Tensor:
+                 ffn_override: Optional[FfnOverride] = None,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The cache-consuming forward shared by the decode steps (solo, per
     slot, paged), the paged prefill chunk and the K-token windows: they
     differ only in how rope is applied, where K/V rows land
@@ -448,38 +651,41 @@ def _decode_body(cfg: LlamaConfig, params: Params, pool: Pool,
     with ``all_positions`` [B, S, V] at every position.
     ``ffn_override(x, lp) -> x`` replaces the whole pre-norm FFN residual
     step (MoE serving routes through ``parallel.moe`` there,
-    :func:`make_moe_ffn`); None keeps the dense SwiGLU."""
+    :func:`make_moe_ffn`); None keeps the dense SwiGLU. Under ``mesh``
+    the heads and FFN columns are the rank's (module doc)."""
     b, s = tokens.shape
     layers = params["layers"]
-    x = qtake(params["embed"], tokens, cfg.dtype)               # [B, S, D]
+    x = _embed(cfg, params, tokens, mesh)                      # [B, S, D]
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
         k_cache, v_cache = pool["k"][i], pool["v"][i]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = qmm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = qmm(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = qmm(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        # -1: the rank's heads under tp
+        q = qmm(h, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
+        k = qmm(h, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
+        v = qmm(h, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
         q = rope_fn(q)
         k = rope_fn(k)
         cache_write(k_cache, k)
         cache_write(v_cache, v)
         o = attn(q, k_cache, v_cache)
-        x = x + qmm(o.reshape(b, s, -1), lp["wo"])
+        x = x + _reduce(qmm(o.reshape(b, s, -1), lp["wo"]), mesh)
         if ffn_override is not None:
             x = ffn_override(x, lp)
         else:
-            x = ffn_block(cfg, x, lp)
+            x = ffn_block(cfg, x, lp, mesh)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     if not all_positions:
         x = x[:, -1, :] if logit_index is None else x[:, logit_index, :]
-    return qmm(x, params["lm_head"]).float()
+    return _lm_head(x, params, mesh)
 
 
 def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                       table: torch.Tensor, lengths: torch.Tensor,
                       tokens: torch.Tensor,
                       rope: Optional[torch.Tensor] = None,
-                      ffn_override: Optional[FfnOverride] = None
+                      ffn_override: Optional[FfnOverride] = None,
+                      mesh: Optional[Mesh] = None
                       ) -> Tuple[torch.Tensor, Pool]:
     """One decode step against the paged pool.
 
@@ -489,8 +695,8 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     attends to ``lengths[b] + 1`` positions, through the CUDA kernel or
     the dense gather (:func:`_use_flash_decode`). Inactive
     streams point their table rows at a scratch page. ``ffn_override``
-    as in :func:`_decode_body`. Returns (logits [B, V] fp32, pool
-    updated in place)."""
+    as in :func:`_decode_body`; under ``mesh`` the pool holds the rank's
+    KV heads. Returns (logits [B, V] fp32, pool updated in place)."""
     rope = _rope_table(cfg, rope, tokens.device)
     ps = pool["k"].shape[2]
     mp = table.shape[1]
@@ -500,7 +706,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     phys = torch.gather(table, 1, page_idx[:, None])[:, 0]
     offs = lengths % ps
     kv_len = (lengths + 1).to(torch.int32)
-    flash = _use_flash_decode(cfg, tokens.device)
+    flash = _use_flash_decode(cfg, tokens.device, mesh)
 
     def cache_write(cache, new):
         _page_write(cache, new[:, 0], phys, offs)
@@ -509,6 +715,10 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
         if flash:
             if not supports_decode_paged(q, k_cache, ps):
                 raise ValueError(_outside_gate(cfg, "paged decode"))
+            if tp_size(mesh) > 1:
+                return flash_decode_paged_tp(q, k_cache, v_cache, table,
+                                             kv_len, mesh,
+                                             kv_heads=cfg.n_kv_heads)
             return flash_decode_paged(q, k_cache, v_cache, table, kv_len)
         k_read = _gather_pages(k_cache, table, cfg.dtype)
         v_read = _gather_pages(v_cache, table, cfg.dtype)
@@ -517,7 +727,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, pool: Pool,
     logits = _decode_body(cfg, params, pool, tokens[:, None],
                           rope_fn=lambda t: apply_rope_at(t, rope, lengths),
                           cache_write=cache_write, attn=attn,
-                          ffn_override=ffn_override)
+                          ffn_override=ffn_override, mesh=mesh)
     return logits, pool
 
 
@@ -575,16 +785,20 @@ def _outside_gate(cfg: LlamaConfig, kernel: str) -> str:
             "decode_attn='dense'")
 
 
-def _slot_attn(cfg: LlamaConfig, device: torch.device, kv_len) -> Callable:
+def _slot_attn(cfg: LlamaConfig, device: torch.device, kv_len,
+               mesh: Optional[Mesh] = None) -> Callable:
     """The decode read of the slot cache: the slot kernel (through
-    :func:`_use_flash_decode`) or the dense read of the whole cache,
-    masked at ``kv_len`` [B]."""
-    flash = _use_flash_decode(cfg, device)
+    :func:`_use_flash_decode`; under tp on the rank's heads) or the dense
+    read of the whole cache, masked at ``kv_len`` [B]."""
+    flash = _use_flash_decode(cfg, device, mesh)
 
     def attn(q, k_cache, v_cache):
         if flash:
             if not supports_decode(q, k_cache):
                 raise ValueError(_outside_gate(cfg, "slot decode"))
+            if tp_size(mesh) > 1:
+                return flash_decode_tp(q, k_cache, v_cache, kv_len, mesh,
+                                       kv_heads=cfg.n_kv_heads)
             return flash_decode(q, k_cache, v_cache, kv_len)
         return gqa_attention(q, _dense(k_cache, cfg.dtype),
                              _dense(v_cache, cfg.dtype), causal=False,
@@ -603,7 +817,8 @@ def _rope_table(cfg: LlamaConfig, rope: Optional[torch.Tensor],
 
 def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
                 token: torch.Tensor, rope: Optional[torch.Tensor] = None,
-                ffn_override: Optional[FfnOverride] = None
+                ffn_override: Optional[FfnOverride] = None,
+                mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step of every row at position ``pos`` (a host int, the
     current length): ``token`` [B] int32 lands at ``pos`` and every row
@@ -619,8 +834,8 @@ def decode_step(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
         cfg, params, cache, token[:, None],
         rope_fn=lambda t: apply_rope(t, rope, pos),
         cache_write=lambda c, new: _cache_update(c, new, pos, 1),
-        attn=_slot_attn(cfg, token.device, kv_len),
-        ffn_override=ffn_override)
+        attn=_slot_attn(cfg, token.device, kv_len, mesh),
+        ffn_override=ffn_override, mesh=mesh)
     return logits, cache
 
 
@@ -652,7 +867,8 @@ def extend_step(cfg: LlamaConfig, params: Params, cache: Cache,
 
 def decode_step_slots(cfg: LlamaConfig, params: Params, cache: Cache,
                       lengths: torch.Tensor, tokens: torch.Tensor,
-                      rope: Optional[torch.Tensor] = None
+                      rope: Optional[torch.Tensor] = None,
+                      mesh: Optional[Mesh] = None
                       ) -> Tuple[torch.Tensor, Cache]:
     """One decode step with PER-SLOT positions, the step of
     :class:`~dcos_commons_tpu_torch.models.serving.SlotServer`.
@@ -668,7 +884,7 @@ def decode_step_slots(cfg: LlamaConfig, params: Params, cache: Cache,
         cfg, params, cache, tokens[:, None],
         rope_fn=lambda t: apply_rope_at(t, rope, lengths),
         cache_write=lambda c, new: _cache_update_slots(c, new, targets),
-        attn=_slot_attn(cfg, tokens.device, lengths + 1))
+        attn=_slot_attn(cfg, tokens.device, lengths + 1, mesh), mesh=mesh)
     return logits, cache
 
 
@@ -677,7 +893,8 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
                         start: int, true_len: int, logit_index: int,
                         scratch_page: int,
                         rope: Optional[torch.Tensor] = None,
-                        ffn_override: Optional[FfnOverride] = None
+                        ffn_override: Optional[FfnOverride] = None,
+                        mesh: Optional[Mesh] = None
                         ) -> Tuple[torch.Tensor, Pool]:
     """One CHUNK of paged prefill for a single stream: ``tokens`` [1, C]
     occupy positions ``start..start+C-1``, K/V landing through ``table``
@@ -715,7 +932,7 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, pool: Pool,
         cfg, params, pool, tokens,
         rope_fn=lambda t: apply_rope_positions(t, rope, rope_pos),
         cache_write=cache_write, attn=attn, logit_index=logit_index,
-        ffn_override=ffn_override)
+        ffn_override=ffn_override, mesh=mesh)
     return logits, pool
 
 
@@ -790,29 +1007,32 @@ def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
 
 def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
                     rope: torch.Tensor, attn_fn: Callable,
-                    return_kv: bool = False):
+                    return_kv: bool = False, mesh: Optional[Mesh] = None):
     """Pre-norm attention residual step on x [B, S, D]. With
     ``return_kv`` also returns the rope'd K/V (the prefill cache
-    contract, what ``decode_step`` writes)."""
+    contract, what ``decode_step`` writes). Under ``mesh`` the rank's
+    heads, the ``wo`` output all-reduced."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = qmm(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = qmm(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = qmm(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = qmm(h, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = qmm(h, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = qmm(h, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
     o = attn_fn(q, k, v)             # GQA expansion is the impl's business
-    out = x + qmm(o.reshape(b, s, -1), lp["wo"])
+    out = x + _reduce(qmm(o.reshape(b, s, -1), lp["wo"]), mesh)
     return (out, k, v) if return_kv else out
 
 
-def ffn_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params) -> torch.Tensor:
+def ffn_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Pre-norm SwiGLU residual step on x [B, S, D]; silu in fp32 on the
-    matmul output, as the reference."""
+    matmul output, as the reference. Under ``mesh`` the rank's FFN
+    columns, the ``w_down`` output all-reduced."""
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     gate = F.silu(qmm(h, lp["w_gate"]).float())
     up = qmm(h, lp["w_up"]).float()
-    return x + qmm((gate * up).to(cfg.dtype), lp["w_down"])
+    return x + _reduce(qmm((gate * up).to(cfg.dtype), lp["w_down"]), mesh)
 
 
 def apply_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
@@ -869,7 +1089,7 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor
 
 
 def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
-                  rope: torch.Tensor
+                  rope: torch.Tensor, mesh: Optional[Mesh] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The prefill forward shared by :func:`prefill` and the engine's
     bucketed slot prefill: (normed hidden states [B, S, D], ks/vs
@@ -877,20 +1097,28 @@ def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
     K/V land. Causal attention takes the flash-attention forward kernel
     where decode takes its kernel (:func:`_use_flash_decode`: on a CUDA
     device, any S, a shape outside its gate raises) and the dense path
-    elsewhere; the reference's ``S % 128`` gate does not carry over."""
-    if _use_flash_decode(cfg, prompt.device):
-        def attn_fn(q, k, v):
-            return flash_attention(q, k, v, causal=True)
+    elsewhere; the reference's ``S % 128`` gate does not carry over.
+    Under ``mesh`` the ks/vs are the rank's KV heads and each rank runs
+    the kernel on its own heads."""
+    if _use_flash_decode(cfg, prompt.device, mesh):
+        if tp_size(mesh) > 1:
+            def attn_fn(q, k, v):
+                return flash_attention_tp(q, k, v, mesh, causal=True,
+                                          kv_heads=cfg.n_kv_heads)
+        else:
+            def attn_fn(q, k, v):
+                return flash_attention(q, k, v, causal=True)
     else:
         def attn_fn(q, k, v):
             return gqa_attention(q, k, v, causal=True)
     layers = params["layers"]
-    x = qtake(params["embed"], prompt, cfg.dtype)
+    x = _embed(cfg, params, prompt, mesh)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        x, k, v = attention_block(cfg, x, lp, rope, attn_fn, return_kv=True)
-        x = ffn_block(cfg, x, lp)
+        x, k, v = attention_block(cfg, x, lp, rope, attn_fn, return_kv=True,
+                                  mesh=mesh)
+        x = ffn_block(cfg, x, lp, mesh)
         ks.append(k)
         vs.append(v)
     return (rms_norm(x, params["norm"], cfg.norm_eps), torch.stack(ks),
@@ -898,14 +1126,14 @@ def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
 
 
 def prefill(cfg: LlamaConfig, params: Params, cache: Cache,
-            prompt: torch.Tensor, rope: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Cache]:
+            prompt: torch.Tensor, rope: Optional[torch.Tensor] = None,
+            mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Cache]:
     """One forward over the whole prompt [B, S], every layer's K/V
     written into the cache at positions [0, S) in place. Returns
     (last-position logits [B, V] fp32, cache)."""
     rope = _rope_table(cfg, rope, prompt.device)
-    x, ks, vs = prefill_trunk(cfg, params, prompt, rope)
-    logits = qmm(x[:, -1, :], params["lm_head"]).float()
+    x, ks, vs = prefill_trunk(cfg, params, prompt, rope, mesh)
+    logits = _lm_head(x[:, -1, :], params, mesh)
     _cache_update(cache["k"], ks, 0, 2)
     _cache_update(cache["v"], vs, 0, 2)
     return logits, cache
@@ -930,20 +1158,22 @@ def _select(sampler: Optional[Sampler], generator: Optional[torch.Generator],
 
 
 def generate(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
-             steps: int) -> torch.Tensor:
+             steps: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Greedy generation: prefill, then ``steps`` decode steps; returns
     [B, steps] (the first token from the prefill logits). The fused
     program and the host-driven loop of the reference are one loop
     here, so :func:`generate_stepwise` is this function."""
     b, s = prompt.shape
     _check_capacity(cfg, s, steps)
-    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
+    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device,
+                          mesh=mesh)
     rope = _rope_table(cfg, None, prompt.device)
-    logits, cache = prefill(cfg, params, cache, prompt, rope=rope)
+    logits, cache = prefill(cfg, params, cache, prompt, rope=rope, mesh=mesh)
     toks = []
     for i in range(steps):
         tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
-        logits, cache = decode_step(cfg, params, cache, s + i, tok, rope=rope)
+        logits, cache = decode_step(cfg, params, cache, s + i, tok, rope=rope,
+                                    mesh=mesh)
         toks.append(tok)
     if not toks:
         return torch.zeros((b, 0), dtype=prompt.dtype, device=prompt.device)
@@ -1014,7 +1244,8 @@ def decode_chunk_logits(cfg: LlamaConfig, params: Params, cache: Cache,
                         pos: int, token: torch.Tensor, steps: int,
                         rope: Optional[torch.Tensor] = None,
                         sampler: Optional[Sampler] = None,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        mesh: Optional[Mesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
     """``steps`` decode steps from ``token`` [B] at position ``pos``:
     (toks [B, steps], every step's logits [B, steps, V], cache). Greedy
@@ -1024,7 +1255,7 @@ def decode_chunk_logits(cfg: LlamaConfig, params: Params, cache: Cache,
     tok = token
     for i in range(steps):
         logits, cache = decode_step(cfg, params, cache, pos + i, tok,
-                                    rope=rope)
+                                    rope=rope, mesh=mesh)
         tok = _select(sampler, generator, logits, token.dtype)
         toks.append(tok)
         logits_all.append(logits)
@@ -1035,39 +1266,42 @@ def decode_chunk(cfg: LlamaConfig, params: Params, cache: Cache, pos: int,
                  token: torch.Tensor, steps: int,
                  rope: Optional[torch.Tensor] = None,
                  sampler: Optional[Sampler] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[torch.Tensor, Cache]:
     """:func:`decode_chunk_logits` without the logits: (toks [B, steps],
     cache)."""
     toks, _, cache = decode_chunk_logits(cfg, params, cache, pos, token,
                                          steps, rope=rope, sampler=sampler,
-                                         generator=generator)
+                                         generator=generator, mesh=mesh)
     return toks, cache
 
 
 def generate_chunked(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
                      steps: int, chunk: int = 16,
                      sampler: Optional[Sampler] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Generation in chunks of ``chunk`` decode steps (the worker's solo
     decode): the first token from the prefill logits, then whole chunks,
     trimmed to [B, steps]. Greedy unless ``sampler`` is given. The last
     chunk may run past ``steps`` and past the cache: its writes clamp
     onto the last row after every kept token was computed, as in the
-    reference."""
+    reference. Under ``mesh`` a sampler must draw the same on every rank
+    (the same generator seed)."""
     b, s = prompt.shape
     _check_capacity(cfg, s, steps)
-    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
+    cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device,
+                          mesh=mesh)
     rope = _rope_table(cfg, None, prompt.device)
-    logits, cache = prefill(cfg, params, cache, prompt, rope=rope)
+    logits, cache = prefill(cfg, params, cache, prompt, rope=rope, mesh=mesh)
     tok = _select(sampler, generator, logits, prompt.dtype)
     out = [tok[:, None]]
     emitted, pos = 1, s
     while emitted < steps:
         toks, cache = decode_chunk(cfg, params, cache, pos, tok, chunk,
                                    rope=rope, sampler=sampler,
-                                   generator=generator)
+                                   generator=generator, mesh=mesh)
         out.append(toks)
         tok = toks[:, -1]
         emitted += chunk

@@ -64,9 +64,20 @@ Differences from the reference, all mechanical:
   ``cur_tok``; the RNG state a stream carries is the engine
   generator's ``get_state()``, not a JAX key, and ``adopt_rng`` restores
   it into that same generator (the captured windows registered it);
+* tensor parallelism (``mesh=``, a ``parallel.mesh.Mesh`` whose ``tp``
+  axis spans a gang of processes, one device each): every rank holds its
+  Megatron shard of the weights and its KV heads of the cache or pool
+  (every slot and every page), and runs the same calls in the same order
+  (``models.serving_gang`` broadcasts the intake); the ledger, the radix
+  and the tables are host state, the same on every rank. The decode
+  windows run eagerly under tp > 1: gloo cannot be captured, and the
+  capture of an NCCL window waits for a machine with more than one card
+  (``graph_stats()`` and ``page_stats()`` say ``graphs: false``, reason
+  ``tp``). The paged engine refuses what it cannot take under tp > 1
+  yet: a draft, ``moe=``, the KV hierarchy, disaggregation and
+  migration (ROADMAP Queue 1 item 7). A mesh of one is no mesh;
 * not ported yet, and refused by the constructors (no such parameter):
-  tensor-parallel meshes and, for the paged engine, ring prefill and
-  expert-parallel meshes.
+  ring prefill and expert-parallel meshes for the paged engine.
 """
 
 from __future__ import annotations
@@ -81,10 +92,11 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..ops.flash_decode import flash_decode, flash_decode_paged
-from ..ops.quant import QArray, QTensor, qmm, quantize
+from ..ops.quant import QArray, QTensor, quantize
 from ..ops.rotary import rope_frequencies
 from ..ops.sampling import Sampler
 from ..parallel.aot import CompileCache, engine_key
+from ..parallel.mesh import Mesh, tp_size
 from ..parallel.moe import MoEConfig
 from . import llama
 from .paging import (PagePool, PageTierStore, PrefixDirectory, PrefixRadix,
@@ -108,15 +120,15 @@ def _bucket(n: int, lo: int = 8) -> int:
 
 
 def _prefill_bucket_many(cfg: llama.LlamaConfig, params, prompts, true_lens,
-                         rope):
+                         rope, mesh: Optional[Mesh] = None):
     """[N, P] causal forward for N admitted prompts: (logits [N, V] fp32
     at each row's last live position ``true_lens - 1``, ks/vs
     [L, N, P, KV, D]). Positions past a row's length are causally
     downstream of its live ones and change nothing they read."""
-    x, ks, vs = llama.prefill_trunk(cfg, params, prompts, rope)
+    x, ks, vs = llama.prefill_trunk(cfg, params, prompts, rope, mesh)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_lens.long() - 1]
-    return qmm(last, params["lm_head"]).float(), ks, vs
+    return llama._lm_head(last, params, mesh), ks, vs
 
 
 def _scatter_rows(cache: QArray, new: torch.Tensor,
@@ -160,6 +172,27 @@ def _zero_(kv: Dict[str, QArray]) -> None:
             t.zero_()
 
 
+def _engine_mesh(mesh: Optional[Mesh], device: torch.device
+                 ) -> Optional[Mesh]:
+    """The mesh an engine keeps: None for no mesh or a mesh of one; a
+    mesh whose device type differs from the engine's raises."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if mesh.device.type != device.type:
+        raise ValueError(f"mesh rank drives {mesh.device}, the engine "
+                         f"runs on {device}")
+    return mesh
+
+
+def _refuse_tp(engine, what: str) -> None:
+    """Raise for what a paged engine does not take under tp > 1 yet."""
+    if engine.mesh is not None:
+        raise ValueError(
+            f"{what} under tensor parallelism (tp="
+            f"{engine.mesh.shape['tp']}) is not ported yet (ROADMAP Queue "
+            "1 item 7)")
+
+
 class _Engine:
     """What both engines share: the slot seams, token selection, the
     static decode state, the decode window (eager on the CPU, a CUDA
@@ -186,6 +219,8 @@ class _Engine:
         self._graph_pool = None
         self._capture_stream = None
         self.capture_s = 0.0              # seconds spent capturing
+        # why windows run eagerly on CUDA (None: they replay graphs)
+        self.graphs_off = "tp" if tp_size(self.mesh) > 1 else None
 
     def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
                      mp: Optional[int]) -> torch.Tensor:
@@ -255,7 +290,7 @@ class _Engine:
         the host in ONE transfer."""
         mask = np.zeros((self.slots,), dtype=bool)
         mask[active] = True
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.graphs_off is not None:
             self._mask.copy_(torch.from_numpy(mask))
             return fn().cpu().numpy()
         win = self._graphs.get(key)
@@ -279,7 +314,10 @@ class _Engine:
                 tuple(self._graph_pool))
         return {"graphs": len(self._graphs),
                 "keys": sorted(self._graphs, key=repr),
-                "capture_s": self.capture_s, "pool_bytes": pool_bytes}
+                "capture_s": self.capture_s, "pool_bytes": pool_bytes,
+                "enabled": (self.device.type == "cuda"
+                            and self.graphs_off is None),
+                "off_reason": self.graphs_off}
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.requests) if r is None]
@@ -342,15 +380,20 @@ class SlotServer(_Engine):
       length reaches ``max_seq``) that nothing reads until a prefill
       rewrites the slot.
 
-    ``params`` must live on ``device``.
+    ``params`` must live on ``device``. Under ``mesh`` they are this
+    rank's shard (``llama.shard_params``), the cache holds the rank's KV
+    heads, and a sampler must draw the same on every rank (the same
+    ``generator`` seed).
     """
 
     def __init__(self, cfg: llama.LlamaConfig, params, slots: int = 8,
                  sampler: Optional[Sampler] = None,
                  generator: Optional[torch.Generator] = None,
-                 eos_id: Optional[int] = None, device: DeviceLike = "cuda"):
+                 eos_id: Optional[int] = None, device: DeviceLike = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         llama.check_params_device(params, self.device, "engine")
+        self.mesh = _engine_mesh(mesh, self.device)
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -362,7 +405,7 @@ class SlotServer(_Engine):
         self._rope = rope_frequencies(cfg.head_dim, cfg.max_seq,
                                       cfg.rope_theta, device=self.device)
         self.cache = llama.init_kv_cache(cfg, slots, cfg.max_seq,
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
         self._init_decode_state()
         self.finished: Dict[Any, List[int]] = {}
         self.reset()
@@ -459,7 +502,7 @@ class SlotServer(_Engine):
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
         logits, ks, vs = _prefill_bucket_many(
             self.cfg, self.params, torch.from_numpy(arr).to(dev), lens_t,
-            self._rope)
+            self._rope, self.mesh)
         slot_t = torch.tensor(slots, device=dev)
         _scatter_rows(self.cache["k"], ks, slot_t)
         _scatter_rows(self.cache["v"], vs, slot_t)
@@ -514,7 +557,7 @@ class SlotServer(_Engine):
                      mp: Optional[int]) -> torch.Tensor:
         logits, _ = llama.decode_step_slots(
             self.cfg, self.params, self.cache, lengths, tokens,
-            rope=self._rope)
+            rope=self._rope, mesh=self.mesh)
         return logits
 
     def _decode(self, k: int) -> Dict[int, List[int]]:
@@ -641,8 +684,14 @@ class PagedServer(_Engine):
                  directory: Optional[PrefixDirectory] = None,
                  replica_id: str = "", peer_fetch=None,
                  moe: Optional[MoEConfig] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = _engine_mesh(mesh, self.device)
+        for name, value in (("moe=", moe), ("tiers=", tiers),
+                            ("directory=", directory),
+                            ("peer_fetch=", peer_fetch)):
+            if value is not None:
+                _refuse_tp(self, name)
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(
                 f"page_size {page_size} must divide max_seq "
@@ -730,7 +779,7 @@ class PagedServer(_Engine):
                              moe_capacity=moe.capacity_factor,
                              moe_routing=moe.routing)
             ns = compile_cache.namespace(engine_key(
-                cfg, None, device=self.device, kind="paged", slots=slots,
+                cfg, self.mesh, device=self.device, kind="paged", slots=slots,
                 pages=self.total_pages, page_size=page_size,
                 prefill_chunk=prefill_chunk, **extra))
         if ns and "rope" in ns:
@@ -742,7 +791,8 @@ class PagedServer(_Engine):
                 ns["rope"] = self._rope
         self._prefix_cache = prefix_cache
         self.pool = llama.init_page_pool(cfg, self.total_pages + 1,
-                                         page_size, device=self.device)
+                                         page_size, device=self.device,
+                                         mesh=self.mesh)
         self._init_decode_state()
         # the decode table: one flat buffer whose leading slots x mp
         # entries are the contiguous [slots, mp] table of a window of
@@ -1144,6 +1194,7 @@ class PagedServer(_Engine):
         ValueError for a prompt this engine can never prefill. ``trace``
         (an incoming ``tracing.TraceContext``) gets one
         ``engine.prefill_span`` span."""
+        _refuse_tp(self, "prefill_span")
         t_pre0 = time.perf_counter()
         prompt = list(prompt)
         n = len(prompt)
@@ -1218,6 +1269,7 @@ class PagedServer(_Engine):
         never admit, raised before any reservation; a failure after the
         reservation gives every reference back before re-raising. As in
         the reference, an armed draft's cache is not prefilled here."""
+        _refuse_tp(self, "adopt_pages")
         t_adopt0 = time.perf_counter()
         prompt = list(span["prompt"])
         n = len(prompt)
@@ -1318,6 +1370,7 @@ class PagedServer(_Engine):
         (the last token's K/V is written by the destination's next decode
         step, as it would be here), so that, not the reserved span, is
         what ships; the last page may be partial."""
+        _refuse_tp(self, "export_stream")
         self._flush_pending()           # a window boundary, never mid-flush
         if not (0 <= slot < self.slots):
             return None
@@ -1369,6 +1422,7 @@ class PagedServer(_Engine):
         ``lengths`` and ``cur_tok``. ``adopt_rng`` sets the engine's own
         generator to the shipped state (engine-global, so only sensible
         when the destination carries no other sampled stream)."""
+        _refuse_tp(self, "import_stream")
         t_mig0 = time.perf_counter()
         prompt = list(state["prompt"])
         tokens = [int(t) for t in state["tokens"]]
@@ -1516,7 +1570,8 @@ class PagedServer(_Engine):
         logits, self.pool = llama.prefill_chunk_paged(
             self.cfg, self.params, self.pool, tbl,
             torch.from_numpy(chunk).to(self.device), start, n, li,
-            self.scratch, rope=self._rope, ffn_override=self._ffn)
+            self.scratch, rope=self._rope, ffn_override=self._ffn,
+            mesh=self.mesh)
         return logits, end
 
     def _prefill_tick(self) -> None:
@@ -1597,7 +1652,7 @@ class PagedServer(_Engine):
                      mp: Optional[int]) -> torch.Tensor:
         logits, _ = llama.decode_step_paged(
             self.cfg, self.params, self.pool, self._table(mp), lengths,
-            tokens, rope=self._rope, ffn_override=self._ffn)
+            tokens, rope=self._rope, ffn_override=self._ffn, mesh=self.mesh)
         return logits
 
     def _decode(self, k: int) -> Dict[int, List[int]]:
@@ -1623,7 +1678,8 @@ class PagedServer(_Engine):
         default) of each decode-table width in ``widths`` captured as a
         CUDA graph (on CUDA) and run once, every write landing on the
         scratch page and no length or token advancing. Windows of other
-        sizes or widths are captured at first use. Returns ``{phase:
+        sizes or widths are captured at first use (under tp > 1 the
+        windows run eagerly, and so does the warm-up). Returns ``{phase:
         seconds}`` with the reference's keys (``chunk``, ``step_w<w>``;
         ``step<k>_w<w>`` for a window of k > 1 steps)."""
         widths = [int(w) for w in widths]
@@ -1641,7 +1697,8 @@ class PagedServer(_Engine):
         logits, self.pool = llama.prefill_chunk_paged(
             self.cfg, self.params, self.pool, row,
             torch.zeros((1, c), dtype=torch.int32, device=dev), 0, c, c - 1,
-            self.scratch, rope=self._rope, ffn_override=self._ffn)
+            self.scratch, rope=self._rope, ffn_override=self._ffn,
+            mesh=self.mesh)
         logits.cpu()
         timings["chunk"] = time.perf_counter() - t0
         k = max(int(window), 1)
@@ -1670,6 +1727,7 @@ class PagedServer(_Engine):
         time. Greedy engines only. The draft's cache stays unquantized
         whatever the pool does, and its execution policy follows the
         engine's. ``params_d`` must live on the engine's device."""
+        _refuse_tp(self, "arm_draft")
         from .speculative import DraftIncompatible
         if self.sampler is not None:
             raise DraftIncompatible(
@@ -1960,4 +2018,7 @@ class PagedServer(_Engine):
                 "capacity_factor": self.moe.capacity_factor,
                 "routing": self.moe.routing,
             } if self.moe is not None else None),
+            "tp": tp_size(self.mesh),
+            "graphs": self.device.type == "cuda" and self.graphs_off is None,
+            "graphs_off": self.graphs_off,
         }

@@ -17,6 +17,8 @@
   ``delta = rowsum(dO * O)``, :func:`attention_delta`) are the plain
   PyTorch versions of the three kernels, in fp32;
   :func:`flash_attention_backward_reference` is the whole backward.
+* :func:`flash_attention_tp` is the tensor-parallel prefill's call: the
+  rank's own heads through :func:`flash_attention`, no collective.
 * :func:`supports` is the kernels' gate: bf16, head_dim 64, 128 or 256,
   ``H % KV == 0``, any ``Sq`` and ``Sk``. The TPU kernel's
   ``Sq % 8`` / ``Sk % 128`` rules do not apply: the kernels mask the
@@ -358,3 +360,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Drop-in for ``ops.attention.gqa_attention`` on full sequences,
     differentiable through the backward kernels; see module doc."""
     return _FlashAttention.apply(q, k, v, causal, sm_scale, int(q_offset))
+
+
+def flash_attention_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mesh, *, axis: str = "tp", kv_heads: int,
+                       causal: bool = True, sm_scale: Optional[float] = None,
+                       q_offset: int = 0) -> torch.Tensor:
+    """:func:`flash_attention` under tensor parallelism (the prefill
+    mirror of ``ops.flash_decode.flash_decode_tp``): each rank runs the
+    kernel on its own query and KV heads, with no collective, after the
+    reference's check that the model's ``kv_heads`` divide over
+    ``axis``."""
+    from .flash_decode import check_tp
+    check_tp("flash_attention_tp", k, mesh, axis, kv_heads)
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           q_offset=q_offset)

@@ -7,6 +7,10 @@ or int8 (port of ``flash_decode`` and ``flash_decode_paged`` in
 * the block-paged pool of ``decode_step_paged``:
   :func:`flash_decode_paged` launches ``csrc/flash_decode_paged.cu``.
 
+Under tensor parallelism (:func:`flash_decode_tp`,
+:func:`flash_decode_paged_tp`) each rank calls the same kernel on its own
+query and KV heads: attention is head-local, so no collective.
+
 Each wrapper checks its inputs, launches its CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors. It never falls back
 from the kernel: on CUDA it launches or raises. Each counts its launches
@@ -479,6 +483,45 @@ def flash_decode_paged(q: torch.Tensor, k: Cache, v: Cache,
     out = _launch_paged(q, k, v, page_table, kv_len, scale)
     flash_decode_paged.launches += 1
     return out
+
+
+def check_tp(name: str, k: Cache, mesh, axis: str, kv_heads: int) -> None:
+    """The reference's divisibility check, on the rank's slice: the
+    model's ``kv_heads`` divide over ``axis`` and ``k`` holds this rank's
+    share of them."""
+    tp = mesh.shape[axis]
+    if kv_heads % tp:
+        raise ValueError(f"{name}: {kv_heads} KV heads do not divide over "
+                         f"{axis}={tp}")
+    local = _payload(k).shape[2]
+    if local != kv_heads // tp:
+        raise ValueError(f"{name}: the cache holds {local} KV heads, the "
+                         f"rank's share of {kv_heads} over {axis}={tp} is "
+                         f"{kv_heads // tp}")
+
+
+def flash_decode_tp(q: torch.Tensor, k: Cache, v: Cache,
+                    kv_len: Union[int, torch.Tensor], mesh, *,
+                    axis: str = "tp", kv_heads: int,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_decode` under tensor parallelism: attention is
+    head-local, so each rank runs the kernel on its own query and KV
+    heads (``q``, ``k``, ``v`` are its slices), with no collective. The
+    GQA group stays whole on each rank when ``kv_heads`` divides over
+    ``axis``."""
+    check_tp("flash_decode_tp", k, mesh, axis, kv_heads)
+    return flash_decode(q, k, v, kv_len, sm_scale=sm_scale)
+
+
+def flash_decode_paged_tp(q: torch.Tensor, k: Cache, v: Cache,
+                          page_table: torch.Tensor, kv_len: torch.Tensor,
+                          mesh, *, axis: str = "tp", kv_heads: int,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_decode_paged` under tensor parallelism: every rank
+    holds every page of its own KV heads and the same table and lengths;
+    the kernel runs on the rank's heads, with no collective."""
+    check_tp("flash_decode_paged_tp", k, mesh, axis, kv_heads)
+    return flash_decode_paged(q, k, v, page_table, kv_len, sm_scale=sm_scale)
 
 
 flash_decode.launches = 0

@@ -56,15 +56,19 @@ def topology_key(mesh: Any = None,
                  device: Optional[torch.device] = None) -> str:
     """The device topology an engine runs on: ``"cuda:<device name>:
     <count>"``, or ``"cpu:1"`` when the engine's device is the CPU (or
-    there is no CUDA). Meshes are not ported (ROADMAP Queue 1 item 7)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP Queue 1 item 7)")
+    there is no CUDA). Under a process mesh (``parallel.mesh.Mesh``) the
+    mesh's axis sizes and collective backend come first, so engines of
+    different layouts never share an entry."""
     if (device is not None and torch.device(device).type == "cpu") \
             or not torch.cuda.is_available():
-        return "cpu:1"
-    return (f"cuda:{torch.cuda.get_device_name(device)}:"
-            f"{torch.cuda.device_count()}")
+        devices = "cpu:1"
+    else:
+        devices = (f"cuda:{torch.cuda.get_device_name(device)}:"
+                   f"{torch.cuda.device_count()}")
+    if mesh is None:
+        return devices
+    axes = ",".join(f"{n}={s}" for n, s in mesh.shape.items())
+    return f"mesh[{axes}]:{mesh.backend}:{devices}"
 
 
 def engine_key(cfg: Any, mesh: Any = None,

@@ -18,7 +18,11 @@ package restores in the other bitwise:
   an empty subtree. A leaf's key joins its path with ``.``;
 * one process holds each array whole, so every leaf is one shard whose
   index key is ``o`` followed by one ``0`` per dimension (``o0_0`` for a
-  matrix, ``o`` for a 0-d leaf);
+  matrix, ``o`` for a 0-d leaf); in a gang (``mesh=`` and ``specs=``,
+  the tree's ``llama.param_specs``) each process writes the shard it
+  owns under the whole leaf's ``global_shape``, its index key the start
+  offsets of the shard (``o0_0_2048``), replicated leaves whole, as the
+  reference's processes do;
 * a shard file is the array's C-order bytes (bf16 through a ``uint16``
   view); the manifest names the dtype as numpy does (``bfloat16``,
   ``int8``, ``float32``) and carries each shard's length and blake2s
@@ -28,9 +32,10 @@ package restores in the other bitwise:
   ``os.rename``; keep-prune drops this process's older steps. Shards are
   hashed and written ``RESTORE_WORKERS`` (4) at a time.
 
-One process: :func:`latest_step` and :func:`save_sharded` refuse a gang
-of processes (``parallel.distributed``), which waits for tensor
-parallelism (ROADMAP Queue 1 item 7). Restore reads and verifies shard
+Each process writes and reads its own ``step-XXXXXXXX-p{rank}``
+directory, its rank read from the process group (0 without one). In a
+gang :func:`latest_step` is the newest step every member has committed,
+agreed over the world's gloo group. Restore reads and verifies shard
 files a bounded window ahead (``workers``) and accepts another byte
 source (``reader`` + ``manifest``). A checkpoint saved sharded over several
 devices restores by assembling its shards on the host.
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.quant import QTensor
-from . import distributed
+from .mesh import host_all_gather, scale_spec, shard_slices, whole_shape
 
 _STEP_RE = re.compile(r"step-(\d{8})-p(\d+)$")
 
@@ -69,8 +74,14 @@ class CheckpointCorrupt(ValueError):
 
 
 def _process_id() -> int:
-    """This process's index; a gang of processes raises (item 7)."""
-    return distributed.initialize()["process_id"]
+    """This process's rank in the process group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _num_processes() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +132,44 @@ def _unflatten(tree: Any, leaves: List[Any]) -> Any:
     return leaves.pop(0)
 
 
-def _index_key(ndim: int) -> str:
-    """The index key of a whole-array shard: start offsets, all 0."""
-    return "o" + "_".join("0" for _ in range(ndim)) if ndim else "o"
+def _index_key(ndim: int, starts: Optional[List[int]] = None) -> str:
+    """The index key of a shard: its start offsets (all 0 for a whole
+    array)."""
+    starts = starts if starts is not None else [0] * ndim
+    return "o" + "_".join(str(o) for o in starts) if ndim else "o"
+
+
+# where one leaf's local array sits in the whole one: (global shape,
+# start offsets); None for a whole leaf
+Layout = Optional[Tuple[List[int], List[int]]]
+
+
+def _layouts(tree: Any, mesh: Any, specs: Any) -> List[Layout]:
+    """One :data:`Layout` per leaf of ``_flatten(tree)``, from the tree's
+    sharding ``specs`` (``llama.param_specs``' form: a tuple of axis
+    names per leaf, a ``QTensor``'s scales under ``mesh.scale_spec``)
+    over ``mesh``. No mesh, or a mesh of one: every leaf whole."""
+    flat = _flatten(tree)
+    if mesh is None or mesh.size == 1:
+        return [None] * len(flat)
+
+    out: List[Layout] = []
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], spec[k])
+        elif isinstance(node, QTensor):
+            walk(node.q, spec)
+            walk(node.s, scale_spec(spec, tuple(node.s.shape)))
+        else:
+            shape = whole_shape(node.shape, spec, mesh)
+            starts = [s for s, _ in shard_slices(shape, spec, mesh)]
+            out.append((shape, starts) if shape != list(node.shape)
+                       else None)
+
+    walk(tree, specs)
+    return out
 
 
 def _host_array(leaf: Any) -> np.ndarray:
@@ -154,15 +200,20 @@ def _np_dtype(name: str) -> np.dtype:
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
-def _leaf_entry(key: str, leaf: Any) -> Tuple[dict, str, bytes]:
-    """(manifest entry, file name, bytes) of one leaf."""
+def _leaf_entry(key: str, leaf: Any, layout: Layout = None
+                ) -> Tuple[dict, str, bytes]:
+    """(manifest entry, file name, bytes) of one leaf, a shard of a
+    larger array under ``layout``."""
     arr = _host_array(leaf)
-    fname = f"{key}.{_index_key(arr.ndim)}.bin"
+    gshape, starts = layout if layout is not None else (list(arr.shape),
+                                                        None)
+    ikey = _index_key(arr.ndim, starts)
+    fname = f"{key}.{ikey}.bin"
     raw = arr.tobytes()
-    shard = {"file": fname, "index": _index_key(arr.ndim),
+    shard = {"file": fname, "index": ikey,
              "local_shape": list(arr.shape), "bytes": len(raw),
              "digest": hashlib.blake2s(raw).hexdigest()}
-    return ({"global_shape": list(arr.shape),
+    return ({"global_shape": list(gshape),
              "dtype": _dtype_name(leaf, arr), "shards": [shard]},
             fname, raw)
 
@@ -196,19 +247,22 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3) -> str:
+def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3, *,
+                 mesh: Any = None, specs: Any = None) -> str:
     """Write ``tree`` (a pytree of tensors) for ``step``; returns the
     committed directory. Older steps of this process beyond ``keep`` are
-    pruned."""
+    pruned. In a gang, ``tree`` is this rank's shard of a tree sharded
+    by ``specs`` over ``mesh``."""
     pid = _process_id()
+    layouts = _layouts(tree, mesh, specs)
     final = _step_dir(out_dir, step, pid)
     tmp = os.path.join(out_dir, f".step-{step:08d}-p{pid}.tmp")
     if os.path.isdir(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    def write(item: Tuple[str, Any]) -> dict:
-        entry, fname, raw = _leaf_entry(*item)
+    def write(item: Tuple[Tuple[str, Any], Layout]) -> dict:
+        entry, fname, raw = _leaf_entry(*item[0], item[1])
         with open(os.path.join(tmp, fname), "wb") as f:
             f.write(raw)
             f.flush()
@@ -220,11 +274,11 @@ def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3) -> str:
     # keeps the walk's order
     flat = _flatten(tree)
     with ThreadPoolExecutor(max_workers=_restore_workers(None)) as pool:
-        entries = list(pool.map(write, flat))
+        entries = list(pool.map(write, zip(flat, layouts)))
     leaves = {key: entry for (key, _), entry in zip(flat, entries)}
 
-    manifest = {"step": step, "process": pid, "num_processes": 1,
-                "leaves": leaves}
+    manifest = {"step": step, "process": pid,
+                "num_processes": _num_processes(), "leaves": leaves}
     with open(os.path.join(tmp, "manifest.json"), "w",
               encoding="utf-8") as f:
         json.dump(manifest, f)
@@ -258,9 +312,21 @@ def _local_steps(out_dir: str, pid: int) -> List[int]:
 
 
 def latest_step(out_dir: str) -> Optional[int]:
-    """Newest committed step of this process (None when none)."""
+    """Newest step EVERY gang member has committed (None when none): each
+    member contributes its 8 newest local steps, all-gathered over the
+    world's gloo group, and a member that died before saving step N
+    holds the gang back to the last step all share. One process: its
+    newest step."""
     local = _local_steps(out_dir, _process_id())
-    return max(local) if local else None
+    if _num_processes() == 1:
+        return max(local) if local else None
+    vec = np.full((8,), -1, np.int64)
+    newest = local[-8:]
+    vec[:len(newest)] = newest
+    rows = host_all_gather(vec)
+    common = set.intersection(*[set(int(s) for s in row if s >= 0)
+                                for row in rows])
+    return max(common) if common else None
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +405,8 @@ def restore_sharded(out_dir: Optional[str], template: Any,
                     step: Optional[int] = None, *,
                     workers: Optional[int] = None,
                     reader: Optional[Callable[[str], bytes]] = None,
-                    manifest: Optional[dict] = None) -> Any:
+                    manifest: Optional[dict] = None, mesh: Any = None,
+                    specs: Any = None) -> Any:
     """Rebuild a tree bitwise from the shard files of ``step`` (default
     the newest).
 
@@ -351,7 +418,9 @@ def restore_sharded(out_dir: Optional[str], template: Any,
     digest check, and ValueError on a shape or dtype the checkpoint does
     not hold. ``workers`` (default ``RESTORE_WORKERS``, 4) reads shard
     files concurrently; ``reader``/``manifest`` replace the step
-    directory as the byte source, every shard still verified."""
+    directory as the byte source, every shard still verified. In a gang,
+    ``template`` is this rank's shard of a tree sharded by ``specs`` over
+    ``mesh``, and each leaf reads the shard this rank saved."""
     source = "disk"
     if reader is None:
         if out_dir is None:
@@ -410,16 +479,18 @@ def restore_sharded(out_dir: Optional[str], template: Any,
     def fetch(meta: dict) -> bytes:
         return stream.fetch(meta["file"])
 
+    layouts = _layouts(template, mesh, specs)
     try:
-        out = [_restore_leaf(key, leaf, manifest, step, fetch)
-               for key, leaf in flat]
+        out = [_restore_leaf(key, leaf, manifest, step, fetch, layout)
+               for (key, leaf), layout in zip(flat, layouts)]
     finally:
         stream.close()
     return _unflatten(template, out)
 
 
 def _restore_leaf(key: str, leaf: Any, manifest: dict, step,
-                  fetch: Callable[[dict], bytes]) -> Any:
+                  fetch: Callable[[dict], bytes], layout: Layout = None
+                  ) -> Any:
     entry = manifest["leaves"].get(key)
     if entry is None:
         raise KeyError(f"checkpoint step {step} has no leaf {key!r}")
@@ -437,18 +508,25 @@ def _restore_leaf(key: str, leaf: Any, manifest: dict, step,
         value = np.frombuffer(fetch(shard), dtype=dtype).reshape(
             shard["local_shape"])
         return dtype.type(value) if value.shape == () else value
-    if list(leaf.shape) != entry["global_shape"] \
+    gshape, starts = layout if layout is not None else (list(leaf.shape),
+                                                        None)
+    if list(gshape) != entry["global_shape"] \
             or _DTYPE_NAMES.get(leaf.dtype) != entry["dtype"]:
         raise ValueError(
-            f"leaf {key!r}: template {tuple(leaf.shape)}/"
+            f"leaf {key!r}: template {tuple(gshape)}/"
             f"{_DTYPE_NAMES.get(leaf.dtype, leaf.dtype)} vs checkpoint "
             f"{entry['global_shape']}/{entry['dtype']}: restore requires "
             "the same mesh/sharding/config")
-    ikey = _index_key(leaf.dim())
+    ikey = _index_key(leaf.dim(), starts)
     meta = {s["index"]: s for s in entry["shards"]}.get(ikey)
     if meta is not None and meta["local_shape"] == list(leaf.shape):
         value = np.frombuffer(fetch(meta), dtype=dtype).reshape(
             meta["local_shape"])
+    elif layout is not None:
+        raise KeyError(f"leaf {key!r}: step {step} holds no shard "
+                       f"{ikey} of shape {list(leaf.shape)} (a checkpoint "
+                       "of another layout: resharding is ROADMAP Queue 1 "
+                       "item 10e)")
     else:
         # saved sharded over several devices: paste the shards together
         value, covered = _assemble(entry, dtype, fetch)

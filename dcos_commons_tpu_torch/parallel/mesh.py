@@ -1,0 +1,316 @@
+"""The process mesh of tensor-parallel serving (port of
+``dcos_commons_tpu/parallel/mesh.py``).
+
+The reference's mesh is a grid of devices with named axes, and XLA
+inserts the collectives from the shardings. Here one process drives one
+device, a mesh is a grid of processes joined by ``torch.distributed``
+(``parallel.distributed.initialize`` forms the process group from the
+scheduler's rank contract), and the model calls the collectives itself,
+through :class:`Mesh`: :meth:`Mesh.all_reduce` and :meth:`Mesh.all_gather`
+on device tensors, :meth:`Mesh.broadcast_array` and
+:func:`host_all_gather` on host arrays. They live here and nowhere else,
+as does the map from a leaf's sharding spec to this rank's slice of it
+(:func:`shard_slices`), which the model's shards and the gang checkpoint
+share.
+
+The backend follows the layout, and the mesh states it
+(:attr:`Mesh.backend`): each rank opens ``cuda:(rank % device_count)``;
+the ranks all-gather (hostname, device UUID) over the world's gloo group
+and take ``nccl`` for the device collectives when no two ranks share a
+device, ``gloo`` when some do (several ranks on one card) or on the CPU.
+gloo reduces host memory, so on CUDA tensors it stages through the host,
+in this module only. An NCCL group that fails to form raises; it is never
+retried with gloo.
+
+Only the ``tp`` axis may be larger than 1 in the port (ROADMAP Queue 1
+item 7 did tensor-parallel serving); ``dp`` across slices and ``ep``,
+``sp``, ``pp`` raise :class:`NotImplementedError` naming their item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import socket
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+
+#: canonical mesh axes, outermost first
+AXES: Tuple[str, ...] = ("dp", "pp", "sp", "tp", "ep")
+
+# the axes the port cannot shard yet, and the ROADMAP Queue 1 item each
+# waits for
+_NOT_PORTED = {"dp": "item 7 (data parallelism across processes)",
+               "pp": "item 9 (pipelines)",
+               "sp": "item 9 (ring and Ulysses attention)",
+               "ep": "item 9 (expert-parallel MoE)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Sizes for each named mesh axis, as in the reference: axes of size
+    1 stay in the mesh, and ``dcn`` folds into ``dp``."""
+
+    dp: int = 1
+    pp: int = 1
+    sp: int = 1
+    tp: int = 1
+    ep: int = 1
+    dcn: int = 1
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        sizes = tuple(getattr(self, a) for a in AXES)
+        return (sizes[0] * self.dcn,) + sizes[1:]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes())
+
+    @classmethod
+    def auto(cls, n_devices: int,
+             prefer: Sequence[str] = ("tp", "pp", "ep", "sp")) -> "MeshSpec":
+        """Factorize ``n_devices`` into a full five-axis mesh: each
+        preferred axis gets a factor of 2 while one is left, the rest
+        goes to ``dp``."""
+        sizes = {a: 1 for a in AXES}
+        remaining = n_devices
+        for axis in prefer:
+            if remaining % 2 == 0 and remaining >= 2:
+                sizes[axis] = 2
+                remaining //= 2
+        sizes["dp"] = remaining
+        return cls(**sizes)
+
+    def build(self, device: Optional[DeviceLike] = None) -> "Mesh":
+        """This rank's :class:`Mesh` over the process group. ``device``
+        ``"cpu"`` keeps the rank on the CPU; otherwise the rank opens
+        ``cuda:(rank % device_count)``. A mesh of one process needs no
+        process group."""
+        import torch.distributed as dist
+
+        shape = dict(zip(AXES, self.axis_sizes()))
+        for axis, n in shape.items():
+            if axis != "tp" and n > 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={n} is not ported yet (ROADMAP Queue "
+                    f"1 {_NOT_PORTED[axis]}); the port shards over tp only")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if self.size != world:
+            raise ValueError(f"mesh {shape} needs {self.size} processes, "
+                             f"the process group has {world}")
+        dev = _rank_device(device, rank)
+        coords = {axis: 0 for axis in AXES}
+        coords["tp"] = rank
+        if world == 1:
+            return Mesh(shape, coords, dev, "local")
+        cpu_group = _cpu_group()
+        layout: List[Tuple[str, Optional[str]]] = [None] * world
+        dist.all_gather_object(layout, (socket.gethostname(),
+                                        _device_uuid(dev)), group=cpu_group)
+        backend = choose_backend(layout)
+        if backend == "nccl":
+            group = dist.new_group(ranks=list(range(world)), backend="nccl")
+        else:
+            group = cpu_group
+        return Mesh(shape, coords, dev, backend, group=group,
+                    cpu_group=cpu_group, layout=layout)
+
+
+def choose_backend(layout: Sequence[Tuple[str, Optional[str]]]) -> str:
+    """The device collectives' backend from every rank's (hostname,
+    device UUID; None on the CPU): ``nccl`` when every rank drives a CUDA
+    device no other rank drives, else ``gloo``."""
+    if any(uuid is None for _, uuid in layout):
+        return "gloo"
+    return "nccl" if len(set(layout)) == len(layout) else "gloo"
+
+
+def _rank_device(device: Optional[DeviceLike], rank: int) -> torch.device:
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    dev = resolve_device(device if device is not None else "cuda")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _device_uuid(dev: torch.device) -> Optional[str]:
+    if dev.type != "cuda":
+        return None
+    props = torch.cuda.get_device_properties(dev)
+    uuid = getattr(props, "uuid", None)
+    # without a UUID, the PCI bus id names the card on its host
+    return str(uuid) if uuid is not None else f"pci:{props.pci_bus_id}"
+
+
+def _cpu_group():
+    """The world's gloo group: ``parallel.distributed.initialize`` forms
+    the default group over gloo."""
+    import torch.distributed as dist
+    assert dist.get_backend() == "gloo", dist.get_backend()
+    return dist.group.WORLD
+
+
+class Mesh:
+    """One rank's view of the process mesh.
+
+    ``shape`` maps each axis to its size, as ``jax.sharding.Mesh.shape``
+    does; ``coords`` this rank's place on each; ``device`` the device it
+    drives; ``backend`` the device collectives' (``nccl``, ``gloo``, or
+    ``local`` for a mesh of one). The collectives count their calls and
+    host seconds in ``collectives`` and ``collective_s``."""
+
+    def __init__(self, shape: Dict[str, int], coords: Dict[str, int],
+                 device: torch.device, backend: str, group=None,
+                 cpu_group=None, layout=None):
+        self.shape = dict(shape)
+        self.coords = dict(coords)
+        self.device = device
+        self.backend = backend
+        self._group = group
+        self._cpu_group = cpu_group
+        self.layout = list(layout) if layout is not None else None
+        self.collectives = 0
+        self.collective_s = 0.0
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def rank(self) -> int:
+        return self.coords["tp"]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+    def _start(self, x: torch.Tensor) -> float:
+        """The clock at a collective's start. Before a staged copy the
+        device finishes the work that made ``x`` (the copy would wait for
+        it anyway), so ``collective_s`` holds the copies and the
+        exchange, not that work; on NCCL it holds the host's enqueue
+        only."""
+        if self.backend == "gloo" and x.device.type == "cuda":
+            torch.cuda.current_stream(x.device).synchronize()
+        return time.perf_counter()
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        """The tensor the backend reduces: gloo takes host memory."""
+        x = x.contiguous()
+        if self.backend == "gloo" and x.device.type != "cpu":
+            return x.cpu()
+        return x
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+        """The sum of ``x`` over ``axis``, the same bits on every rank. A
+        fresh partial product may be reduced in place."""
+        if self.shape[axis] == 1:
+            return x
+        import torch.distributed as dist
+        t0 = self._start(x)
+        buf = self._stage(x)
+        dist.all_reduce(buf, group=self._group)
+        out = buf.to(x.device)
+        self.collectives += 1
+        self.collective_s += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, x: torch.Tensor, axis: str = "tp",
+                   dim: int = -1) -> torch.Tensor:
+        """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
+        rank order."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        import torch.distributed as dist
+        t0 = self._start(x)
+        buf = self._stage(x)
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf, group=self._group)
+        out = torch.cat(parts, dim=dim).to(x.device)
+        self.collectives += 1
+        self.collective_s += time.perf_counter() - t0
+        return out
+
+    def broadcast_array(self, arr: np.ndarray, src: int = 0) -> np.ndarray:
+        """Rank ``src``'s ``arr`` on every rank (same shape and dtype
+        everywhere), over the CPU group."""
+        if self.size == 1:
+            return arr
+        import torch.distributed as dist
+        buf = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        dist.broadcast(buf, src=src, group=self._cpu_group)
+        return buf.numpy()
+
+
+def host_all_gather(arr: np.ndarray) -> np.ndarray:
+    """Every process's ``arr`` stacked in rank order ``[world, ...]``,
+    over the world's gloo group; ``arr[None]`` without a process group.
+    The gang checkpoint's step agreement reads it."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return np.asarray(arr)[None]
+    buf = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, buf, group=_cpu_group())
+    return torch.stack(parts).numpy()
+
+
+# a leaf's sharding: one mesh axis name (or None) per dimension, the
+# reference's PartitionSpec as a tuple; () is replicated
+Spec = Tuple[Optional[str], ...]
+
+
+def _entries(spec: Spec, ndim: int) -> List[Optional[str]]:
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def scale_spec(spec: Spec, s_shape: Sequence[int]) -> Spec:
+    """A QTensor's scales: the weight's spec with the collapsed (size-1)
+    axes unsharded, so a column-parallel ``wq`` shards its scales with
+    the out-channels and a row-parallel ``wo`` keeps them whole."""
+    return tuple(None if n == 1 else axis for n, axis in
+                 zip(s_shape, _entries(spec, len(s_shape))))
+
+
+def shard_slices(shape: Sequence[int], spec: Spec, mesh: "Mesh"
+                 ) -> List[Tuple[int, int]]:
+    """(start, length) on each dimension of this rank's slice of a whole
+    array of ``shape`` sharded under ``spec``."""
+    out = []
+    for dim, axis in zip(shape, _entries(spec, len(shape))):
+        n = 1 if axis is None else mesh.shape[axis]
+        if dim % n:
+            raise ValueError(f"dim {dim} not divisible by {axis}={n}")
+        out.append((mesh.coords[axis] * (dim // n) if n > 1 else 0,
+                    dim // n))
+    return out
+
+
+def whole_shape(local_shape: Sequence[int], spec: Spec, mesh: "Mesh"
+                ) -> List[int]:
+    """The whole array's shape from one rank's slice of it under
+    ``spec``."""
+    return [d * (1 if axis is None else mesh.shape[axis])
+            for d, axis in zip(local_shape, _entries(spec, len(local_shape)))]
+
+
+def local_chunk(global_dim: int, mesh: "Mesh", axis: str) -> int:
+    """Size of one shard of ``global_dim`` along mesh axis ``axis``."""
+    n = mesh.shape[axis]
+    if global_dim % n != 0:
+        raise ValueError(f"dim {global_dim} not divisible by {axis}={n}")
+    return global_dim // n
+
+
+def tp_size(mesh: Optional["Mesh"]) -> int:
+    """The ``tp`` axis's size; 1 without a mesh."""
+    return mesh.shape["tp"] if mesh is not None else 1

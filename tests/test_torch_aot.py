@@ -62,9 +62,13 @@ def test_engine_key_is_stable_and_changes_with_every_field():
 
 
 def test_topology_key():
+    """The device key, and under a process mesh its shape and backend
+    first (``tests/test_torch_mesh.py`` holds the layouts apart)."""
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
     assert aot.topology_key(None, torch.device("cpu")) == "cpu:1"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        aot.topology_key(mesh=object())
+    mesh = MeshSpec().build("cpu")
+    assert aot.topology_key(mesh, torch.device("cpu")) == \
+        "mesh[dp=1,pp=1,sp=1,tp=1,ep=1]:local:cpu:1"
 
 
 def test_compile_cache_counts_as_the_reference():
@@ -150,8 +154,8 @@ def test_initialize_single_process_matches_the_reference(environ):
 
 
 def test_initialize_refuses_a_gang():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        distributed.initialize(ENVIRONS[4])
+    """A gang without a coordinator is refused, as in the reference (a
+    gang with one forms its process group: ``tests/test_torch_tp.py``)."""
     env = {"JAX_NUM_PROCESSES": "2"}
     with pytest.raises(RuntimeError, match="JAX_COORDINATOR_ADDRESS"):
         distributed.initialize(env)

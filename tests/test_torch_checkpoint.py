@@ -231,12 +231,22 @@ def test_template_mismatch_and_gangs_are_refused(tmp_path, monkeypatch):
                            {"w": torch.zeros(3, 4, dtype=torch.bfloat16)})
     with pytest.raises(KeyError, match="no leaf"):
         tc.restore_sharded(str(tmp_path), {"v": torch.zeros(3, 4)})
+    # the rank comes from the process group, not from the environment:
+    # without a group the process is 0 of 1, as ``jax.process_index()``
+    # is before ``jax.distributed.initialize`` (gangs:
+    # tests/test_torch_tp.py); a checkpoint of another layout is refused
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "pod-0:1")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tc.save_sharded(str(tmp_path), 2, {"w": torch.zeros(3, 4)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tc.latest_step(str(tmp_path))
+    tc.save_sharded(str(tmp_path), 2, {"w": torch.zeros(3, 4)})
+    assert tc.latest_step(str(tmp_path)) == 2
+    assert os.path.isdir(tmp_path / "step-00000002-p0")
+    from dcos_commons_tpu_torch.parallel.mesh import Mesh
+    rank1 = Mesh({"dp": 1, "pp": 1, "sp": 1, "tp": 2, "ep": 1},
+                 {"dp": 0, "pp": 0, "sp": 0, "tp": 1, "ep": 0},
+                 torch.device("cpu"), "gloo")
+    with pytest.raises(KeyError, match="another layout"):
+        tc.restore_sharded(str(tmp_path), {"w": torch.zeros(3, 2)}, 2,
+                           mesh=rank1, specs={"w": (None, "tp")})
 
 
 def test_host_leaves_restore_as_numpy_values(tmp_path):

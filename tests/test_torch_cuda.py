@@ -39,7 +39,10 @@ table kept, the pages bitwise the frame's) decode through the graphs as
 the eager loop does, and a sampled stream imported with ``adopt_rng``
 continues the victim's own stream inside a graph; ResNet-18's fp32 train
 pass on the card against the CPU, and a tiny replica booting from a
-sibling's weight server onto the card.
+sibling's weight server onto the card; kernels 1 and 2 at one rank's
+heads of Llama-3-8B under tp=2, and a two-rank gloo gang sharing the
+card whose fp32 streams equal the one-rank engines' and whose bf16 runs
+launch kernels 1-3 on both ranks with the same streams.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on the GPU machine as it is:
@@ -114,6 +117,9 @@ CASES = [
     (2, 16, 16, 128, 32, 8, (256, 100), False),                # group 1
     (2, 32, 8, 128, 64, 128, (8192, 5000), False),             # S 8192
     (3, 16, 4, 256, 16, 9, (144, 143, 17), True),              # D 256 int8
+    # one rank's heads of Llama-3-8B under tp=2 (H=16, KV=4)
+    (8, 16, 4, 128, 64, 32, (1, 63, 64, 65, 700, 2047, 1500, 333), False),
+    (8, 16, 4, 128, 64, 32, (1, 63, 64, 65, 700, 2047, 1500, 333), True),
 ]
 
 
@@ -249,6 +255,9 @@ SLOT_CASES = [
     (3, 8, 2, 256, 2100, (2100, 65, 0), True),           # D 256 int8
     (1, 4, 4, 128, 8192, (8192,), False),                # group 1, S 8192
     (4, 32, 8, 128, 2048, (2048, 2047, 64, 63), False),  # 8 partials a head
+    # one rank's heads of Llama-3-8B under tp=2 (H=16, KV=4)
+    (8, 16, 4, 128, 2048, (1, 63, 64, 65, 700, 2047, 1500, 333), False),
+    (8, 16, 4, 128, 2048, (1, 63, 64, 65, 700, 2047, 1500, 333), True),
 ]
 
 
@@ -1808,3 +1817,44 @@ def test_a_tiny_replica_boots_from_a_peer_onto_the_card(dev, tmp_path,
                           decode_window=8)[i] for i, q in enumerate(prompts)]
 
     assert tokens(params, dev) == tokens(_to(src, dev), dev)
+
+
+# tensor parallelism: a two-rank gang on the card
+
+
+def test_tp_gang_on_the_card_matches_one_rank(dev):
+    """Two ranks share the card over gloo (``tests/_torch_tp_ranks.
+    card_gang``): both engines' fp32 streams equal the one-rank engines'
+    token for token; in bf16 both ranks stream the same tokens and each
+    launches kernels 1, 2 and 3."""
+    import sys
+    from pathlib import Path
+
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    # by path: an installed package may also be named "tests"
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_tp_ranks
+
+    rng = np.random.default_rng(5)
+    reqs = [{"prompt": [int(t) for t in rng.integers(0, 256, n)],
+             "max_new": m, "request_id": i}
+            for i, (n, m) in enumerate([(9, 12), (40, 7), (3, 20), (70, 9)])]
+    ranks = launch_local(_torch_tp_ranks.card_gang, 2, reqs, timeout_s=600)
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(n_layers=2, dim=256, n_heads=4,
+                               n_kv_heads=2, max_seq=256),
+        dtype=torch.float32, decode_attn="dense")
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    want = {"paged": serving.PagedServer(cfg, params, slots=2, page_size=16,
+                                         prefill_chunk=16, device=dev),
+            "slots": serving.SlotServer(cfg, params, slots=2, device=dev)}
+    want = {k: e.drain([dict(r) for r in reqs], decode_window=4)
+            for k, e in want.items()}
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        assert r["fp32_paged"] == want["paged"]
+        assert r["fp32_slots"] == want["slots"]
+        assert r["bf16_paged"] == ranks[0]["bf16_paged"]
+        assert r["bf16_slots"] == ranks[0]["bf16_slots"]
+        assert all(n > 0 for n in r["bf16_launches"]), r["bf16_launches"]

@@ -245,15 +245,27 @@ def test_admission_validation():
     assert bad == ["bad"] and [rid for _, rid in placed] == ["ok"]
 
 
+def _cuda_rank():
+    """Rank 0 of a tp=2 process mesh on a CUDA device (no process
+    group: the engine refuses it before any collective)."""
+    from dcos_commons_tpu_torch.parallel.mesh import Mesh
+    return Mesh({"dp": 1, "pp": 1, "sp": 1, "tp": 2, "ep": 1},
+                {"dp": 0, "pp": 0, "sp": 0, "tp": 0, "ep": 0},
+                torch.device("cuda"), "nccl")
+
+
 @pytest.mark.parametrize("kw", [
     dict(moe=MoEConfig(4)),
-    dict(longctx_ring=2), dict(mesh=object()),
+    dict(longctx_ring=2), dict(mesh=_cuda_rank()),
     dict(key=object())])
 def test_constructor_refuses_features_not_ported(kw):
     """No such parameter (TypeError); ``moe`` is ported, and refused with
-    dense weights, which carry no router (ValueError)."""
+    dense weights, which carry no router (ValueError); ``mesh`` is ported
+    (``tests/test_torch_tp.py``), and refused on another device type than
+    the engine's (ValueError)."""
     _, tcfg, _, tp = _model()
-    with pytest.raises(ValueError if "moe" in kw else TypeError):
+    with pytest.raises(ValueError if "moe" in kw or "mesh" in kw
+                       else TypeError):
         ts.PagedServer(tcfg, tp, device="cpu", **kw)
 
 

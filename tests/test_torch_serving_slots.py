@@ -223,10 +223,23 @@ def test_abort_reset_and_instant_retire():
     assert int(srv.lengths.abs().sum()) == 0
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(key=object())])
+def _cuda_rank():
+    """Rank 0 of a tp=2 process mesh on a CUDA device (no process
+    group: the engine refuses it before any collective)."""
+    from dcos_commons_tpu_torch.parallel.mesh import Mesh
+    return Mesh({"dp": 1, "pp": 1, "sp": 1, "tp": 2, "ep": 1},
+                {"dp": 0, "pp": 0, "sp": 0, "tp": 0, "ep": 0},
+                torch.device("cuda"), "nccl")
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=_cuda_rank()),
+                                dict(key=object())])
 def test_constructor_refuses_features_not_ported(kw):
+    """``key`` is no parameter (TypeError); ``mesh`` is ported
+    (``tests/test_torch_tp.py``), and refused on another device type than
+    the engine's (ValueError)."""
     _, tcfg, _, tp = _model()
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError if "mesh" in kw else TypeError):
         ts.SlotServer(tcfg, tp, device="cpu", **kw)
 
 

@@ -285,14 +285,16 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 # it was while speculative decoding, the checkpoint restore, profiling,
 # MoE serving, the disaggregated roles (3, 4), the router role (5) and the
 # peer weight fetch (9) were refused (MoE training and ResNet across
-# slices stay refused: they need the mesh)
+# slices stay refused: they need the mesh; a gang serves since the
+# process mesh, and 13 is now MoE on a gang, refused before the process
+# group forms)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
      "longctx_not_ported"),
-    (13, "llama", [], {"JAX_COORDINATOR_ADDRESS": "pod-0:1",
-                       "JAX_PROCESS_ID": "0", "JAX_NUM_PROCESSES": "2"},
-     "not_ported"),
+    (13, "llama", ["--pages", "64", "--moe-experts", "4"],
+     {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
+      "JAX_NUM_PROCESSES": "2"}, "not_ported"),
     (14, "resnet", [], {"MEGASCALE_NUM_SLICES": "2"},
      "multislice_not_ported"),
 ]
