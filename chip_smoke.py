@@ -156,7 +156,7 @@ Phases (any failure exits non-zero):
    20 --out DIR``: exit 0, finite falling losses, kernels 3-5 launched
    once a layer a step by the run's own counts (no attention dense), the
    checkpoint and the sealed draft saved, step time and peak memory
-   beside the reckoning; then (after phase 7's worker) the worker with
+   beside the reckoning; then (beside phase 7's worker) the worker with
    ``--pages 64 --spec-decode true --draft-checkpoint DIR/draft``:
    ``spec_armed``, phase 6's 8 requests, every token held to the target
    under the near-tie rule, its acceptance beside the truncated draft's;
@@ -240,6 +240,26 @@ Phases (any failure exits non-zero):
    and 3 counted on each rank while it served; the ``worker_tp`` line.
    Phase 2 also holds kernels 1 and 2 at one rank's heads (B=8, H=16,
    KV=4), bf16 and int8.
+16. Data-parallel training over a process mesh (``dist/resnet.yml``,
+   BASELINE config #4), after phase 14a: two ranks sharing the card over
+   gloo (not a DP speed). 16a: ResNet-50 at full width and depth, fp32,
+   224x224, 8 images a rank, held to one process over the 16 (loss,
+   batch-norm state, the stem's, a middle block's and the head's
+   gradients, the update after 2 steps; one process over the 16 in
+   reverse order is printed beside it as the rounding floor), params,
+   moments and state bitwise equal across the ranks; then bf16 at 128
+   images a rank (14a's global batch of 256): step ms, collectives a step
+   and their host share, peak memory a rank. 16c: distill at Llama-3-8B
+   width with the teacher cut to 2 of 32 layers, 3 rows of 256 tokens (2
+   on rank 0, 1 on rank 1), each loss within 1e-3 of one process's and
+   the draft's update after 3 steps held to one process's (cosine,
+   largest element error; one process over the rows in reverse order
+   beside it), kernels 3-5 counted on each rank; the ``dp`` line. 16b
+   (beside phase 14b): two ``worker resnet --depth 50 --batch 128``
+   processes under the rank contract, launched with ``--steps`` 2, then
+   3 (both resume at 2), then 4 after rank 1's newest step is removed
+   (both resume at 2), the same ``final_loss`` and progress on both
+   ranks; the ``worker_dp`` line.
 
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
@@ -247,7 +267,8 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
 ``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``tp``,
-``worker_tp``, ``resnet``, ``worker_resnet`` and ``phase_s`` lines,
+``worker_tp``, ``resnet``, ``worker_resnet``, ``dp``, ``worker_dp``
+and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -2060,15 +2081,16 @@ DISTILL_PEAK_GB_PREDICTED = 49.0
 TRAIN_TIMEOUT_S = 900
 
 
-def _worker_run(args, cwd, timeout=TRAIN_TIMEOUT_S, on_event=None):
+def _worker_run(args, cwd, timeout=TRAIN_TIMEOUT_S, on_event=None,
+                env=None):
     """``python -m dcos_commons_tpu_torch.frameworks.worker *args`` in
-    ``cwd``: (exit code, its JSON events). ``on_event(proc, event)`` sees
-    each event as it arrives."""
+    ``cwd`` (``env`` added to this process's): (exit code, its JSON
+    events). ``on_event(proc, event)`` sees each event as it arrives."""
     root = Path(__file__).resolve().parent
     proc = subprocess.Popen(
         [sys.executable, "-m", "dcos_commons_tpu_torch.frameworks.worker",
          *args], cwd=cwd, stdout=subprocess.PIPE, text=True,
-        env=dict(os.environ, PYTHONPATH=str(root)))
+        env=dict(os.environ, PYTHONPATH=str(root), **(env or {})))
     events = []
     timer = threading.Timer(timeout, proc.kill)
     timer.start()
@@ -2185,7 +2207,9 @@ def phase_distill_serve(card, artifact, solo_replies, params, truncated):
     line, launches, replies, events = phase_worker(
         card, "worker_distilled", extra, "PagedServer",
         ("flash_decode", "flash_attention_fwd"), expect=("spec_armed",),
-        forbid=("paged_fallback", "spec_fallback"))
+        forbid=("paged_fallback", "spec_fallback"),
+        cwd=Path(__file__).resolve().parent / "build"
+        / "worker_smoke_distilled")
     armed = next(e for e in events if e["event"] == "spec_armed")
     body = line["worker_distilled"]
     if armed["draft_step"] != DISTILL_STEPS:
@@ -5517,6 +5541,556 @@ def phase_tp_worker(card: str, worker_args=WORKER_ARGS,
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training over a process mesh (dist/resnet.yml,
+# BASELINE config #4). The gang's ranks share the one card over gloo
+# (NCCL refuses two ranks on a device): the arithmetic, the collectives,
+# the boot and the resume are the card's; the speed is not a DP number.
+
+DP_WORLD = 2
+# 16a: fp32 ResNet-50 at full width and depth, 224^2, DP_CHECK_PER_RANK
+# images a rank, held to one process over the gang's images: the loss
+# within RESNET_LOSS_RTOL, every batch-norm state leaf within
+# RESNET_LOGIT_TOL of its largest value, the three gradients within
+# RESNET_GRAD_TOL of their largest with cosine >= RESNET_GRAD_COSINE (14a's
+# card-vs-CPU bounds: cuDNN sums 8 images and 16 in other orders, and the
+# batch statistics amplify that), and after DP_CHECK_STEPS steps the
+# update's direction (params minus init) cosine >= DP_UPDATE_COSINE: the
+# gang measured 0.9912 (predicted >= 0.999) and one process over the same
+# images in reverse order 0.9927 against one process, the same rounding
+# (Adam moves an element whose gradient is summation noise by its full
+# rate either way); planted faults read 0.27 and 0.859
+DP_CHECK_PER_RANK, DP_CHECK_STEPS = 8, 2
+DP_GRAD_LEAVES = ("stem/conv", "stage2_block3/conv1", "head/w")
+DP_UPDATE_COSINE = 0.98
+# then bf16 at DP_BF16_PER_RANK images a rank (14a's global batch of 256)
+DP_BF16_PER_RANK, DP_BF16_WARMUP, DP_BF16_STEPS = 128, 2, 4
+# 16c: distill at Llama-3-8B width with the teacher cut to
+# DP_DISTILL_LAYERS of its 32 layers, a 1-layer draft, DP_DISTILL_BATCH
+# rows of DP_DISTILL_SEQ tokens (rank 0 backpropagates 2, rank 1 one, so
+# the rows' weights matter), bf16: every loss within DP_DISTILL_RTOL of
+# one process's over the same rows, and the draft's update after
+# DP_DISTILL_STEPS steps (params minus init; the rate is 0 at step 0)
+# held to one process's by cosine >= DP_DISTILL_UPDATE_COSINE and largest
+# element error <= DP_DISTILL_UPDATE_ERR. Measured: the gang 0.99965 and
+# 1.22e-3 (a bf16 step of the params), one process over the rows in
+# reverse order 0.99993 and 5.5e-4; rows weighted equally instead of by
+# their share read 0.846 on the CPU. Adam bounds each element's move by
+# about its rates, so the error bound catches blow-ups, not direction
+DP_DISTILL_LAYERS, DP_DISTILL_BATCH, DP_DISTILL_SEQ = 2, 3, 256
+DP_DISTILL_STEPS, DP_DISTILL_RTOL = 3, 1e-3
+DP_DISTILL_UPDATE_COSINE, DP_DISTILL_UPDATE_ERR = 0.995, 5e-3
+# 16b: two `worker resnet --depth 50 --batch 128` processes under the
+# rank contract, launched with these --steps in turn (rank 1's newest
+# step removed before the third)
+DP_WORKER_BATCH, DP_WORKER_STEPS = 128, (2, 3, 4)
+DP_TIMEOUT_S = 900
+# the card's sizes; a CPU rehearsal passes a smaller spec to phase_dp
+DP_SPEC = {"depth": RESNET_DEPTH, "width": 64, "size": RESNET_SIZE,
+           "check_per_rank": DP_CHECK_PER_RANK,
+           "bf16_per_rank": DP_BF16_PER_RANK,
+           "distill": {"max_seq": DP_DISTILL_SEQ, "remat": False,
+                       "n_layers": DP_DISTILL_LAYERS}}
+
+
+def dp_resnet_images(n: int, size: int):
+    """The fp32 check's global batch: ``n`` images and labels from the
+    seed on the host, the same on every process."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 16)
+    return (torch.randn((n, size, size, 3), generator=gen),
+            torch.randint(0, 1000, (n,), generator=gen, dtype=torch.int32))
+
+
+def dp_resnet_check(dev, mesh, spec=DP_SPEC,
+                    steps: int = DP_CHECK_STEPS, reverse: bool = False
+                    ) -> dict:
+    """The fp32 ResNet-50's first train pass (loss, accuracy, batch-norm
+    state and the ``DP_GRAD_LEAVES`` gradients, averaged over dp on a
+    mesh) and the update after ``steps`` steps (params minus the init),
+    on this process's share of :func:`dp_resnet_images` (all of it
+    without a mesh; ``reverse`` takes the images in reverse order, the
+    same sums in another order). Host copies."""
+    import hashlib
+    import torch
+    from dcos_commons_tpu_torch.models import resnet, train
+    n = mesh.shape["dp"] if mesh is not None else 1
+    r = mesh.coords["dp"] if mesh is not None else 0
+    cfg = resnet.ResNetConfig(depth=spec["depth"], width=spec["width"],
+                              n_classes=1000, dtype=torch.float32)
+    x, y = dp_resnet_images(DP_WORLD * spec["check_per_rank"], spec["size"])
+    if reverse:
+        x, y = x.flip(0), y.flip(0)
+    per = x.shape[0] // n
+    rows = slice(r * per, (r + 1) * per)
+    batch = (x[rows].to(dev), y[rows].to(dev))
+    params, state = resnet.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in _named(params)}
+    leaves = train._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, (acc, new_state) = resnet.loss_fn(cfg, params, state, batch,
+                                            mesh=mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    loss, acc = loss.detach(), acc.float()
+    if mesh is not None:
+        grads, (loss, acc) = mesh.reduce_grads(grads, (loss, acc), 1.0 / n)
+    names = [k for k, _ in _named(params)]
+    out = {"loss": float(loss), "acc": float(acc),
+           "state": {k: v.detach().cpu() for k, v in _named(new_state)},
+           "grads": {k: g.cpu() for k, g in zip(names, grads)
+                     if k in DP_GRAD_LEAVES}}
+    opt = train.make_optimizer(lr=0.1)
+    step = train.make_train_step(
+        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1], mesh=mesh), opt,
+        has_aux_state=True, mesh=mesh)
+    opt_state = train.init_opt_state(opt, params)
+    for _ in range(steps):
+        params, opt_state, state, _ = step(params, opt_state, (state, batch))
+    h = hashlib.sha1()
+    for tree in (params, opt_state.mu, opt_state.nu, state):
+        for _, v in _named(tree):
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    out["digest"] = h.hexdigest()
+    out["update"] = {k: v.cpu() - init[k] for k, v in _named(params)}
+    out["rates"] = sum(opt.schedule(i) for i in range(steps))
+    return out
+
+
+def dp_distill(dev, mesh, spec=DP_SPEC, steps: int = DP_DISTILL_STEPS,
+               reverse: bool = False, keep: bool = True) -> dict:
+    """16c's distill at 8B width (the teacher at ``DP_DISTILL_LAYERS``
+    layers, a 1-layer draft) over ``DP_DISTILL_BATCH`` rows, each rank
+    backpropagating its own on a mesh (``reverse``: the rows in reverse
+    order): the losses, the kernel counts of the run (zeroed just before),
+    on a mesh a digest of the draft and its moments, and with ``keep`` the
+    draft's leaves at the init and after the steps (on the device)."""
+    import hashlib
+    import torch
+    from dcos_commons_tpu_torch.models import llama, train
+    from dcos_commons_tpu_torch.models.speculative import (distill_loss,
+                                                           draft_student)
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    cfg_t = llama.LlamaConfig.llama3_8b(**spec["distill"])
+    gen = torch.Generator(device=dev)
+    params_t = llama.init_params(cfg_t, gen.manual_seed(SEED), device=dev)
+    cfg_d, params_d = draft_student(cfg_t, params_t, 1)
+    init = [v.clone() for _, v in _named(params_d)] if keep else None
+    toks = torch.randint(0, cfg_t.vocab_size,
+                         (DP_DISTILL_BATCH, cfg_t.max_seq),
+                         generator=gen.manual_seed(SEED + 1),
+                         dtype=torch.int32, device=dev)
+    if reverse:
+        toks = toks.flip(0)
+    opt = train.make_optimizer(lr=1e-3, warmup=5, decay_steps=10)
+    step = train.make_train_step(distill_loss(cfg_t, params_t, cfg_d, 1.0),
+                                 opt, mesh=mesh, batch_spec=None)
+    opt_state = train.init_opt_state(opt, params_d)
+    for name in FA_KERNELS:
+        getattr(fa, name).launches = 0
+    losses = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params_d, opt_state, out = step(params_d, opt_state, toks)
+        losses.append(float(out["loss"]))
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fa, name).launches for name in FA_KERNELS}
+    out = {"losses": losses, "launches": launches, "step_s": wall / steps,
+           "rows": (0, DP_DISTILL_BATCH)}
+    if keep:
+        out["init"] = init
+        out["final"] = [v.detach() for _, v in _named(params_d)]
+    if mesh is not None:
+        h = hashlib.sha1()
+        for tree in (params_d, opt_state.mu, opt_state.nu):
+            for _, v in _named(tree):
+                h.update(v.detach().contiguous().view(torch.int16).cpu()
+                         .numpy().tobytes() if v.dtype == torch.bfloat16
+                         else v.detach().cpu().numpy().tobytes())
+        out["digest"] = h.hexdigest()
+        out["rows"] = train.dp_rows(DP_DISTILL_BATCH, mesh)
+    return out
+
+
+def update_agreement(got: dict, want: dict) -> dict:
+    """How far ``got``'s update (final minus init, over every leaf, on
+    the device) lies from ``want``'s from the same init: cosine, largest
+    element error, the share of elements that differ."""
+    import torch
+    dot = n_got = n_want = 0.0
+    err, differ, total = 0.0, 0, 0
+    for a0, a, b in zip(want["init"], got["final"], want["final"]):
+        u = a.float() - a0.float()
+        w = b.float() - a0.float()
+        dot += float((u.double() * w.double()).sum())
+        n_got += float(u.double().square().sum())
+        n_want += float(w.double().square().sum())
+        err = max(err, float((u - w).abs().max()))
+        differ += int((u != w).sum())
+        total += u.numel()
+        del u, w
+    return {"cosine": dot / max(1e-300, (n_got * n_want) ** 0.5),
+            "max_err": err, "differing_share": differ / total}
+
+
+def dp_rank(device: str = "cuda", spec=DP_SPEC) -> dict:
+    """One rank of phase 16a and 16c (run by ``launch_local`` in a process
+    of its own): ``MeshSpec(dp=world)``, :func:`dp_resnet_check` on this
+    rank's images, the bf16 ResNet-50 steps at ``DP_BF16_PER_RANK``
+    images a rank (step ms, collectives and their host seconds, peak
+    memory), then :func:`dp_distill`. ``device`` ``"cpu"`` rehearses it
+    on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import resnet, train
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshSpec(dp=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "layout": mesh.layout}
+    c0, t0 = mesh.collectives, time.perf_counter()
+    out["fp32"] = dp_resnet_check(dev, mesh, spec)
+    out["fp32"]["collectives"] = mesh.collectives - c0
+    out["part_s"] = {"fp32_check": time.perf_counter() - t0}
+    t_bf16 = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    torch.backends.cudnn.benchmark = cuda
+    cfg = resnet.ResNetConfig(depth=spec["depth"], width=spec["width"],
+                              n_classes=1000)
+    gen = torch.Generator(device=dev)
+    params, state = resnet.init_params(cfg, gen.manual_seed(SEED),
+                                       device=dev)
+    per, size = spec["bf16_per_rank"], spec["size"]
+    x = torch.randn((per, size, size, 3), dtype=torch.bfloat16,
+                    generator=gen.manual_seed(SEED + 1 + mesh.rank),
+                    device=dev)
+    y = torch.randint(0, 1000, (per,), dtype=torch.int32,
+                      generator=gen.manual_seed(SEED + 100 + mesh.rank),
+                      device=dev)
+    opt = train.make_optimizer(lr=0.1)
+    step = train.make_train_step(
+        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1], mesh=mesh), opt,
+        has_aux_state=True, mesh=mesh)
+    opt_state = train.init_opt_state(opt, params)
+    losses = []
+    for _ in range(DP_BF16_WARMUP):
+        params, opt_state, state, o = step(params, opt_state, (state, (x, y)))
+        losses.append(float(o["loss"]))
+    _sync(dev)
+    c0, s0 = mesh.collectives, mesh.collective_s
+    t0 = time.perf_counter()
+    for _ in range(DP_BF16_STEPS):
+        params, opt_state, state, o = step(params, opt_state, (state, (x, y)))
+    losses.append(float(o["loss"]))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    out["bf16"] = {
+        "images_per_rank": per, "steps": DP_BF16_STEPS,
+        "step_ms": wall / DP_BF16_STEPS * 1e3,
+        "collectives_per_step": (mesh.collectives - c0) / DP_BF16_STEPS,
+        "collective_ms_per_step": (mesh.collective_s - s0)
+        / DP_BF16_STEPS * 1e3,
+        "collective_share": (mesh.collective_s - s0) / wall,
+        "losses": losses,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else None)}
+    torch.backends.cudnn.benchmark = False
+    del params, state, opt_state, x, y
+    if cuda:
+        torch.cuda.empty_cache()
+    out["part_s"]["bf16"] = time.perf_counter() - t_bf16
+    t0 = time.perf_counter()
+    d = dp_distill(dev, mesh, spec, keep=mesh.rank == 0)
+    out["part_s"]["distill"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        # the ranks hold the same bits (the digests): rank 0 holds its
+        # draft to one process over the same rows, and, for the rounding
+        # floor, one process over the rows in reverse order to it
+        t0 = time.perf_counter()
+        want = dp_distill(dev, None, spec)
+        d["vs_one_process"] = update_agreement(d, want)
+        del d["init"], d["final"]
+        witness = dp_distill(dev, None, spec, reverse=True)
+        d["one_process_reordered"] = update_agreement(witness, want)
+        d["one_process_losses"] = want["losses"]
+        d["one_process_step_s"] = want["step_s"]
+        d["reordered_losses"] = witness["losses"]
+        del want, witness
+        out["part_s"]["distill_one_process"] = time.perf_counter() - t0
+    out["distill"] = d
+    return out
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b| (at least 1)."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _cos(a, b) -> float:
+    a, b = a.flatten().double(), b.flatten().double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _resnet_agreement(got: dict, want: dict) -> dict:
+    """:func:`dp_resnet_check`'s ``got`` against ``want``: the loss, the
+    batch-norm state, the gradients, the update's cosine and largest
+    element error."""
+    import torch
+    err = {"loss_rel_err": abs(got["loss"] / want["loss"] - 1),
+           "acc": got["acc"], "acc_one_process": want["acc"],
+           "state_err": max(_rel_max(got["state"][k], v)
+                            for k, v in want["state"].items())}
+    for k, g in want["grads"].items():
+        err[f"grad_err {k}"] = float((got["grads"][k] - g).abs().max()
+                                     / g.abs().max())
+        err[f"grad_cosine {k}"] = _cos(got["grads"][k], g)
+    upd_w = torch.cat([v.flatten() for v in want["update"].values()])
+    upd_g = torch.cat([got["update"][k].flatten() for k in want["update"]])
+    err["update_cosine"] = _cos(upd_g, upd_w)
+    err["update_max_err"] = float((upd_g - upd_w).abs().max())
+    return err
+
+
+def phase_dp(card: str, dev="cuda", spec=DP_SPEC) -> tuple:
+    """Phases 16a and 16c: the fp32 ResNet-50 reference in this process
+    first (one process over all ``DP_WORLD x DP_CHECK_PER_RANK`` images,
+    and over them in reverse order for the rounding floor), then a gang
+    of ``DP_WORLD`` ranks sharing the card (:func:`dp_rank`), each held to
+    it, and distill held to one process in rank 0; params, optimizer and
+    batch-norm state bitwise equal across ranks. Returns (line, {kernel:
+    launches summed over the ranks' distill runs})."""
+    import math
+    import torch
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    want = dp_resnet_check(dev, None, spec)
+    ref_s = {"fp32_check": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    reordered = _resnet_agreement(dp_resnet_check(dev, None, spec,
+                                                  reverse=True), want)
+    ref_s["fp32_reordered"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_local(dp_rank, DP_WORLD, dev.type, spec,
+                         timeout_s=DP_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    problems, fp32 = [], []
+    distill = ranks[0]["distill"]
+    for r in ranks:
+        got = r["fp32"]
+        err = _resnet_agreement(got, want)
+        err["rates"] = want["rates"]
+        err["collectives"] = got["collectives"]
+        fp32.append(err)
+        if err["loss_rel_err"] > RESNET_LOSS_RTOL:
+            problems.append(f"rank {r['rank']} loss {err['loss_rel_err']}")
+        if err["state_err"] > RESNET_LOGIT_TOL:
+            problems.append(f"rank {r['rank']} state {err['state_err']}")
+        for k in want["grads"]:
+            if err[f"grad_err {k}"] > RESNET_GRAD_TOL \
+                    or err[f"grad_cosine {k}"] < RESNET_GRAD_COSINE:
+                problems.append(f"rank {r['rank']} gradient {k}: "
+                                f"{err[f'grad_err {k}']}, cosine "
+                                f"{err[f'grad_cosine {k}']}")
+        if err["update_cosine"] < DP_UPDATE_COSINE:
+            problems.append(f"rank {r['rank']} update cosine "
+                            f"{err['update_cosine']}")
+        d = r["distill"]
+        rel = max(abs(a / b - 1) for a, b in zip(
+            d["losses"], distill["one_process_losses"]))
+        if rel > DP_DISTILL_RTOL:
+            problems.append(f"rank {r['rank']} distill losses {d['losses']} "
+                            f"against {distill['one_process_losses']}")
+        if dev.type == "cuda" and min(d["launches"].values()) < 1:
+            problems.append(f"rank {r['rank']} distill kernels "
+                            f"{d['launches']}")
+        if not all(math.isfinite(v) for v in r["bf16"]["losses"]):
+            problems.append(f"rank {r['rank']} bf16 losses "
+                            f"{r['bf16']['losses']}")
+    agree = distill["vs_one_process"]
+    if agree["cosine"] < DP_DISTILL_UPDATE_COSINE \
+            or agree["max_err"] > DP_DISTILL_UPDATE_ERR:
+        problems.append(f"distill update against one process {agree}")
+    for key in ("fp32", "distill"):
+        if len({r[key]["digest"] for r in ranks}) != 1:
+            problems.append(f"{key}: the ranks' params, moments or state "
+                            "differ")
+    if len({tuple(r["bf16"]["losses"]) for r in ranks}) != 1:
+        problems.append("bf16: the ranks' losses differ")
+    if problems:
+        raise RuntimeError("dp phase: " + "; ".join(problems))
+    launches = {k: sum(r["distill"]["launches"][k] for r in ranks)
+                for k in FA_KERNELS}
+    line = {"dp": {
+        "world": len(ranks), "backend": ranks[0]["backend"],
+        "devices": [r["device"] for r in ranks],
+        "layout": ranks[0]["layout"], "reference_s": ref_s,
+        "gang_s": gang_s, "rank_part_s": [r["part_s"] for r in ranks],
+        "card": card,
+        "resnet50_fp32_check": {
+            "depth": spec["depth"], "width": spec["width"],
+            "images_per_rank": spec["check_per_rank"], "image": spec["size"],
+            "steps": DP_CHECK_STEPS, "loss": want["loss"],
+            "per_rank": fp32, "one_process_reordered": reordered,
+            "ranks_bitwise_equal": True,
+            "tolerances": {"loss_rtol": RESNET_LOSS_RTOL,
+                           "state": RESNET_LOGIT_TOL,
+                           "grad": RESNET_GRAD_TOL,
+                           "grad_cosine": RESNET_GRAD_COSINE,
+                           "update_cosine": DP_UPDATE_COSINE}},
+        "resnet50_bf16": {
+            **{k: [r["bf16"][k] for r in ranks] for k in (
+                "step_ms", "collectives_per_step", "collective_ms_per_step",
+                "collective_share", "peak_mem_gb")},
+            "images_per_rank": ranks[0]["bf16"]["images_per_rank"],
+            "global_batch": DP_WORLD * ranks[0]["bf16"]["images_per_rank"],
+            "losses": ranks[0]["bf16"]["losses"],
+            "label": "two ranks on one card; not a DP speed"},
+        "distill": {
+            "model": "llama3_8b width", "config": {
+                k: v for k, v in spec["distill"].items()},
+            "draft_layers": 1, "batch": DP_DISTILL_BATCH,
+            "seq": spec["distill"]["max_seq"],
+            "losses": distill["losses"],
+            "one_process_losses": distill["one_process_losses"],
+            "reordered_losses": distill["reordered_losses"],
+            "rtol": DP_DISTILL_RTOL,
+            "update_vs_one_process": distill["vs_one_process"],
+            "update_one_process_reordered":
+                distill["one_process_reordered"],
+            "update_bounds": {"cosine": DP_DISTILL_UPDATE_COSINE,
+                              "max_err": DP_DISTILL_UPDATE_ERR},
+            "rows_per_rank": [r["distill"]["rows"] for r in ranks],
+            "launches_per_rank": [r["distill"]["launches"] for r in ranks],
+            "step_s_per_rank": [r["distill"]["step_s"] for r in ranks],
+            "one_process_step_s": distill["one_process_step_s"],
+            "ranks_bitwise_equal": True}}}
+    log(f"[dp] {json.dumps(line)}")
+    return line, launches
+
+
+def _gang_worker_run(args, base: Path, world: int = DP_WORLD, env=None):
+    """``world`` worker processes with the rank contract, each in
+    ``base/r<rank>`` with ``--out`` there: [(exit code, events)] in rank
+    order."""
+    from dcos_commons_tpu_torch.parallel.distributed import free_port
+    addr = f"127.0.0.1:{free_port()}"
+    results = [None] * world
+
+    def rank_run(r):
+        cwd = base / f"r{r}"
+        cwd.mkdir(parents=True, exist_ok=True)
+        results[r] = _worker_run([*args, "--out", str(cwd / "vol")], cwd,
+                                 env={"JAX_COORDINATOR_ADDRESS": addr,
+                                      "JAX_PROCESS_ID": str(r),
+                                      "JAX_NUM_PROCESSES": str(world),
+                                      "POD_INSTANCE_INDEX": str(r),
+                                      **(env or {})})
+
+    _side_by_side(*[lambda r=r: rank_run(r) for r in range(world)])
+    return results
+
+
+def phase_dp_worker(card: str, depth=RESNET_DEPTH, batch=DP_WORKER_BATCH,
+                    steps=DP_WORKER_STEPS, extra=()) -> dict:
+    """Phase 16b: ``dist/resnet.yml``'s gang, two ``worker resnet --depth
+    50 --batch 128 --emit-every 1 --out VOL`` processes under the rank
+    contract (in ``build/dp_worker_smoke``), launched with ``--steps``
+    ``steps[0]``, then ``steps[1]`` (both must emit ``resumed`` at
+    ``steps[0]``), then, with rank 1's newest step removed, ``steps[2]``
+    (both must resume at ``steps[0]``, the step they share). Every
+    launch: both ranks exit 0 with the same ``final_loss`` and progress
+    stream and report ``global_batch`` 2 x batch. The ``worker_dp``
+    line."""
+    import math
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "dp_worker_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0_phase = time.perf_counter()
+    rn = ["resnet", "--depth", str(depth), "--batch", str(batch),
+          "--emit-every", "1", *extra]
+    runs, problems = [], []
+    for i, n in enumerate(steps):
+        if i == 2:
+            vol = base / "r1" / "vol"
+            newest = sorted(d for d in os.listdir(vol)
+                            if d.startswith("step-"))[-1]
+            shutil.rmtree(vol / newest)
+        t0 = time.perf_counter()
+        res = _gang_worker_run([*rn, "--steps", str(n)], base)
+        wall = time.perf_counter() - t0
+        dones, resumed, progress = [], [], []
+        for r, (rc, events) in enumerate(res):
+            done = [e for e in events if e.get("event") == "done"]
+            if rc != 0 or not done:
+                problems.append(f"launch {i} rank {r}: exit {rc}, "
+                                f"{events[-2:]}")
+                continue
+            dones.append(done[0])
+            resumed.append([e["step"] for e in events
+                            if e.get("event") == "resumed"])
+            progress.append([(e["step"], e["loss"]) for e in events
+                             if e.get("event") == "progress"])
+        runs.append({"steps": n, "wall_s": wall, "resumed": resumed,
+                     "final_loss": [d["final_loss"] for d in dones],
+                     "progress": progress[:1],
+                     "images_per_sec_per_chip": [
+                         d["images_per_sec_per_chip"] for d in dones],
+                     "collectives": [d.get("collectives") for d in dones],
+                     "collective_s": [d.get("collective_s") for d in dones],
+                     "peak_mem_gb": [d.get("peak_mem_gb") for d in dones]})
+        if len(dones) != DP_WORLD:
+            continue
+        want_resume = [] if i == 0 else [steps[0]]
+        if any(r != want_resume for r in resumed):
+            problems.append(f"launch {i}: resumed {resumed}, want "
+                            f"{want_resume} on every rank")
+        if len({d["final_loss"] for d in dones}) != 1 \
+                or not math.isfinite(dones[0]["final_loss"] or math.nan):
+            problems.append(f"launch {i}: final losses "
+                            f"{[d['final_loss'] for d in dones]}")
+        if progress[0] != progress[1]:
+            problems.append(f"launch {i}: progress streams differ")
+        if any(d["global_batch"] != DP_WORLD * batch for d in dones):
+            problems.append(f"launch {i}: global_batch "
+                            f"{[d['global_batch'] for d in dones]}")
+    if len(runs) == 3 and runs[1]["progress"] and runs[2]["progress"]:
+        a, b = dict(runs[1]["progress"][0]), dict(runs[2]["progress"][0])
+        runs[2]["step_loss_vs_launch_1"] = {
+            s: (a[s], b[s]) for s in sorted(set(a) & set(b))}
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("dp worker phase: " + "; ".join(problems))
+    line = {"worker_dp": {
+        "command": f"{DP_WORLD} x python -m dcos_commons_tpu_torch."
+                   f"frameworks.worker resnet --depth {depth} --batch "
+                   f"{batch} --emit-every 1 --out VOL under "
+                   "JAX_COORDINATOR_ADDRESS/JAX_PROCESS_ID/"
+                   f"JAX_NUM_PROCESSES, --steps {steps[0]}, then "
+                   f"{steps[1]}, then {steps[2]} with rank 1's newest step "
+                   "removed", "runs": runs,
+        "wall_s": time.perf_counter() - t0_phase,
+        "label": "two ranks on one card; not a DP speed", "card": card}}
+    log(f"[worker_dp] {json.dumps(line)}")
+    return line
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -5599,23 +6173,43 @@ def main() -> int:
             f"6_{name}", phase_worker, card, name, extra, engine, names)
         worker_lines.append(line)
         worker_launches.update(launches)
-    peer_line, peer_launches = timed_phase("14_worker_peer",
-                                           phase_peer_boot, card)
-    worker_tp_line, worker_tp_launches = timed_phase(
-        "15_worker_tp", phase_tp_worker, card)
-    disagg_worker_line, disagg_worker_launches = timed_phase(
-        "12_worker_disagg", phase_disagg_worker, card,
-        replies["worker_paged"], params)
+    # 14b beside 16b and 14a's worker runs: the peer boot is host work
+    # (hashing, copies, disk), the ResNet workers' runs mostly process
+    # starts (14a's worker beside 16c's gang ran the card out of memory)
+    side = {}
+    timed_phase("14b_16b_14_worker_peer_worker_dp_worker_resnet",
+                _side_by_side,
+                lambda: side.update(peer=phase_peer_boot(card)),
+                lambda: side.update(worker_dp=phase_dp_worker(card)),
+                lambda: side.update(worker=phase_resnet_worker(card)))
+    peer_line, peer_launches = side["peer"]
+    dp_worker_line = side["worker_dp"]
+    resnet_worker_line = side["worker"]
+    # 15b beside 12's worker pair: both are worker processes on the card,
+    # each counting its own kernels, mostly waiting on process starts
+    timed_phase("15_worker_tp_12_worker_disagg", _side_by_side,
+                lambda: side.update(tp=phase_tp_worker(card)),
+                lambda: side.update(disagg=phase_disagg_worker(
+                    card, replies["worker_paged"], params)))
+    worker_tp_line, worker_tp_launches = side["tp"]
+    disagg_worker_line, disagg_worker_launches = side["disagg"]
     fleet_line, fleet_launches = timed_phase("13_fleet", phase_fleet, card)
     try:
-        t0 = time.perf_counter()
-        spec_worker_line, spec_worker_launches = timed_phase(
-            "7_worker_spec", phase_spec_worker, card, artifact,
-            replies["worker_paged"], params)
-        spec_worker_s = time.perf_counter() - t0
-        distilled_line, distilled_launches = timed_phase(
-            "8_worker_distilled", phase_distill_serve, card, distilled,
-            replies["worker_paged"], params, spec_line["accept_rate"])
+        # the two spec workers side by side, each in its own directory
+        def spec_chain():
+            t0 = time.perf_counter()
+            side["spec"] = phase_spec_worker(card, artifact,
+                                             replies["worker_paged"], params)
+            side["spec_s"] = time.perf_counter() - t0
+
+        timed_phase("7_worker_spec_8_worker_distilled", _side_by_side,
+                    spec_chain,
+                    lambda: side.update(distilled=phase_distill_serve(
+                        card, distilled, replies["worker_paged"], params,
+                        spec_line["accept_rate"])))
+        spec_worker_s = side["spec_s"]
+        spec_worker_line, spec_worker_launches = side["spec"]
+        distilled_line, distilled_launches = side["distilled"]
     finally:
         import shutil
         shutil.rmtree(artifact["path"], ignore_errors=True)
@@ -5628,14 +6222,19 @@ def main() -> int:
     moe_worker_line, moe_worker_launches = timed_phase(
         "10_worker_moe", phase_moe_worker, card, moe_worker_want)
     training_line, fa_launches = timed_phase("4_train", phase_train, card)
-    llama_train_line = timed_phase("9_llama_train", phase_llama_train, card)
     gc.collect()
     torch.cuda.empty_cache()
     resnet_line = timed_phase("14_resnet", phase_resnet, card)
     gc.collect()
     torch.cuda.empty_cache()
-    resnet_worker_line = timed_phase("14_worker_resnet", phase_resnet_worker,
-                                     card)
+    # 16a/16c beside 9's worker runs: the gang waits on the host for its
+    # collectives, the workers' runs are mostly process starts
+    side = {}
+    timed_phase("16_dp_9_llama_train", _side_by_side,
+                lambda: side.update(dp=phase_dp(card)),
+                lambda: side.update(lt=phase_llama_train(card)))
+    dp_line, dp_launches = side["dp"]
+    llama_train_line = side["lt"]
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -5715,6 +6314,7 @@ def main() -> int:
                            distilled_launches["flash_attention_fwd"],
                        "training": fa_launches["flash_attention_fwd"],
                        "distill": distill_launches["flash_attention_fwd"],
+                       "distill_dp": dp_launches["flash_attention_fwd"],
                        "tp": tp_launches["flash_attention_fwd"],
                        "worker_tp":
                            worker_tp_launches["flash_attention_fwd"]},
@@ -5724,13 +6324,15 @@ def main() -> int:
                       "dcos_commons_tpu/ops/flash_attention.py:214",
                       {"training": fa_launches["flash_attention_bwd_dkdv"],
                        "distill":
-                           distill_launches["flash_attention_bwd_dkdv"]},
+                           distill_launches["flash_attention_bwd_dkdv"],
+                       "distill_dp": dp_launches["flash_attention_bwd_dkdv"]},
                       fa_cases["dkdv"], fa_tol),
         _kernel_entry("flash_attention_bwd_dq",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:256",
                       {"training": fa_launches["flash_attention_bwd_dq"],
-                       "distill": distill_launches["flash_attention_bwd_dq"]},
+                       "distill": distill_launches["flash_attention_bwd_dq"],
+                       "distill_dp": dp_launches["flash_attention_bwd_dq"]},
                       fa_cases["dq"], fa_tol),
     ]
     sdpa = "scaled_dot_product_attention(attn_mask=kv_len, enable_gqa) over "
@@ -5763,6 +6365,8 @@ def main() -> int:
     print(json.dumps(worker_tp_line), flush=True)
     print(json.dumps(resnet_line), flush=True)
     print(json.dumps(resnet_worker_line), flush=True)
+    print(json.dumps(dp_line), flush=True)
+    print(json.dumps(dp_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

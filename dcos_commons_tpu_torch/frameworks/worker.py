@@ -98,10 +98,10 @@ seeded from the serving weights when none is committed), or emits
 ``weight_server_error`` and serving goes on.
 
 ``mnist`` trains the MNIST MLP on synthetic batches and ``resnet`` a
-ResNet (``--depth``, default 50) on one fixed synthetic 224x224 batch,
-both on one device, checkpointing into ``--out`` under the reference's
-keys and resuming from it (``resumed``); ``resnet`` keeps the warm-up
-step's update, so the two packages resume each other's checkpoints.
+ResNet (``--depth``, default 50) on one fixed synthetic 224x224 batch a
+process, checkpointing into ``--out`` under the reference's keys and
+resuming from it (``resumed``); ``resnet`` keeps the warm-up step's
+update, so the two packages resume each other's checkpoints.
 
 ``llama-train`` trains the tiny Llama on one device under the fault
 sentinel (``frameworks.sentinel``: SIGTERM flush and exit 143, NaN
@@ -126,15 +126,29 @@ loop (``models.serving_gang``): rank 0 owns the front door
 runs the lock-step loop and its heartbeats. ``--serve-role
 prefill|decode`` on a gang emits ``disagg_fallback`` and serves
 co-located; ``--moe-experts`` (item 9) and ``WEIGHT_FETCH_PEERS`` /
-``WEIGHT_SERVE_PORT`` (``peer_weights_not_ported``, item 10e) on a gang,
-and the training workloads on a gang (``gang_not_ported``, item 7), are
-refused before any process group forms.
+``WEIGHT_SERVE_PORT`` (``peer_weights_not_ported``, item 10e) on a gang
+are refused before any process group forms.
+
+The training workloads train on a gang as the reference's do
+(``dist/resnet.yml``, ``multislice.yml``): ``resnet`` over
+``MeshSpec(dp=N // slices, dcn=slices)`` (``MEGASCALE_NUM_SLICES``; a gang
+the slices do not divide raises as the reference's mesh does), each
+process its own share of the global batch of ``--batch x N`` with
+batch-norm statistics over all of it, every process resuming at the
+newest step every process holds and saving the whole state to its own
+``step-N-p{rank}``; ``distill`` over ``MeshSpec(dp=N)``; ``llama-train``
+over the reference's clamped axes, where ``sp > 1`` (its default on an
+even gang: ``attn_not_ported``, item 9) and ``tp > 1``
+(``train_tp_not_ported``, item 7d) refuse before the process group
+forms; ``mnist`` trains alone in each process, as in the reference.
+The ranks' collectives (``parallel.mesh``) run over gloo when ranks
+share a card.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (training on a gang, ``resnet`` across slices and
-expert-parallel MoE training: item 7; pipelines, ring prefill and ring
-or Ulysses attention: item 9; live resharding: item 10).
+ROADMAP Queue 1 item (tensor-parallel training: item 7d;
+expert-parallel MoE training, pipelines, ring prefill and ring or
+Ulysses attention: item 9; live resharding: item 10).
 """
 
 from __future__ import annotations
@@ -179,16 +193,35 @@ def _gang_size() -> int:
     return contract["num_processes"] if contract else 1
 
 
-def _refuse_gang(workload: str) -> None:
-    """Training over a gang of processes (data- or tensor-parallel)
-    waits for the mesh's training half: refused before any process group
-    forms."""
-    n = _gang_size()
-    if n > 1:
-        raise NotPorted("gang_not_ported", f"{workload} over {n} processes: "
-                        "training on a process mesh is not ported yet "
-                        "(ROADMAP Queue 1 item 7; the port serves llama on "
-                        "a gang)")
+def _divisor_at_most(limit: int, total: int) -> int:
+    """The largest divisor of ``total`` not above ``limit``: axis sizes
+    that do not factorize the gang are clamped, as in the reference."""
+    for cand in range(max(min(limit, total), 1), 0, -1):
+        if total % cand == 0:
+            return cand
+    return 1
+
+
+def _dp_mesh(device: str, dp: int, dcn: int = 1):
+    """The process group from the rank contract and this rank's
+    ``MeshSpec(dp=dp, dcn=dcn)`` mesh on ``device``: ``(contract,
+    mesh)``. A gang the mesh does not fit raises (ValueError), as the
+    reference's mesh does; a gang never trains alone."""
+    from ..parallel import distributed
+    from ..parallel.mesh import MeshSpec
+    contract = distributed.initialize()
+    return contract, MeshSpec(dp=dp, dcn=dcn).build(device)
+
+
+def _mesh_report(mesh) -> dict:
+    """On a gang: the dp axis, and the collectives' count and host
+    seconds (the device wait before each staged copy excluded); nothing
+    for one process, whose result keys stay the reference's."""
+    if mesh.size == 1:
+        return {}
+    return {"dp": mesh.shape["dp"], "collectives": mesh.collectives,
+            "collective_s": round(mesh.collective_s, 6),
+            "backend": mesh.backend}
 
 
 def _serving_arithmetic(args):
@@ -977,13 +1010,16 @@ def run_mnist(args) -> dict:
     dataset download): a new batch of 256 each step from a generator on
     the device, params-only checkpoints every ``steps // 4`` steps and at
     the end, and a resume from the newest one with a fresh optimizer
-    state, as in the reference."""
+    state, as in the reference. On a gang each process trains alone (the
+    reference forms no mesh) and resumes at the newest step every
+    process holds."""
     from .._device import resolve_device
     from ..models import mlp, train
     from ..parallel import checkpoint as ckpt
     from ..parallel import distributed
 
-    _refuse_gang(args.workload)
+    # on a gang every process trains alone, as in the reference (no
+    # mesh); the process group still forms from the contract
     contract = distributed.initialize()
     dev = resolve_device(args.device)
     cfg = mlp.MLPConfig(in_dim=784, hidden=(512, 256), n_classes=10)
@@ -1037,30 +1073,27 @@ def _resnet_tree(params, opt_state, state) -> dict:
 
 
 def run_resnet(args) -> dict:
-    """ResNet training on one device (the reference's data-parallel
-    trainer on a mesh of one): one fixed synthetic ImageNet-shaped batch
-    ``[batch, 224, 224, 3]`` bf16 and its labels, drawn from generators
+    """Data-parallel ResNet training: the reference's trainer over
+    ``MeshSpec(dp=n // slices, dcn=slices)`` (``MEGASCALE_NUM_SLICES``;
+    ``n`` the gang's processes, one device each). Each process draws its
+    local shard of the global batch, one fixed synthetic ImageNet-shaped
+    batch ``[batch, 224, 224, 3]`` bf16 and its labels, from generators
     seeded as the reference's keys (``1 + pid``, ``100 + pid``; torch
-    draws other numbers). The warm-up step is a real update on the fresh
-    init; a resume restores the full state (params, optimizer state and
-    batch-norm statistics) over the warm-up's outputs, so a fresh
-    ``--steps N`` saves Adam count ``N + 1`` and the two packages resume
-    each other's checkpoints. More than one slice (``MEGASCALE_NUM_SLICES
-    > 1``) needs the mesh and is refused."""
-    from .._device import resolve_device
+    draws other numbers); batch norm takes its statistics over the global
+    batch of ``batch * n`` and the step averages the gradients over
+    ``dp``. The warm-up step is a real update on the fresh init; a resume
+    restores the full state (params, optimizer state and batch-norm
+    statistics) over the warm-up's outputs at the newest step every
+    process holds, so a fresh ``--steps N`` saves Adam count ``N + 1``
+    and the two packages resume each other's checkpoints. Every process
+    saves the whole replicated state to its own ``step-N-p{rank}``."""
     from ..models import resnet, train
     from ..parallel import checkpoint as ckpt
-    from ..parallel import distributed
 
     num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
-    if num_slices > 1:
-        raise NotPorted("multislice_not_ported", f"MEGASCALE_NUM_SLICES="
-                        f"{num_slices}: data parallelism across slices "
-                        "needs the device mesh, not ported yet (ROADMAP "
-                        "Queue 1 item 7)")
-    _refuse_gang(args.workload)
-    contract = distributed.initialize()
-    dev = resolve_device(args.device)
+    n = _gang_size()
+    contract, mesh = _dp_mesh(args.device, n // num_slices, num_slices)
+    dev = mesh.device
     if dev.type == "cuda":
         # the shapes never change: let cuDNN time each conv's algorithms
         # once, as XLA autotunes the reference's
@@ -1070,10 +1103,11 @@ def run_resnet(args) -> dict:
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     opt = train.make_optimizer(lr=args.lr or 0.1)
     step_fn = train.make_train_step(
-        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1]), opt,
-        has_aux_state=True)
+        lambda p, b: resnet.loss_fn(cfg, p, b[0], b[1], mesh=mesh), opt,
+        has_aux_state=True, mesh=mesh)
     opt_state = train.init_opt_state(opt, params)
     pid = contract["process_id"]
+    global_batch = args.batch * contract["num_processes"]
     x = torch.randn((args.batch, 224, 224, 3), dtype=torch.bfloat16,
                     generator=torch.Generator(device=dev).manual_seed(1 + pid),
                     device=dev)
@@ -1123,9 +1157,9 @@ def run_resnet(args) -> dict:
         if args.out:
             save(args.steps)
     return {"workload": "resnet", "depth": args.depth, "steps": steps_run,
-            "final_loss": loss, "global_batch": args.batch,
+            "final_loss": loss, "global_batch": global_batch,
             "images_per_sec_per_chip": round(ips, 2), "process_id": pid,
-            **_peak_mem(dev)}
+            **_mesh_report(mesh), **_peak_mem(dev)}
 
 
 def run_llama_train(args) -> dict:
@@ -1139,11 +1173,17 @@ def run_llama_train(args) -> dict:
 
     The reference trains under a mesh, where its ``auto`` attention is
     dense (``models/llama.py::_make_attn_fn``): ``--attn auto`` is dense
-    here too, and ``--attn flash`` takes the flash-attention kernels."""
-    from .._device import resolve_device
+    here too, and ``--attn flash`` takes the flash-attention kernels.
+
+    On a gang of ``n`` processes the axes follow the reference's rule:
+    ``sp`` (``--sp``, by default 2 on an even gang) and ``tp`` (``--tp``)
+    clamped to divisors of ``n``, ``dp`` the rest. ``sp > 1`` (ring
+    attention, item 9) and ``tp > 1`` (item 7d's tensor-parallel half)
+    refuse before the process group forms; ``dp`` alone trains over
+    ``max(2 * dp, 1)`` rows that every process holds, each rank
+    backpropagating its own."""
     from ..models import llama, train
     from ..parallel import checkpoint as ckpt
-    from ..parallel import distributed
     from . import sentinel as sentinel_mod
 
     if args.pp > 1:
@@ -1162,29 +1202,49 @@ def run_llama_train(args) -> dict:
         raise NotPorted("reshard_not_ported", "RESHARD_ENABLE: restart-free "
                         "resharding is not ported yet (ROADMAP Queue 1 item "
                         "10)")
-    _refuse_gang(args.workload)
-    contract = distributed.initialize()
-    dev = resolve_device(args.device)
+    n = _gang_size()
+    sp = (_divisor_at_most(args.sp, n) if args.sp > 0
+          else (2 if n % 2 == 0 else 1))
+    tp = _divisor_at_most(args.tp, n // sp) if args.tp > 0 else 1
+    dp = n // (sp * tp)
+    if sp > 1:
+        raise NotPorted("attn_not_ported", f"sp={sp} over {n} processes "
+                        "(--sp, or its default on an even gang): sequence-"
+                        "parallel (ring) attention is not ported yet "
+                        "(ROADMAP Queue 1 item 9); --sp 1 trains dp only")
+    if tp > 1:
+        raise NotPorted("train_tp_not_ported", f"tp={tp}: tensor-parallel "
+                        "training is not ported yet (ROADMAP Queue 1 item "
+                        "7d, its tensor-parallel half); --tp 1 trains dp "
+                        "only")
+    contract, mesh = _dp_mesh(args.device, dp)
+    dev = mesh.device
     seq = args.seq
     cfg = llama.LlamaConfig.tiny(
         attn_impl="dense" if args.attn == "auto" else args.attn,
         max_seq=seq + 1, fused_ce=_fused_ce(args))
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, seq + 1),
+    # every rank holds the whole batch (the reference's batch_spec=None);
+    # the step takes this rank's rows
+    toks = torch.randint(0, cfg.vocab_size, (max(2 * dp, 1), seq + 1),
                          generator=torch.Generator(device=dev).manual_seed(1),
                          dtype=torch.int32, device=dev)
 
     grad_accum = max(1, args.grad_accum)
-    if grad_accum > 1 and toks.shape[0] % grad_accum:
-        # degrade, don't crash-loop the gang, as the reference
+    rows = train.dp_rows(toks.shape[0], mesh)[1]
+    if grad_accum > 1 and (toks.shape[0] % grad_accum or rows % grad_accum):
+        # degrade, don't crash-loop the gang, as the reference; here
+        # each rank splits its own rows
         _emit({"event": "grad_accum_fallback",
-               "requested": grad_accum, "batch": int(toks.shape[0])})
+               "requested": grad_accum, "batch": int(toks.shape[0]),
+               **({"rows_per_rank": rows} if dp > 1 else {})})
         grad_accum = 1
     opt = train.make_optimizer(lr=1e-3, warmup=5,
                                decay_steps=max(args.steps, 10))
     step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b), opt,
-                                 grad_accum=grad_accum)
+                                 grad_accum=grad_accum, mesh=mesh,
+                                 batch_spec=None)
     opt_state = train.init_opt_state(opt, params)
     params, opt_state, out = step(params, opt_state, toks)     # warm-up
     float(out["loss"])
@@ -1241,7 +1301,7 @@ def run_llama_train(args) -> dict:
         sent.uninstall()
     _sync(dev)
     dt = time.perf_counter() - t0
-    mesh_report = {"dp": 1, "sp": 1, "tp": 1}
+    mesh_report = {"dp": dp, "sp": 1, "tp": 1}
     if stopped == "preempted":
         # flushed by guarded_loop; main() exits 143
         return {"workload": "llama-train", "attn": args.attn, "seq": seq,
@@ -1265,7 +1325,7 @@ def run_llama_train(args) -> dict:
             "tokens_per_sec": (round(
                 toks.shape[0] * seq * steps_run / dt, 1) if steps_run
                 else 0.0),
-            "process_id": contract["process_id"],
+            "process_id": contract["process_id"], **_mesh_report(mesh),
             **_train_device_report(dev)}
 
 
@@ -1285,31 +1345,35 @@ def run_distill(args) -> dict:
 
     Saves a resumable train checkpoint under ``--out`` and, at the end,
     the sealed draft artifact under ``--out/draft``
-    (``models.speculative.save_draft``)."""
+    (``models.speculative.save_draft``). On a gang of ``n`` processes it
+    trains over ``MeshSpec(dp=n)``: every process holds the whole batch
+    and backpropagates its rows, the gradients weighted by each rank's
+    share of them, so the step is one process's over the whole batch;
+    every process saves its own checkpoint and draft to its own
+    volume."""
     from torch.profiler import record_function
 
-    from .._device import resolve_device
     from ..models import train
     from ..models.speculative import distill_loss, draft_student, save_draft
     from ..parallel import checkpoint as ckpt
-    from ..parallel import distributed
 
-    _refuse_gang(args.workload)
-    contract = distributed.initialize()
-    dev = resolve_device(args.device)
+    contract, mesh = _dp_mesh(args.device, _gang_size())
+    dev = mesh.device
     cfg_t = _target_config(args)
     seq = min(args.seq, cfg_t.max_seq)
     temp = max(float(args.distill_temp), 1e-3)
     layers = max(1, min(args.draft_layers, cfg_t.n_layers - 1))
     params_t = _init_target(cfg_t, dev)
     cfg_d, params_d = draft_student(cfg_t, params_t, layers)
+    # every rank holds the whole batch (the reference's batch_spec=None);
+    # the step takes this rank's rows and weighs its gradient by them
     toks = torch.randint(0, cfg_t.vocab_size, (max(args.batch, 1), seq),
                          generator=torch.Generator(device=dev).manual_seed(1),
                          dtype=torch.int32, device=dev)
     loss_fn = distill_loss(cfg_t, params_t, cfg_d, temp)
     opt = train.make_optimizer(lr=1e-3, warmup=5,
                                decay_steps=max(args.steps, 10))
-    step = train.make_train_step(loss_fn, opt)
+    step = train.make_train_step(loss_fn, opt, mesh=mesh, batch_spec=None)
     opt_state = train.init_opt_state(opt, params_d)
     params_d, opt_state, out = step(params_d, opt_state, toks)  # warm-up
     float(out["loss"])
@@ -1361,7 +1425,8 @@ def run_distill(args) -> dict:
             "tokens_per_sec": (round(
                 toks.shape[0] * seq * steps_run / dt, 1) if steps_run
                 else 0.0),
-            "process_id": contract["process_id"], **device_report}
+            "process_id": contract["process_id"], **_mesh_report(mesh),
+            **device_report}
 
 
 WORKLOADS = {"mnist": run_mnist, "resnet": run_resnet, "llama": run_llama,
@@ -1633,8 +1698,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
     if num_slices > 1 and args.workload != "resnet":
-        # only the data-parallel trainer spans slices in the reference;
-        # its own refusal (multislice_not_ported) waits for the mesh
+        # only the data-parallel trainer spans slices in the reference
         print(f"error: workload {args.workload!r} does not support "
               f"multislice (MEGASCALE_NUM_SLICES={num_slices}); "
               "use the resnet dp trainer or drop tpu.slices",

@@ -1,6 +1,6 @@
 """ResNet (port of ``dcos_commons_tpu/models/resnet.py``): the
 data-parallel north-star workload (BASELINE.json config #4, the
-``resnet`` service), here on one device.
+``resnet`` service), on one device or on a ``dp`` process mesh.
 
 The reference's choices are kept where they decide the numbers: bf16
 weights and activations, fp32 batch-norm statistics, and a functional
@@ -30,6 +30,15 @@ Three places where plain PyTorch idiom gives other numbers:
   ``a = scale * rsqrt(var + eps)`` and ``b = bias - mean * a``. Gradients
   flow through the batch statistics. In eval mode the running statistics
   are used and the state comes back unchanged.
+* On a mesh (``mesh=`` with ``dp > 1``) each rank holds an equal share
+  of the global batch, and in training each batch norm's fp32 mean and
+  mean of squares are averaged over ``dp`` (one all-reduce-mean of the
+  two, ``Mesh.all_reduce_mean``, whose backward averages the
+  cotangents) before the variance and the running-state update: the
+  statistics, the loss and the gradients are the reference's over the
+  global batch, and every rank holds the same state. A forward issues
+  one collective a batch norm (53 at depth 50) and its backward as many;
+  evaluation issues none.
 * Rounding points: each conv returns ``x.dtype``, the residual add and
   the relu run in it, and the global average pool rounds to it once
   before the fp32 head.
@@ -220,12 +229,16 @@ class _MeanSquare(torch.autograd.Function):
 
 
 def _batch_norm(x: torch.Tensor, bn: Params, st: Params, cfg: ResNetConfig,
-                train: bool) -> Tuple[torch.Tensor, Params]:
+                train: bool, mesh=None) -> Tuple[torch.Tensor, Params]:
     """The reference's fused-apply batch norm over NCHW ``x``: fp32
-    statistics, then one multiply-add in ``x.dtype``."""
+    statistics (over the global batch on a dp mesh), then one
+    multiply-add in ``x.dtype``."""
     if train:
         mean = torch.mean(x, dim=(0, 2, 3), dtype=torch.float32)
         mean_sq = _MeanSquare.apply(x)
+        if mesh is not None and mesh.shape["dp"] > 1:
+            mean, mean_sq = mesh.all_reduce_mean(
+                torch.stack([mean, mean_sq]), "dp").unbind(0)
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
         m = cfg.bn_momentum
         new_st = {"mean": m * st["mean"] + (1 - m) * mean,
@@ -240,9 +253,10 @@ def _batch_norm(x: torch.Tensor, bn: Params, st: Params, cfg: ResNetConfig,
 
 
 def forward(cfg: ResNetConfig, params: Params, state: Params,
-            x: torch.Tensor, train: bool = True
+            x: torch.Tensor, train: bool = True, mesh=None
             ) -> Tuple[torch.Tensor, Params]:
-    """x [B, H, W, 3] -> (logits [B, n_classes] fp32, new bn_state)."""
+    """x [B, H, W, 3] -> (logits [B, n_classes] fp32, new bn_state).
+    ``x`` is this rank's share of the global batch on a dp ``mesh``."""
     # the NHWC input viewed as NCHW is channels-last already
     x = x.to(cfg.dtype).permute(0, 3, 1, 2)
     new_state: Params = {}
@@ -251,7 +265,7 @@ def forward(cfg: ResNetConfig, params: Params, state: Params,
     else:
         x = _conv(x, params["stem"]["conv"], stride=2)
     x, st = _batch_norm(x, params["stem"]["bn"], state["stem"]["bn"], cfg,
-                        train)
+                        train, mesh)
     new_state["stem"] = {"bn": st}
     x = _max_pool(torch.relu(x))
     n_convs = 3 if cfg.bottleneck else 2
@@ -264,13 +278,13 @@ def forward(cfg: ResNetConfig, params: Params, state: Params,
         for i in range(n_convs):
             y = _conv(y, bp[f"conv{i}"], stride if i == strided else 1)
             y, ns[f"bn{i}"] = _batch_norm(y, bp[f"bn{i}"], bs[f"bn{i}"],
-                                          cfg, train)
+                                          cfg, train, mesh)
             if i < n_convs - 1:
                 y = torch.relu(y)
         if "proj" in bp:
             shortcut = _conv(shortcut, bp["proj"], stride)
             shortcut, ns["proj_bn"] = _batch_norm(
-                shortcut, bp["proj_bn"], bs["proj_bn"], cfg, train)
+                shortcut, bp["proj_bn"], bs["proj_bn"], cfg, train, mesh)
         x = torch.relu(y + shortcut)
         new_state[name] = ns
     x = x.mean(dim=(2, 3)).float()                    # global avg pool
@@ -279,11 +293,13 @@ def forward(cfg: ResNetConfig, params: Params, state: Params,
 
 
 def loss_fn(cfg: ResNetConfig, params: Params, state: Params,
-            batch: Tuple[torch.Tensor, torch.Tensor]
+            batch: Tuple[torch.Tensor, torch.Tensor], mesh=None
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, Params]]:
     """``(loss, (accuracy, new bn_state))`` of ``batch = (x, labels)``, in
-    train mode."""
+    train mode; on a dp ``mesh`` the loss and accuracy are this rank's
+    (the train step averages them) and the state is the global batch's."""
     x, y = batch
-    logits, new_state = forward(cfg, params, state, x, train=True)
+    logits, new_state = forward(cfg, params, state, x, train=True,
+                                mesh=mesh)
     loss, acc = softmax_cross_entropy(logits, y)
     return loss, (acc, new_state)

@@ -14,9 +14,15 @@ the rate is 0 at step 0.
 
 Unlike the reference, whose jitted step donates and returns new arrays,
 :func:`make_train_step`'s step updates the parameters and the optimizer
-state IN PLACE and returns the same objects. There is no mesh yet.
-``has_aux_state`` is the ResNet batch-norm pattern: the loss returns a
-new state tree beside its metric, and the step hands it back detached.
+state IN PLACE and returns the same objects. With a process mesh whose
+``dp`` axis is larger than 1 (``parallel.mesh``), the parameters and the
+optimizer state are replicated on every rank, each rank backpropagates
+its own rows, and ONE collective a step (``Mesh.reduce_grads``) averages
+the gradients, the loss and the metric over ``dp`` before the clip and
+the update, so every rank applies the same global gradient and holds the
+same bits. ``has_aux_state`` is the ResNet batch-norm pattern: the loss
+returns a new state tree beside its metric, and the step hands it back
+detached.
 The step's backward and optimizer update run under
 ``train_step.backward`` and ``train_step.optimizer`` profiler ranges.
 
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -198,9 +204,20 @@ def _detached(tree: Any) -> Any:
     return tree.detach()
 
 
+def dp_rows(n_rows: int, mesh) -> Tuple[int, int]:
+    """``(start, count)`` of this rank's rows of a batch of ``n_rows``
+    that every rank holds whole: ``numpy.array_split``'s cut over the
+    ``dp`` axis (the first ``n_rows % dp`` ranks take one row more; a
+    rank may take none)."""
+    dp, r = mesh.shape["dp"], mesh.coords["dp"]
+    q, rem = divmod(n_rows, dp)
+    return r * q + min(r, rem), q + (1 if r < rem else 0)
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     grad_accum: int = 1,
-                    has_aux_state: bool = False) -> Callable:
+                    has_aux_state: bool = False, mesh=None,
+                    batch_spec: Optional[str] = "dp") -> Callable:
     """Build ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "metric"})``; ``loss_fn(params, batch)`` returns
     ``(loss, metric)``. Params and state are updated in place.
@@ -214,7 +231,18 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     many microbatches, runs their backward passes one after another,
     sums the gradients in fp32 and applies ONE update on their mean (cast
     back to each parameter's dtype); loss and metric are microbatch
-    means."""
+    means.
+
+    ``mesh`` with ``dp > 1`` (the reference's ``mesh=``): the gradients,
+    loss and metric are reduced over ``dp`` in one collective after the
+    backward, before the clip, and ``loss``/``metric`` are global means.
+    ``batch_spec="dp"`` (the reference's ``P("dp")``): ``batch`` is this
+    rank's equal share of the global batch, and the ranks' gradients are
+    averaged. ``batch_spec=None``: every rank holds the whole batch and
+    takes its rows (:func:`dp_rows`; ``grad_accum`` splits those), and
+    each rank's gradient is weighted by its share of the rows, so the
+    step equals one process's over the whole batch for any batch size; a
+    rank left with no rows adds zeros and still joins the collective."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if grad_accum > 1 and has_aux_state:
@@ -222,6 +250,15 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         # loss; the reference refuses the combination too
         raise NotImplementedError(
             "grad_accum > 1 with has_aux_state is not supported")
+    dp = mesh.shape["dp"] if mesh is not None else 1
+    if mesh is not None and mesh.size != dp:
+        raise NotImplementedError(
+            f"training on mesh {mesh.shape}: only the dp axis is ported "
+            "(tensor-parallel training is ROADMAP Queue 1 item 7d's "
+            "tensor-parallel half)")
+    if batch_spec not in ("dp", None):
+        raise ValueError(f"batch_spec must be 'dp' or None, got "
+                         f"{batch_spec!r}")
 
     def grads_of(params, leaves, batch):
         loss, metric = loss_fn(params, batch)
@@ -232,31 +269,46 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metric.detach(), grads, aux
 
+    def local_grads(params, leaves, batch):
+        if grad_accum == 1:
+            return grads_of(params, leaves, batch)
+        sums = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
+        loss = metric = 0.0
+        for mb in _split(batch, grad_accum):
+            l_mb, m_mb, g_mb, _ = grads_of(params, leaves, mb)
+            for acc, g in zip(sums, g_mb):
+                acc += g.float()
+            loss = loss + l_mb
+            metric = metric + m_mb
+            del g_mb
+        grads = [(acc / grad_accum).to(t.dtype)
+                 for acc, t in zip(sums, leaves)]
+        return loss / grad_accum, metric / grad_accum, grads, None
+
     def step(params, opt_state, batch):
         leaves = _leaves(params)
+        weight, empty = 1.0 / dp, False
+        if dp > 1 and batch_spec is None:
+            start, rows = dp_rows(batch.shape[0], mesh)
+            weight, empty = rows / batch.shape[0], rows == 0
+            batch = batch[start:start + rows]
         aux = None
         for t in leaves:
             t.requires_grad_(True)
         try:
-            if grad_accum == 1:
-                loss, metric, grads, aux = grads_of(params, leaves, batch)
+            if empty:
+                zero = torch.zeros((), device=leaves[0].device)
+                loss, metric = zero, zero
+                grads = [torch.zeros_like(t) for t in leaves]
             else:
-                sums = [torch.zeros_like(t, dtype=torch.float32)
-                        for t in leaves]
-                loss = metric = 0.0
-                for mb in _split(batch, grad_accum):
-                    l_mb, m_mb, g_mb, _ = grads_of(params, leaves, mb)
-                    for acc, g in zip(sums, g_mb):
-                        acc += g.float()
-                    loss = loss + l_mb
-                    metric = metric + m_mb
-                    del g_mb
-                grads = [(acc / grad_accum).to(t.dtype)
-                         for acc, t in zip(sums, leaves)]
-                loss, metric = loss / grad_accum, metric / grad_accum
+                loss, metric, grads, aux = local_grads(params, leaves, batch)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
+        if dp > 1:
+            with record_function("train_step.grad_all_reduce"):
+                grads, (loss, metric) = mesh.reduce_grads(
+                    grads, (loss.float(), metric.float()), weight)
         with record_function("train_step.optimizer"):
             apply_updates(optimizer, params, list(grads), opt_state)
         out = {"loss": loss, "metric": metric}

@@ -243,7 +243,7 @@ def test_template_mismatch_and_gangs_are_refused(tmp_path, monkeypatch):
     from dcos_commons_tpu_torch.parallel.mesh import Mesh
     rank1 = Mesh({"dp": 1, "pp": 1, "sp": 1, "tp": 2, "ep": 1},
                  {"dp": 0, "pp": 0, "sp": 0, "tp": 1, "ep": 0},
-                 torch.device("cpu"), "gloo")
+                 torch.device("cpu"), "gloo", rank=1)
     with pytest.raises(KeyError, match="another layout"):
         tc.restore_sharded(str(tmp_path), {"w": torch.zeros(3, 2)}, 2,
                            mesh=rank1, specs={"w": (None, "tp")})

@@ -286,7 +286,7 @@ def test_gang_restores_its_shards_from_out(tmp_path, monkeypatch):
     for rank in range(2):
         mesh = tmesh.Mesh({**{a: 1 for a in tmesh.AXES}, "tp": 2},
                           {**{a: 0 for a in tmesh.AXES}, "tp": rank},
-                          torch.device("cpu"), "gloo")
+                          torch.device("cpu"), "gloo", rank=rank)
         monkeypatch.setattr(tc, "_process_id", lambda r=rank: r)
         monkeypatch.setattr(tc, "_num_processes", lambda: 2)
         tc.save_sharded(str(out), 3, tl.shard_params(params, mesh, cfg),
@@ -330,10 +330,10 @@ GANG_ENV = {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1", "JAX_PROCESS_ID": "0",
     ("llama", [], {"WEIGHT_FETCH_PEERS": "http://127.0.0.1:9"},
      "peer_weights_not_ported"),
     ("llama", [], {"WEIGHT_SERVE_PORT": "0"}, "peer_weights_not_ported"),
-    ("mnist", [], {}, "gang_not_ported"),
-    ("resnet", [], {}, "gang_not_ported"),
-    ("llama-train", [], {}, "gang_not_ported"),
-    ("distill", [], {}, "gang_not_ported")])
+    ("llama-train", [], {}, "attn_not_ported"),
+    ("llama-train", ["--sp", "1", "--tp", "2"], {}, "train_tp_not_ported"),
+    ("llama-train", ["--sp", "1", "--pp", "2"], {}, "pipeline_not_ported"),
+    ("llama-train", ["--sp", "1", "--ep", "2"], {}, "moe_not_ported")])
 def test_gang_refusals_come_before_the_process_group(workload, args, env,
                                                      code, tmp_path, capsys,
                                                      monkeypatch):

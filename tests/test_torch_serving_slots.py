@@ -229,7 +229,7 @@ def _cuda_rank():
     from dcos_commons_tpu_torch.parallel.mesh import Mesh
     return Mesh({"dp": 1, "pp": 1, "sp": 1, "tp": 2, "ep": 1},
                 {"dp": 0, "pp": 0, "sp": 0, "tp": 0, "ep": 0},
-                torch.device("cuda"), "nccl")
+                torch.device("cuda"), "nccl", rank=0)
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=_cuda_rank()),

@@ -284,10 +284,11 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 # (index, workload, args, env, code): the index keeps each case's id as
 # it was while speculative decoding, the checkpoint restore, profiling,
 # MoE serving, the disaggregated roles (3, 4), the router role (5) and the
-# peer weight fetch (9) were refused (MoE training and ResNet across
-# slices stay refused: they need the mesh; a gang serves since the
-# process mesh, and 13 is now MoE on a gang, refused before the process
-# group forms)
+# peer weight fetch (9) were refused (MoE training stays refused: it
+# needs the mesh; a gang serves since the process mesh, and 13 is now MoE
+# on a gang, refused before the process group forms; ResNet across
+# slices (14) trains since the dp axis, and 15 is tensor-parallel
+# training on a gang)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
@@ -295,8 +296,9 @@ REFUSALS = [
     (13, "llama", ["--pages", "64", "--moe-experts", "4"],
      {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
       "JAX_NUM_PROCESSES": "2"}, "not_ported"),
-    (14, "resnet", [], {"MEGASCALE_NUM_SLICES": "2"},
-     "multislice_not_ported"),
+    (15, "llama-train", ["--sp", "1", "--tp", "2"],
+     {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
+      "JAX_NUM_PROCESSES": "2"}, "train_tp_not_ported"),
 ]
 
 

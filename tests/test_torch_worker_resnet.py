@@ -3,7 +3,7 @@
 reference's checkpoint keys, shapes and dtypes, the optimizer counts
 (``resnet`` keeps the warm-up's update: Adam count k + 1 at step k),
 ``--emit-every`` progress lines, ``final_loss`` null when nothing ran,
-the ``multislice_not_ported`` refusal, and checkpoints crossing between
+the mesh refusing more slices than processes, and checkpoints crossing between
 the packages in both directions.
 
 The reference's ``mnist`` runs in process. Its ``resnet`` shards the
@@ -138,12 +138,14 @@ def test_a_resnet_run_past_its_target_reports_null_loss(tmp_path, capsys):
 
 
 def test_resnet_across_slices_is_refused(monkeypatch, capsys):
+    """Across slices the dp axis spans ``MEGASCALE_NUM_SLICES`` slices of
+    ``n // slices`` processes each; one process cannot hold 2 slices, and
+    the mesh refuses it as the reference's mesh refuses too few devices
+    (the gang cases are ``tests/test_torch_worker_dp.py``'s)."""
     monkeypatch.setenv("MEGASCALE_NUM_SLICES", "2")
-    assert tworker.main([*RESNET, *CPU]) == 2
-    errors = [e for e in _events(capsys) if e["event"] == "error"]
-    assert len(errors) == 1
-    assert errors[0]["code"] == "multislice_not_ported"
-    assert "item 7" in errors[0]["error"]
+    with pytest.raises(ValueError, match="needs 0 processes"):
+        tworker.main([*RESNET, *CPU])
+    assert [e["event"] for e in _events(capsys)] == ["start"]
 
 
 def test_mnist_matches_the_reference_and_resumes_across(tmp_path, capsys):

@@ -51,7 +51,7 @@ FAULTS = {
             "    coords = dict(mesh.coords)\n"
             "    coords[\"tp\"] = mesh.shape[\"tp\"] - 1 - coords[\"tp\"]\n"
             "    return Mesh(mesh.shape, coords, mesh.device, "
-            "mesh.backend)\n\n\n"
+            "mesh.backend, rank=mesh.rank)\n\n\n"
             "def local_kv_heads(")],
     "p3": [(LLAMA, "        logits = mesh.all_gather(logits, \"tp\", dim=-1)\n",
             "        logits = torch.cat(mesh.all_gather(logits, \"tp\", "
