@@ -260,6 +260,25 @@ Phases (any failure exits non-zero):
    3 (both resume at 2), then 4 after rank 1's newest step is removed
    (both resume at 2), the same ``final_loss`` and progress on both
    ranks; the ``worker_dp`` line.
+17. Tensor-parallel training over a process mesh (``dist/longctx.yml``'s
+   ``worker`` pods at tp=2), after phase 14a: two ranks sharing the card
+   over gloo (not a TP speed). 17a: ``llama_400m`` at phase 4's weights
+   and batch (16 x 512), bf16 at full depth with ``attn_impl="flash"``,
+   kernels 3-5 on each rank's 6 query and 3 KV heads, a warm-up and 3
+   steps (step ms, collectives a step against the count worked out from
+   the code, their host share, peak memory a rank, launches zeroed just
+   before and read just after), the warm-up loss held to one process's
+   bf16 loss on the whole init; then fp32 at 2 layers with dense
+   attention, the first pass's loss and every gradient leaf gathered
+   whole and the update after 2 steps held in rank 0 to one process of
+   the port on the same weights; the norms and their moments bitwise
+   equal across the ranks; the ``tp_train`` line. 17b (beside phase 16):
+   two ``worker llama-train --sp 1 --tp 2 --attn flash`` processes under
+   the rank contract, launched with ``--steps`` 2, 4 (both resume at 2)
+   and 4 after rank 1's newest step is removed (both resume at 2 and end
+   at the second launch's loss bit for bit); the ``worker_tp_train``
+   line. Phase 2 also holds kernels 3-5 at one rank's heads (B=16,
+   S=511, H=6, KV=3, D=128).
 
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
@@ -267,8 +286,8 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``training``, ``distill``, ``llama_train``, ``spec``, ``moe``,
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
 ``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``tp``,
-``worker_tp``, ``resnet``, ``worker_resnet``, ``dp``, ``worker_dp``
-and ``phase_s`` lines,
+``worker_tp``, ``resnet``, ``worker_resnet``, ``dp``, ``worker_dp``,
+``tp_train``, ``worker_tp_train`` and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -588,6 +607,8 @@ TP_SLOT_CASES = ((False, KV_LENS), (True, KV_LENS))
 
 # (name, B, S, H, KV, D): causal, q_offset 0; the first is the main path
 FA_SHAPES = (("llama_400m_train", 16, 511, 12, 6, 128),
+             # one rank's heads of llama_400m under tp=2 (phase 17a)
+             ("llama_400m_train_tp2", 16, 511, 6, 3, 128),
              ("llama3_8b_heads", 2, 2048, 32, 8, 128),
              ("llama3_8b_distill", 32, 256, 32, 8, 128))
 # forward only: the slot-prefill bucket that serving runs ([8, 2048])
@@ -6091,6 +6112,412 @@ def phase_dp_worker(card: str, depth=RESNET_DEPTH, batch=DP_WORKER_BATCH,
     return line
 
 
+# --------------------------------------------------------------- phase 17
+
+TPT_WORLD = 2
+# 17a: a tp gang of TPT_WORLD ranks sharing the card over gloo trains
+# llama_400m at phase 4's shape and seed: bf16 at full depth with
+# --attn flash (kernels 3-5 on each rank's 6 query and 3 KV heads), a
+# warm-up and TPT_BF16_STEPS timed steps; then fp32 at TPT_FP32_LAYERS
+# layers with dense attention, held whole (every gradient leaf gathered
+# over tp) to one process of the port on the same weights and batch in
+# rank 0: the first pass's loss within TPT_LOSS_RTOL, each gradient leaf
+# within TPT_GRAD_TOL of its largest with cosine >= TPT_GRAD_COSINE, and
+# after TPT_FP32_STEPS steps the update (params minus init; the rate is 0
+# at step 0) by cosine >= TPT_UPDATE_COSINE. The bf16 warm-up loss within
+# LOSS_ATOL of one process's bf16 loss on the whole init. Bounds written
+# before the first card run (PERF.md §6)
+TPT_BF16_STEPS = 3
+TPT_FP32_LAYERS, TPT_FP32_STEPS = 2, 2
+TPT_LOSS_RTOL, TPT_GRAD_TOL, TPT_GRAD_COSINE = 1e-5, 1e-3, 0.9999
+TPT_UPDATE_COSINE = 0.99
+TPT_TIMEOUT_S = 600
+# the card's sizes; a CPU rehearsal passes a smaller spec
+TPT_SPEC = {"preset": "llama_400m", "cfg": {}, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "fp32_layers": TPT_FP32_LAYERS}
+# 17b: two `worker llama-train --sp 1 --tp 2 --attn flash --out VOL`
+# processes under the rank contract, launched with these --steps in turn
+# (rank 1's newest step removed before the third)
+TPT_WORKER_STEPS = (2, 4, 4)
+TPT_WORKER_LAYERS = 4                   # LlamaConfig.tiny
+
+
+def tp_collectives_per_step(layers: int, seq: int, block: int,
+                            fused: bool = True, dp: int = 1) -> int:
+    """The collectives of one tp train step, from the code: one for the
+    embedding's "g", four a layer ("f" backward and "g" forward around
+    attention and the FFN), the fused head's two a sequence block forward
+    and one backward (unfused: the gather and its input's "f"), one for
+    the clip's norm and, with dp, one gradient reduction."""
+    head = 2 * -(-(seq - 1) // block) + 1 if fused else 2
+    return 1 + 4 * layers + head + 1 + (dp > 1)
+
+
+def _replicated_digest(trees) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for tree in trees:
+        for name, t in sorted(_named(tree)):
+            if name.endswith("norm"):
+                h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_train_rank(device: str = "cuda", spec=TPT_SPEC) -> dict:
+    """One rank of phase 17a (run by ``launch_local`` in a process of its
+    own): ``MeshSpec(tp=world)``; the bf16 steps at full depth through
+    the kernels (step ms, collectives and their host ms, peak memory, the
+    kernels' launches counted from 0 around the warm-up and the steps);
+    in rank 0 one process's bf16 loss on the whole init; then the fp32
+    check, every leaf gathered whole, held in rank 0 to one process on
+    the same weights. ``device`` ``"cpu"`` rehearses it on the CPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, train
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec, gather_whole
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MeshSpec(tp=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    preset = getattr(llama.LlamaConfig, spec["preset"])
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "layout": mesh.layout, "part_s": {}}
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, preset(**spec["cfg"]).vocab_size,
+        (spec["batch"], spec["seq"])).astype(np.int32)).to(dev)
+
+    def run(cfg, seed, n_steps, **opt_kw):
+        """The gang's ``n_steps`` from ``init_params(mesh=)``: (params,
+        losses, step seconds, collectives and their host seconds a
+        step)."""
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+            mesh=mesh)
+        opt = train.make_optimizer(**opt_kw)
+        step = train.make_train_step(
+            lambda p, b: llama.loss_fn(cfg, p, b, mesh), opt, mesh=mesh,
+            batch_spec=None, param_spec_tree=llama.param_specs(cfg))
+        state = train.init_opt_state(opt, params)
+        losses, secs, counts, coll_s = [], [], [], []
+        for _ in range(n_steps):
+            _sync(dev)
+            c0, s0, t0 = mesh.collectives, mesh.collective_s, \
+                time.perf_counter()
+            params, state, o = step(params, state, toks)
+            losses.append(float(o["loss"]))
+            secs.append(time.perf_counter() - t0)
+            counts.append(mesh.collectives - c0)
+            coll_s.append(mesh.collective_s - s0)
+        return params, state, losses, secs, counts, coll_s
+
+    # bf16 at full depth through the kernels: phase 4's weights and batch
+    t0 = time.perf_counter()
+    cfg = preset(max_seq=spec["seq"], remat=False, attn_impl="flash",
+                 **spec["cfg"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    counters = [getattr(fa, name) for name in FA_KERNELS]
+    for c in counters:
+        c.launches = 0
+    params, state, losses, secs, counts, coll_s = run(
+        cfg, SEED, 1 + TPT_BF16_STEPS, lr=3e-4, warmup=10, decay_steps=1000)
+    launches = {name: c.launches for name, c in zip(FA_KERNELS, counters)}
+    timed = slice(1, None)
+    out["bf16"] = {
+        "layers": cfg.n_layers, "heads_per_rank": cfg.n_heads // mesh.size,
+        "kv_heads_per_rank": cfg.n_kv_heads // mesh.size,
+        "losses": losses, "warmup_s": secs[0],
+        "step_ms": float(np.mean(secs[timed])) * 1e3,
+        "collectives_per_step": counts,
+        "collective_ms_per_step": float(np.mean(coll_s[timed])) * 1e3,
+        "collective_share": sum(coll_s[timed]) / sum(secs[timed]),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else None),
+        "launches": launches,
+        "replicated_digest": _replicated_digest(
+            (params, state.mu, state.nu))}
+    del params, state
+    if mesh.rank == 0:
+        whole = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        with torch.no_grad():
+            one = float(llama.loss_fn(cfg, whole, toks)[0])
+        out["bf16"]["one_process_loss"] = one
+        out["bf16"]["loss_abs_err"] = abs(losses[0] - one)
+        del whole
+    if cuda:
+        torch.cuda.empty_cache()
+    out["part_s"]["bf16"] = time.perf_counter() - t0
+
+    # fp32 at spec["fp32_layers"] layers, dense attention
+    t0 = time.perf_counter()
+    cfg32 = preset(max_seq=spec["seq"], remat=False, attn_impl="dense",
+                   dtype=torch.float32,
+                   **{**spec["cfg"], "n_layers": spec["fp32_layers"]})
+    specs = llama.param_specs(cfg32)
+    seed32 = SEED + 17
+    params = llama.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(seed32), device=dev,
+        mesh=mesh)
+    leaves = train._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    c0 = mesh.collectives
+    loss, acc = llama.loss_fn(cfg32, params, toks, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    first_collectives = mesh.collectives - c0
+    for t in leaves:
+        t.requires_grad_(False)
+    names = [n for n, _ in _named(params)]
+    spec_of = dict(_named(specs))
+    grads = {n: gather_whole(g, spec_of[n], mesh)
+             for n, g in zip(names, grads)}
+    del params, leaves
+    params, state, losses32, _, counts32, _ = run(
+        cfg32, seed32, TPT_FP32_STEPS, lr=3e-4, warmup=10, decay_steps=1000)
+    out["fp32"] = {"loss": float(loss.detach()), "acc": float(acc),
+                   "first_pass_collectives": first_collectives,
+                   "losses": losses32, "collectives_per_step": counts32,
+                   "replicated_digest": _replicated_digest(
+                       (params, state.mu, state.nu))}
+    final = {n: gather_whole(t, spec_of[n], mesh)
+             for n, t in _named(params)}
+    del params, state
+    if mesh.rank == 0:
+        whole = llama.init_params(
+            cfg32, torch.Generator(device=dev).manual_seed(seed32),
+            device=dev)
+        init = {n: t.clone() for n, t in _named(whole)}
+        w_leaves = train._leaves(whole)
+        for t in w_leaves:
+            t.requires_grad_(True)
+        w_loss, w_acc = llama.loss_fn(cfg32, whole, toks)
+        w_grads = dict(zip([n for n, _ in _named(whole)],
+                           torch.autograd.grad(w_loss, w_leaves)))
+        for t in w_leaves:
+            t.requires_grad_(False)
+        err = {"loss_rel_err": abs(float(loss) / float(w_loss) - 1),
+               "acc": float(acc), "acc_one_process": float(w_acc)}
+        for n, g in w_grads.items():
+            err[f"grad_err {n}"] = _rel_max(grads[n], g)
+            err[f"grad_cosine {n}"] = _cos(grads[n], g)
+        del grads, w_grads
+        opt = train.make_optimizer(lr=3e-4, warmup=10, decay_steps=1000)
+        step = train.make_train_step(lambda p, b: llama.loss_fn(cfg32, p, b),
+                                     opt)
+        state = train.init_opt_state(opt, whole)
+        one_losses = []
+        for _ in range(TPT_FP32_STEPS):
+            whole, state, o = step(whole, state, toks)
+            one_losses.append(float(o["loss"]))
+        d = update_agreement({"final": [final[n] for n in init]},
+                             {"init": list(init.values()),
+                              "final": [t for _, t in _named(whole)]})
+        err.update({"update_" + k: v for k, v in d.items()},
+                   one_process_losses=one_losses)
+        out["fp32"]["vs_one_process"] = err
+        del whole, state, init
+    del final
+    if cuda:
+        torch.cuda.empty_cache()
+    out["part_s"]["fp32"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp_train(card: str, dev="cuda", spec=TPT_SPEC) -> tuple:
+    """Phase 17a: a gang of ``TPT_WORLD`` ranks sharing the card
+    (:func:`tp_train_rank`), the fp32 check's agreement read from rank 0,
+    the replicated leaves (the norms and their moments) bitwise equal on
+    every rank, one loss stream, the collectives a step against
+    :func:`tp_collectives_per_step`, and every kernel launched on each
+    rank. Returns (line, {kernel: launches summed over the ranks})."""
+    import math
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    ranks = launch_local(tp_train_rank, TPT_WORLD, dev.type, spec,
+                         timeout_s=TPT_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    preset = getattr(llama.LlamaConfig, spec["preset"])
+    cfg = preset(**spec["cfg"])
+    block = cfg.fused_ce_block
+    want_bf16 = tp_collectives_per_step(cfg.n_layers, spec["seq"], block)
+    want_fp32 = tp_collectives_per_step(spec["fp32_layers"], spec["seq"],
+                                        block)
+    problems = []
+    head = ranks[0]
+    for r in ranks:
+        b, f = r["bf16"], r["fp32"]
+        if b["collectives_per_step"] != [want_bf16] * (1 + TPT_BF16_STEPS):
+            problems.append(f"rank {r['rank']} bf16 collectives "
+                            f"{b['collectives_per_step']}, want {want_bf16}")
+        if f["collectives_per_step"] != [want_fp32] * TPT_FP32_STEPS \
+                or f["first_pass_collectives"] != want_fp32 - 1:
+            problems.append(f"rank {r['rank']} fp32 collectives "
+                            f"{f['first_pass_collectives']}, "
+                            f"{f['collectives_per_step']}, want {want_fp32}")
+        if not all(math.isfinite(x) for x in b["losses"]):
+            problems.append(f"rank {r['rank']} bf16 losses {b['losses']}")
+        if dev.type == "cuda" and set(b["launches"].values()) != {
+                cfg.n_layers * (1 + TPT_BF16_STEPS)}:
+            problems.append(f"rank {r['rank']} kernel launches "
+                            f"{b['launches']}")
+        for part in ("bf16", "fp32"):
+            if r[part]["replicated_digest"] != head[part]["replicated_digest"]:
+                problems.append(f"{part}: rank {r['rank']}'s norms or their "
+                                "moments differ from rank 0's")
+            if r[part]["losses"] != head[part]["losses"]:
+                problems.append(f"{part}: the ranks' losses differ")
+    if head["bf16"]["loss_abs_err"] > LOSS_ATOL:
+        problems.append(f"bf16 loss {head['bf16']['losses'][0]} against one "
+                        f"process's {head['bf16']['one_process_loss']}")
+    agree = head["fp32"]["vs_one_process"]
+    if agree["loss_rel_err"] > TPT_LOSS_RTOL:
+        problems.append(f"fp32 loss off by {agree['loss_rel_err']}")
+    grad_err = max(v for k, v in agree.items() if k.startswith("grad_err"))
+    grad_cos = min(v for k, v in agree.items()
+                   if k.startswith("grad_cosine"))
+    if grad_err > TPT_GRAD_TOL or grad_cos < TPT_GRAD_COSINE:
+        problems.append(f"fp32 gradients: largest error {grad_err}, least "
+                        f"cosine {grad_cos}")
+    if agree["update_cosine"] < TPT_UPDATE_COSINE:
+        problems.append(f"fp32 update cosine {agree['update_cosine']}")
+    if problems:
+        raise RuntimeError("tp train phase: " + "; ".join(problems))
+    launches = {k: sum(r["bf16"]["launches"][k] for r in ranks)
+                for k in FA_KERNELS}
+    line = {"tp_train": {
+        "world": len(ranks), "backend": head["backend"],
+        "devices": [r["device"] for r in ranks], "layout": head["layout"],
+        "gang_s": gang_s, "rank_part_s": [r["part_s"] for r in ranks],
+        "card": card, "model": spec["preset"], "batch": spec["batch"],
+        "seq": spec["seq"],
+        "bf16": {**{k: [r["bf16"][k] for r in ranks] for k in (
+                     "step_ms", "warmup_s", "collective_ms_per_step",
+                     "collective_share", "peak_mem_gb", "launches")},
+                 **{k: head["bf16"][k] for k in (
+                     "layers", "heads_per_rank", "kv_heads_per_rank",
+                     "losses", "one_process_loss", "loss_abs_err",
+                     "collectives_per_step")},
+                 "collectives_predicted": want_bf16,
+                 "loss_atol": LOSS_ATOL,
+                 "label": "two ranks on one card over gloo; not a TP "
+                          "number"},
+        "fp32": {"layers": spec["fp32_layers"], "attn": "dense",
+                 **{k: head["fp32"][k] for k in (
+                     "loss", "acc", "losses", "first_pass_collectives",
+                     "collectives_per_step")},
+                 "collectives_predicted": want_fp32,
+                 "vs_one_process": {
+                     **{k: v for k, v in agree.items()
+                        if not k.startswith("grad_")},
+                     "grad_err_max": grad_err, "grad_cosine_min": grad_cos,
+                     "grad_err": {k[9:]: v for k, v in agree.items()
+                                  if k.startswith("grad_err ")}},
+                 "bounds": {"loss_rtol": TPT_LOSS_RTOL,
+                            "grad": TPT_GRAD_TOL,
+                            "grad_cosine": TPT_GRAD_COSINE,
+                            "update_cosine": TPT_UPDATE_COSINE}},
+        "replicated_bitwise_equal": True}}
+    log(f"[tp_train] {json.dumps(line)}")
+    return line, launches
+
+
+def phase_tp_train_worker(card: str, steps=TPT_WORKER_STEPS,
+                          extra=()) -> tuple:
+    """Phase 17b: ``dist/longctx.yml``'s ``worker`` pods at tp=2, two
+    ``worker llama-train --sp 1 --tp 2 --attn flash --out VOL`` processes
+    under the rank contract (in ``build/tp_train_worker_smoke``),
+    launched with ``--steps`` ``steps[0]``, ``steps[1]`` (both must
+    resume at ``steps[0]``), then, with rank 1's newest step removed,
+    ``steps[2]`` (both must resume at ``steps[0]`` again and end at the
+    second launch's loss, bit for bit). Every launch: both ranks exit 0
+    with one ``final_loss``, ``mesh`` tp 2, kernels 3-5 launched once a
+    layer a step on each rank (the warm-up's too). The
+    ``worker_tp_train`` line and {kernel: launches over every launch and
+    rank}."""
+    import math
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "tp_train_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0_phase = time.perf_counter()
+    lt = ["llama-train", "--sp", "1", "--tp", "2", "--attn", "flash", *extra]
+    on_card = "cpu" not in extra
+    runs, problems, finals = [], [], []
+    launches = {k: 0 for k in FA_KERNELS}
+    for i, n in enumerate(steps):
+        if i == 2:
+            vol = base / "r1" / "vol"
+            newest = sorted(d for d in os.listdir(vol)
+                            if d.startswith("step-"))[-1]
+            shutil.rmtree(vol / newest)
+        t0 = time.perf_counter()
+        res = _gang_worker_run([*lt, "--steps", str(n)], base, world=2)
+        wall = time.perf_counter() - t0
+        dones, resumed = [], []
+        for r, (rc, events) in enumerate(res):
+            done = [e for e in events if e.get("event") == "done"]
+            if rc != 0 or not done:
+                problems.append(f"launch {i} rank {r}: exit {rc}, "
+                                f"{events[-2:]}")
+                continue
+            dones.append(done[0])
+            resumed.append([e["step"] for e in events
+                            if e.get("event") == "resumed"])
+        runs.append({"steps": n, "wall_s": wall, "resumed": resumed,
+                     "final_loss": [d["final_loss"] for d in dones],
+                     "mesh": [d["mesh"] for d in dones],
+                     "launches": [d.get("launches") for d in dones],
+                     "collectives": [d.get("collectives") for d in dones],
+                     "collective_s": [d.get("collective_s") for d in dones],
+                     "peak_mem_gb": [d.get("peak_mem_gb") for d in dones]})
+        if len(dones) != 2:
+            continue
+        want_resume = [] if i == 0 else [steps[0]]
+        if any(r != want_resume for r in resumed):
+            problems.append(f"launch {i}: resumed {resumed}, want "
+                            f"{want_resume} on every rank")
+        if len({d["final_loss"] for d in dones}) != 1 \
+                or not math.isfinite(dones[0]["final_loss"] or math.nan):
+            problems.append(f"launch {i}: final losses "
+                            f"{[d['final_loss'] for d in dones]}")
+        finals.append(dones[0]["final_loss"])
+        if any(d["mesh"] != {"dp": 1, "sp": 1, "tp": 2} for d in dones):
+            problems.append(f"launch {i}: mesh {dones[0]['mesh']}")
+        ran = dones[0]["steps_run"] + 1          # and the warm-up
+        for d in dones:
+            got = d.get("launches") or {}
+            if on_card and set(got.values()) != {ran * TPT_WORKER_LAYERS}:
+                problems.append(f"launch {i}: kernel launches {got}, want "
+                                f"{ran * TPT_WORKER_LAYERS} each")
+            for k in launches:
+                launches[k] += got.get(k, 0)
+    if len(finals) == 3 and finals[1] != finals[2]:
+        problems.append(f"the relaunch after rank 1 lost its newest step "
+                        f"ends at {finals[2]}, the second launch at "
+                        f"{finals[1]}")
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("tp train worker phase: " + "; ".join(problems))
+    line = {"worker_tp_train": {
+        "command": "2 x python -m dcos_commons_tpu_torch.frameworks.worker "
+                   "llama-train --sp 1 --tp 2 --attn flash --out VOL under "
+                   "JAX_COORDINATOR_ADDRESS/JAX_PROCESS_ID/"
+                   f"JAX_NUM_PROCESSES, --steps {steps[0]}, then "
+                   f"{steps[1]}, then {steps[2]} with rank 1's newest step "
+                   "removed", "runs": runs,
+        "wall_s": time.perf_counter() - t0_phase,
+        "label": "two ranks on one card; not a TP speed", "card": card}}
+    log(f"[worker_tp_train] {json.dumps(line)}")
+    return line, launches
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -6227,14 +6654,18 @@ def main() -> int:
     resnet_line = timed_phase("14_resnet", phase_resnet, card)
     gc.collect()
     torch.cuda.empty_cache()
-    # 16a/16c beside 9's worker runs: the gang waits on the host for its
-    # collectives, the workers' runs are mostly process starts
+    tp_train_line, tp_train_launches = timed_phase(
+        "17a_tp_train", phase_tp_train, card)
+    # 16a/16c beside 9's and 17b's worker runs: the gang waits on the host
+    # for its collectives, the workers' runs are mostly process starts
     side = {}
-    timed_phase("16_dp_9_llama_train", _side_by_side,
+    timed_phase("16_dp_9_llama_train_17b_worker_tp_train", _side_by_side,
                 lambda: side.update(dp=phase_dp(card)),
-                lambda: side.update(lt=phase_llama_train(card)))
+                lambda: side.update(lt=phase_llama_train(card)),
+                lambda: side.update(tpw=phase_tp_train_worker(card)))
     dp_line, dp_launches = side["dp"]
     llama_train_line = side["lt"]
+    tp_worker_line, tp_worker_launches = side["tpw"]
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -6317,7 +6748,10 @@ def main() -> int:
                        "distill_dp": dp_launches["flash_attention_fwd"],
                        "tp": tp_launches["flash_attention_fwd"],
                        "worker_tp":
-                           worker_tp_launches["flash_attention_fwd"]},
+                           worker_tp_launches["flash_attention_fwd"],
+                       "train_tp": tp_train_launches["flash_attention_fwd"],
+                       "worker_tp_train":
+                           tp_worker_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
         _kernel_entry("flash_attention_bwd_dkdv",
                       csrc + "flash_attention_bwd.cu",
@@ -6325,14 +6759,21 @@ def main() -> int:
                       {"training": fa_launches["flash_attention_bwd_dkdv"],
                        "distill":
                            distill_launches["flash_attention_bwd_dkdv"],
-                       "distill_dp": dp_launches["flash_attention_bwd_dkdv"]},
+                       "distill_dp": dp_launches["flash_attention_bwd_dkdv"],
+                       "train_tp":
+                           tp_train_launches["flash_attention_bwd_dkdv"],
+                       "worker_tp_train":
+                           tp_worker_launches["flash_attention_bwd_dkdv"]},
                       fa_cases["dkdv"], fa_tol),
         _kernel_entry("flash_attention_bwd_dq",
                       csrc + "flash_attention_bwd.cu",
                       "dcos_commons_tpu/ops/flash_attention.py:256",
                       {"training": fa_launches["flash_attention_bwd_dq"],
                        "distill": distill_launches["flash_attention_bwd_dq"],
-                       "distill_dp": dp_launches["flash_attention_bwd_dq"]},
+                       "distill_dp": dp_launches["flash_attention_bwd_dq"],
+                       "train_tp": tp_train_launches["flash_attention_bwd_dq"],
+                       "worker_tp_train":
+                           tp_worker_launches["flash_attention_bwd_dq"]},
                       fa_cases["dq"], fa_tol),
     ]
     sdpa = "scaled_dot_product_attention(attn_mask=kv_len, enable_gqa) over "
@@ -6367,6 +6808,8 @@ def main() -> int:
     print(json.dumps(resnet_worker_line), flush=True)
     print(json.dumps(dp_line), flush=True)
     print(json.dumps(dp_worker_line), flush=True)
+    print(json.dumps(tp_train_line), flush=True)
+    print(json.dumps(tp_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

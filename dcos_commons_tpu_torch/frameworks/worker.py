@@ -137,18 +137,18 @@ process its own share of the global batch of ``--batch x N`` with
 batch-norm statistics over all of it, every process resuming at the
 newest step every process holds and saving the whole state to its own
 ``step-N-p{rank}``; ``distill`` over ``MeshSpec(dp=N)``; ``llama-train``
-over the reference's clamped axes, where ``sp > 1`` (its default on an
-even gang: ``attn_not_ported``, item 9) and ``tp > 1``
-(``train_tp_not_ported``, item 7d) refuse before the process group
+over the reference's clamped axes as ``MeshSpec(dp, tp)``, each rank
+holding its Megatron shards, where ``sp > 1`` (its default on an even
+gang: ``attn_not_ported``, item 9) refuses before the process group
 forms; ``mnist`` trains alone in each process, as in the reference.
 The ranks' collectives (``parallel.mesh``) run over gloo when ranks
 share a card.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (tensor-parallel training: item 7d;
-expert-parallel MoE training, pipelines, ring prefill and ring or
-Ulysses attention: item 9; live resharding: item 10).
+ROADMAP Queue 1 item (expert-parallel MoE training, pipelines, ring
+prefill and ring or Ulysses attention: item 9; live resharding: item
+10).
 """
 
 from __future__ import annotations
@@ -202,24 +202,27 @@ def _divisor_at_most(limit: int, total: int) -> int:
     return 1
 
 
-def _dp_mesh(device: str, dp: int, dcn: int = 1):
+def _train_mesh(device: str, dp: int, tp: int = 1, dcn: int = 1):
     """The process group from the rank contract and this rank's
-    ``MeshSpec(dp=dp, dcn=dcn)`` mesh on ``device``: ``(contract,
+    ``MeshSpec(dp=dp, tp=tp, dcn=dcn)`` mesh on ``device``: ``(contract,
     mesh)``. A gang the mesh does not fit raises (ValueError), as the
     reference's mesh does; a gang never trains alone."""
     from ..parallel import distributed
     from ..parallel.mesh import MeshSpec
     contract = distributed.initialize()
-    return contract, MeshSpec(dp=dp, dcn=dcn).build(device)
+    return contract, MeshSpec(dp=dp, tp=tp, dcn=dcn).build(device)
 
 
 def _mesh_report(mesh) -> dict:
-    """On a gang: the dp axis, and the collectives' count and host
-    seconds (the device wait before each staged copy excluded); nothing
-    for one process, whose result keys stay the reference's."""
+    """On a gang: the dp axis (and tp, when larger than 1), and the
+    collectives' count and host seconds (the device wait before each
+    staged copy excluded); nothing for one process, whose result keys
+    stay the reference's."""
     if mesh.size == 1:
         return {}
-    return {"dp": mesh.shape["dp"], "collectives": mesh.collectives,
+    return {"dp": mesh.shape["dp"],
+            **({"tp": mesh.shape["tp"]} if mesh.shape["tp"] > 1 else {}),
+            "collectives": mesh.collectives,
             "collective_s": round(mesh.collective_s, 6),
             "backend": mesh.backend}
 
@@ -976,13 +979,31 @@ def _train_tree(params, opt_state) -> dict:
     return {"params": params, "opt_state": train.opt_state_tree(opt_state)}
 
 
-def _restore_train(out_dir: str, params, opt_state, step: int):
+def _train_specs(params, specs, mesh) -> dict:
+    """The gang checkpoint's layout of a tp train tree: ``specs`` (the
+    live tree's) and ``disk_specs`` (the reference's, whose optimizer
+    state is placed by shape: ``train.opt_state_specs``). Without tp,
+    nothing: every leaf whole."""
+    from ..models import train
+    if mesh is None or mesh.shape["tp"] == 1:
+        return {}
+    return {"mesh": mesh,
+            "specs": {"params": specs,
+                      "opt_state": train.moment_specs(specs)},
+            "disk_specs": {"params": specs,
+                           "opt_state": train.opt_state_specs(params, specs,
+                                                              mesh)}}
+
+
+def _restore_train(out_dir: str, params, opt_state, step: int,
+                   layout=None):
     """``(params, opt_state)`` of ``step`` under ``out_dir``, restored
-    into the live tree's structure, dtypes and device."""
+    into the live tree's structure, dtypes and device (``layout``:
+    :func:`_train_specs`, none for a tree every rank holds whole)."""
     from ..models import train
     from ..parallel import checkpoint as ckpt
     tree = ckpt.restore_sharded(out_dir, _train_tree(params, opt_state),
-                                step)
+                                step, **(layout or {}))
     return tree["params"], train.opt_state_from_tree(tree["opt_state"])
 
 
@@ -1092,7 +1113,8 @@ def run_resnet(args) -> dict:
 
     num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
     n = _gang_size()
-    contract, mesh = _dp_mesh(args.device, n // num_slices, num_slices)
+    contract, mesh = _train_mesh(args.device, n // num_slices,
+                                 dcn=num_slices)
     dev = mesh.device
     if dev.type == "cuda":
         # the shapes never change: let cuDNN time each conv's algorithms
@@ -1178,10 +1200,13 @@ def run_llama_train(args) -> dict:
     On a gang of ``n`` processes the axes follow the reference's rule:
     ``sp`` (``--sp``, by default 2 on an even gang) and ``tp`` (``--tp``)
     clamped to divisors of ``n``, ``dp`` the rest. ``sp > 1`` (ring
-    attention, item 9) and ``tp > 1`` (item 7d's tensor-parallel half)
-    refuse before the process group forms; ``dp`` alone trains over
-    ``max(2 * dp, 1)`` rows that every process holds, each rank
-    backpropagating its own."""
+    attention, item 9) refuses before the process group forms. The mesh
+    is ``MeshSpec(dp, tp)``: each rank draws the whole init and keeps its
+    Megatron shards (``llama.param_specs``), the batch is ``max(2 * dp,
+    1)`` rows that every process holds, each dp coordinate
+    backpropagating its own, and the gang checkpoint holds each rank's
+    shards as the reference's processes write them (the optimizer state
+    placed by shape, ``train.opt_state_specs``)."""
     from ..models import llama, train
     from ..parallel import checkpoint as ckpt
     from . import sentinel as sentinel_mod
@@ -1192,7 +1217,7 @@ def run_llama_train(args) -> dict:
     if args.ep > 1:
         raise NotPorted("moe_not_ported", "--ep > 1: expert-parallel (MoE) "
                         "training needs the device mesh, not ported yet "
-                        "(ROADMAP Queue 1 item 7)")
+                        "(ROADMAP Queue 1 item 9)")
     if args.attn in ("ring", "ulysses"):
         raise NotPorted("attn_not_ported", f"--attn {args.attn}: sequence-"
                         "parallel attention is not ported yet (ROADMAP "
@@ -1211,20 +1236,17 @@ def run_llama_train(args) -> dict:
         raise NotPorted("attn_not_ported", f"sp={sp} over {n} processes "
                         "(--sp, or its default on an even gang): sequence-"
                         "parallel (ring) attention is not ported yet "
-                        "(ROADMAP Queue 1 item 9); --sp 1 trains dp only")
-    if tp > 1:
-        raise NotPorted("train_tp_not_ported", f"tp={tp}: tensor-parallel "
-                        "training is not ported yet (ROADMAP Queue 1 item "
-                        "7d, its tensor-parallel half); --tp 1 trains dp "
-                        "only")
-    contract, mesh = _dp_mesh(args.device, dp)
+                        "(ROADMAP Queue 1 item 9); --sp 1 trains dp and tp")
+    contract, mesh = _train_mesh(args.device, dp, tp)
     dev = mesh.device
     seq = args.seq
     cfg = llama.LlamaConfig.tiny(
         attn_impl="dense" if args.attn == "auto" else args.attn,
         max_seq=seq + 1, fused_ce=_fused_ce(args))
+    specs = llama.param_specs(cfg)
     params = llama.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        mesh=mesh)
     # every rank holds the whole batch (the reference's batch_spec=None);
     # the step takes this rank's rows
     toks = torch.randint(0, cfg.vocab_size, (max(2 * dp, 1), seq + 1),
@@ -1242,10 +1264,12 @@ def run_llama_train(args) -> dict:
         grad_accum = 1
     opt = train.make_optimizer(lr=1e-3, warmup=5,
                                decay_steps=max(args.steps, 10))
-    step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b), opt,
-                                 grad_accum=grad_accum, mesh=mesh,
-                                 batch_spec=None)
+    step = train.make_train_step(
+        lambda p, b: llama.loss_fn(cfg, p, b, mesh), opt,
+        grad_accum=grad_accum, mesh=mesh, batch_spec=None,
+        param_spec_tree=specs)
     opt_state = train.init_opt_state(opt, params)
+    layout = _train_specs(params, specs, mesh)
     params, opt_state, out = step(params, opt_state, toks)     # warm-up
     float(out["loss"])
     start = 0
@@ -1253,7 +1277,7 @@ def run_llama_train(args) -> dict:
     if args.out and (resume_step := ckpt.latest_step(args.out)) is not None:
         t_r = time.perf_counter()
         params, opt_state = _restore_train(args.out, params, opt_state,
-                                           resume_step)
+                                           resume_step, layout)
         start = resume_step
         resumed = True
         _emit({"event": "resumed", "step": start, "sharded": True,
@@ -1271,13 +1295,15 @@ def run_llama_train(args) -> dict:
         steps_run += 1
         if args.out and args.ckpt_every \
                 and steps_run % args.ckpt_every == 0:
-            ckpt.save_sharded(args.out, i + 1, _train_tree(params, opt_state))
+            ckpt.save_sharded(args.out, i + 1, _train_tree(params, opt_state),
+                              **layout)
             _emit({"event": "checkpoint", "step": i + 1})
         return out
 
     def save(i):
         if args.out:
-            ckpt.save_sharded(args.out, i, _train_tree(params, opt_state))
+            ckpt.save_sharded(args.out, i, _train_tree(params, opt_state),
+                              **layout)
             _emit({"event": "checkpoint", "step": i})
 
     def restore():
@@ -1290,7 +1316,7 @@ def run_llama_train(args) -> dict:
         # the optimizer state travels with the params: the schedule
         # resumes at the restored step
         params, opt_state = _restore_train(args.out, params, opt_state,
-                                           restore_step)
+                                           restore_step, layout)
         return restore_step
 
     try:
@@ -1301,7 +1327,7 @@ def run_llama_train(args) -> dict:
         sent.uninstall()
     _sync(dev)
     dt = time.perf_counter() - t0
-    mesh_report = {"dp": dp, "sp": 1, "tp": 1}
+    mesh_report = {"dp": dp, "sp": 1, "tp": tp}
     if stopped == "preempted":
         # flushed by guarded_loop; main() exits 143
         return {"workload": "llama-train", "attn": args.attn, "seq": seq,
@@ -1317,7 +1343,7 @@ def run_llama_train(args) -> dict:
         loss = float(out["loss"])
         if args.out:
             ckpt.save_sharded(args.out, args.steps,
-                              _train_tree(params, opt_state))
+                              _train_tree(params, opt_state), **layout)
     return {"workload": "llama-train", "attn": args.attn, "seq": seq,
             "fused_ce": bool(cfg.fused_ce), "grad_accum": grad_accum,
             "mesh": mesh_report, "final_loss": loss,
@@ -1357,7 +1383,7 @@ def run_distill(args) -> dict:
     from ..models.speculative import distill_loss, draft_student, save_draft
     from ..parallel import checkpoint as ckpt
 
-    contract, mesh = _dp_mesh(args.device, _gang_size())
+    contract, mesh = _train_mesh(args.device, _gang_size())
     dev = mesh.device
     cfg_t = _target_config(args)
     seq = min(args.seq, cfg_t.max_seq)
@@ -1670,7 +1696,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "> 1 exits 2)")
     p.add_argument("--ep", type=int, default=0,
                    help="llama-train: expert-parallel size (not ported, "
-                        "item 7: > 1 exits 2)")
+                        "item 9: > 1 exits 2)")
     p.add_argument("--lr", type=float, default=0.0,
                    help="resnet: learning-rate override (0 = default "
                         "0.1)")

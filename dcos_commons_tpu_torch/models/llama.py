@@ -37,7 +37,14 @@ same bits after each collective. A mesh of one process is no mesh.
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
 and ``loss_fn`` (next-token loss, fused linear cross-entropy by
-default). Parameters are a plain dict of tensors with the JAX pytree's
+default), both with ``mesh=``. Under tp the train forward places
+Megatron's pair (``parallel.mesh``): each attention and FFN block
+passes its normed input through ``Mesh.copy_to`` ("f", whose backward
+sums the ranks' partial input gradients) and its ``wo``/``w_down``
+output through ``Mesh.reduce_from`` ("g"), the embedding's lookup
+through "g" too, and the vocabulary-parallel loss sums the final hidden
+state's gradient itself; so the residual stream and its gradient, and
+the norms' gradients, hold the same bits on every rank. Parameters are a plain dict of tensors with the JAX pytree's
 keys and its stacked ``[L, ...]`` ``x @ W`` layout; the reference's
 ``lax.scan`` over layers is a Python loop. bf16 weights and
 activations, fp32 softmax, norms and logits, with the casts where the
@@ -456,22 +463,30 @@ def local_kv_heads(cfg: LlamaConfig, mesh: Optional[Mesh]) -> int:
 
 
 def _reduce(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """A row-parallel partial product summed over ``tp``."""
-    return x if tp_size(mesh) == 1 else mesh.all_reduce(x, "tp")
+    """A row-parallel partial product summed over ``tp`` ("g")."""
+    return x if tp_size(mesh) == 1 else mesh.reduce_from(x, "tp")
+
+
+def _copy(h: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A column-parallel product's input ("f"): its gradient summed over
+    ``tp`` in the backward."""
+    return h if tp_size(mesh) == 1 else mesh.copy_to(h, "tp")
 
 
 def _embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
            mesh: Optional[Mesh]) -> torch.Tensor:
     """The token embedding; vocab-parallel under tp: each rank looks up
     the tokens in its row range, zeros elsewhere, and the all-reduce
-    adds the one nonzero row to zeros, which is exact."""
+    ("g") adds the one nonzero row to zeros, which is exact. Backward,
+    each rank's shard takes the gradient of its own rows only."""
     if tp_size(mesh) == 1:
         return qtake(params["embed"], tokens, cfg.dtype)
     rows = params["embed"].shape[0]
     local = tokens.long() - mesh.coords["tp"] * rows
     inside = ((local >= 0) & (local < rows))[..., None]
     x = qtake(params["embed"], local.clamp(0, rows - 1), cfg.dtype)
-    return mesh.all_reduce(torch.where(inside, x, torch.zeros_like(x)), "tp")
+    return mesh.reduce_from(torch.where(inside, x, torch.zeros_like(x)),
+                            "tp")
 
 
 def _lm_head(x: torch.Tensor, params: Params,
@@ -967,28 +982,33 @@ def attn_route(impl: str, device_type: str, q: torch.Tensor,
     return "flash"
 
 
-def _padded_flash(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
-    """Causal flash attention at any head_dim up to 256: q/k/v are
-    zero-padded to the next kernel width and the softmax keeps the true
-    width's scale. The zero columns add nothing to Q.K^T, the output's
-    padded columns are zero and cut away, and the gradients of the
-    padding are dropped by the pad's own backward."""
+def _padded_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  attend: Callable = flash_attention) -> torch.Tensor:
+    """Causal flash attention at any head_dim up to 256 (``attend``,
+    :func:`flash_attention` or a tp rank's ``flash_attention_tp``): q/k/v
+    are zero-padded to the next kernel width and the softmax keeps the
+    true width's scale. The zero columns add nothing to Q.K^T, the
+    output's padded columns are zero and cut away, and the gradients of
+    the padding are dropped by the pad's own backward."""
     d = q.shape[-1]
     width = next(w for w in HEAD_DIMS if w >= d)
     if width == d:
-        return flash_attention(q, k, v, causal=True)
+        return attend(q, k, v, causal=True)
     pad = (0, width - d)
-    o = flash_attention(torch.nn.functional.pad(q, pad),
-                        torch.nn.functional.pad(k, pad),
-                        torch.nn.functional.pad(v, pad), causal=True,
-                        sm_scale=d ** -0.5)
+    o = attend(torch.nn.functional.pad(q, pad),
+               torch.nn.functional.pad(k, pad),
+               torch.nn.functional.pad(v, pad), causal=True,
+               sm_scale=d ** -0.5)
     return o[..., :d]
 
 
-def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
+def _make_attn_fn(cfg: LlamaConfig, device: torch.device,
+                  mesh: Optional[Mesh] = None) -> Callable:
     """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal, routed
-    per call by :func:`attn_route`."""
+    per call by :func:`attn_route`. Under a mesh of more than one process
+    ``auto`` is dense, as the reference's rule; under tp ``flash`` runs
+    the kernels on the rank's heads through ``flash_attention_tp``, which
+    checks that the model's KV heads divide over ``tp``."""
     impl = cfg.attn_impl
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
@@ -996,10 +1016,17 @@ def _make_attn_fn(cfg: LlamaConfig, device: torch.device) -> Callable:
     if impl not in ("auto", "dense", "flash"):
         raise ValueError(f"attn_impl={impl!r}: expected one of 'auto', "
                          "'dense', 'flash'")
+    if impl == "auto" and mesh is not None and mesh.size > 1:
+        impl = "dense"
+    attend = flash_attention
+    if tp_size(mesh) > 1:
+        def attend(q, k, v, **kw):
+            return flash_attention_tp(q, k, v, mesh,
+                                      kv_heads=cfg.n_kv_heads, **kw)
 
     def attn(q, k, v):
         if attn_route(impl, device.type, q, k) == "flash":
-            return _padded_flash(q, k, v)
+            return _padded_flash(q, k, v, attend)
         return gqa_attention(q, k, v, causal=True)
 
     return attn
@@ -1011,9 +1038,10 @@ def attention_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
     """Pre-norm attention residual step on x [B, S, D]. With
     ``return_kv`` also returns the rope'd K/V (the prefill cache
     contract, what ``decode_step`` writes). Under ``mesh`` the rank's
-    heads, the ``wo`` output all-reduced."""
+    heads: the normed input through "f", the ``wo`` output through
+    "g"."""
     b, s, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = _copy(rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh)
     q = qmm(h, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
     k = qmm(h, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
     v = qmm(h, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
@@ -1028,59 +1056,79 @@ def ffn_block(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Pre-norm SwiGLU residual step on x [B, S, D]; silu in fp32 on the
     matmul output, as the reference. Under ``mesh`` the rank's FFN
-    columns, the ``w_down`` output all-reduced."""
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    columns: the normed input through "f", the ``w_down`` output through
+    "g"."""
+    h = _copy(rms_norm(x, lp["ffn_norm"], cfg.norm_eps), mesh)
     gate = F.silu(qmm(h, lp["w_gate"]).float())
     up = qmm(h, lp["w_up"]).float()
     return x + _reduce(qmm((gate * up).to(cfg.dtype), lp["w_down"]), mesh)
 
 
 def apply_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
-                rope: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
+                rope: torch.Tensor, attn_fn: Callable,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One decoder layer on activations x [B, S, D]."""
-    return ffn_block(cfg, attention_block(cfg, x, lp, rope, attn_fn), lp)
+    return ffn_block(cfg, attention_block(cfg, x, lp, rope, attn_fn,
+                                          mesh=mesh), lp, mesh)
 
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            mesh: Optional[Mesh] = None,
             return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, V] fp32, or with
     ``return_hidden`` the final-norm hidden states [B, S, D] (the fused
     loss's input). ``cfg.remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant).
+
+    Under a tp ``mesh`` (``params`` the rank's shards) each rank computes
+    its heads and FFN columns with Megatron's pair (module doc); the
+    logits are gathered whole in rank order (their backward takes the
+    rank's columns), the hidden states are whole on every rank. With
+    ``remat`` the backward recomputes each layer's forward up to its last
+    saved tensor (torch's non-reentrant early stop), the attention
+    block's "g" all-reduce included: every rank recomputes the same
+    layers in the same order, so the collectives still pair up."""
     if cfg.remat and cfg.remat_policy:
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported yet "
             "(ROADMAP Queue 1 item 2)")
     rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                             device=tokens.device)
-    attn_fn = _make_attn_fn(cfg, tokens.device)
+    attn_fn = _make_attn_fn(cfg, tokens.device, mesh)
     layers = params["layers"]
-    x = qtake(params["embed"], tokens, cfg.dtype)
+    x = _embed(cfg, params, tokens, mesh)
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
         if cfg.remat:
             x = torch.utils.checkpoint.checkpoint(
-                apply_layer, cfg, x, lp, rope, attn_fn, use_reentrant=False)
+                apply_layer, cfg, x, lp, rope, attn_fn, mesh,
+                use_reentrant=False)
         else:
-            x = apply_layer(cfg, x, lp, rope, attn_fn)
+            x = apply_layer(cfg, x, lp, rope, attn_fn, mesh)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     if return_hidden:
         return x
-    return qmm(x, params["lm_head"]).float()
+    logits = qmm(_copy(x, mesh), params["lm_head"]).float()
+    return logits if tp_size(mesh) == 1 else mesh.gather_from(logits, "tp")
 
 
-def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor
+def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            mesh: Optional[Mesh] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token LM loss over tokens [B, S] -> (loss, accuracy), with
     z-loss 1e-4. ``cfg.fused_ce`` (the default) runs the lm_head inside
-    ``fused_linear_cross_entropy``'s sequence-blocked loop."""
+    ``fused_linear_cross_entropy``'s sequence-blocked loop, under tp
+    vocabulary-parallel over the rank's ``lm_head`` columns; unfused,
+    the logits are gathered whole (:func:`forward`) and every rank takes
+    the loss of the whole vocabulary."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.fused_ce:
-        x = forward(cfg, params, inputs, return_hidden=True)
+        x = forward(cfg, params, inputs, mesh, return_hidden=True)
         return fused_linear_cross_entropy(
             x, params["lm_head"], targets, z_loss=1e-4,
-            block_size=cfg.fused_ce_block)
-    logits = forward(cfg, params, inputs)
+            block_size=cfg.fused_ce_block,
+            mesh=mesh if tp_size(mesh) > 1 else None)
+    logits = forward(cfg, params, inputs, mesh)
     return softmax_cross_entropy(logits, targets, z_loss=1e-4)
 
 
@@ -1194,11 +1242,11 @@ def make_moe_ffn(cfg: LlamaConfig, moe_cfg: MoEConfig,
     every token of the call (all B*S rows, padded and masked ones
     included) is one dispatch group. The auxiliary loss is dead weight at
     inference and is dropped. Only the local path is ported: the
-    expert-parallel mesh form is ROADMAP Queue 1 item 7."""
+    expert-parallel mesh form is ROADMAP Queue 1 item 9."""
     if mesh is not None:
         raise NotImplementedError(
             "expert-parallel MoE over a device mesh is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 9)")
 
     def ffn(x: torch.Tensor, lp: Params) -> torch.Tensor:
         b, s, d = x.shape

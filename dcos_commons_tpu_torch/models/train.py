@@ -20,7 +20,14 @@ optimizer state are replicated on every rank, each rank backpropagates
 its own rows, and ONE collective a step (``Mesh.reduce_grads``) averages
 the gradients, the loss and the metric over ``dp`` before the clip and
 the update, so every rank applies the same global gradient and holds the
-same bits. ``has_aux_state`` is the ResNet batch-norm pattern: the loss
+same bits. With ``tp > 1`` (``param_spec_tree``, the reference's
+Megatron specs) each rank holds its shards of the parameters and of both
+moments; the clip's global norm sums the sharded leaves' squares over
+``tp`` and counts each replicated leaf once, so every rank clips by one
+factor and the replicated leaves stay bitwise equal.
+:func:`opt_state_specs` gives the specs the reference places the
+optimizer state under, which the gang checkpoint writes.
+``has_aux_state`` is the ResNet batch-norm pattern: the loss
 returns a new state tree beside its metric, and the step hands it back
 detached.
 The step's backward and optimizer update run under
@@ -156,14 +163,77 @@ def init_opt_state(optimizer: AdamW, params: Params) -> OptState:
                     sched_count=0)
 
 
+def _leaf_specs(params: Params, specs: Any) -> List[tuple]:
+    """``specs``' entry for each leaf, in :func:`_leaves` order."""
+    if isinstance(params, dict):
+        return [sp for key in params
+                for sp in _leaf_specs(params[key], specs[key])]
+    return [tuple(specs)]
+
+
+def _sorted_leaves(tree: Any, specs: Any) -> List[Tuple[torch.Tensor, tuple]]:
+    """``(leaf, spec)`` in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [pair for key in sorted(tree)
+                for pair in _sorted_leaves(tree[key], specs[key])]
+    return [(tree, tuple(specs))]
+
+
+def opt_state_specs(params: Params, specs: Params, mesh) -> tuple:
+    """The specs of :func:`opt_state_tree`'s leaves as the reference
+    places them (``_opt_shardings`` and ``init_opt_state(..., mesh,
+    specs)``): each moment takes the spec of the FIRST parameter, in
+    sorted-leaf order, whose whole shape equals its own, and the counts
+    are replicated. In every Llama ``wq`` and ``wo`` share a shape and
+    ``wo`` sorts first, so ``wq``'s moments are row shards there while a
+    rank's live moments are column shards like its ``wq``.
+    ``params`` are this rank's shards under ``specs`` over ``mesh``."""
+    from ..parallel.mesh import whole_shape
+    by_shape: Dict[tuple, tuple] = {}
+    for leaf, spec in _sorted_leaves(params, specs):
+        by_shape.setdefault(tuple(whole_shape(leaf.shape, spec, mesh)), spec)
+
+    def moment(tree, spec):
+        if isinstance(tree, dict):
+            return {k: moment(tree[k], spec[k]) for k in tree}
+        return by_shape[tuple(whole_shape(tree.shape, spec, mesh))]
+
+    return moment_specs(moment(params, specs))
+
+
+def moment_specs(specs: Params) -> tuple:
+    """The specs of an :func:`opt_state_tree` whose moments are sharded
+    under ``specs`` (a rank's own: its parameters' specs), the counts
+    replicated."""
+    return (EmptyState(), (ScaleByAdamState((), specs, specs), EmptyState(),
+                           ScaleByScheduleState(())))
+
+
+def _global_norm(grads: List[torch.Tensor], sharded: Optional[List[bool]],
+                 mesh) -> torch.Tensor:
+    """The gradient's global norm: with ``sharded`` (tp), the sharded
+    leaves' sums of squares summed over ``tp`` in one collective, and the
+    replicated leaves' (whole on every rank) added once."""
+    squares = [g.float().square().sum() for g in grads]
+    if sharded is None:
+        return torch.sqrt(sum(squares))
+    zero = torch.zeros((), device=grads[0].device)
+    split = sum((q for q, sh in zip(squares, sharded) if sh), zero)
+    whole = sum((q for q, sh in zip(squares, sharded) if not sh), zero)
+    return torch.sqrt(mesh.all_reduce(split.reshape(1), "tp")[0] + whole)
+
+
 @torch.no_grad()
 def apply_updates(optimizer: AdamW, params: Params, grads: List[torch.Tensor],
-                  state: OptState) -> None:
+                  state: OptState, sharded: Optional[List[bool]] = None,
+                  mesh=None) -> None:
     """One optimizer update of ``params`` from ``grads`` (in the order of
-    the parameter leaves), in place."""
+    the parameter leaves), in place. ``sharded`` (one flag a leaf) and
+    ``mesh``: the leaves are a tp rank's, and the clip's norm is the
+    whole model's (:func:`_global_norm`)."""
     leaves, mus, nus = _leaves(params), _leaves(state.mu), _leaves(state.nu)
     o = optimizer
-    g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    g_norm = _global_norm(grads, sharded, mesh)
     trigger = g_norm < o.grad_clip
     state.count += 1
     bc1 = 1.0 - B1 ** state.count
@@ -217,7 +287,8 @@ def dp_rows(n_rows: int, mesh) -> Tuple[int, int]:
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     grad_accum: int = 1,
                     has_aux_state: bool = False, mesh=None,
-                    batch_spec: Optional[str] = "dp") -> Callable:
+                    batch_spec: Optional[str] = "dp",
+                    param_spec_tree: Optional[Params] = None) -> Callable:
     """Build ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "metric"})``; ``loss_fn(params, batch)`` returns
     ``(loss, metric)``. Params and state are updated in place.
@@ -242,7 +313,14 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     takes its rows (:func:`dp_rows`; ``grad_accum`` splits those), and
     each rank's gradient is weighted by its share of the rows, so the
     step equals one process's over the whole batch for any batch size; a
-    rank left with no rows adds zeros and still joins the collective."""
+    rank left with no rows adds zeros and still joins the collective.
+
+    ``mesh`` with ``tp > 1`` needs ``param_spec_tree`` (the reference's
+    ``llama.param_specs``): ``params`` and the moments are this rank's
+    shards, ``loss_fn`` runs the tp forward (its collectives pair the
+    ranks' gradients), and the clip's norm is the whole model's. With
+    ``dp > 1`` too, the reduction runs over the rank's ``dp`` group, and
+    every tp rank of one dp coordinate takes the same rows."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if grad_accum > 1 and has_aux_state:
@@ -251,11 +329,14 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         raise NotImplementedError(
             "grad_accum > 1 with has_aux_state is not supported")
     dp = mesh.shape["dp"] if mesh is not None else 1
-    if mesh is not None and mesh.size != dp:
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    if mesh is not None and mesh.size != dp * tp:
         raise NotImplementedError(
-            f"training on mesh {mesh.shape}: only the dp axis is ported "
-            "(tensor-parallel training is ROADMAP Queue 1 item 7d's "
-            "tensor-parallel half)")
+            f"training on mesh {mesh.shape}: only the dp and tp axes are "
+            "ported (sp, pp and ep are ROADMAP Queue 1 item 9)")
+    if tp > 1 and param_spec_tree is None:
+        raise ValueError("a tp mesh needs param_spec_tree (the parameters' "
+                         "sharding specs) for the clip's global norm")
     if batch_spec not in ("dp", None):
         raise ValueError(f"batch_spec must be 'dp' or None, got "
                          f"{batch_spec!r}")
@@ -287,6 +368,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
 
     def step(params, opt_state, batch):
         leaves = _leaves(params)
+        sharded = None if tp == 1 else [
+            "tp" in spec for spec in _leaf_specs(params, param_spec_tree)]
         weight, empty = 1.0 / dp, False
         if dp > 1 and batch_spec is None:
             start, rows = dp_rows(batch.shape[0], mesh)
@@ -310,7 +393,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                 grads, (loss, metric) = mesh.reduce_grads(
                     grads, (loss.float(), metric.float()), weight)
         with record_function("train_step.optimizer"):
-            apply_updates(optimizer, params, list(grads), opt_state)
+            apply_updates(optimizer, params, list(grads), opt_state,
+                          sharded, mesh)
         out = {"loss": loss, "metric": metric}
         if has_aux_state:
             return params, opt_state, _detached(aux), out

@@ -9,6 +9,13 @@ reductions, optional z-loss.
   ``torch.autograd.Function`` backward recomputes each block's logits
   from the saved per-token logsumexp, so the [B, S, V] fp32 logits never
   exist in either direction; peak scratch is one [B, block, V] tile.
+  With ``mesh=`` (tensor parallelism, the head sharded ``(None, "tp")``)
+  it is vocabulary-parallel: each rank projects its V/tp columns, and a
+  block's logsumexp, target logit and argmax come from two collectives
+  (``Mesh.all_reduce_max`` of the local maxima, then one sum of the
+  local sums of exponentials, target logits and lower tied columns); the
+  backward gives the rank's head shard its own columns' gradient and sums
+  the hidden states' partial gradients over ``tp`` ("f" on ``x``).
 
 Block products are ``torch.matmul`` on operands of the head's dtype. An
 fp32 head computes exactly the reference's fp32 products. A bf16 head
@@ -115,41 +122,111 @@ class _FusedLCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_loss, g_acc):
-        """Per token, dlogits = ``p * (1 + 2 z logz) - onehot``, scaled
-        by ``g * mask / denom``. The accuracy output has no gradient;
-        a quantized head gets none either (its scales are frozen)."""
-        x, labels, maskf, logz, denom = ctx.saved_tensors[:5]
-        w = ctx.qhead if ctx.qhead is not None else ctx.saved_tensors[5]
-        plain_w = ctx.qhead is None
-        z_loss, block = ctx.z_loss, ctx.block
-        scale = (g_loss / denom).float()
-        dx = torch.empty_like(x)
-        dw = (torch.zeros(w.shape, dtype=torch.float32, device=x.device)
-              if plain_w and ctx.needs_input_grad[1] else None)
-        for s0 in range(0, x.shape[1], block):
+        dx, dw = _lce_backward(ctx, g_loss, 0)
+        return dx, dw, None, None, None, None, None
+
+
+def _lce_backward(ctx, g_loss, first: int):
+    """(dx, dw) of the fused loss over the head's columns, which hold the
+    vocabulary's ids ``first, first + 1, ...``: per token, dlogits =
+    ``p * (1 + 2 z logz) - onehot`` (the onehot's -1 only where the label
+    is one of them), scaled by ``g * mask / denom``. The accuracy output
+    has no gradient; a quantized head gets none either (its scales are
+    frozen)."""
+    x, labels, maskf, logz, denom = ctx.saved_tensors[:5]
+    w = ctx.qhead if ctx.qhead is not None else ctx.saved_tensors[5]
+    z_loss, block, cols = ctx.z_loss, ctx.block, w.shape[-1]
+    scale = (g_loss / denom).float()
+    dx = torch.empty_like(x)
+    dw = (torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+          if ctx.qhead is None and ctx.needs_input_grad[1] else None)
+    for s0 in range(0, x.shape[1], block):
+        sl = slice(s0, s0 + block)
+        xb, lz = x[:, sl], logz[:, sl]
+        dlog = torch.exp_(_block_logits(xb, w) - lz[..., None])
+        if z_loss:
+            dlog *= (1.0 + (2.0 * z_loss) * lz)[..., None]
+        local = labels[:, sl] - first
+        inside = (local >= 0) & (local < cols)
+        dlog.scatter_add_(-1, local.clamp(0, cols - 1)[..., None],
+                          -inside[..., None].to(dlog.dtype))
+        dlog *= (scale * maskf[:, sl])[..., None]            # [B, blk, cols]
+        dx[:, sl] = _dx_block(dlog, w, x.dtype)
+        if dw is not None:
+            d = xb.shape[-1]
+            dw += (xb.reshape(-1, d).t().to(w.dtype)
+                   @ dlog.reshape(-1, dlog.shape[-1]).to(w.dtype)).float()
+        del dlog
+    return dx, dw.to(w.dtype) if dw is not None else None
+
+
+class _FusedLCETP(torch.autograd.Function):
+    """:class:`_FusedLCE` over a vocabulary sharded on ``tp``: ``w`` is
+    the rank's [D, V/tp] columns, ``labels`` are global ids, and every
+    rank returns the same loss and accuracy."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, maskf, z_loss, block, compute_acc, mesh):
+        b, s, _ = x.shape
+        cols = w.shape[-1]
+        first = mesh.coords["tp"] * cols                    # global id of col 0
+        ids = torch.arange(first, first + cols, device=x.device)
+        nll_sum = x.new_zeros((), dtype=torch.float32)
+        cor_sum = x.new_zeros((), dtype=torch.float32)
+        logz = x.new_empty((b, s), dtype=torch.float32)
+        for s0 in range(0, s, block):
             sl = slice(s0, s0 + block)
-            xb, lz = x[:, sl], logz[:, sl]
-            dlog = torch.exp_(_block_logits(xb, w) - lz[..., None])
+            logits = _block_logits(x[:, sl], w)          # [B, blk, V/tp]
+            top = mesh.all_reduce_max(logits.amax(dim=-1))          # [B, blk]
+            lb, mb = labels[:, sl], maskf[:, sl]
+            local = lb - first
+            inside = (local >= 0) & (local < cols)
+            target = torch.where(inside, torch.gather(
+                logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0],
+                torch.zeros_like(top))
+            parts = [torch.exp(logits - top[..., None]).sum(dim=-1), target]
+            if compute_acc:
+                # the columns tied with the top logit below the label: the
+                # label is the argmax (lowest id among ties, as jnp's) iff
+                # its logit is the top and there are none
+                parts.append(((logits == top[..., None])
+                              & (ids < lb[..., None])).sum(dim=-1).float())
+            sums = mesh.all_reduce(torch.stack(parts), "tp")
+            lz = top + torch.log(sums[0])
+            nll = lz - sums[1]
             if z_loss:
-                dlog *= (1.0 + (2.0 * z_loss) * lz)[..., None]
-            dlog.scatter_add_(-1, labels[:, sl, None],
-                              dlog.new_full(labels[:, sl, None].shape, -1.0))
-            dlog *= (scale * maskf[:, sl])[..., None]            # [B, blk, V]
-            dx[:, sl] = _dx_block(dlog, w, x.dtype)
-            if dw is not None:
-                d = xb.shape[-1]
-                dw += (xb.reshape(-1, d).t().to(w.dtype)
-                       @ dlog.reshape(-1, dlog.shape[-1]).to(w.dtype)).float()
-            del dlog
-        return (dx, dw.to(w.dtype) if dw is not None else None, None, None,
-                None, None, None)
+                nll = nll + z_loss * lz ** 2
+            nll_sum += (nll * mb).sum()
+            if compute_acc:
+                cor_sum += (((sums[1] == top) & (sums[2] == 0)).float()
+                            * mb).sum()
+            logz[:, sl] = lz
+            del logits
+        denom = torch.clamp(maskf.sum(), min=1.0)
+        acc = cor_sum / denom
+        ctx.mark_non_differentiable(acc)
+        ctx.qhead = w if isinstance(w, QTensor) else None
+        ctx.save_for_backward(x, labels, maskf, logz, denom,
+                              *(() if isinstance(w, QTensor) else (w,)))
+        ctx.z_loss, ctx.block, ctx.mesh, ctx.first = (z_loss, block, mesh,
+                                                      first)
+        return nll_sum / denom, acc
+
+    @staticmethod
+    def backward(ctx, g_loss, g_acc):
+        """:func:`_lce_backward` on the rank's columns; dx is the sum of
+        the ranks' partial products over ``tp``."""
+        dx, dw = _lce_backward(ctx, g_loss, ctx.first)
+        return (ctx.mesh.all_reduce(dx, "tp"), dw, None, None, None, None,
+                None, None)
 
 
 def fused_linear_cross_entropy(x: torch.Tensor, lm_head: QArray,
                                labels: torch.Tensor, *,
                                mask: Optional[torch.Tensor] = None,
                                z_loss: float = 0.0, block_size: int = 512,
-                               compute_accuracy: bool = True
+                               compute_accuracy: bool = True,
+                               mesh=None
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
     """Cross-entropy of ``x @ lm_head`` without materializing the logits.
@@ -162,6 +239,10 @@ def fused_linear_cross_entropy(x: torch.Tensor, lm_head: QArray,
     ``block_size`` sequence chunks. ``S % block_size != 0`` is padded
     under the mask. Differentiable in ``x`` and a plain ``lm_head``; the
     mask and a quantized head get no gradient.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` whose ``tp`` is > 1): ``lm_head``
+    is this rank's [D, V/tp] columns and the loss vocabulary-parallel
+    (module doc); ``x`` is the whole hidden state on every rank.
     """
     lead = x.shape[:-2]
     s, d = x.shape[-2], x.shape[-1]
@@ -178,8 +259,12 @@ def fused_linear_cross_entropy(x: torch.Tensor, lm_head: QArray,
         xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
         lab = torch.nn.functional.pad(lab, (0, pad))
         maskf = torch.nn.functional.pad(maskf, (0, pad))  # pads never count
-    loss, acc = _FusedLCE.apply(xf.contiguous(), lm_head, lab, maskf,
-                                float(z_loss), block, bool(compute_accuracy))
+    args = (xf.contiguous(), lm_head, lab, maskf, float(z_loss), block,
+            bool(compute_accuracy))
+    if mesh is not None and mesh.shape["tp"] > 1:
+        loss, acc = _FusedLCETP.apply(*args, mesh)
+    else:
+        loss, acc = _FusedLCE.apply(*args)
     return loss, (acc if compute_accuracy else None)
 
 

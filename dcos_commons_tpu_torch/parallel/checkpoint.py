@@ -22,7 +22,13 @@ package restores in the other bitwise:
   the tree's ``llama.param_specs``) each process writes the shard it
   owns under the whole leaf's ``global_shape``, its index key the start
   offsets of the shard (``o0_0_2048``), replicated leaves whole, as the
-  reference's processes do;
+  reference's processes do. ``disk_specs`` names a leaf's spec on disk
+  where it differs from the live one: the reference keys its optimizer
+  state's placement by shape (``models.train.opt_state_specs``), so a
+  rank's column shard of ``wq``'s moments is written as the reference's
+  row shard. Such a leaf is all-gathered over the mesh and re-sliced at
+  save, and at restore its disk shard is all-gathered and the rank's own
+  slice taken back out (every rank in one order: these are collectives);
 * a shard file is the array's C-order bytes (bf16 through a ``uint16``
   view); the manifest names the dtype as numpy does (``bfloat16``,
   ``int8``, ``float32``) and carries each shard's length and blake2s
@@ -49,13 +55,14 @@ import os
 import re
 import shutil
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.quant import QTensor
-from .mesh import host_all_gather, scale_spec, shard_slices, whole_shape
+from .mesh import (gather_whole, host_all_gather, scale_spec, shard_slices,
+                   take_shard, whole_shape)
 
 _STEP_RE = re.compile(r"step-(\d{8})-p(\d+)$")
 
@@ -144,31 +151,54 @@ def _index_key(ndim: int, starts: Optional[List[int]] = None) -> str:
 Layout = Optional[Tuple[List[int], List[int]]]
 
 
-def _layouts(tree: Any, mesh: Any, specs: Any) -> List[Layout]:
-    """One :data:`Layout` per leaf of ``_flatten(tree)``, from the tree's
+class _Place(NamedTuple):
+    """Where one leaf goes on disk: its :data:`Layout`, and with
+    ``moved`` the live and disk specs it is re-sliced between and its
+    shape on disk."""
+
+    layout: Layout
+    moved: bool = False
+    live: Any = None
+    disk: Any = None
+    disk_shape: Optional[List[int]] = None
+
+
+def _places(tree: Any, mesh: Any, specs: Any, disk_specs: Any = None
+            ) -> List[_Place]:
+    """One :class:`_Place` per leaf of ``_flatten(tree)``, from the tree's
     sharding ``specs`` (``llama.param_specs``' form: a tuple of axis
-    names per leaf, a ``QTensor``'s scales under ``mesh.scale_spec``)
-    over ``mesh``. No mesh, or a mesh of one: every leaf whole."""
+    names per leaf, a ``QTensor``'s scales under ``mesh.scale_spec``;
+    sequences and named tuples hold their children's specs) over
+    ``mesh``, and ``disk_specs`` (default ``specs``). No mesh, or a mesh
+    of one: every leaf whole."""
     flat = _flatten(tree)
     if mesh is None or mesh.size == 1:
-        return [None] * len(flat)
+        return [_Place(None)] * len(flat)
 
-    out: List[Layout] = []
+    out: List[_Place] = []
 
-    def walk(node, spec):
+    def walk(node, spec, disk):
+        if node is None:
+            return
         if isinstance(node, dict):
             for k in sorted(node):
-                walk(node[k], spec[k])
+                walk(node[k], spec[k], disk[k])
         elif isinstance(node, QTensor):
-            walk(node.q, spec)
-            walk(node.s, scale_spec(spec, tuple(node.s.shape)))
+            walk(node.q, spec, disk)
+            walk(node.s, scale_spec(spec, tuple(node.s.shape)),
+                 scale_spec(disk, tuple(node.s.shape)))
+        elif isinstance(node, (list, tuple)):
+            for child, sp, dk in zip(node, spec, disk):
+                walk(child, sp, dk)
         else:
             shape = whole_shape(node.shape, spec, mesh)
-            starts = [s for s, _ in shard_slices(shape, spec, mesh)]
-            out.append((shape, starts) if shape != list(node.shape)
-                       else None)
+            cut = shard_slices(shape, disk, mesh)
+            local = [n for _, n in cut]
+            layout = (shape, [s for s, _ in cut]) if local != shape else None
+            moved = cut != shard_slices(shape, spec, mesh)
+            out.append(_Place(layout, moved, spec, disk, local))
 
-    walk(tree, specs)
+    walk(tree, specs, specs if disk_specs is None else disk_specs)
     return out
 
 
@@ -248,13 +278,19 @@ def _fsync_dir(path: str) -> None:
 
 
 def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3, *,
-                 mesh: Any = None, specs: Any = None) -> str:
+                 mesh: Any = None, specs: Any = None,
+                 disk_specs: Any = None) -> str:
     """Write ``tree`` (a pytree of tensors) for ``step``; returns the
     committed directory. Older steps of this process beyond ``keep`` are
     pruned. In a gang, ``tree`` is this rank's shard of a tree sharded
-    by ``specs`` over ``mesh``."""
+    by ``specs`` over ``mesh``, written as ``disk_specs`` shard it."""
     pid = _process_id()
-    layouts = _layouts(tree, mesh, specs)
+    places = _places(tree, mesh, specs, disk_specs)
+    # the leaves stored under another spec, re-sliced here in the walk's
+    # order on every rank (collectives), before the threads write
+    flat = [(key, take_shard(gather_whole(leaf, pl.live, mesh), pl.disk,
+                             mesh) if pl.moved else leaf)
+            for (key, leaf), pl in zip(_flatten(tree), places)]
     final = _step_dir(out_dir, step, pid)
     tmp = os.path.join(out_dir, f".step-{step:08d}-p{pid}.tmp")
     if os.path.isdir(tmp):
@@ -272,9 +308,9 @@ def save_sharded(out_dir: str, step: int, tree: Any, keep: int = 3, *,
     # leaves copied to the host, hashed and written a few at a time (the
     # digest and the write release the interpreter lock); the manifest
     # keeps the walk's order
-    flat = _flatten(tree)
     with ThreadPoolExecutor(max_workers=_restore_workers(None)) as pool:
-        entries = list(pool.map(write, zip(flat, layouts)))
+        entries = list(pool.map(write, zip(flat, [pl.layout
+                                                  for pl in places])))
     leaves = {key: entry for (key, _), entry in zip(flat, entries)}
 
     manifest = {"step": step, "process": pid,
@@ -406,7 +442,7 @@ def restore_sharded(out_dir: Optional[str], template: Any,
                     workers: Optional[int] = None,
                     reader: Optional[Callable[[str], bytes]] = None,
                     manifest: Optional[dict] = None, mesh: Any = None,
-                    specs: Any = None) -> Any:
+                    specs: Any = None, disk_specs: Any = None) -> Any:
     """Rebuild a tree bitwise from the shard files of ``step`` (default
     the newest).
 
@@ -420,7 +456,8 @@ def restore_sharded(out_dir: Optional[str], template: Any,
     files concurrently; ``reader``/``manifest`` replace the step
     directory as the byte source, every shard still verified. In a gang,
     ``template`` is this rank's shard of a tree sharded by ``specs`` over
-    ``mesh``, and each leaf reads the shard this rank saved."""
+    ``mesh``, and each leaf reads the shard this rank saved (under
+    ``disk_specs``, then re-sliced to ``specs``)."""
     source = "disk"
     if reader is None:
         if out_dir is None:
@@ -479,10 +516,19 @@ def restore_sharded(out_dir: Optional[str], template: Any,
     def fetch(meta: dict) -> bytes:
         return stream.fetch(meta["file"])
 
-    layouts = _layouts(template, mesh, specs)
+    out = []
     try:
-        out = [_restore_leaf(key, leaf, manifest, step, fetch, layout)
-               for (key, leaf), layout in zip(flat, layouts)]
+        for (key, leaf), pl in zip(flat, _places(template, mesh, specs,
+                                                 disk_specs)):
+            if not pl.moved:
+                out.append(_restore_leaf(key, leaf, manifest, step, fetch,
+                                         pl.layout))
+                continue
+            stored = _restore_leaf(key, torch.empty(
+                pl.disk_shape, dtype=leaf.dtype, device=leaf.device),
+                manifest, step, fetch, pl.layout)
+            out.append(take_shard(gather_whole(stored, pl.disk, mesh),
+                                  pl.live, mesh))
     finally:
         stream.close()
     return _unflatten(template, out)

@@ -35,6 +35,16 @@ of the cotangents: each rank backpropagates its own local-mean loss and
 the gradients are then averaged over ``dp``) and
 :meth:`Mesh.reduce_grads` (every gradient leaf packed into one fp32
 buffer, reduced once a step, cast back to each leaf's dtype).
+
+Tensor-parallel training needs Megatron's pair, each the other's adjoint:
+:meth:`Mesh.copy_to` ("f": the identity forward, the all-reduce-sum of
+the cotangents backward, at the input of a column-parallel product, so
+every rank's residual-stream gradient is whole) and
+:meth:`Mesh.reduce_from` ("g": the all-reduce-sum forward, the identity
+backward, at the output of a row-parallel product). Also
+:meth:`Mesh.gather_from` (the all-gather forward, the rank's own slice
+of the cotangent backward) and :meth:`Mesh.all_reduce_max` (no
+gradient), which the vocabulary-parallel loss reads.
 """
 
 from __future__ import annotations
@@ -260,16 +270,20 @@ class Mesh:
             return buf
         return x
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
-        """The sum of ``x`` over ``axis``, the same bits on every rank. A
-        fresh partial product may be reduced in place. Outside autograd:
-        see :meth:`all_reduce_mean`."""
+    def all_reduce(self, x: torch.Tensor, axis: str = "tp",
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the largest) of ``x`` over ``axis``, the
+        same bits on every rank. A fresh partial product may be reduced
+        in place. Outside autograd: see :meth:`all_reduce_mean`,
+        :meth:`copy_to` and :meth:`reduce_from`."""
         if self.shape[axis] == 1:
             return x
         import torch.distributed as dist
         t0 = self._start(x)
         buf = self._stage(x)
-        dist.all_reduce(buf, group=self._groups[axis])
+        dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op],
+                        group=self._groups[axis])
         out = buf.to(x.device)
         self.collectives += 1
         self.collective_s += time.perf_counter() - t0
@@ -301,6 +315,41 @@ class Mesh:
         if self.shape[axis] == 1:
             return x
         return _AllReduceMean.apply(x, self, axis)
+
+    def all_reduce_max(self, x: torch.Tensor, axis: str = "tp"
+                       ) -> torch.Tensor:
+        """The elementwise largest ``x`` over ``axis``; no gradient."""
+        return self.all_reduce(x.detach().clone(), axis, op="max")
+
+    def copy_to(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+        """Megatron's "f": ``x`` forward; backward, the sum of the
+        cotangents over ``axis``. It stands at the input of a
+        column-parallel product, whose backward leaves each rank a partial
+        gradient of ``x``."""
+        if self.shape[axis] == 1 or not (torch.is_grad_enabled()
+                                         and x.requires_grad):
+            return x
+        return _CopyTo.apply(x, self, axis)
+
+    def reduce_from(self, x: torch.Tensor, axis: str = "tp"
+                    ) -> torch.Tensor:
+        """Megatron's "g": the sum of ``x`` over ``axis`` forward; the
+        identity backward. It stands at the output of a row-parallel
+        product. Outside autograd (serving) it reduces ``x`` in place,
+        which must then be a fresh partial product."""
+        if self.shape[axis] == 1:
+            return x
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return self.all_reduce(x, axis)
+        return _ReduceFrom.apply(x, self, axis)
+
+    def gather_from(self, x: torch.Tensor, axis: str = "tp",
+                    dim: int = -1) -> torch.Tensor:
+        """Every rank's ``x`` concatenated on ``dim`` in rank order
+        forward; backward, this rank's slice of the cotangent."""
+        if self.shape[axis] == 1:
+            return x
+        return _GatherFrom.apply(x, self, axis, dim)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor],
                      extra: Sequence[torch.Tensor] = (),
@@ -352,6 +401,47 @@ class _AllReduceMean(torch.autograd.Function):
         return mesh.all_reduce(g.clone(), axis) / mesh.shape[axis], None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    """``Mesh.copy_to``: identity forward, all-reduce-sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd may hand this same ``g`` to other branches
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """``Mesh.reduce_from``: all-reduce-sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        # ``all_reduce`` may reduce in place: ``x`` is the caller's
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """``Mesh.gather_from``: all-gather forward, own slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.n, ctx.dim = x.shape[dim], dim
+        ctx.at = mesh.coords[axis] * x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.at, ctx.n), None, None, None
+
+
 def host_all_gather(arr: np.ndarray) -> np.ndarray:
     """Every process's ``arr`` stacked in rank order ``[world, ...]``,
     over the world's gloo group; ``arr[None]`` without a process group.
@@ -394,6 +484,24 @@ def shard_slices(shape: Sequence[int], spec: Spec, mesh: "Mesh"
         out.append((mesh.coords[axis] * (dim // n) if n > 1 else 0,
                     dim // n))
     return out
+
+
+def take_shard(t: torch.Tensor, spec: Spec, mesh: "Mesh") -> torch.Tensor:
+    """This rank's slice of a whole ``t`` under ``spec``, a tensor of its
+    own."""
+    out = t
+    for dim, (start, n) in enumerate(shard_slices(t.shape, spec, mesh)):
+        out = out.narrow(dim, start, n)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_whole(t: torch.Tensor, spec: Spec, mesh: "Mesh") -> torch.Tensor:
+    """The whole array of which ``t`` is this rank's slice under
+    ``spec``: one all-gather for each sharded dimension."""
+    for dim, axis in enumerate(_entries(spec, t.dim())):
+        if axis is not None:
+            t = mesh.all_gather(t, axis, dim=dim)
+    return t
 
 
 def whole_shape(local_shape: Sequence[int], spec: Spec, mesh: "Mesh"

@@ -26,8 +26,8 @@ and the whole-sequence reference agree token for token (in bf16 up to
 roundings, which can flip a route whose gates are near a tie).
 
 The reference's sharded forms (``moe_apply`` and ``make_moe``, the two
-``all_to_all`` collectives over the ``ep`` mesh axis) need the device
-mesh, which is not ported yet (ROADMAP Queue 1 item 7).
+``all_to_all`` collectives over the ``ep`` mesh axis) need that axis,
+which is not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -13,7 +13,12 @@ test_torch_serving_gang.py``'s):
   ``MeshSpec(dp=2, tp=2)`` reduces over the right ranks on each axis,
   and the gradient through ``Mesh.all_reduce_mean`` is 4 times (the
   gradients are then averaged over dp) autograd's through the explicit
-  mean in one process;
+  mean in one process; on a gang of 2 (``tests/_torch_tp_train_ranks.
+  megatron_pair``), Megatron's pair: ``copy_to``'s gradient is the
+  explicit sum of the ranks' cotangents (also when autograd shares the
+  cotangent with another branch), ``reduce_from``'s forward the sum and
+  its gradient the rank's own, ``gather_from``'s gradient the rank's
+  slice, and ``all_reduce_max`` the elementwise largest;
 * ``shard_params`` leaf by leaf against JAX ``shard_params`` on
   ``MeshSpec(tp=N)`` over N of the 8 virtual CPU devices: each rank's
   slice equals JAX's shard on that device bitwise, fp32, bf16 and int8
@@ -199,6 +204,58 @@ def test_all_reduce_mean_leaves_a_shared_cotangent_alone(gang4):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def pair2(tmp_path_factory):
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    from tests import _torch_tp_train_ranks
+    rng = np.random.default_rng(4)
+    inputs = {"x": rng.standard_normal((2, 5)).astype(np.float32),
+              "w": rng.standard_normal((2, 5)).astype(np.float32),
+              "w_whole": rng.standard_normal(10).astype(np.float32)}
+    path = str(tmp_path_factory.mktemp("pair2") / "inputs.pt")
+    torch.save(inputs, path)
+    return inputs, launch_local(_torch_tp_train_ranks.megatron_pair, 2, path,
+                                timeout_s=300, threads=1)
+
+
+def test_megatron_pair_s_gradients_are_the_explicit_sums(pair2):
+    """``f`` (``copy_to``): the rank's own ``x`` forward, and the sum of
+    every rank's ``w`` backward; ``g`` (``reduce_from``): the sum of the
+    ranks' ``x`` forward, and the rank's own ``w`` backward; with the add
+    ``copy_to(x) + x`` sharing the cotangent, the sum plus the own ``w``.
+    No input is overwritten; outside autograd ``f`` is ``x`` itself."""
+    inputs, ranks = pair2
+    x, w = inputs["x"], inputs["w"]
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["copy_to"]["y"], x[r])
+        np.testing.assert_allclose(got["copy_to"]["grad"], w.sum(0),
+                                   rtol=1e-6)
+        assert got["copy_to_collectives"] == 1
+        np.testing.assert_allclose(got["reduce_from"]["y"], x.sum(0),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(got["reduce_from"]["grad"], w[r])
+        np.testing.assert_allclose(got["shared"]["grad"], w.sum(0) + w[r],
+                                   rtol=1e-6)
+        for case in ("copy_to", "reduce_from", "shared", "gather_from"):
+            np.testing.assert_array_equal(got[case]["x_after"], x[r])
+        assert got["no_grad_copy_is_x"]
+    assert ranks[0]["reduce_from"]["y"].tobytes() == \
+        ranks[1]["reduce_from"]["y"].tobytes()
+
+
+def test_gather_from_s_gradient_is_the_rank_s_slice(pair2):
+    inputs, ranks = pair2
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["gather_from"]["y"],
+                                      inputs["x"].reshape(-1))
+        np.testing.assert_array_equal(got["gather_from"]["grad"],
+                                      inputs["w_whole"][5 * r:5 * r + 5])
+        np.testing.assert_array_equal(got["max"], inputs["x"].max(0))
+        # copy_to 1 (backward), reduce_from 1, the shared add 1, the
+        # gather 1, the max 1
+        assert got["collectives"] == 5
+
+
 def test_one_process_mesh_needs_no_group():
     mesh = tmesh.MeshSpec().build("cpu")
     assert mesh.size == 1 and mesh.backend == "local"
@@ -348,8 +405,8 @@ def test_gang_checkpoint_names_and_layouts_match_jax(tmp_path, tp):
     for r in range(tp):
         mesh = _rank(tp, r)
         leaves, _ = tc.export_tree(tl.shard_params(full, mesh, tcfg))
-        layouts = tc._layouts(tl.shard_params(full, mesh, tcfg), mesh,
-                              tl.param_specs(tcfg))
+        layouts = [pl.layout for pl in tc._places(
+            tl.shard_params(full, mesh, tcfg), mesh, tl.param_specs(tcfg))]
         for (key, entry), layout in zip(leaves.items(), layouts):
             shape, starts = layout or (entry["global_shape"], None)
             ikey = tc._index_key(len(shape), starts)

@@ -331,7 +331,8 @@ GANG_ENV = {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1", "JAX_PROCESS_ID": "0",
      "peer_weights_not_ported"),
     ("llama", [], {"WEIGHT_SERVE_PORT": "0"}, "peer_weights_not_ported"),
     ("llama-train", [], {}, "attn_not_ported"),
-    ("llama-train", ["--sp", "1", "--tp", "2"], {}, "train_tp_not_ported"),
+    ("llama-train", ["--sp", "1", "--tp", "2"], {"RESHARD_ENABLE": "1"},
+     "reshard_not_ported"),
     ("llama-train", ["--sp", "1", "--pp", "2"], {}, "pipeline_not_ported"),
     ("llama-train", ["--sp", "1", "--ep", "2"], {}, "moe_not_ported")])
 def test_gang_refusals_come_before_the_process_group(workload, args, env,

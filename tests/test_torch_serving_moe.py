@@ -243,5 +243,5 @@ def test_init_moe_params_has_the_reference_tree_and_scales():
 
 def test_make_moe_ffn_refuses_a_mesh():
     _, tcfg, _, _ = _model()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tl.make_moe_ffn(tcfg, _moe()[1], mesh=object())

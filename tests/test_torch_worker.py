@@ -287,8 +287,9 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 # peer weight fetch (9) were refused (MoE training stays refused: it
 # needs the mesh; a gang serves since the process mesh, and 13 is now MoE
 # on a gang, refused before the process group forms; ResNet across
-# slices (14) trains since the dp axis, and 15 is tensor-parallel
-# training on a gang)
+# slices (14) trains since the dp axis, and 15, tensor-parallel
+# training on a gang, trains since the tp axis: 15 is now a pipeline on
+# such a gang)
 REFUSALS = [
     (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
@@ -296,9 +297,9 @@ REFUSALS = [
     (13, "llama", ["--pages", "64", "--moe-experts", "4"],
      {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
       "JAX_NUM_PROCESSES": "2"}, "not_ported"),
-    (15, "llama-train", ["--sp", "1", "--tp", "2"],
+    (15, "llama-train", ["--sp", "1", "--tp", "2", "--pp", "2"],
      {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
-      "JAX_NUM_PROCESSES": "2"}, "train_tp_not_ported"),
+      "JAX_NUM_PROCESSES": "2"}, "pipeline_not_ported"),
 ]
 
 

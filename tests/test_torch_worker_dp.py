@@ -17,8 +17,8 @@ of 4 for the module.
   batch, ``"mesh": {"dp": 2, ...}``, a draft sealed in each volume;
 * the refusals before any process group forms: ``llama-train`` with the
   default ``--sp`` on an even gang (``attn_not_ported``), with ``--tp 2``
-  (``train_tp_not_ported``), and ``resnet`` when the slices do not
-  divide the gang (the reference's mesh error).
+  under ``RESHARD_ENABLE`` (``reshard_not_ported``), and ``resnet`` when
+  the slices do not divide the gang (the reference's mesh error).
 """
 
 import contextlib
@@ -241,7 +241,8 @@ def test_llama_train_on_a_gang_trains_dp_only(gang2, tmp_path):
 
 @pytest.mark.parametrize("workload,args,env,code", [
     ("llama-train", [], {}, "attn_not_ported"),
-    ("llama-train", ["--sp", "1", "--tp", "2"], {}, "train_tp_not_ported"),
+    ("llama-train", ["--sp", "1", "--tp", "2"], {"RESHARD_ENABLE": "1"},
+     "reshard_not_ported"),
     ("llama-train", ["--sp", "2", "--tp", "1"], {}, "attn_not_ported")])
 def test_llama_train_gang_refusals_come_before_the_process_group(
         workload, args, env, code, tmp_path, capsys, monkeypatch):

@@ -69,7 +69,7 @@ def test_a_run_past_its_target_reports_nothing_ran(tmp_path, capsys):
 # (args, env, code, the ROADMAP Queue 1 item the refusal names)
 REFUSALS = [
     (["--pp", "2"], {}, "pipeline_not_ported", 9),
-    (["--ep", "2"], {}, "moe_not_ported", 7),
+    (["--ep", "2"], {}, "moe_not_ported", 9),
     (["--attn", "ring"], {}, "attn_not_ported", 9),
     (["--attn", "ulysses"], {}, "attn_not_ported", 9),
     ([], {"RESHARD_ENABLE": "1"}, "reshard_not_ported", 10),
@@ -123,9 +123,9 @@ def test_a_nonfinite_loss_rolls_back_to_the_newest_checkpoint(
     real = tl.loss_fn
     calls = {"n": 0}
 
-    def poisoned(cfg, params, tokens):
+    def poisoned(cfg, params, tokens, mesh=None):
         calls["n"] += 1
-        loss, acc = real(cfg, params, tokens)
+        loss, acc = real(cfg, params, tokens, mesh)
         # call 1 is the warm-up; call 4 is step index 2
         return (loss * float("nan"), acc) if calls["n"] == 4 else (loss, acc)
 
