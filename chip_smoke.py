@@ -143,8 +143,9 @@ Phases (any failure exits non-zero):
    dcos_commons_tpu_torch.frameworks.worker llama --preset 8b --serve
    --slots 8`` (Llama-3-8B in the default ``SlotServer``), send it 8
    concurrent requests (one streamed), check ``/v1/healthz``,
-   ``/v1/stats`` and a heartbeat, and end it with SIGTERM; then the same
-   with ``--pages 64`` (``PagedServer``); each worker's launch counts are
+   ``/v1/stats`` and a heartbeat, and end it with SIGTERM; beside it the
+   same with ``--pages 64`` (``PagedServer``), each in a directory of
+   its own under ``build/``; each worker's launch counts are
    its own while it served (its heartbeat's less its ``serving``
    event's); then (phase 7) the worker with ``--pages 64 --spec-decode
    true --draft-checkpoint build/spec_draft --draft-k 4``: a
@@ -161,9 +162,10 @@ Phases (any failure exits non-zero):
    ``spec_armed``, phase 6's 8 requests, every token held to the target
    under the near-tie rule, its acceptance beside the truncated draft's;
 10. (after the dense 8B phases free their weights) MoE serving at
-   Llama-3-8B widths and depth with 8 experts, top-2, dropless (the
-   Mixtral-8x7B routing geometry, 64.9 GB of random bf16 weights from the
-   seed): ``PagedServer(moe=...)`` after ``warmup()`` drains phase 3's 12
+   Llama-3-8B widths with 8 experts, top-2, dropless (the Mixtral-8x7B
+   routing geometry), cut to ``MOE_LAYERS`` of its 32 layers (about 32.5
+   GB of random bf16 weights from the seed; the worker below too):
+   ``PagedServer(moe=...)`` after ``warmup()`` drains phase 3's 12
    requests and the workers' 8, and ``generate_stepwise_moe`` decodes
    phase 3's 12 alone (kernel 2), with the kernel counts zeroed just
    before and read just after; the engine's streams, teacher-forced
@@ -203,10 +205,11 @@ Phases (any failure exits non-zero):
    restore seconds and GB/s. Cut: 2 of the 32 layers at full width
    (``CUT_WORKER``; at 32 layers the phase took 485 s, at 8 91 s, at 4
    73-91 s), so B's replies
-   are held to A's. Then (after phase 9, the card free of the 8B
-   weights) ResNet-50 at full width and depth: the fp32 train pass at
-   batch 8, 224x224, card against CPU (logits, loss, batch-norm state,
-   every gradient), then bf16 at batch 256 (``BATCH_PER_HOST``): 3
+   are held to A's. Then (after phase 4, the card free of the 8B
+   weights, beside phase 10's worker) ResNet-50 at full width and
+   depth: the fp32 train pass at batch 8, 224x224, card against CPU
+   (logits, loss, batch-norm state, every gradient), then bf16 at batch
+   256 (``BATCH_PER_HOST``): 3
    warm-up and 20 timed steps, step ms, images/s, MFU against 989 TFLOP/s
    by bench.py's 3 x 4.09 GFLOP an image, peak memory, the loss stream,
    one step's device split (convolutions, batch norm and elementwise,
@@ -214,8 +217,8 @@ Phases (any failure exits non-zero):
    --batch 256 --steps 8 --out VOL`` (Adam count 9), its resume to 12,
    ``mnist --steps 200 --out VOL2`` and its resume to 250. No kernel is
    new in phase 14.
-15. (right after phase 13a, on phase 3's weights) tensor-parallel serving
-   over a process mesh: ``TP_WORLD`` (2) ranks started by
+15. (beside phases 12 and 13a, on phase 3's weights) tensor-parallel
+   serving over a process mesh: ``TP_WORLD`` (2) ranks started by
    ``parallel.distributed.launch_local`` share the card over gloo (NCCL
    refuses two ranks on one device), each drawing the 8B weights from
    the seed and keeping its Megatron shard (``init_params(mesh=)``);
@@ -279,6 +282,38 @@ Phases (any failure exits non-zero):
    at the second launch's loss bit for bit); the ``worker_tp_train``
    line. Phase 2 also holds kernels 3-5 at one rank's heads (B=16,
    S=511, H=6, KV=3, D=128).
+18. Sequence-parallel training over a process mesh (``dist/longctx.yml``'s
+   ``worker`` pods at their deployed defaults, sp=2), after phase 14a:
+   two ranks sharing the card over gloo (not an SP speed), no kernel on
+   the deployed path (the ring's and Ulysses' tiles are plain products,
+   as the reference's). 18a: ``llama_400m`` on one sequence of 8,192
+   positions (B=1), each rank holding 4,096 through the whole model, for
+   the ring (contiguous and zigzag), Ulysses and ``flash`` (the global
+   attention: K/V gathered over sp, kernels 3-5 on the rank's queries at
+   its offset, launches zeroed just before and read just after): bf16 at
+   full depth, a warm-up and a step (step ms, collectives a step against
+   the count from the code, their host share, peak memory a rank), the
+   warm-up loss held to one process's bf16 loss; for the first three
+   fp32 at 2 layers (the clip set above the
+   gradient's norm), the first step's loss and gradient (its update's
+   first moment over 1 - b1: the gradient reduced over sp) and the update
+   after 2 steps held in rank 0 to one process of the port with dense
+   attention over the whole sequence; every leaf's bit checksums equal
+   on both ranks; the
+   ``sp_train`` line (18a runs beside 17a). 18b (beside phase 16): two
+   ``worker llama-train
+   --attn ring --ring-layout contiguous --seq 8192 --sp 0 --tp 0
+   --fused-ce true --grad-accum 1 --ckpt-every 1`` processes, 4 steps
+   through; again, SIGTERM to both once each has checkpointed step 2
+   (each flushes at its next step boundary and exits 143; a rank whose
+   peer stopped a step earlier fails that step's collective, exit 1), and
+   relaunched (both resume at one step and end at the through run's loss
+   bit for bit); beside them ``--attn
+   ulysses`` and ``--ring-layout zigzag`` at ``--seq 2048`` and ``--sp 2
+   --tp 2`` on 4 ranks, each with the reference's ``mesh``; the
+   ``worker_sp_train`` line. Phase 2 also holds kernels 3-5 at the
+   flash case's geometry (B=1, 4,096 queries over 8,192 keys at offsets
+   4,096 and 0, H=12, KV=6, D=128).
 
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
@@ -287,7 +322,8 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
 ``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``tp``,
 ``worker_tp``, ``resnet``, ``worker_resnet``, ``dp``, ``worker_dp``,
-``tp_train``, ``worker_tp_train`` and ``phase_s`` lines,
+``tp_train``, ``worker_tp_train``, ``sp_train``, ``worker_sp_train``
+and ``phase_s`` lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -613,6 +649,28 @@ FA_SHAPES = (("llama_400m_train", 16, 511, 12, 6, 128),
              ("llama3_8b_distill", 32, 256, 32, 8, 128))
 # forward only: the slot-prefill bucket that serving runs ([8, 2048])
 FA_FWD_SHAPES = (("llama3_8b_prefill_b8", 8, 2048, 32, 8, 128),)
+# (name, B, S, H, KV, D, Sq, q_offset): the global attention under sp
+# (phase 18a's flash case) at sp=2, each rank's S/2 queries at its offset
+# over the S keys gathered over sp: the last rank's, then the first's
+# (whose later half of the keys no query sees)
+FA_SP_SHAPES = (("llama_400m_train_sp2", 1, 8192, 12, 6, 128, 4096, 4096),
+                ("llama_400m_train_sp2_rank0", 1, 8192, 12, 6, 128, 4096,
+                 0))
+
+
+def _geometry(shape) -> tuple:
+    """(B, Sq, Sk, H, KV, D, q_offset) of a shape of FA_SHAPES or
+    FA_SP_SHAPES."""
+    _, b, s, h, kv, d, *rest = shape
+    sq, off = rest if rest else (s, 0)
+    return b, sq, s, h, kv, d, off
+
+
+def _causal_pairs(sq: int, sk: int, off: int) -> int:
+    """Live (query, key) pairs of one head's causal mask: query row i
+    sees keys 0 .. off + i, at most all ``sk``."""
+    full = max(0, min(sq, sk - off))        # rows short of the last key
+    return full * off + full * (full + 1) // 2 + (sq - full) * sk
 
 
 def fa_check(name: str, got, want, rows: bool = True) -> tuple:
@@ -639,23 +697,36 @@ def fa_check(name: str, got, want, rows: bool = True) -> tuple:
 def fa_inputs(shape):
     """q, k, v and dO at one shape, from the seed."""
     import torch
-    _, b, s, h, kv, d = shape
+    b, sq, s, h, kv, d, _ = _geometry(shape)
     g = torch.Generator(device="cuda").manual_seed(SEED + s)
 
     def r(*dims):
         return torch.randn(dims, generator=g, device="cuda").to(torch.bfloat16)
 
-    return r(b, s, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, s, h, d)
+    return r(b, sq, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, sq, h, d)
+
+
+def fa_library_mask(shape):
+    """SDPA's arguments for the causal mask at ``shape``: ``is_causal``
+    where the queries start at key 0 and match the keys in number, else
+    the boolean ``[Sq, Sk]`` mask of query rows at ``q_offset``."""
+    import torch
+    _, sq, s, _, _, _, off = _geometry(shape)
+    if sq == s and off == 0:
+        return {"is_causal": True}
+    rows = off + torch.arange(sq, device="cuda")[:, None]
+    return {"attn_mask": rows >= torch.arange(s, device="cuda")[None, :]}
 
 
 def fa_entry(shape, kern, checked, ms, plain_ms, library_ms) -> dict:
     """One case of kernel ``kern`` (fwd, dkdv or dq) with its bound."""
-    label, b, s, h, kv, d = shape
-    # live (query, key) pairs of the causal mask, each row i sees i + 1
-    pairs = b * h * s * (s + 1) // 2
-    q_bytes = b * s * h * d * 2                     # q, o, dO, dq (bf16)
+    label = shape[0]
+    b, sq, s, h, kv, d, off = _geometry(shape)
+    # live (query, key) pairs of the causal mask
+    pairs = b * h * _causal_pairs(sq, s, off)
+    q_bytes = b * sq * h * d * 2                    # q, o, dO, dq (bf16)
     kv_bytes = b * s * kv * d * 2                   # k, v, dk, dv (bf16)
-    row_bytes = b * h * s * 4                       # lse, delta (fp32)
+    row_bytes = b * h * sq * 4                      # lse, delta (fp32)
     work = {"fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * d * pairs),
             "dkdv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
                      8 * d * pairs),
@@ -663,6 +734,7 @@ def fa_entry(shape, kern, checked, ms, plain_ms, library_ms) -> dict:
                    6 * d * pairs)}[kern]
     err, share = checked
     return {"shape": label, "b": b, "s": s, "h": h, "kv": kv, "d": d,
+            **({"sq": sq, "q_offset": off} if (sq, off) != (s, 0) else {}),
             "max_abs_err": err, "err_share_of_limit": share, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, **bound(*work)}
 
@@ -675,10 +747,10 @@ def flash_attention_fwd_case(shape, flush) -> dict:
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.ops import flash_attention as fa
 
-    label = shape[0]
+    label, off = shape[0], _geometry(shape)[-1]
     q, k, v, _ = fa_inputs(shape)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    o, lse = fa.flash_attention_fwd(q, k, v, q_offset=off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, q_offset=off)
     torch.cuda.synchronize()
     checked = fa_check(f"flash_attention_fwd {label}", o, o_ref)
     lse_err = float((lse - lse_ref).abs().max())
@@ -687,17 +759,21 @@ def flash_attention_fwd_case(shape, flush) -> dict:
                            f"{lse_err:.3e}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
+    mask = fa_library_mask(shape)
+
     def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **mask)
 
     lib_err = float((library().transpose(1, 2).float()
                      - o_ref.float()).abs().max())
     iters = 20
     out = fa_entry(
         shape, "fwd", checked,
-        timed_ms(lambda: fa.flash_attention_fwd(q, k, v), iters, flush),
-        timed_ms(lambda: fa.flash_attention_reference(q, k, v), 3, flush),
+        timed_ms(lambda: fa.flash_attention_fwd(q, k, v, q_offset=off),
+                 iters, flush),
+        timed_ms(lambda: fa.flash_attention_reference(q, k, v, q_offset=off),
+                 3, flush),
         timed_ms(library, iters, flush))
     out["bound_share"] = out["bound_ms"] / out["ms"]
     out["lse_max_abs_err"] = lse_err
@@ -719,17 +795,28 @@ def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
     import torch.nn.functional as F
     from dcos_commons_tpu_torch.ops import flash_attention as fa
 
-    run_dkdv = dkdv or fa.flash_attention_bwd_dkdv
-    run_dq = dq or fa.flash_attention_bwd_dq
-    label = shape[0]
+    label, off = shape[0], _geometry(shape)[-1]
+    # the offset goes only where it is not 0: a variant's launcher may
+    # take none
+    at = {"q_offset": off} if off else {}
+    kernel_dkdv = dkdv or fa.flash_attention_bwd_dkdv
+    kernel_dq = dq or fa.flash_attention_bwd_dq
+
+    def run_dkdv(*a):
+        return kernel_dkdv(*a, **at)
+
+    def run_dq(*a):
+        return kernel_dq(*a, **at)
+
     q, k, v, do = fa_inputs(shape)
-    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, q_offset=off)
     delta = fa.attention_delta(o_ref, do)
     bwd_in = (q, k, v, do, lse_ref, delta)
     dk, dv = run_dkdv(*bwd_in)
     dq_out = run_dq(*bwd_in)
-    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in)
-    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_in,
+                                                           q_offset=off)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_in, q_offset=off)
     torch.cuda.synchronize()
     checked_dkdv = max(
         fa_check(f"flash_attention_bwd_dkdv {label} dk", dk, dk_ref,
@@ -741,8 +828,8 @@ def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
 
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     qt, kt, vt = (x.transpose(1, 2) for x in leaves)
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **fa_library_mask(shape))
     do_t = do.transpose(1, 2)
 
     def library():
@@ -759,13 +846,13 @@ def flash_attention_bwd_case(shape, flush, dkdv=None, dq=None,
     dkdv_entry = fa_entry(
         shape, "dkdv", checked_dkdv,
         timed_ms(lambda: run_dkdv(*bwd_in), iters, flush),
-        timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_in), 5,
-                 flush) if plain else None, lib_ms)
+        timed_ms(lambda: fa.flash_attention_bwd_dkdv_reference(
+            *bwd_in, q_offset=off), 5, flush) if plain else None, lib_ms)
     dq_entry = fa_entry(
         shape, "dq", checked_dq,
         timed_ms(lambda: run_dq(*bwd_in), iters, flush),
-        timed_ms(lambda: fa.flash_attention_bwd_dq_reference(*bwd_in), 5,
-                 flush) if plain else None, lib_ms)
+        timed_ms(lambda: fa.flash_attention_bwd_dq_reference(
+            *bwd_in, q_offset=off), 5, flush) if plain else None, lib_ms)
     for entry in (dkdv_entry, dq_entry):
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["port_backward_ms"] = whole_ms
@@ -785,9 +872,10 @@ def phase_kernels(flush):
     for c in slot_cases:
         log(f"[kernel] flash_decode {json.dumps(c)}")
     fa_cases = {"fwd": [flash_attention_fwd_case(shape, flush)
-                        for shape in FA_SHAPES + FA_FWD_SHAPES],
+                        for shape in FA_SHAPES + FA_FWD_SHAPES
+                        + FA_SP_SHAPES],
                 "dkdv": [], "dq": []}
-    for shape in FA_SHAPES:
+    for shape in FA_SHAPES + FA_SP_SHAPES:
         dkdv, dq = flash_attention_bwd_case(shape, flush)
         fa_cases["dkdv"].append(dkdv)
         fa_cases["dq"].append(dq)
@@ -2152,6 +2240,31 @@ def _side_by_side(*chains) -> None:
         raise errors[0]
 
 
+def _in_background(fn):
+    """Start ``fn()`` on a thread of its own and return a function that
+    waits for it and returns its result or raises its exception. For a
+    run of processes beside phases that keep this process's card work
+    on the calling thread."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:       # re-raised on the caller's thread
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    return join
+
+
 def _one(events, name):
     found = [e for e in events if e.get("event") == name]
     if len(found) != 1:
@@ -2383,7 +2496,10 @@ MOE_APPLY_TOKENS = 64                  # one prefill chunk
 # banks), every expert read each step under dropless capacity (63.9 GB,
 # 19.1 ms at 3.35 TB/s)
 MOE_WEIGHT_GB_PREDICTED = 64.9
-MOE_STEP_BOUND_MS = 63.9e9 / HBM_BYTES_PER_S * 1e3
+# the phase and its worker run MOE_LAYERS of the 32 layers (at 32 the two
+# took 74-134 s and 24-58 s of the script's 1,200 by machine): every
+# check holds at any depth, and the step's bound is read from the weights
+MOE_LAYERS = 16
 # In bf16 two valid computations of the MoE model route differently: one
 # 1,500-token prompt prefilled in 64-token chunks and whole differs in
 # 2,642 of its 48,000 top-2 decisions (the router logits' median
@@ -2399,6 +2515,12 @@ MOE_STEP_BOUND_MS = 63.9e9 / HBM_BYTES_PER_S * 1e3
 # full width, where nothing flips (12 of 12 streams token-exact).
 MOE_NEAR_TIE_SHARE = 0.8
 MOE_FP32_LAYERS = 4
+
+
+def _moe_cfg(llama):
+    """Phase 10's model: Llama-3-8B's widths at ``MOE_LAYERS`` layers."""
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(max_seq=2048),
+                               n_layers=MOE_LAYERS)
 
 
 def _moe_apply_check(params) -> dict:
@@ -2521,8 +2643,9 @@ def moe_split(srv) -> dict:
 
 
 def phase_moe(card: str) -> tuple:
-    """MoE serving in process at Llama-3-8B widths and depth with 8
-    experts (top-2, dropless): ``init_moe_params`` from the seed,
+    """MoE serving in process at Llama-3-8B widths with 8 experts
+    (top-2, dropless) at ``MOE_LAYERS`` layers (:func:`_moe_cfg`):
+    ``init_moe_params`` from the seed,
     ``PagedServer(moe=...)`` warmed up, then with the kernel counts zeroed
     phase 3's 12 requests drained as phase 3 drains them, the workers' 8
     requests drained at window 8 (the tokens the MoE worker is held to),
@@ -2544,7 +2667,7 @@ def phase_moe(card: str) -> tuple:
     if resident_gb > 4:
         raise RuntimeError(f"moe phase: {resident_gb:.1f} GB still resident "
                            "before the 65 GB MoE weights")
-    cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+    cfg = _moe_cfg(llama)
     moe = dropless(MoEConfig(MOE_EXPERTS))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2558,6 +2681,10 @@ def phase_moe(card: str) -> tuple:
                               params["lm_head"], *params["layers"].values()]
                     ) / 1e9
     log(f"[moe] init {weight_gb:.2f} GB of MoE params in {init_s:.1f} s")
+    # dropless: every expert of every layer and the head read each step
+    step_bound_ms = (weight_gb - params["embed"].numel()
+                     * params["embed"].element_size() / 1e9) \
+        * 1e9 / HBM_BYTES_PER_S * 1e3
     srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
                               prefill_chunk=64, moe=moe, device=dev)
     warm = srv.warmup()
@@ -2621,20 +2748,21 @@ def phase_moe(card: str) -> tuple:
     n_tok = sum(len(t) for t in out.values())
     ttfts = sorted(ttft.values())
     line = {"moe": {
-        "model": "llama3_8b widths and depth, 8 experts top-2 "
-                 "(Mixtral-8x7B routing geometry)",
+        "model": f"llama3_8b widths, {MOE_LAYERS} of 32 layers, 8 experts "
+                 "top-2 (Mixtral-8x7B routing geometry)",
         "max_seq": cfg.max_seq, "layers": cfg.n_layers, "dtype": "bf16",
         "experts": MOE_EXPERTS, "routing": moe.routing,
         "capacity_factor": moe.capacity_factor, "slots": 8, "page_size": 64,
         "prefill_chunk": 64, "weight_gb": weight_gb,
-        "weight_gb_predicted": MOE_WEIGHT_GB_PREDICTED, "init_s": init_s,
+        "weight_gb_predicted_32_layers": MOE_WEIGHT_GB_PREDICTED,
+        "init_s": init_s,
         "warmup_s": warm, "requests": len(out), "tokens_out": n_tok,
         "wall_s": wall, "output_tok_s": n_tok / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2],
         "decode_step_ms_b8": steady["graph_step_ms"],
         "eager_step_ms_b8": steady["eager_step_ms"],
         "decode_tok_s_b8": 8 / steady["graph_step_ms"] * 1e3,
-        "step_bound_ms": MOE_STEP_BOUND_MS,
+        "step_bound_ms": step_bound_ms,
         "prefill_chunk_ms": sorted(t_chunk)[len(t_chunk) // 2],
         "prefill_chunk_ms_all": t_chunk, "steady_b8_window8": steady,
         "stepwise_reference_s": ref_s, "tokens_differing_from_stepwise":
@@ -2727,7 +2855,8 @@ def _moe_fp32_parity(queue) -> dict:
 
 def phase_moe_worker(card, want) -> tuple:
     """The worker with dist/moe.yml's flags at the 8b preset
-    (``WORKER_MOE_ARGS``): ``moe_fallback`` or ``paged_fallback`` fails
+    (``WORKER_MOE_ARGS``), cut to ``MOE_LAYERS`` layers (``CUT_WORKER``)
+    as phase 10 is: ``moe_fallback`` or ``paged_fallback`` fails
     the phase; the 8 worker requests, each reply held to the in-process
     engine's stream for the same prompt ``want`` (the same weights, drawn
     from seed 0 by the same function): equal, or, where streams leave
@@ -2740,7 +2869,8 @@ def phase_moe_worker(card, want) -> tuple:
     line, launches, replies, events = phase_worker(
         card, "worker_moe", WORKER_MOE_ARGS, "PagedServer",
         ("flash_decode_paged",),
-        forbid=("paged_fallback", "moe_fallback"))
+        forbid=("paged_fallback", "moe_fallback"),
+        launch=("-c", CUT_WORKER, str(MOE_LAYERS)))
     body = line["worker_moe"]
     serving = next(e for e in events if e.get("event") == "serving")
     launches["flash_decode"] = serving.get("launches", {}).get(
@@ -2764,7 +2894,7 @@ def phase_moe_worker(card, want) -> tuple:
         from dcos_commons_tpu_torch.models import llama
         from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
         dev = torch.device("cuda")
-        cfg = llama.LlamaConfig.llama3_8b(max_seq=2048)
+        cfg = _moe_cfg(llama)
         params = llama.init_moe_params(
             cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(SEED),
             device=dev)
@@ -2778,8 +2908,8 @@ def phase_moe_worker(card, want) -> tuple:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    body["model"] = ("llama3_8b widths and depth, 8 experts top-2 "
-                     "(Mixtral-8x7B routing geometry)")
+    body["model"] = (f"llama3_8b widths, {MOE_LAYERS} of 32 layers, 8 "
+                     "experts top-2 (Mixtral-8x7B routing geometry)")
     body["launches"] = launches
     log(f"[worker_moe] streams equal {body['streams_equal_in_process']}, "
         f"bf16 hold {body['bf16_vs_in_process']}")
@@ -5332,9 +5462,25 @@ def tp_fp32_reference(queue, slot_ids, cfg_kw, layers, dev) -> dict:
     return out
 
 
-def phase_tp(card: str, params, solo, cfg_kw=None, dev="cuda") -> tuple:
+def tp_gang(solo, cfg_kw=None, dev="cuda") -> tuple:
+    """Phase 15a's gang (``tp_rank``), its ranks' results and its
+    seconds. It only waits on its processes here, so it runs beside
+    phases of this process whose engines capture CUDA graphs; the
+    checks that touch the card (:func:`phase_tp`) run after."""
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+
+    t0 = time.perf_counter()
+    ranks = launch_local(tp_rank, TP_WORLD, solo["queue"], TP_SLOT_REQUESTS,
+                         cfg_kw or {"max_seq": 2048}, TP_FP32_LAYERS,
+                         TP_STEADY_WINDOWS, dev, timeout_s=TP_TIMEOUT_S)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_tp(card: str, params, solo, cfg_kw=None, dev="cuda",
+             gang=None) -> tuple:
     """Phase 15a: tensor-parallel serving over a process mesh of
-    ``TP_WORLD`` ranks sharing the card (``tp_rank``). Every rank's
+    ``TP_WORLD`` ranks sharing the card (:func:`tp_gang`, or its result
+    ``gang`` where it ran beside another phase). Every rank's
     streams must equal rank 0's; each bf16 stream, teacher-forced through
     the parent's single-device weights (phase 3's), may leave phase 3's
     solo stream only at a near-tie; the fp32 streams must equal the
@@ -5343,17 +5489,12 @@ def phase_tp(card: str, params, solo, cfg_kw=None, dev="cuda") -> tuple:
     Returns (line, {kernel: launches summed over the ranks})."""
     import torch
     from dcos_commons_tpu_torch.models import llama
-    from dcos_commons_tpu_torch.parallel.distributed import launch_local
 
     cfg_kw = cfg_kw or {"max_seq": 2048}
     dev = torch.device(dev)
     queue = solo["queue"]
     cfg = llama.LlamaConfig.llama3_8b(**cfg_kw)
-    t0 = time.perf_counter()
-    ranks = launch_local(tp_rank, TP_WORLD, queue, TP_SLOT_REQUESTS,
-                         cfg_kw, TP_FP32_LAYERS, TP_STEADY_WINDOWS,
-                         dev.type, timeout_s=TP_TIMEOUT_S)
-    gang_s = time.perf_counter() - t0
+    ranks, gang_s = gang or tp_gang(solo, cfg_kw, dev.type)
     head, problems = ranks[0], []
     for r in ranks[1:]:
         for name in ("paged", "slots"):
@@ -6005,10 +6146,12 @@ def phase_dp(card: str, dev="cuda", spec=DP_SPEC) -> tuple:
     return line, launches
 
 
-def _gang_worker_run(args, base: Path, world: int = DP_WORLD, env=None):
+def _gang_worker_run(args, base: Path, world: int = DP_WORLD, env=None,
+                     on_event=None):
     """``world`` worker processes with the rank contract, each in
     ``base/r<rank>`` with ``--out`` there: [(exit code, events)] in rank
-    order."""
+    order. ``on_event(rank, proc, event)`` sees each event as it
+    arrives."""
     from dcos_commons_tpu_torch.parallel.distributed import free_port
     addr = f"127.0.0.1:{free_port()}"
     results = [None] * world
@@ -6017,6 +6160,8 @@ def _gang_worker_run(args, base: Path, world: int = DP_WORLD, env=None):
         cwd = base / f"r{r}"
         cwd.mkdir(parents=True, exist_ok=True)
         results[r] = _worker_run([*args, "--out", str(cwd / "vol")], cwd,
+                                 on_event=(None if on_event is None else
+                                           lambda p, e: on_event(r, p, e)),
                                  env={"JAX_COORDINATOR_ADDRESS": addr,
                                       "JAX_PROCESS_ID": str(r),
                                       "JAX_NUM_PROCESSES": str(world),
@@ -6518,6 +6663,517 @@ def phase_tp_train_worker(card: str, steps=TPT_WORKER_STEPS,
     return line, launches
 
 
+# --------------------------------------------------------------- phase 18
+
+SPT_WORLD = 2
+# 18a: an sp gang of SPT_WORLD ranks sharing the card over gloo trains
+# llama_400m (phase 17a's width) on ONE sequence of SPT_SEQ positions
+# (B=1, seed SEED), each rank holding SPT_SEQ / 2 of it through the
+# embedding, the blocks and the loss, once for each attention of
+# SPT_ATTNS: bf16 at full depth, a warm-up and SPT_BF16_STEPS timed
+# step(s); then fp32 at SPT_FP32_LAYERS layers, held in rank 0 to one
+# process of the port (dense attention over the whole sequence) on the
+# same weights and tokens: the first step's loss within SPT_LOSS_RTOL,
+# its gradient (reduced over sp) within SPT_GRAD_TOL of each leaf's
+# largest with cosine >= SPT_GRAD_COSINE, and after SPT_FP32_STEPS steps
+# the update by cosine >= SPT_UPDATE_COSINE. The bf16 warm-up loss within
+# LOSS_ATOL of one process's. Bounds written before the first card run
+# (PERF.md §6)
+SPT_SEQ, SPT_BATCH = 8192, 1
+SPT_ATTNS = (("ring", "contiguous"), ("ring", "zigzag"),
+             ("ulysses", "contiguous"))
+# bf16 also runs the global attention through kernels 3-5 (K/V gathered
+# over sp, each rank's queries at their offset); the kernels take bf16
+# only, so the fp32 check holds the three above
+SPT_BF16_ATTNS = SPT_ATTNS + (("flash", "contiguous"),)
+SPT_BF16_STEPS = 1
+SPT_FP32_LAYERS, SPT_FP32_STEPS = 2, 2
+SPT_LOSS_RTOL, SPT_GRAD_TOL, SPT_GRAD_COSINE = 1e-5, 1e-3, 0.9999
+SPT_UPDATE_COSINE = 0.99
+SPT_TIMEOUT_S = 900
+# the card's sizes; a CPU rehearsal passes a smaller spec
+SPT_SPEC = {"preset": "llama_400m", "cfg": {}, "batch": SPT_BATCH,
+            "seq": SPT_SEQ, "fp32_layers": SPT_FP32_LAYERS}
+# 18b: dist/longctx.yml's worker pods at the universe's defaults on a gang
+# of 2 (--attn ring --ring-layout contiguous --seq 8192 --sp 0 --tp 0:
+# sp=2), SPW_STEPS steps with a checkpoint each step: once through, then
+# once preempted (SIGTERM to both ranks when both have checkpointed
+# SPW_PREEMPT_AT) and relaunched; beside them --attn ulysses and
+# --ring-layout zigzag at --seq SPW_SIDE_SEQ, and --sp 2 --tp 2 on 4 ranks
+SPW_ARGS = ("llama-train", "--attn", "ring", "--ring-layout", "contiguous",
+            "--seq", "8192", "--sp", "0", "--tp", "0", "--fused-ce", "true",
+            "--grad-accum", "1", "--ckpt-every", "1")
+SPW_STEPS, SPW_PREEMPT_AT = 4, 2
+SPW_SIDE_SEQ, SPW_SIDE_STEPS = 2048, 2
+SPW_SIDE = (("ulysses", 2, ("--attn", "ulysses")),
+            ("zigzag", 2, ("--attn", "ring", "--ring-layout", "zigzag")),
+            ("sp2tp2", 4, ("--attn", "ring", "--sp", "2", "--tp", "2")))
+
+
+def sp_collectives_per_step(layers: int, attn: str,
+                            sp: int = SPT_WORLD) -> int:
+    """The collectives of one sp train step, from the code: per layer the
+    attention's (the ring's ``sp - 1`` hops forward and ``sp`` back,
+    Ulysses' two all-to-alls each way, the global attention's K/V gather
+    and its reduce-scatter), the loss's mean over sp and its backward,
+    then the one gradient reduction."""
+    per_layer = {"ring": 2 * sp - 1, "ulysses": 4}.get(attn, 2)
+    return layers * per_layer + 3
+
+
+def _sp_case(attn: str, layout: str) -> str:
+    return attn if layout == "contiguous" else f"{attn}_{layout}"
+
+
+def sp_train_rank(device: str = "cuda", spec=SPT_SPEC) -> dict:
+    """One rank of phase 18a (run by ``launch_local`` in a process of its
+    own): ``MeshSpec(sp=world)``; for each attention of ``SPT_BF16_ATTNS``
+    the bf16 steps at full depth (step ms, collectives and their host ms,
+    peak memory, kernels 3-5's launches zeroed just before and read just
+    after, every leaf's checksums), and for each of ``SPT_ATTNS`` the
+    fp32 steps (the first
+    step's gradient, reduced over sp, read from its first moment); in
+    rank 0 one process's bf16
+    loss and its fp32 loss, gradients and steps over the whole sequence
+    on the same weights, and each attention's agreement with them.
+    ``device`` ``"cpu"`` rehearses it on the CPU."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, train
+    from dcos_commons_tpu_torch.ops import flash_attention as fa
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MeshSpec(sp=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    preset = getattr(llama.LlamaConfig, spec["preset"])
+    seq = spec["seq"]
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "layout": mesh.layout, "part_s": {}, "bf16": {}, "fp32": {}}
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, preset(**spec["cfg"]).vocab_size,
+        (spec["batch"], seq + 1)).astype(np.int32)).to(dev)
+
+    def digest(trees) -> str:
+        """Two checksums of each leaf's bits, taken on the device: the
+        sum and a position-weighted sum (the leaves are replicated over
+        sp, so any rank's differ only if a rank drifted)."""
+        h = hashlib.sha1()
+        for tree in trees:
+            for _, t in sorted(_named(tree)):
+                bits = t.detach().reshape(-1).view(
+                    {2: torch.int16, 4: torch.int32}[t.element_size()]).long()
+                w = torch.arange(1, bits.numel() + 1, device=dev) % 65521
+                h.update(f"{int(bits.sum())} {int((bits * w).sum())};"
+                         .encode())
+        return h.hexdigest()
+
+    def run(cfg, seed, n_steps, after_step=None, **opt_kw):
+        """``n_steps`` from the seed's init; ``after_step(i, state, out)``
+        sees each step's optimizer state and result."""
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+            mesh=mesh)
+        opt = train.make_optimizer(**opt_kw)
+        step = train.make_train_step(
+            lambda p, b: llama.loss_fn(cfg, p, b, mesh), opt, mesh=mesh,
+            batch_spec=None)
+        state = train.init_opt_state(opt, params)
+        losses, secs, counts, coll_s = [], [], [], []
+        for i in range(n_steps):
+            _sync(dev)
+            c0, s0, t0 = mesh.collectives, mesh.collective_s, \
+                time.perf_counter()
+            params, state, o = step(params, state, toks)
+            losses.append(float(o["loss"]))
+            secs.append(time.perf_counter() - t0)
+            counts.append(mesh.collectives - c0)
+            coll_s.append(mesh.collective_s - s0)
+            if after_step is not None:
+                after_step(i, state, o)
+        return params, state, losses, secs, counts, coll_s
+
+    def clear():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # bf16 at full depth, one run per attention
+    counters = [getattr(fa, k) for k in FA_KERNELS]
+    for attn, layout in SPT_BF16_ATTNS:
+        t0 = time.perf_counter()
+        name = _sp_case(attn, layout)
+        cfg = preset(max_seq=seq + 1, remat=False, attn_impl=attn,
+                     ring_layout=layout, **spec["cfg"])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        params, state, losses, secs, counts, coll_s = run(
+            cfg, SEED, 1 + SPT_BF16_STEPS, lr=3e-4, warmup=10,
+            decay_steps=1000)
+        launches = {k: c.launches for k, c in zip(FA_KERNELS, counters)}
+        timed = slice(1, None)
+        out["bf16"][name] = {
+            "layers": cfg.n_layers, "losses": losses, "warmup_s": secs[0],
+            "step_ms": float(np.mean(secs[timed])) * 1e3,
+            "collectives_per_step": counts,
+            "collective_ms_per_step": float(np.mean(coll_s[timed])) * 1e3,
+            "collective_share": sum(coll_s[timed]) / sum(secs[timed]),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if cuda else None),
+            "launches": launches,
+            "digest": digest((params, state.mu, state.nu))}
+        del params, state
+        clear()
+        out["part_s"][f"bf16 {name}"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        cfg = preset(max_seq=seq + 1, remat=False, attn_impl="dense",
+                     **spec["cfg"])
+        whole = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        with torch.no_grad():
+            out["bf16_one_process_loss"] = float(
+                llama.loss_fn(cfg, whole, toks)[0])
+        del whole
+        clear()
+
+    # fp32 at spec["fp32_layers"] layers; the clip is above the
+    # gradient's norm, so the first update's mu is (1 - b1) times the
+    # gradient (reduced over sp): the first pass is the first step
+    seed32 = SEED + 18
+    opt32 = dict(lr=3e-4, warmup=10, decay_steps=1000, grad_clip=1e9)
+
+    def cfg32(attn, layout):
+        return preset(max_seq=seq + 1, remat=False, attn_impl=attn,
+                      ring_layout=layout, dtype=torch.float32,
+                      **{**spec["cfg"], "n_layers": spec["fp32_layers"]})
+
+    held = {}
+    for attn, layout in SPT_ATTNS:
+        t0 = time.perf_counter()
+        name = _sp_case(attn, layout)
+        first = {}
+
+        def keep_first(i, state, o):
+            if i == 0:
+                first["grads"] = {n: mu / (1 - train.B1)
+                                  for n, mu in _named(state.mu)}
+                first["loss"], first["acc"] = (float(o["loss"]),
+                                               float(o["metric"]))
+
+        params, state, losses, _, counts, _ = run(
+            cfg32(attn, layout), seed32, SPT_FP32_STEPS,
+            after_step=keep_first, **opt32)
+        out["fp32"][name] = {"loss": first["loss"], "acc": first["acc"],
+                             "losses": losses, "collectives_per_step": counts,
+                             "digest": digest((params, state.mu, state.nu))}
+        if mesh.rank == 0:
+            held[name] = (first["loss"], first["grads"],
+                          {n: t for n, t in _named(params)})
+        del params, state, first
+        clear()
+        out["part_s"][f"fp32 {name}"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        cfg = cfg32("dense", "contiguous")
+        whole = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed32), device=dev)
+        init = {n: t.clone() for n, t in _named(whole)}
+        w_leaves = train._leaves(whole)
+        for t in w_leaves:
+            t.requires_grad_(True)
+        w_loss, w_acc = llama.loss_fn(cfg, whole, toks)
+        w_grads = dict(zip([n for n, _ in _named(whole)],
+                           torch.autograd.grad(w_loss, w_leaves)))
+        w_loss = float(w_loss.detach())
+        for t in w_leaves:
+            t.requires_grad_(False)
+        opt = train.make_optimizer(**opt32)
+        step = train.make_train_step(lambda p, b: llama.loss_fn(cfg, p, b),
+                                     opt)
+        state = train.init_opt_state(opt, whole)
+        one_losses = []
+        for _ in range(SPT_FP32_STEPS):
+            whole, state, o = step(whole, state, toks)
+            one_losses.append(float(o["loss"]))
+        final = [t for _, t in _named(whole)]
+        for name, (loss, grads, params) in held.items():
+            err = {"loss_rel_err": abs(loss / w_loss - 1),
+                   "one_process_loss": w_loss,
+                   "one_process_acc": float(w_acc),
+                   "one_process_losses": one_losses}
+            for n, g in w_grads.items():
+                err[f"grad_err {n}"] = _rel_max(grads[n], g)
+                err[f"grad_cosine {n}"] = _cos(grads[n], g)
+            d = update_agreement({"final": [params[n] for n in init]},
+                                 {"init": list(init.values()),
+                                  "final": final})
+            err.update({"update_" + k: v for k, v in d.items()})
+            out["fp32"][name]["vs_one_process"] = err
+        del whole, state, init, w_grads, held
+        clear()
+        out["part_s"]["one_process"] = time.perf_counter() - t0
+    return out
+
+
+def phase_sp_train(card: str, dev="cuda", spec=SPT_SPEC) -> tuple:
+    """Phase 18a: a gang of ``SPT_WORLD`` ranks sharing the card
+    (:func:`sp_train_rank`): for each attention, every leaf bitwise equal
+    on every rank after the steps (replicated over sp), one loss stream,
+    the collectives a step against :func:`sp_collectives_per_step`, the
+    bf16 warm-up loss against one process's, kernels 3-5 launched once a
+    layer and step on each rank by the flash case and never by the
+    others, and rank 0's fp32 agreement with one process within the
+    bounds. Returns (the ``sp_train`` line, {kernel: the flash case's
+    launches summed over the ranks})."""
+    import math
+    import torch
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    ranks = launch_local(sp_train_rank, SPT_WORLD, dev.type, spec,
+                         timeout_s=SPT_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    head = ranks[0]
+    problems, cases = [], {}
+    for attn, layout in SPT_BF16_ATTNS:
+        name = _sp_case(attn, layout)
+        b, f = head["bf16"][name], head["fp32"].get(name)
+        parts = ("bf16", "fp32") if f else ("bf16",)
+        want_b = sp_collectives_per_step(b["layers"], attn)
+        want_f = sp_collectives_per_step(spec["fp32_layers"], attn)
+        want_launches = (b["layers"] * (1 + SPT_BF16_STEPS)
+                         if attn == "flash" else 0)
+        for r in ranks:
+            rb, rf = r["bf16"][name], r["fp32"].get(name)
+            if rb["collectives_per_step"] != [want_b] * (1 + SPT_BF16_STEPS):
+                problems.append(f"{name} rank {r['rank']} bf16 collectives "
+                                f"{rb['collectives_per_step']}, want "
+                                f"{want_b}")
+            if rf and rf["collectives_per_step"] != [want_f] * SPT_FP32_STEPS:
+                problems.append(f"{name} rank {r['rank']} fp32 collectives "
+                                f"{rf['collectives_per_step']}, want "
+                                f"{want_f}")
+            if dev.type == "cuda" and set(rb["launches"].values()) != {
+                    want_launches}:
+                problems.append(f"{name} rank {r['rank']} kernel launches "
+                                f"{rb['launches']}, want {want_launches} "
+                                "each")
+            if not all(math.isfinite(x) for x in rb["losses"]):
+                problems.append(f"{name} rank {r['rank']} bf16 losses "
+                                f"{rb['losses']}")
+            for part in parts:
+                if r[part][name]["digest"] != head[part][name]["digest"]:
+                    problems.append(f"{name} {part}: rank {r['rank']}'s "
+                                    "leaves differ from rank 0's")
+                if r[part][name]["losses"] != head[part][name]["losses"]:
+                    problems.append(f"{name} {part}: the ranks' losses "
+                                    "differ")
+        bf16_err = abs(b["losses"][0] - head["bf16_one_process_loss"])
+        if bf16_err > LOSS_ATOL:
+            problems.append(f"{name} bf16 loss {b['losses'][0]} against one "
+                            f"process's {head['bf16_one_process_loss']}")
+        cases[name] = {"bf16": {
+            **{k: [r["bf16"][name][k] for r in ranks] for k in (
+                "step_ms", "warmup_s", "collective_ms_per_step",
+                "collective_share", "peak_mem_gb", "launches")},
+            "losses": b["losses"],
+            "collectives_per_step": b["collectives_per_step"],
+            "collectives_predicted": want_b, "loss_abs_err": bf16_err}}
+        if not f:
+            continue
+        agree = f["vs_one_process"]
+        grad_err = max(v for k, v in agree.items()
+                       if k.startswith("grad_err"))
+        grad_cos = min(v for k, v in agree.items()
+                       if k.startswith("grad_cosine"))
+        if agree["loss_rel_err"] > SPT_LOSS_RTOL:
+            problems.append(f"{name} fp32 loss off by "
+                            f"{agree['loss_rel_err']}")
+        if grad_err > SPT_GRAD_TOL or grad_cos < SPT_GRAD_COSINE:
+            problems.append(f"{name} fp32 gradients: largest error "
+                            f"{grad_err}, least cosine {grad_cos}")
+        if agree["update_cosine"] < SPT_UPDATE_COSINE:
+            problems.append(f"{name} fp32 update cosine "
+                            f"{agree['update_cosine']}")
+        cases[name]["fp32"] = {
+            "loss": f["loss"], "acc": f["acc"], "losses": f["losses"],
+            "collectives_per_step": f["collectives_per_step"],
+            "collectives_predicted": want_f,
+            "vs_one_process": {
+                **{k: v for k, v in agree.items()
+                   if not k.startswith("grad_")},
+                "grad_err_max": grad_err, "grad_cosine_min": grad_cos}}
+    if problems:
+        raise RuntimeError("sp train phase: " + "; ".join(problems))
+    flash = _sp_case("flash", "contiguous")
+    launches = {k: sum(r["bf16"][flash]["launches"][k] for r in ranks)
+                for k in FA_KERNELS}
+    line = {"sp_train": {
+        "world": len(ranks), "backend": head["backend"],
+        "devices": [r["device"] for r in ranks], "layout": head["layout"],
+        "gang_s": gang_s, "rank_part_s": [r["part_s"] for r in ranks],
+        "card": card, "model": spec["preset"], "batch": spec["batch"],
+        "seq": spec["seq"], "fp32_layers": spec["fp32_layers"],
+        "bf16_one_process_loss": head["bf16_one_process_loss"],
+        "cases": cases,
+        "bounds": {"loss_atol_bf16": LOSS_ATOL, "loss_rtol": SPT_LOSS_RTOL,
+                   "grad": SPT_GRAD_TOL, "grad_cosine": SPT_GRAD_COSINE,
+                   "update_cosine": SPT_UPDATE_COSINE},
+        "replicated_bitwise_equal": True,
+        "label": "two ranks on one card over gloo; not an SP speed"}}
+    log(f"[sp_train] {json.dumps(line)}")
+    return line, launches
+
+
+def _sp_worker_launch(args, base: Path, world: int, preempt_at=None):
+    """One launch of ``world`` workers (:func:`_gang_worker_run`); with
+    ``preempt_at``, SIGTERM to every rank at once when each has emitted
+    its checkpoint of that step."""
+    import signal
+    if preempt_at is None:
+        return _gang_worker_run(args, base, world=world)
+    lock, ready, sent = threading.Lock(), {}, []
+
+    def on_event(rank, proc, event):
+        if event.get("event") == "checkpoint" \
+                and event["step"] >= preempt_at:
+            with lock:
+                ready.setdefault(rank, proc)
+                if len(ready) == world and not sent:
+                    sent.append(True)       # once: a second one kills
+                    for p in ready.values():
+                        if p.poll() is None:
+                            p.send_signal(signal.SIGTERM)
+
+    return _gang_worker_run(args, base, world=world, on_event=on_event)
+
+
+def phase_sp_train_worker(card: str, extra=()) -> dict:
+    """Phase 18b (module constants above): the deployed defaults through
+    (``full``), preempted at ``SPW_PREEMPT_AT`` (``preempted``) and
+    relaunched (``resumed``), each run's ranks in ``build/sp_train_smoke``;
+    beside them the ``SPW_SIDE`` gangs. Every other run: every rank exits
+    0 with one ``final_loss`` and the reference's ``mesh``. Preempted: every
+    rank exits, a rank with 143 having flushed its step, at least one
+    such; the relaunch resumes every rank at one step at or past
+    ``SPW_PREEMPT_AT`` and ends at the through run's loss bit for bit.
+    ``extra`` goes last on every command line (a CPU rehearsal:
+    ``--device cpu --seq 64``). The ``worker_sp_train`` line."""
+    import math
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "sp_train_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0_phase = time.perf_counter()
+    main = [*SPW_ARGS, *extra]
+    contiguous = {"dp": 1, "sp": 2, "tp": 1, "ring_layout": "contiguous"}
+    runs, problems = {}, []
+
+    def record(name, res, wall, mesh, rcs=(0,)):
+        dones = []
+        for r, (rc, events) in enumerate(res):
+            done = [e for e in events if e.get("event") == "done"]
+            if rc not in rcs or not done:
+                problems.append(f"{name} rank {r}: exit {rc}, {events[-2:]}")
+                continue
+            dones.append(done[0])
+        runs[name] = {"wall_s": wall, "exit": [rc for rc, _ in res],
+                      "resumed": [[e["step"] for e in ev
+                                   if e.get("event") == "resumed"]
+                                  for _, ev in res],
+                      "final_loss": [d.get("final_loss") for d in dones],
+                      "mesh": [d.get("mesh") for d in dones],
+                      "steps_run": [d.get("steps_run") for d in dones],
+                      "tokens_per_sec": [d.get("tokens_per_sec")
+                                         for d in dones],
+                      "collectives": [d.get("collectives") for d in dones],
+                      "collective_s": [d.get("collective_s") for d in dones],
+                      "peak_mem_gb": [d.get("peak_mem_gb") for d in dones]}
+        if len(dones) != len(res):
+            return dones
+        if any(d["mesh"] != mesh for d in dones):
+            problems.append(f"{name}: mesh {dones[0]['mesh']}, want {mesh}")
+        if len({d.get("final_loss") for d in dones}) != 1:
+            problems.append(f"{name}: final losses "
+                            f"{[d.get('final_loss') for d in dones]}")
+        return dones
+
+    def chain():
+        t0 = time.perf_counter()
+        res = _sp_worker_launch([*main, "--steps", str(SPW_STEPS)],
+                                base / "full", 2)
+        full = record("full", res, time.perf_counter() - t0, contiguous)
+        t0 = time.perf_counter()
+        res = _sp_worker_launch([*main, "--steps", str(SPW_STEPS)],
+                                base / "pre", 2, preempt_at=SPW_PREEMPT_AT)
+        # each rank flushes at the first step boundary after the signal
+        # (per rank, as the reference's sentinel): one that stops a step
+        # before its peer leaves the peer's next collective to fail (exit
+        # 1); either way the relaunch resumes at the newest step both hold
+        flushed = [[e["flushed_step"] for e in ev
+                    if e.get("event") == "preempted"] for _, ev in res]
+        runs["preempted"] = {"wall_s": time.perf_counter() - t0,
+                             "exit": [rc for rc, _ in res],
+                             "flushed_step": flushed}
+        if any(rc not in (143, 1) for rc, _ in res) or not any(
+                rc == 143 and f for (rc, _), f in zip(res, flushed)):
+            problems.append(f"preempted: exits {runs['preempted']['exit']}, "
+                            f"flushed {flushed}")
+        t0 = time.perf_counter()
+        res = _sp_worker_launch([*main, "--steps", str(SPW_STEPS)],
+                                base / "pre", 2)
+        resumed = record("resumed", res, time.perf_counter() - t0,
+                         contiguous)
+        steps = runs["resumed"]["resumed"]
+        if len({tuple(s) for s in steps}) != 1 or len(steps[0]) != 1 \
+                or steps[0][0] < SPW_PREEMPT_AT:
+            problems.append(f"resumed at {steps}, want one step >= "
+                            f"{SPW_PREEMPT_AT} on every rank")
+        if full and resumed and (
+                full[0]["final_loss"] != resumed[0]["final_loss"]
+                or not math.isfinite(full[0]["final_loss"] or math.nan)):
+            problems.append(f"the relaunch ends at "
+                            f"{resumed[0]['final_loss']}, the run through at "
+                            f"{full[0]['final_loss']}")
+
+    def side(name, world, args):
+        def run():
+            t0 = time.perf_counter()
+            mesh = {"dp": world // 2 // (2 if "--tp" in args else 1),
+                    "sp": 2, "tp": 2 if "--tp" in args else 1}
+            if "ring" in args:
+                mesh["ring_layout"] = ("zigzag" if "zigzag" in args
+                                       else "contiguous")
+            res = _sp_worker_launch(
+                ["llama-train", *args, "--seq", str(SPW_SIDE_SEQ),
+                 "--steps", str(SPW_SIDE_STEPS), *extra],
+                base / name, world)
+            record(name, res, time.perf_counter() - t0, mesh)
+        return run
+
+    _side_by_side(chain, *[side(*s) for s in SPW_SIDE])
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("sp train worker phase: " + "; ".join(problems))
+    line = {"worker_sp_train": {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(main) + f" --steps {SPW_STEPS} --out VOL on 2 "
+                   "processes under JAX_COORDINATOR_ADDRESS/JAX_PROCESS_ID/"
+                   "JAX_NUM_PROCESSES: through, then preempted (SIGTERM at "
+                   f"step {SPW_PREEMPT_AT}) and relaunched; beside them "
+                   + ", ".join(f"{n} ({w} ranks, --seq {SPW_SIDE_SEQ})"
+                               for n, w, _ in SPW_SIDE),
+        "runs": runs, "wall_s": time.perf_counter() - t0_phase,
+        "label": "ranks sharing one card; not an SP speed", "card": card}}
+    log(f"[worker_sp_train] {json.dumps(line)}")
+    return line
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -6577,6 +7233,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     kv_worker_line, kv_worker_launches = timed_phase(
         "11_worker_kv_tiers", phase_kv_tier_worker, card, kv_rounds, kv_want)
+    # 15a's gang beside 12 and 13a: its two ranks wait on the host for
+    # their collectives (0.6 of a step) and hold 13 GB each; this
+    # process's card work (12's and 13a's engines capture CUDA graphs,
+    # which another thread's launches would break; 15a's checks after)
+    # stays on this thread
+    t0 = time.perf_counter()
+    tp_gang_done = _in_background(lambda: tp_gang(solo))
     disagg_line, disagg_launches = timed_phase(
         "12_disagg", phase_disagg, card, params, solo)
     gc.collect()
@@ -6585,7 +7248,11 @@ def main() -> int:
         "13_migrate", phase_migrate, card, params, solo)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_line, tp_launches = timed_phase("15_tp", phase_tp, card, params, solo)
+    gang = timed_phase("15_tp_gang_after_13", tp_gang_done)
+    log(f"[phase] 15_tp_gang {gang[1]:.1f} s, from 12's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    tp_line, tp_launches = timed_phase("15_tp_checks", phase_tp, card,
+                                       params, solo, gang=gang)
     gc.collect()
     torch.cuda.empty_cache()
     slots_line, slot_launches = timed_phase("5_serve_slots",
@@ -6594,10 +7261,17 @@ def main() -> int:
     # holds the engine until the collector runs
     gc.collect()
     torch.cuda.empty_cache()
-    worker_lines, worker_launches, replies = [], {}, {}
-    for name, extra, engine, names in WORKER_ENGINES:
-        line, launches, replies[name], _ = timed_phase(
-            f"6_{name}", phase_worker, card, name, extra, engine, names)
+    # the two workers side by side, each in its own directory: each run
+    # is mostly its process's start and its weights' draw (21 GB each
+    # beside phase 3's 16)
+    worker_lines, worker_launches, replies, runs = [], {}, {}, {}
+    build_dir = Path(__file__).resolve().parent / "build"
+    timed_phase("6_worker_6_worker_paged", _side_by_side, *[
+        (lambda w=w: runs.update({w[0]: phase_worker(
+            card, *w, cwd=build_dir / f"worker_smoke_{w[0]}")}))
+        for w in WORKER_ENGINES])
+    for name, *_ in WORKER_ENGINES:
+        line, launches, replies[name], _ = runs[name]
         worker_lines.append(line)
         worker_launches.update(launches)
     # 14b beside 16b and 14a's worker runs: the peer boot is host work
@@ -6646,26 +7320,43 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_line, moe_launches, moe_worker_want = timed_phase(
         "10_moe", phase_moe, card)
-    moe_worker_line, moe_worker_launches = timed_phase(
-        "10_worker_moe", phase_moe_worker, card, moe_worker_want)
+    gc.collect()
+    torch.cuda.empty_cache()
     training_line, fa_launches = timed_phase("4_train", phase_train, card)
     gc.collect()
     torch.cuda.empty_cache()
+    # 10's worker beside 14: the worker's run is mostly its process's
+    # start and its weights' draw (38 GB beside 14's 14 GB), and neither
+    # launches a kernel of this process that another phase counts
+    moe_worker_done = _in_background(
+        lambda: phase_moe_worker(card, moe_worker_want))
     resnet_line = timed_phase("14_resnet", phase_resnet, card)
+    moe_worker_line, moe_worker_launches = timed_phase(
+        "10_worker_moe_after_14", moe_worker_done)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_train_line, tp_train_launches = timed_phase(
-        "17a_tp_train", phase_tp_train, card)
-    # 16a/16c beside 9's and 17b's worker runs: the gang waits on the host
-    # for its collectives, the workers' runs are mostly process starts
+    # 17a beside 18a: both gangs wait on the host for their collectives
+    # and fit the card together (peaks 7 and 25 GB a rank)
     side = {}
-    timed_phase("16_dp_9_llama_train_17b_worker_tp_train", _side_by_side,
+    timed_phase("17a_18a_tp_sp_train", _side_by_side,
+                lambda: side.update(tpt=phase_tp_train(card)),
+                lambda: side.update(spt=phase_sp_train(card)))
+    tp_train_line, tp_train_launches = side["tpt"]
+    sp_train_line, sp_train_launches = side["spt"]
+    # 16a/16c beside 9's, 17b's and 18b's worker runs: the gang waits on
+    # the host for its collectives, the workers' runs are mostly process
+    # starts
+    side = {}
+    timed_phase("16_dp_9_llama_train_17b_18b_worker_tp_sp_train",
+                _side_by_side,
                 lambda: side.update(dp=phase_dp(card)),
                 lambda: side.update(lt=phase_llama_train(card)),
-                lambda: side.update(tpw=phase_tp_train_worker(card)))
+                lambda: side.update(tpw=phase_tp_train_worker(card)),
+                lambda: side.update(spw=phase_sp_train_worker(card)))
     dp_line, dp_launches = side["dp"]
     llama_train_line = side["lt"]
     tp_worker_line, tp_worker_launches = side["tpw"]
+    sp_worker_line = side["spw"]
     ws = spec_worker_line["worker_spec"]
     spec_summary = {
         "windows": spec_line["windows"], "proposed": spec_line["proposed"],
@@ -6750,6 +7441,7 @@ def main() -> int:
                        "worker_tp":
                            worker_tp_launches["flash_attention_fwd"],
                        "train_tp": tp_train_launches["flash_attention_fwd"],
+                       "train_sp": sp_train_launches["flash_attention_fwd"],
                        "worker_tp_train":
                            tp_worker_launches["flash_attention_fwd"]},
                       fa_cases["fwd"], fa_tol),
@@ -6762,6 +7454,8 @@ def main() -> int:
                        "distill_dp": dp_launches["flash_attention_bwd_dkdv"],
                        "train_tp":
                            tp_train_launches["flash_attention_bwd_dkdv"],
+                       "train_sp":
+                           sp_train_launches["flash_attention_bwd_dkdv"],
                        "worker_tp_train":
                            tp_worker_launches["flash_attention_bwd_dkdv"]},
                       fa_cases["dkdv"], fa_tol),
@@ -6772,6 +7466,7 @@ def main() -> int:
                        "distill": distill_launches["flash_attention_bwd_dq"],
                        "distill_dp": dp_launches["flash_attention_bwd_dq"],
                        "train_tp": tp_train_launches["flash_attention_bwd_dq"],
+                       "train_sp": sp_train_launches["flash_attention_bwd_dq"],
                        "worker_tp_train":
                            tp_worker_launches["flash_attention_bwd_dq"]},
                       fa_cases["dq"], fa_tol),
@@ -6810,6 +7505,8 @@ def main() -> int:
     print(json.dumps(dp_worker_line), flush=True)
     print(json.dumps(tp_train_line), flush=True)
     print(json.dumps(tp_worker_line), flush=True)
+    print(json.dumps(sp_train_line), flush=True)
+    print(json.dumps(sp_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

@@ -137,18 +137,18 @@ process its own share of the global batch of ``--batch x N`` with
 batch-norm statistics over all of it, every process resuming at the
 newest step every process holds and saving the whole state to its own
 ``step-N-p{rank}``; ``distill`` over ``MeshSpec(dp=N)``; ``llama-train``
-over the reference's clamped axes as ``MeshSpec(dp, tp)``, each rank
-holding its Megatron shards, where ``sp > 1`` (its default on an even
-gang: ``attn_not_ported``, item 9) refuses before the process group
-forms; ``mnist`` trains alone in each process, as in the reference.
+over the reference's clamped axes as ``MeshSpec(dp, sp, tp)``
+(``dist/longctx.yml``'s ``worker`` pods: ring or Ulysses attention over
+``sp``, its default 2 on an even gang), each rank holding its Megatron
+shards and its sequence shard; ``mnist`` trains alone in each process,
+as in the reference.
 The ranks' collectives (``parallel.mesh``) run over gloo when ranks
 share a card.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (expert-parallel MoE training, pipelines, ring
-prefill and ring or Ulysses attention: item 9; live resharding: item
-10).
+ROADMAP Queue 1 item (expert-parallel MoE training, pipelines and ring
+prefill: item 9; live resharding: item 10).
 """
 
 from __future__ import annotations
@@ -202,26 +202,28 @@ def _divisor_at_most(limit: int, total: int) -> int:
     return 1
 
 
-def _train_mesh(device: str, dp: int, tp: int = 1, dcn: int = 1):
+def _train_mesh(device: str, dp: int, tp: int = 1, dcn: int = 1,
+                sp: int = 1):
     """The process group from the rank contract and this rank's
-    ``MeshSpec(dp=dp, tp=tp, dcn=dcn)`` mesh on ``device``: ``(contract,
-    mesh)``. A gang the mesh does not fit raises (ValueError), as the
-    reference's mesh does; a gang never trains alone."""
+    ``MeshSpec(dp=dp, sp=sp, tp=tp, dcn=dcn)`` mesh on ``device``:
+    ``(contract, mesh)``. A gang the mesh does not fit raises
+    (ValueError), as the reference's mesh does; a gang never trains
+    alone."""
     from ..parallel import distributed
     from ..parallel.mesh import MeshSpec
     contract = distributed.initialize()
-    return contract, MeshSpec(dp=dp, tp=tp, dcn=dcn).build(device)
+    return contract, MeshSpec(dp=dp, sp=sp, tp=tp, dcn=dcn).build(device)
 
 
 def _mesh_report(mesh) -> dict:
-    """On a gang: the dp axis (and tp, when larger than 1), and the
-    collectives' count and host seconds (the device wait before each
+    """On a gang: the dp axis (and sp and tp, when larger than 1), and
+    the collectives' count and host seconds (the device wait before each
     staged copy excluded); nothing for one process, whose result keys
     stay the reference's."""
     if mesh.size == 1:
         return {}
     return {"dp": mesh.shape["dp"],
-            **({"tp": mesh.shape["tp"]} if mesh.shape["tp"] > 1 else {}),
+            **{a: mesh.shape[a] for a in ("sp", "tp") if mesh.shape[a] > 1},
             "collectives": mesh.collectives,
             "collective_s": round(mesh.collective_s, 6),
             "backend": mesh.backend}
@@ -1194,19 +1196,26 @@ def run_llama_train(args) -> dict:
     ``--out``.
 
     The reference trains under a mesh, where its ``auto`` attention is
-    dense (``models/llama.py::_make_attn_fn``): ``--attn auto`` is dense
-    here too, and ``--attn flash`` takes the flash-attention kernels.
+    dense (``models/llama.py::_make_attn_fn``) on one device: ``--attn
+    auto`` is dense here too, and ``--attn flash`` takes the
+    flash-attention kernels; ``--attn ring`` and ``ulysses`` run their
+    one-rank forms.
 
     On a gang of ``n`` processes the axes follow the reference's rule:
     ``sp`` (``--sp``, by default 2 on an even gang) and ``tp`` (``--tp``)
-    clamped to divisors of ``n``, ``dp`` the rest. ``sp > 1`` (ring
-    attention, item 9) refuses before the process group forms. The mesh
-    is ``MeshSpec(dp, tp)``: each rank draws the whole init and keeps its
-    Megatron shards (``llama.param_specs``), the batch is ``max(2 * dp,
-    1)`` rows that every process holds, each dp coordinate
-    backpropagating its own, and the gang checkpoint holds each rank's
-    shards as the reference's processes write them (the optimizer state
-    placed by shape, ``train.opt_state_specs``)."""
+    clamped to divisors of ``n``, ``dp`` the rest; ``--attn auto`` is
+    ``ring`` when ``sp > 1``, and ``--ring-layout zigzag`` degrades to
+    ``contiguous`` unless the attention is the ring and ``--seq``
+    divides by ``2 sp``. The mesh is ``MeshSpec(dp, sp, tp)``: each rank
+    draws the whole init and keeps its Megatron shards
+    (``llama.param_specs``; replicated over dp and sp), the batch is
+    ``max(2 * dp, 1)`` rows that every process holds, each dp coordinate
+    backpropagating its own and each sp rank its sequence shard of them
+    (``llama.loss_fn``), and the gang checkpoint holds each rank's shards
+    as the reference's processes write them (the optimizer state placed
+    by shape, ``train.opt_state_specs``). The result's ``mesh`` is the
+    reference's report, ``{"dp", "sp", "tp"}`` and ``ring_layout`` under
+    the ring."""
     from ..models import llama, train
     from ..parallel import checkpoint as ckpt
     from . import sentinel as sentinel_mod
@@ -1218,10 +1227,6 @@ def run_llama_train(args) -> dict:
         raise NotPorted("moe_not_ported", "--ep > 1: expert-parallel (MoE) "
                         "training needs the device mesh, not ported yet "
                         "(ROADMAP Queue 1 item 9)")
-    if args.attn in ("ring", "ulysses"):
-        raise NotPorted("attn_not_ported", f"--attn {args.attn}: sequence-"
-                        "parallel attention is not ported yet (ROADMAP "
-                        "Queue 1 item 9)")
     if str(os.environ.get("RESHARD_ENABLE", "0")).strip().lower() \
             not in ("", "0", "false", "no"):
         raise NotPorted("reshard_not_ported", "RESHARD_ENABLE: restart-free "
@@ -1232,17 +1237,18 @@ def run_llama_train(args) -> dict:
           else (2 if n % 2 == 0 else 1))
     tp = _divisor_at_most(args.tp, n // sp) if args.tp > 0 else 1
     dp = n // (sp * tp)
-    if sp > 1:
-        raise NotPorted("attn_not_ported", f"sp={sp} over {n} processes "
-                        "(--sp, or its default on an even gang): sequence-"
-                        "parallel (ring) attention is not ported yet "
-                        "(ROADMAP Queue 1 item 9); --sp 1 trains dp and tp")
-    contract, mesh = _train_mesh(args.device, dp, tp)
-    dev = mesh.device
     seq = args.seq
+    attn = args.attn if args.attn != "auto" else (
+        "ring" if sp > 1 else "auto")
+    ring_layout = args.ring_layout
+    if ring_layout == "zigzag" and (attn != "ring" or seq % (2 * sp)):
+        # an incompatible layout degrades, not crash-loops the gang
+        ring_layout = "contiguous"
+    contract, mesh = _train_mesh(args.device, dp, tp, sp=sp)
+    dev = mesh.device
     cfg = llama.LlamaConfig.tiny(
-        attn_impl="dense" if args.attn == "auto" else args.attn,
-        max_seq=seq + 1, fused_ce=_fused_ce(args))
+        attn_impl="dense" if attn == "auto" else attn, max_seq=seq + 1,
+        ring_layout=ring_layout, fused_ce=_fused_ce(args))
     specs = llama.param_specs(cfg)
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -1327,10 +1333,12 @@ def run_llama_train(args) -> dict:
         sent.uninstall()
     _sync(dev)
     dt = time.perf_counter() - t0
-    mesh_report = {"dp": dp, "sp": 1, "tp": tp}
+    mesh_report = {"dp": dp, "sp": sp, "tp": tp}
+    if attn == "ring":
+        mesh_report["ring_layout"] = ring_layout
     if stopped == "preempted":
         # flushed by guarded_loop; main() exits 143
-        return {"workload": "llama-train", "attn": args.attn, "seq": seq,
+        return {"workload": "llama-train", "attn": attn, "seq": seq,
                 "mesh": mesh_report, "stopped": "preempted",
                 "resume_step": end_step, "steps_run": steps_run,
                 "process_id": contract["process_id"],
@@ -1344,7 +1352,7 @@ def run_llama_train(args) -> dict:
         if args.out:
             ckpt.save_sharded(args.out, args.steps,
                               _train_tree(params, opt_state), **layout)
-    return {"workload": "llama-train", "attn": args.attn, "seq": seq,
+    return {"workload": "llama-train", "attn": attn, "seq": seq,
             "fused_ce": bool(cfg.fused_ce), "grad_accum": grad_accum,
             "mesh": mesh_report, "final_loss": loss,
             "steps_run": steps_run,
@@ -1668,12 +1676,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "co-located serving (disagg_fallback)")
     p.add_argument("--attn", default="auto",
                    choices=["auto", "dense", "flash", "ring", "ulysses"],
-                   help="llama-train: attention (ring and ulysses are not "
-                        "ported, item 9: exit 2)")
+                   help="llama-train: attention (auto: ring when sp > 1, "
+                        "else dense)")
     p.add_argument("--ring-layout", default="contiguous",
                    choices=["contiguous", "zigzag"],
-                   help="llama-train --attn ring's block order (not "
-                        "ported; zigzag degrades to contiguous)")
+                   help="llama-train --attn ring: zigzag balances causal "
+                        "work across the ring (each shard holds one "
+                        "early + one late chunk); needs seq %% (2*sp) "
+                        "== 0, else degrades to contiguous")
     p.add_argument("--seq", type=int, default=256,
                    help="llama-train, distill: sequence length")
     p.add_argument("--fused-ce", default=os.environ.get("FUSED_CE", "true"),

@@ -37,7 +37,17 @@ same bits after each collective. A mesh of one process is no mesh.
 Training: ``forward`` (full sequences, causal attention through the
 flash-attention kernels or the dense path, optional per-layer remat)
 and ``loss_fn`` (next-token loss, fused linear cross-entropy by
-default), both with ``mesh=``. Under tp the train forward places
+default), both with ``mesh=``. Under sp (a mesh whose ``sp`` axis is
+larger than 1) each rank holds ``S/sp`` of the sequence through the
+embedding, the blocks, the norm and the loss: ``loss_fn`` takes the
+whole token batch, shifts it, lays it out (``zigzag`` for the zigzag
+ring) and keeps the rank's slice; rope reads each slot's global
+position; attention is the ring (``parallel.ring_attention``), Ulysses
+(``parallel.ulysses``), or, for ``dense`` and ``flash``, the rank's
+queries over K/V gathered over sp (``Mesh.gather_seq``, whose backward
+sums the ranks' K/V gradients) at the rank's query offset; the loss and
+the accuracy are averaged over sp (the train step averages the
+gradients over dp and sp). Under tp the train forward places
 Megatron's pair (``parallel.mesh``): each attention and FFN block
 passes its normed input through ``Mesh.copy_to`` ("f", whose backward
 sums the ranks' partial input gradients) and its ``wo``/``w_down``
@@ -68,7 +78,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .._device import DeviceLike, resolve_device
-from ..ops.attention import gqa_attention
+from ..ops.attention import gqa_attention, repeat_kv
 from ..ops.flash_attention import (HEAD_DIMS, flash_attention,
                                    flash_attention_tp)
 from ..ops.flash_decode import (flash_decode, flash_decode_paged,
@@ -79,8 +89,11 @@ from ..ops.norms import rms_norm
 from ..ops.quant import QArray, QTensor, dequantize, qmm, qtake, quantize
 from ..ops.rotary import (apply_rope, apply_rope_at, apply_rope_at_many,
                           apply_rope_positions, rope_frequencies)
-from ..parallel.mesh import Mesh, Spec, scale_spec, shard_slices, tp_size
+from ..parallel.mesh import (Mesh, Spec, scale_spec, shard_slices, sp_size,
+                             tp_size)
 from ..parallel.moe import MoEConfig, moe_apply_local
+from ..parallel.ring_attention import ring_attention, zigzag_indices
+from ..parallel.ulysses import ulysses_attention
 
 Params = Dict[str, Any]
 Pool = Dict[str, QArray]
@@ -101,14 +114,21 @@ class LlamaConfig:
     max_seq: int = 8192
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
-    # train attention: auto | dense | flash (ring | ulysses raise until
-    # ported). On a CUDA device auto and flash take the flash-attention
-    # kernels for every head_dim up to 256 (the reference's gate), zero-
-    # padded to the kernels' widths, and the dense path beyond it; the
-    # kernels take bf16 only, so an fp32 config raises there. On the
-    # CPU auto is dense and flash runs the kernel wrapper (its plain
-    # version). See :func:`attn_route`
+    # train attention: auto | dense | flash | ring | ulysses. On a CUDA
+    # device auto and flash take the flash-attention kernels for every
+    # head_dim up to 256 (the reference's gate), zero-padded to the
+    # kernels' widths, and the dense path beyond it; the kernels take
+    # bf16 only, so an fp32 config raises there. On the CPU auto is dense
+    # and flash runs the kernel wrapper (its plain version). Under a mesh
+    # of more than one process auto is ring when sp > 1, else dense. ring
+    # and ulysses shard the sequence over sp (plain torch products; dense
+    # without a mesh). See :func:`attn_route`
     attn_impl: str = "auto"
+    # ring attention's block order: "contiguous" (rank i holds positions
+    # [i S/sp, (i+1) S/sp); causal work is imbalanced over the ring) or
+    # "zigzag" (rank i holds chunks i and 2 sp - 1 - i of 2 sp; balanced;
+    # loss_fn lays the tokens out with ring_attention.zigzag_indices)
+    ring_layout: str = "contiguous"
     dtype: torch.dtype = torch.bfloat16
     # recompute each layer's activations in the backward (full remat);
     # a selective remat_policy is not ported yet
@@ -983,51 +1003,93 @@ def attn_route(impl: str, device_type: str, q: torch.Tensor,
 
 
 def _padded_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  attend: Callable = flash_attention) -> torch.Tensor:
+                  attend: Callable = flash_attention,
+                  q_offset: int = 0) -> torch.Tensor:
     """Causal flash attention at any head_dim up to 256 (``attend``,
     :func:`flash_attention` or a tp rank's ``flash_attention_tp``): q/k/v
     are zero-padded to the next kernel width and the softmax keeps the
     true width's scale. The zero columns add nothing to Q.K^T, the
     output's padded columns are zero and cut away, and the gradients of
-    the padding are dropped by the pad's own backward."""
+    the padding are dropped by the pad's own backward. Query row ``i``
+    sits at position ``q_offset + i`` of the keys."""
     d = q.shape[-1]
     width = next(w for w in HEAD_DIMS if w >= d)
     if width == d:
-        return attend(q, k, v, causal=True)
+        return attend(q, k, v, causal=True, q_offset=q_offset)
     pad = (0, width - d)
     o = attend(torch.nn.functional.pad(q, pad),
                torch.nn.functional.pad(k, pad),
                torch.nn.functional.pad(v, pad), causal=True,
-               sm_scale=d ** -0.5)
+               sm_scale=d ** -0.5, q_offset=q_offset)
     return o[..., :d]
+
+
+ATTN_IMPLS = ("auto", "dense", "flash", "ring", "ulysses")
+
+
+def resolve_attn(cfg: LlamaConfig, mesh: Optional[Mesh] = None) -> str:
+    """``cfg.attn_impl`` with ``auto`` resolved under a mesh of more than
+    one process: ``ring`` when its ``sp`` axis is larger than 1 (the
+    worker's rule), else ``dense`` (the reference's ``auto`` under a
+    mesh). ``auto`` stays for :func:`attn_route` otherwise."""
+    impl = cfg.attn_impl
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={impl!r}: expected one of "
+                         f"{', '.join(map(repr, ATTN_IMPLS))}")
+    if impl == "auto" and mesh is not None and mesh.size > 1:
+        return "ring" if sp_size(mesh) > 1 else "dense"
+    return impl
 
 
 def _make_attn_fn(cfg: LlamaConfig, device: torch.device,
                   mesh: Optional[Mesh] = None) -> Callable:
-    """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal, routed
-    per call by :func:`attn_route`. Under a mesh of more than one process
-    ``auto`` is dense, as the reference's rule; under tp ``flash`` runs
-    the kernels on the rank's heads through ``flash_attention_tp``, which
-    checks that the model's KV heads divide over ``tp``."""
-    impl = cfg.attn_impl
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet (ROADMAP Queue 1 item 9)")
-    if impl not in ("auto", "dense", "flash"):
-        raise ValueError(f"attn_impl={impl!r}: expected one of 'auto', "
-                         "'dense', 'flash'")
-    if impl == "auto" and mesh is not None and mesh.size > 1:
+    """f(q, k, v) for q [B, S, H, D], k/v [B, S, KV, D], causal, the
+    rank's heads and sequence shard under ``mesh``.
+
+    ``ring`` and ``ulysses`` (:func:`resolve_attn`) shard the sequence
+    over sp: the ring takes the RAW KV heads in ``cfg.ring_layout``,
+    Ulysses the heads repeated to the query heads, as the reference;
+    without a mesh both are dense, as the reference's. The port's shards
+    need tp to divide the KV heads (``shard_params``), so the
+    reference's repeated-heads ring (tp not dividing KV) is refused
+    before it. ``dense`` and ``flash`` (routed per call by
+    :func:`attn_route`) keep the global attention under sp: K/V gathered
+    over sp with :meth:`Mesh.gather_seq`, the rank's queries at its
+    offset (the contiguous layout). Under tp ``flash`` runs the kernels
+    on the rank's heads through ``flash_attention_tp``, which checks
+    that the model's KV heads divide over ``tp``."""
+    impl = resolve_attn(cfg, mesh)
+    if impl in ("ring", "ulysses") and mesh is None:
         impl = "dense"
+    if impl == "ring":
+        def ring(q, k, v):
+            return ring_attention(q, k, v, mesh, causal=True,
+                                  layout=cfg.ring_layout)
+        return ring
+    if impl == "ulysses":
+        rep = cfg.n_heads // cfg.n_kv_heads
+
+        def ulysses(q, k, v):
+            return ulysses_attention(q, repeat_kv(k, rep), repeat_kv(v, rep),
+                                     mesh, causal=True)
+        return ulysses
     attend = flash_attention
     if tp_size(mesh) > 1:
         def attend(q, k, v, **kw):
             return flash_attention_tp(q, k, v, mesh,
                                       kv_heads=cfg.n_kv_heads, **kw)
+    sp = sp_size(mesh)
 
     def attn(q, k, v):
+        offset = 0
+        if sp > 1:
+            # one gather for K and V; the rank's queries at their offset
+            k, v = mesh.gather_seq(torch.stack([k, v]), "sp",
+                                   dim=2).unbind(0)
+            offset = mesh.coords["sp"] * q.shape[1]
         if attn_route(impl, device.type, q, k) == "flash":
-            return _padded_flash(q, k, v, attend)
-        return gqa_attention(q, k, v, causal=True)
+            return _padded_flash(q, k, v, attend, q_offset=offset)
+        return gqa_attention(q, k, v, causal=True, q_offset=offset)
 
     return attn
 
@@ -1074,11 +1136,19 @@ def apply_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             mesh: Optional[Mesh] = None,
+            positions: Optional[torch.Tensor] = None,
             return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, V] fp32, or with
     ``return_hidden`` the final-norm hidden states [B, S, D] (the fused
     loss's input). ``cfg.remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant).
+
+    ``positions`` (optional [S] ints): the global position of each
+    sequence slot, for layouts where slot != position (the zigzag ring
+    layout, or a sequence shard): rope reads the table at them. Under a
+    ``mesh`` whose ``sp`` is larger than 1, ``tokens`` are this rank's
+    ``S/sp`` slots, at ``positions`` or by default the rank's contiguous
+    shard; attention follows :func:`_make_attn_fn`.
 
     Under a tp ``mesh`` (``params`` the rank's shards) each rank computes
     its heads and FFN columns with Megatron's pair (module doc); the
@@ -1094,6 +1164,12 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             "(ROADMAP Queue 1 item 2)")
     rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                             device=tokens.device)
+    if positions is None and sp_size(mesh) > 1:
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device) \
+            + mesh.coords["sp"] * s
+    if positions is not None:
+        rope = rope[:, positions.to(tokens.device).long()]
     attn_fn = _make_attn_fn(cfg, tokens.device, mesh)
     layers = params["layers"]
     x = _embed(cfg, params, tokens, mesh)
@@ -1120,16 +1196,49 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     ``fused_linear_cross_entropy``'s sequence-blocked loop, under tp
     vocabulary-parallel over the rank's ``lm_head`` columns; unfused,
     the logits are gathered whole (:func:`forward`) and every rank takes
-    the loss of the whole vocabulary."""
+    the loss of the whole vocabulary.
+
+    With the zigzag ring (:func:`resolve_attn` ``ring`` and
+    ``cfg.ring_layout == "zigzag"`` under a mesh), inputs AND targets
+    are permuted into the layout order after the shift, as the
+    reference's: cross entropy is invariant under a permutation that
+    keeps each input with its target. Under sp every rank holds the
+    whole ``tokens`` and keeps its ``S/sp`` slice of the (laid-out)
+    pairs; its loss and accuracy are means over its slice, averaged
+    over sp (:meth:`Mesh.all_reduce_mean`: the equal slices make it the
+    mean over every token of the sequence, and each rank backpropagates
+    its own slice's mean)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    sp = sp_size(mesh)
+    positions = None
+    if (mesh is not None and resolve_attn(cfg, mesh) == "ring"
+            and cfg.ring_layout == "zigzag"):
+        positions = torch.from_numpy(zigzag_indices(inputs.shape[1], sp)
+                                     ).to(tokens.device).long()
+        inputs, targets = inputs[:, positions], targets[:, positions]
+    if sp > 1:
+        s = inputs.shape[1]
+        if s % sp:
+            raise ValueError(f"sequence parallelism: {s} positions do not "
+                             f"divide over sp={sp}")
+        at, n = mesh.coords["sp"] * (s // sp), s // sp
+        inputs, targets = inputs[:, at:at + n], targets[:, at:at + n]
+        positions = (torch.arange(at, at + n, device=tokens.device)
+                     if positions is None else positions[at:at + n])
     if cfg.fused_ce:
-        x = forward(cfg, params, inputs, mesh, return_hidden=True)
-        return fused_linear_cross_entropy(
+        x = forward(cfg, params, inputs, mesh, positions=positions,
+                    return_hidden=True)
+        loss, acc = fused_linear_cross_entropy(
             x, params["lm_head"], targets, z_loss=1e-4,
             block_size=cfg.fused_ce_block,
             mesh=mesh if tp_size(mesh) > 1 else None)
-    logits = forward(cfg, params, inputs, mesh)
-    return softmax_cross_entropy(logits, targets, z_loss=1e-4)
+    else:
+        logits = forward(cfg, params, inputs, mesh, positions=positions)
+        loss, acc = softmax_cross_entropy(logits, targets, z_loss=1e-4)
+    if sp > 1:
+        loss, acc = mesh.all_reduce_mean(torch.stack([loss, acc]),
+                                         "sp").unbind(0)
+    return loss, acc.detach()
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,11 @@ same bits. With ``tp > 1`` (``param_spec_tree``, the reference's
 Megatron specs) each rank holds its shards of the parameters and of both
 moments; the clip's global norm sums the sharded leaves' squares over
 ``tp`` and counts each replicated leaf once, so every rank clips by one
-factor and the replicated leaves stay bitwise equal.
+factor and the replicated leaves stay bitwise equal. With ``sp > 1``
+the parameters and their moments are replicated over ``sp`` as over
+``dp``: each rank backpropagates its own sequence shard's loss, and the
+one reduction runs over ``dp`` and ``sp`` together, so the clip's norm
+is unchanged.
 :func:`opt_state_specs` gives the specs the reference places the
 optimizer state under, which the gang checkpoint writes.
 ``has_aux_state`` is the ResNet batch-norm pattern: the loss
@@ -50,6 +54,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+
+from ..parallel.mesh import GRAD_AXES
 
 Params = Dict[str, Any]
 
@@ -320,7 +326,14 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     shards, ``loss_fn`` runs the tp forward (its collectives pair the
     ranks' gradients), and the clip's norm is the whole model's. With
     ``dp > 1`` too, the reduction runs over the rank's ``dp`` group, and
-    every tp rank of one dp coordinate takes the same rows."""
+    every tp rank of one dp coordinate takes the same rows.
+
+    ``mesh`` with ``sp > 1``: every sp rank of one dp coordinate takes
+    the same rows and ``loss_fn`` its sequence shard of them (the
+    sequence-parallel forward; each rank's gradients are its own shard's
+    share); the gradients, loss and metric are reduced over ``dp`` and
+    ``sp`` in the one collective, each rank weighted by its dp share over
+    ``sp``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if grad_accum > 1 and has_aux_state:
@@ -329,11 +342,15 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         raise NotImplementedError(
             "grad_accum > 1 with has_aux_state is not supported")
     dp = mesh.shape["dp"] if mesh is not None else 1
+    sp = mesh.shape["sp"] if mesh is not None else 1
     tp = mesh.shape["tp"] if mesh is not None else 1
-    if mesh is not None and mesh.size != dp * tp:
+    if mesh is not None and mesh.size != dp * sp * tp:
         raise NotImplementedError(
-            f"training on mesh {mesh.shape}: only the dp and tp axes are "
-            "ported (sp, pp and ep are ROADMAP Queue 1 item 9)")
+            f"training on mesh {mesh.shape}: only the dp, sp and tp axes "
+            "are ported (pp and ep are ROADMAP Queue 1 item 9)")
+    # the axes the gradients are reduced over, and the group's name
+    grad_axis = {(True, True): GRAD_AXES, (True, False): "dp",
+                 (False, True): "sp"}.get((dp > 1, sp > 1))
     if tp > 1 and param_spec_tree is None:
         raise ValueError("a tp mesh needs param_spec_tree (the parameters' "
                          "sharding specs) for the clip's global norm")
@@ -370,10 +387,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         leaves = _leaves(params)
         sharded = None if tp == 1 else [
             "tp" in spec for spec in _leaf_specs(params, param_spec_tree)]
-        weight, empty = 1.0 / dp, False
+        weight, empty = 1.0 / (dp * sp), False
         if dp > 1 and batch_spec is None:
             start, rows = dp_rows(batch.shape[0], mesh)
-            weight, empty = rows / batch.shape[0], rows == 0
+            weight, empty = rows / batch.shape[0] / sp, rows == 0
             batch = batch[start:start + rows]
         aux = None
         for t in leaves:
@@ -388,10 +405,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        if dp > 1:
+        if grad_axis is not None:
             with record_function("train_step.grad_all_reduce"):
                 grads, (loss, metric) = mesh.reduce_grads(
-                    grads, (loss.float(), metric.float()), weight)
+                    grads, (loss.float(), metric.float()), weight, grad_axis)
         with record_function("train_step.optimizer"):
             apply_updates(optimizer, params, list(grads), opt_state,
                           sharded, mesh)

@@ -1,2 +1,4 @@
 """Process-level plumbing of the port: the engines' compile cache
-(``aot``) and the scheduler's rank contract (``distributed``)."""
+(``aot``), the scheduler's rank contract (``distributed``), the process
+mesh and its collectives (``mesh``), and sequence-parallel attention
+(``ring_attention``, ``ulysses``)."""

@@ -22,7 +22,8 @@ package restores in the other bitwise:
   the tree's ``llama.param_specs``) each process writes the shard it
   owns under the whole leaf's ``global_shape``, its index key the start
   offsets of the shard (``o0_0_2048``), replicated leaves whole, as the
-  reference's processes do. ``disk_specs`` names a leaf's spec on disk
+  reference's processes do (a replica over ``dp`` or ``sp`` writes its
+  own copy in its own directory, and no shard twice). ``disk_specs`` names a leaf's spec on disk
   where it differs from the live one: the reference keys its optimizer
   state's placement by shape (``models.train.opt_state_specs``), so a
   rank's column shard of ``wq``'s moments is written as the reference's

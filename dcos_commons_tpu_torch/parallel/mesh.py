@@ -1,5 +1,5 @@
-"""The process mesh of tensor-parallel serving and data-parallel training
-(port of ``dcos_commons_tpu/parallel/mesh.py``).
+"""The process mesh of tensor-parallel serving and data-, tensor- and
+sequence-parallel training (port of ``dcos_commons_tpu/parallel/mesh.py``).
 
 The reference's mesh is a grid of devices with named axes, and XLA
 inserts the collectives from the shardings. Here one process drives one
@@ -25,9 +25,10 @@ retried with gloo.
 A rank's coordinates are its rank in row-major order over :data:`AXES`
 (``dcn`` folded into ``dp``, slice-major), as the reference lays out its
 device grid, and each axis larger than 1 gets its own group over the
-ranks that share the other coordinates. ``dp`` and ``tp`` may be larger
-than 1; ``sp``, ``pp`` and ``ep`` raise :class:`NotImplementedError`
-naming their item.
+ranks that share the other coordinates (with ``dp`` and ``sp`` both
+larger than 1, also one group over the two, where the gradients are
+reduced). ``dp``, ``sp`` and ``tp`` may be larger than 1; ``pp`` and
+``ep`` raise :class:`NotImplementedError` naming their item.
 
 Data parallelism needs two collectives that autograd sees, and they live
 here: :meth:`Mesh.all_reduce_mean` (its backward is the all-reduce-mean
@@ -45,6 +46,14 @@ backward, at the output of a row-parallel product). Also
 :meth:`Mesh.gather_from` (the all-gather forward, the rank's own slice
 of the cotangent backward) and :meth:`Mesh.all_reduce_max` (no
 gradient), which the vocabulary-parallel loss reads.
+
+Sequence-parallel training needs three more, each with its adjoint:
+:meth:`Mesh.ppermute` (the ring hop, ``lax.ppermute``: the backward is
+the hop the other way), :meth:`Mesh.all_to_all` (``lax.all_to_all(...,
+tiled=True)``: the backward is the inverse all-to-all) and
+:meth:`Mesh.gather_seq` (the all-gather forward; the backward sums the
+cotangents over the axis and narrows to the rank's slice, a
+reduce-scatter: every rank's queries read every rank's keys).
 """
 
 from __future__ import annotations
@@ -66,8 +75,11 @@ AXES: Tuple[str, ...] = ("dp", "pp", "sp", "tp", "ep")
 # the axes the port cannot shard yet, and the ROADMAP Queue 1 item each
 # waits for
 _NOT_PORTED = {"pp": "item 9 (pipelines)",
-               "sp": "item 9 (ring and Ulysses attention)",
                "ep": "item 9 (expert-parallel MoE)"}
+
+#: the axes a step reduces its gradients over: the parameters are
+#: replicated over both
+GRAD_AXES: Tuple[str, ...] = ("dp", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +129,8 @@ class MeshSpec:
             if axis in _NOT_PORTED and n > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={n} is not ported yet (ROADMAP Queue "
-                    f"1 {_NOT_PORTED[axis]}); the port shards over dp and "
-                    "tp only")
+                    f"1 {_NOT_PORTED[axis]}); the port shards over dp, sp "
+                    "and tp only")
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if dist.is_initialized() else 0
         if self.size != world:
@@ -136,20 +148,22 @@ class MeshSpec:
         dist.all_gather_object(layout, (socket.gethostname(),
                                         _device_uuid(dev)), group=cpu_group)
         backend = choose_backend(layout)
-        groups = {}
-        for axis, n in shape.items():
-            if n == 1:
-                continue
+        groups, lanes = {}, {}
+        keys: List = [axis for axis, n in shape.items() if n > 1]
+        if all(shape[a] > 1 for a in GRAD_AXES):
+            keys.append(GRAD_AXES)
+        for key in keys:
             # every rank forms every group of the axis, in one order
-            for ranks in axis_groups(shape, axis):
+            for ranks in axis_groups(shape, key):
                 if len(ranks) == world and backend == "gloo":
                     group = cpu_group
                 else:
                     group = dist.new_group(ranks=ranks, backend=backend)
                 if rank in ranks:
-                    groups[axis] = group
+                    groups[key], lanes[key] = group, ranks
         return Mesh(shape, coords, dev, backend, groups=groups,
-                    cpu_group=cpu_group, layout=layout, rank=rank)
+                    cpu_group=cpu_group, layout=layout, rank=rank,
+                    lanes=lanes)
 
 
 def mesh_coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
@@ -159,13 +173,16 @@ def mesh_coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
     return {a: int(i) for a, i in zip(AXES, idx)}
 
 
-def axis_groups(shape: Dict[str, int], axis: str) -> List[List[int]]:
-    """The groups of ``axis``: for each setting of the other coordinates,
-    the ranks along ``axis`` in order."""
+def axis_groups(shape: Dict[str, int], axis) -> List[List[int]]:
+    """The groups of ``axis`` (a name, or a tuple of names for one group
+    over several axes): for each setting of the other coordinates, the
+    ranks along ``axis`` in row-major order."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
     grid = np.arange(math.prod(shape[a] for a in AXES)).reshape(
         tuple(shape[a] for a in AXES))
-    lanes = np.moveaxis(grid, AXES.index(axis), -1).reshape(
-        -1, shape[axis])
+    lanes = np.moveaxis(grid, [AXES.index(a) for a in axes],
+                        range(-len(axes), 0)).reshape(
+        -1, math.prod(shape[a] for a in axes))
     return [[int(r) for r in lane] for lane in lanes]
 
 
@@ -212,17 +229,20 @@ class Mesh:
     does; ``coords`` this rank's place on each; ``device`` the device it
     drives; ``backend`` the device collectives' (``nccl``, ``gloo``, or
     ``local`` for a mesh of one); ``groups`` each axis's process group
-    (an axis of size 1 has none). The collectives count their calls and
-    host seconds in ``collectives`` and ``collective_s``."""
+    (an axis of size 1 has none) and ``lanes`` its ranks in order (the
+    ring's neighbours). An axis argument is a name, or :data:`GRAD_AXES`
+    for the group over ``dp`` and ``sp``. The collectives count their
+    calls and host seconds in ``collectives`` and ``collective_s``."""
 
     def __init__(self, shape: Dict[str, int], coords: Dict[str, int],
                  device: torch.device, backend: str, *, rank: int,
-                 groups=None, cpu_group=None, layout=None):
+                 groups=None, cpu_group=None, layout=None, lanes=None):
         self.shape = dict(shape)
         self.coords = dict(coords)
         self.device = device
         self.backend = backend
         self._groups = dict(groups or {})
+        self._lanes = dict(lanes or {})
         self._cpu_group = cpu_group
         self.layout = list(layout) if layout is not None else None
         self._rank = rank
@@ -238,6 +258,12 @@ class Mesh:
     def rank(self) -> int:
         """This rank's place in the process group."""
         return self._rank
+
+    def axis_size(self, axis) -> int:
+        """The size of ``axis``, a name or a tuple of names."""
+        if isinstance(axis, str):
+            return self.shape[axis]
+        return math.prod(self.shape[a] for a in axis)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, "
@@ -270,13 +296,13 @@ class Mesh:
             return buf
         return x
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "tp",
+    def all_reduce(self, x: torch.Tensor, axis="tp",
                    op: str = "sum") -> torch.Tensor:
         """The sum (``op="max"``: the largest) of ``x`` over ``axis``, the
         same bits on every rank. A fresh partial product may be reduced
         in place. Outside autograd: see :meth:`all_reduce_mean`,
         :meth:`copy_to` and :meth:`reduce_from`."""
-        if self.shape[axis] == 1:
+        if self.axis_size(axis) == 1:
             return x
         import torch.distributed as dist
         t0 = self._start(x)
@@ -353,14 +379,14 @@ class Mesh:
 
     def reduce_grads(self, grads: Sequence[torch.Tensor],
                      extra: Sequence[torch.Tensor] = (),
-                     weight: float = 1.0, axis: str = "dp"
+                     weight: float = 1.0, axis="dp"
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """``sum over axis of weight * leaf`` for every gradient leaf and
         every ``extra`` scalar (the step's loss and metric), in ONE
         collective: the leaves are packed into one fp32 buffer, reduced,
         and cast back to each leaf's dtype. ``weight`` is this rank's
         share of the global batch (``1 / n`` for equal shares, so the
-        gradients are averaged)."""
+        gradients are averaged); ``axis`` may be :data:`GRAD_AXES`."""
         leaves = list(grads) + [e.reshape(1) for e in extra]
         flat = torch.cat([g.reshape(-1).float() for g in leaves])
         if weight != 1.0:
@@ -372,6 +398,88 @@ class Mesh:
             at += g.numel()
         n = len(grads)
         return out[:n], [e.reshape(()) for e in out[n:]]
+
+    def gather_seq(self, x: torch.Tensor, axis: str = "sp",
+                   dim: int = 1) -> torch.Tensor:
+        """Every rank's ``x`` concatenated on ``dim`` in rank order
+        forward; backward, the cotangents summed over ``axis`` and this
+        rank's slice of the sum (a reduce-scatter). Unlike
+        :meth:`gather_from`, whose backward narrows only, it is right
+        where the ranks' downstream work differs, as each sequence
+        shard's queries over the gathered keys do."""
+        if self.shape[axis] == 1:
+            return x
+        return _GatherSeq.apply(x, self, axis, dim)
+
+    def ppermute(self, x: torch.Tensor, axis: str = "sp",
+                 shift: int = 1) -> torch.Tensor:
+        """The ring hop (``lax.ppermute`` with ``perm = [(r, r + shift)
+        mod n]``): this rank's ``x`` goes to the rank ``shift`` places on
+        along ``axis`` and the one ``shift`` places back sends its own;
+        every rank holds the same shape. A pair of non-blocking
+        ``isend``/``irecv`` (staged through the host on gloo). Its
+        backward is the hop the other way."""
+        if self.shape[axis] == 1:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _PPermute.apply(x, self, axis, shift)
+        return self._ppermute(x, axis, shift)
+
+    def _ppermute(self, x: torch.Tensor, axis: str, shift: int
+                  ) -> torch.Tensor:
+        import torch.distributed as dist
+        lane, n = self._lanes[axis], self.shape[axis]
+        me = self.coords[axis]
+        t0 = self._start(x)
+        buf = self._stage(x)
+        got = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, lane[(me + shift) % n],
+                          group=self._groups[axis]),
+               dist.P2POp(dist.irecv, got, lane[(me - shift) % n],
+                          group=self._groups[axis])]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = got.to(x.device)
+        self.collectives += 1
+        self.collective_s += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str = "sp",
+                   split_dim: int = 2, concat_dim: int = 1) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+        ``x`` cut into ``n`` equal chunks on ``split_dim``, chunk ``j``
+        sent to rank ``j`` of ``axis``, the chunks received concatenated
+        on ``concat_dim`` in rank order (``all_to_all_single`` on the
+        axis's group, staged through the host on gloo). Its backward is
+        the inverse all-to-all (``split_dim`` and ``concat_dim``
+        swapped)."""
+        if self.shape[axis] == 1:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _AllToAll.apply(x, self, axis, split_dim, concat_dim)
+        return self._all_to_all(x, axis, split_dim, concat_dim)
+
+    def _all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+        n = self.shape[axis]
+        split_dim %= x.dim()
+        concat_dim %= x.dim()
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)}"
+                             f" does not divide over {axis}={n}")
+        # [n, chunk...]: chunk j leads, for rank j
+        parts = x.movedim(split_dim, 0)
+        parts = parts.reshape(n, parts.shape[0] // n, *parts.shape[1:])
+        t0 = self._start(x)
+        buf = self._stage(parts)
+        got = torch.empty_like(buf)
+        dist.all_to_all_single(got, buf, group=self._groups[axis])
+        got = got.to(x.device).movedim(1, split_dim + 1)
+        out = torch.cat(got.unbind(0), dim=concat_dim)
+        self.collectives += 1
+        self.collective_s += time.perf_counter() - t0
+        return out
 
     def broadcast_array(self, arr: np.ndarray, src: int = 0) -> np.ndarray:
         """Rank ``src``'s ``arr`` on every rank (same shape and dtype
@@ -440,6 +548,51 @@ class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.at, ctx.n), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """``Mesh.gather_seq``: all-gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.n, ctx.dim = mesh, axis, x.shape[dim], dim
+        ctx.at = mesh.coords[axis] * x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd may hand this same ``g`` to other branches
+        g = ctx.mesh.all_reduce(g.clone(), ctx.axis)
+        return g.narrow(ctx.dim, ctx.at, ctx.n).contiguous(), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """``Mesh.ppermute``: the hop forward, the hop back backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return mesh._ppermute(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._ppermute(g, ctx.axis, -ctx.shift), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Mesh.all_to_all``: the exchange forward, its inverse backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.dims = (split_dim % x.dim(), concat_dim % x.dim())
+        return mesh._all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.mesh._all_to_all(g, ctx.axis, concat_dim, split_dim),
+                None, None, None, None)
 
 
 def host_all_gather(arr: np.ndarray) -> np.ndarray:
@@ -523,3 +676,8 @@ def local_chunk(global_dim: int, mesh: "Mesh", axis: str) -> int:
 def tp_size(mesh: Optional["Mesh"]) -> int:
     """The ``tp`` axis's size; 1 without a mesh."""
     return mesh.shape["tp"] if mesh is not None else 1
+
+
+def sp_size(mesh: Optional["Mesh"]) -> int:
+    """The ``sp`` axis's size; 1 without a mesh."""
+    return mesh.shape["sp"] if mesh is not None else 1

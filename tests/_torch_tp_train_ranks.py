@@ -225,3 +225,109 @@ def megatron_pair(path: str) -> dict:
         x = torch.from_numpy(inputs["x"][r].copy())
         out["no_grad_copy_is_x"] = mesh.copy_to(x) is x
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (tests/test_torch_sp.py)
+
+
+def _as(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def sp_battery(path: str) -> dict:
+    """Everything one gang member computes for ``tests/test_torch_sp.py``:
+    on each mesh of ``inputs["meshes"]`` (several meshes share one gang),
+    the first pass per case (loss, accuracy, collectives, the gradient
+    averaged over sp: each rank's shards), three train steps per step
+    case (as :func:`battery`'s), and with ``ckpt`` the gang checkpoint
+    of the first step case; then the attention functions alone on
+    ``MeshSpec(sp=world)`` and the sp collectives' forward values and
+    gradients."""
+    from dcos_commons_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    from dcos_commons_tpu_torch.parallel.ulysses import ulysses_attention
+    inputs = torch.load(path, weights_only=False)
+    distributed.initialize()
+    world = int(os.environ[distributed.NUM_PROCESSES_ENV])
+    toks = _as(inputs["toks"])
+    out = {"meshes": {}, "attn": {}}
+    for name, spec in inputs["meshes"].items():
+        mesh = MeshSpec(**spec["mesh"]).build("cpu")
+        res = out["meshes"][name] = {"coords": mesh.coords, "first": {},
+                                     "steps": {}}
+        sp = mesh.shape["sp"]
+        for case, cfg_kw in spec["first"].items():
+            cfg = tl.LlamaConfig.tiny(**cfg_kw)
+            params = tl.shard_params(_clone(inputs["params"]), mesh, cfg)
+            leaves = tt._leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            before = mesh.collectives
+            loss, acc = tl.loss_fn(cfg, params, toks, mesh)
+            grads = torch.autograd.grad(loss, leaves)
+            collectives = mesh.collectives - before
+            # each rank's gradient is its own shard's share: their mean
+            grads, _ = mesh.reduce_grads(grads, weight=1.0 / sp, axis="sp")
+            it = iter(grads)
+
+            def rebuild(tree):
+                if isinstance(tree, dict):
+                    return {k: rebuild(v) for k, v in tree.items()}
+                return next(it)
+
+            res["first"][case] = {"loss": float(loss.detach()),
+                                  "acc": float(acc),
+                                  "collectives": collectives,
+                                  "grads": _flat(rebuild(params))}
+        view = dict(inputs, steps=spec["steps"])
+        for case, step_spec in spec["steps"].items():
+            res["steps"][case] = _steps(step_spec, view, mesh, toks)
+        if spec.get("ckpt_dir"):
+            res["ckpt"] = _checkpoint(dict(view, ckpt_dir=spec["ckpt_dir"]),
+                                      mesh, toks)
+    mesh = MeshSpec(sp=world).build("cpu")
+    me, fns = mesh.coords["sp"], {"ring": ring_attention,
+                                  "ulysses": ulysses_attention}
+    for case, a in inputs["attn"].items():
+        if a["sp"] != world:
+            continue
+        n = a["q"].shape[1] // world
+        cut = slice(me * n, (me + 1) * n)
+        q, k, v = (_as(a[x][:, cut]).requires_grad_(True)
+                   for x in ("q", "k", "v"))
+        kw = {"layout": a["layout"]} if a["fn"] == "ring" else {}
+        before = mesh.collectives
+        o = fns[a["fn"]](q, k, v, mesh, causal=a["causal"], **kw)
+        grads = torch.autograd.grad((o * _as(a["do"][:, cut])).sum(),
+                                    (q, k, v))
+        out["attn"][case] = {
+            "at": (cut.start, cut.stop), "collectives": mesh.collectives
+            - before, "out": o.detach().numpy().copy(),
+            "grads": [g.numpy().copy() for g in grads]}
+    out["collectives"] = _sp_collectives(mesh, inputs["collective_inputs"])
+    return out
+
+
+def _sp_collectives(mesh, x: np.ndarray) -> dict:
+    """``Mesh.ppermute``, ``all_to_all`` and ``gather_seq`` on rank r's
+    ``x[r]`` (``[n * 2, 3]``), each value and the gradient of
+    ``sum(w * y)`` with ``w[r]`` the rank's weights of y's shape: the
+    cotangents cross back, as each collective's adjoint sends them."""
+    r = mesh.coords["sp"]
+    out = {}
+    fns = {"ppermute": lambda t: mesh.ppermute(t, "sp", 1),
+           "ppermute_back": lambda t: mesh.ppermute(t, "sp", -1),
+           "all_to_all": lambda t: mesh.all_to_all(t, "sp", 0, 1),
+           "gather_seq": lambda t: mesh.gather_seq(t, "sp", dim=0)}
+    for name, fn in fns.items():
+        t = _as(x[r]).requires_grad_(True)
+        y = fn(t)
+        w = torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape) \
+            * (r + 1)
+        (g,) = torch.autograd.grad((w * y).sum(), t)
+        out[name] = {"y": y.detach().numpy().copy(), "grad": g.numpy()}
+    with torch.no_grad():
+        t = _as(x[r])
+        out["no_grad_all_to_all"] = mesh.all_to_all(t, "sp", 0, 1).numpy()
+    return out

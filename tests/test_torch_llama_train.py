@@ -330,12 +330,16 @@ def test_opt_state_from_jax_refuses_a_foreign_state():
 
 
 def test_config_guards_name_their_roadmap_item():
+    """Unknown attention raises; a remat policy raises naming its item;
+    ring and ulysses without a mesh are dense attention, as the
+    reference's ``_make_attn_fn``."""
     _, tcfg = _cfgs()
     _, tp = _params(_cfgs()[0])
     toks = torch.from_numpy(_tokens(seq=9))
+    dense = tl.forward(dataclasses.replace(tcfg, attn_impl="dense"), tp, toks)
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.forward(dataclasses.replace(tcfg, attn_impl=impl), tp, toks)
+        torch.testing.assert_close(tl.forward(dataclasses.replace(
+            tcfg, attn_impl=impl), tp, toks), dense, rtol=0, atol=0)
     with pytest.raises(ValueError, match="attn_impl"):
         tl.forward(dataclasses.replace(tcfg, attn_impl="flashy"), tp, toks)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -98,10 +98,10 @@ def test_backend_follows_the_layout(layout, want):
 
 @pytest.mark.parametrize("axis", ["dp", "pp", "sp", "ep"])
 def test_build_refuses_axes_other_than_tp(axis):
-    """pp, sp and ep still raise naming their item; dp (with dcn folded
-    into it) is ported, and one process is too few for it."""
-    if axis == "dp":
-        for kw in ({"dp": 2}, {"dcn": 2}):
+    """pp and ep still raise naming their item; dp (with dcn folded into
+    it) and sp are ported, and one process is too few for them."""
+    if axis in ("dp", "sp"):
+        for kw in ({axis: 2}, {"dcn": 2}):
             with pytest.raises(ValueError, match="needs 2 processes"):
                 tmesh.MeshSpec(**kw).build("cpu")
     else:

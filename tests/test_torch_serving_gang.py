@@ -330,7 +330,8 @@ GANG_ENV = {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1", "JAX_PROCESS_ID": "0",
     ("llama", [], {"WEIGHT_FETCH_PEERS": "http://127.0.0.1:9"},
      "peer_weights_not_ported"),
     ("llama", [], {"WEIGHT_SERVE_PORT": "0"}, "peer_weights_not_ported"),
-    ("llama-train", [], {}, "attn_not_ported"),
+    ("llama-train", ["--attn", "ring", "--pp", "2"], {},
+     "pipeline_not_ported"),
     ("llama-train", ["--sp", "1", "--tp", "2"], {"RESHARD_ENABLE": "1"},
      "reshard_not_ported"),
     ("llama-train", ["--sp", "1", "--pp", "2"], {}, "pipeline_not_ported"),

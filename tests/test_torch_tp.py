@@ -2,8 +2,8 @@
 mesh: gangs of 2 and 4 gloo ranks on the CPU (``parallel.distributed.
 launch_local``, each world started once for this module) run
 ``tests/_torch_tp_ranks.battery`` on the weights the JAX tests use, and
-every result is held to JAX's on ``MeshSpec(tp=N)`` over N of the 8
-virtual CPU devices:
+every result is held to JAX's on ``MeshSpec(tp=2)`` over 2 of the 8
+virtual CPU devices (the tp=4 gang to the same references):
 
 * ``decode_step_slots``, ``decode_step_paged`` and
   ``prefill_chunk_paged`` on the same whole caches and pools: fp32
@@ -85,8 +85,10 @@ def _jcfg(dtype, kv_quant):
 
 
 def _jparams(jcfg, int8):
+    """JAX's weights (int8: quantized in one compiled call; both
+    packages take these same weights)."""
     jp = jl.init_params(jcfg, jax.random.key(0))
-    return jl.quantize_params(jp) if int8 else jp
+    return jax.jit(jl.quantize_params)(jp) if int8 else jp
 
 
 def _random_kv(jcfg, rows, length, seed):
@@ -165,26 +167,33 @@ def _jax_steps(jcfg, sharded, mesh, host, kvs):
     return out
 
 
-def _world(tp, variants, tmp_path_factory, ckpt=False):
+def _world(tp, variants, tmp_path_factory, ckpt=False, refs=None):
     """Run the battery on a gang of ``tp`` ranks and compute JAX's
-    references on a tp mesh of as many virtual devices."""
+    references on a tp mesh of as many virtual devices, or take ``refs``
+    (a wider gang is held to the tp=2 mesh's: JAX's tp results are one
+    model's whatever the mesh's width, which the reference's own tp tests
+    hold, so its compiles are shared)."""
     mesh = JMeshSpec(tp=tp).build(jax.devices()[:tp])
     inputs = {"variants": {}}
-    refs = {}
+    compute = refs is None
+    refs = {} if compute else refs
     for name in variants:
         dtype, kv_quant, int8, reqs, window = VARIANTS[name]
         jcfg = _jcfg(dtype, kv_quant)
-        jp = _jparams(jcfg, int8)
-        with mesh:
-            sharded = jl.shard_params(jp, mesh, jcfg)
+        jp = _jparams(jcfg, int8) if compute else refs[name]["jp"]
         var = inputs["variants"][name] = dict(
             cfg=_cfg_kw(dtype, kv_quant),
             params=params_from_jax(jax.device_get(jp), "cpu"),
             requests=reqs, engines=ENGINES, window=window)
-        ref = refs[name] = {"jp": jp, "sharded": sharded, "jcfg": jcfg}
         if name in ("fp32", "int8"):
             host, port, kvs = _steps_inputs(jcfg)
             var["steps"] = port
+        if not compute:
+            continue
+        with mesh:
+            sharded = jl.shard_params(jp, mesh, jcfg)
+        ref = refs[name] = {"jp": jp, "sharded": sharded, "jcfg": jcfg}
+        if name in ("fp32", "int8"):
             ref["steps"] = _jax_steps(jcfg, sharded, mesh, host, kvs)
         ref["slots"] = js.SlotServer(jcfg, sharded, slots=2,
                                      mesh=mesh).drain(
@@ -218,8 +227,8 @@ def tp2(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def tp4(tmp_path_factory):
-    return _world(4, ["fp32"], tmp_path_factory)
+def tp4(tp2, tmp_path_factory):
+    return _world(4, ["fp32"], tmp_path_factory, refs=tp2[1])
 
 
 @pytest.fixture(params=["tp2", "tp4"])

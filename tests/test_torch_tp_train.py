@@ -6,7 +6,11 @@ started once for this module) at tp=2, tp=4 and dp=2 x tp=2 run
 fp32, 4 x 33 tokens every rank holds), and JAX runs
 ``make_train_step(mesh=, param_spec_tree=llama.param_specs(cfg),
 batch_spec=None)`` from ``init_opt_state(opt, params, mesh, specs)`` on
-``MeshSpec(dp, tp)`` over the same number of devices:
+``MeshSpec(tp=2)`` and ``MeshSpec(tp=4)`` over as many devices (the
+dp=2 x tp=2 gang is held to the tp=2 mesh's references: with every rank
+holding the whole batch, a dp replica changes no arithmetic of the
+reference's step but the order of its row sums, and one compile a case
+is shared):
 
 * the first pass, fused and unfused loss heads, and fused with ``remat``
   (each layer's forward recomputed in the backward on every rank in one
@@ -36,6 +40,7 @@ batch_spec=None)`` from ``init_opt_state(opt, params, mesh, specs)`` on
   the restore is bitwise.
 """
 
+import functools
 import json
 
 import jax
@@ -43,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 import tests._jax_cpu  # noqa: F401
 
@@ -64,6 +70,8 @@ STEP_CASES = {"fused_ga1": (True, 1, "flash"), "fused_ga2": (True, 2, "flash"),
               "unfused_ga1": (False, 1, "dense"),
               "unfused_ga2": (False, 2, "flash")}
 WORLDS = {"tp2": (1, 2), "tp4": (1, 4), "dp2tp2": (2, 2)}
+# the JAX mesh each world is held to
+REFERENCE = {"tp2": "tp2", "tp4": "tp4", "dp2tp2": "tp2"}
 
 
 def _jcfg(**kw):
@@ -84,11 +92,16 @@ def _jparams():
     return jl.init_params(_jcfg(), jax.random.key(11))
 
 
-def _jax_mesh(dp, tp):
+def _jax_mesh(world):
+    dp, tp = WORLDS[world]
     return JMeshSpec(dp=dp, tp=tp).build(jax.devices()[:dp * tp])
 
 
-def _jax_first(mesh, fused):
+@functools.lru_cache(maxsize=None)
+def _jax_first(world, fused):
+    """The reference's first pass on ``world``'s mesh (JAX has no remat
+    to vary: the fused case's is the remat case's too)."""
+    mesh = _jax_mesh(world)
     jcfg = _jcfg(fused_ce=fused)
     toks = jnp.asarray(_toks())
     with mesh, jax.default_matmul_precision("highest"):
@@ -98,9 +111,13 @@ def _jax_first(mesh, fused):
     return float(loss), float(acc), jax.device_get(grads)
 
 
-def _jax_steps(mesh, fused, grad_accum, n=STEPS):
+@functools.lru_cache(maxsize=None)
+def _jax_steps(world, fused, grad_accum, n=STEPS):
     """The reference's tp step; per step (loss, params, mu, nu) whole on
-    the host, and the final (params, opt_state) device trees."""
+    the host, and the final (params, opt_state) device trees. The
+    state's counts start where the step's outputs place them
+    (replicated over the mesh), so the step compiles once."""
+    mesh = _jax_mesh(world)
     jcfg = _jcfg(fused_ce=fused)
     specs = jl.param_specs(jcfg)
     toks = jnp.asarray(_toks())
@@ -111,7 +128,10 @@ def _jax_steps(mesh, fused, grad_accum, n=STEPS):
         step = jt.make_train_step(lambda p, b: jl.loss_fn(jcfg, p, b, mesh),
                                   opt, mesh=mesh, param_spec_tree=specs,
                                   batch_spec=None, grad_accum=grad_accum)
-        state = jt.init_opt_state(opt, params, mesh, specs)
+        state = jax.tree.map(
+            lambda a: jax.device_put(a, NamedSharding(mesh, P()))
+            if a.ndim == 0 else a,
+            jt.init_opt_state(opt, params, mesh, specs))
         for _ in range(n):
             params, state, res = step(params, state, toks)
             adam = state[1][0]
@@ -201,7 +221,7 @@ def _per_step(dp, layers, fused, grad_accum):
 def test_first_pass_loss_and_every_gradient_match_jax(world, case):
     name, ranks = world
     fused = FIRST[case]["fused_ce"]
-    loss_j, acc_j, g_j = _jax_first(_jax_mesh(*WORLDS[name]), fused)
+    loss_j, acc_j, g_j = _jax_first(REFERENCE[name], fused)
     # remat recomputes each layer's forward up to its last saved tensor
     # (torch's early stop): the attention block's "g", not the FFN's
     recomputed = LAYERS if FIRST[case].get("remat") else 0
@@ -220,7 +240,7 @@ def test_three_steps_match_the_reference_tp_step(world, case):
     name, ranks = world
     dp, _ = WORLDS[name]
     fused, ga, _ = STEP_CASES[case]
-    want, _, _ = _jax_steps(_jax_mesh(*WORLDS[name]), fused, ga)
+    want, _, _ = _jax_steps(REFERENCE[name], fused, ga)
     for r in ranks:
         got = r["steps"][case]
         assert got["losses"] == pytest.approx([w[0] for w in want],
@@ -270,8 +290,8 @@ def test_vocab_parallel_argmax_ties_go_to_the_lowest_id(world):
 
 @pytest.fixture(scope="module")
 def jax_tp2_manifest(tmp_path_factory):
-    """JAX's save of its tp=2 train state after one reference step."""
-    _, params, state = _jax_steps(_jax_mesh(1, 2), True, 1, n=1)
+    """JAX's save of its tp=2 train state after the fused steps."""
+    _, params, state = _jax_steps("tp2", True, 1)
     d = jc.save_sharded(str(tmp_path_factory.mktemp("jax_ckpt")), 1,
                         {"params": params, "opt_state": state})
     with open(f"{d}/manifest.json", encoding="utf-8") as f:

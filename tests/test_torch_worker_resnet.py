@@ -8,16 +8,19 @@ the packages in both directions.
 
 The reference's ``mnist`` runs in process. Its ``resnet`` shards the
 batch over every JAX device, and the test process has eight virtual
-ones, so it runs as a subprocess on one CPU device, once: it resumes the
-port's checkpoint, and the port then resumes the reference's.
+ones, so it runs in process with ``jax.devices`` and ``jax.device_count``
+showing it the first of them alone (one CPU device, as a subprocess
+with one virtual device would give it, without a second interpreter
+importing JAX), once: it resumes the port's checkpoint, and the port
+then resumes the reference's.
 """
 
+import contextlib
+import io
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 
@@ -27,7 +30,6 @@ from frameworks.jax import worker as jworker
 from dcos_commons_tpu_torch.frameworks import worker as tworker
 from tests.test_torch_worker_train import CPU, _counts, _done, _events
 
-ROOT = Path(__file__).resolve().parents[1]
 RESNET = ["resnet", "--depth", "18", "--batch", "2"]
 MNIST = ["mnist"]
 
@@ -47,35 +49,32 @@ def _same_layout(a, b):
 @pytest.fixture(scope="module")
 def crossed(tmp_path_factory):
     """The port's fresh ``resnet --steps 2`` (checkpoints at 1 and 2), the
-    reference resuming it to 3 with ``--emit-every 1`` (one subprocess on
-    one JAX device), then the port resuming the reference's step 3 to 4:
+    reference resuming it to 3 with ``--emit-every 1`` (on one JAX
+    device), then the port resuming the reference's step 3 to 4:
     ``(vol, port fresh events, reference events, port resumed events)``."""
-    import contextlib
-    import io
-
     vol = tmp_path_factory.mktemp("resnet") / "vol"
 
-    def port(*argv):
+    def run(main, *argv):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            assert tworker.main([*RESNET, *CPU, *argv]) == 0
+            assert main([*RESNET, *argv]) == 0
         return [json.loads(line) for line in buf.getvalue().splitlines()
                 if line.startswith("{")]
 
-    fresh = port("--steps", "2", "--out", str(vol))
+    fresh = run(tworker.main, *CPU, "--steps", "2", "--out", str(vol))
     counts_2 = _counts(vol, 2)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=1")
-    run = subprocess.run(
-        [sys.executable, "-m", "frameworks.jax.worker", *RESNET, "--steps",
-         "3", "--emit-every", "1", "--out", str(vol)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert run.returncode == 0, run.stderr[-2000:]
-    ref = [json.loads(line) for line in run.stdout.splitlines()
-           if line.startswith("{")]
+    real = jax.devices, jax.device_count
+    try:
+        jax.devices = lambda *a: real[0](*a)[:1]
+        jax.device_count = lambda *a: 1
+        ref = run(jworker.main, "--steps", "3", "--emit-every", "1",
+                  "--out", str(vol))
+    finally:
+        jax.devices, jax.device_count = real
     ref_manifest = _manifest(vol, 3)
     counts_3 = _counts(vol, 3)
-    resumed = port("--steps", "4", "--emit-every", "2", "--out", str(vol))
+    resumed = run(tworker.main, *CPU, "--steps", "4", "--emit-every", "2",
+                  "--out", str(vol))
     return {"vol": vol, "fresh": fresh, "ref": ref, "resumed": resumed,
             "counts": {2: counts_2, 3: counts_3, 4: _counts(vol, 4)},
             "ref_manifest": ref_manifest}

@@ -70,8 +70,8 @@ def test_a_run_past_its_target_reports_nothing_ran(tmp_path, capsys):
 REFUSALS = [
     (["--pp", "2"], {}, "pipeline_not_ported", 9),
     (["--ep", "2"], {}, "moe_not_ported", 9),
-    (["--attn", "ring"], {}, "attn_not_ported", 9),
-    (["--attn", "ulysses"], {}, "attn_not_ported", 9),
+    (["--attn", "ring", "--pp", "2"], {}, "pipeline_not_ported", 9),
+    (["--attn", "ulysses", "--ep", "2"], {}, "moe_not_ported", 9),
     ([], {"RESHARD_ENABLE": "1"}, "reshard_not_ported", 10),
 ]
 
