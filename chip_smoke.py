@@ -2497,9 +2497,11 @@ MOE_APPLY_TOKENS = 64                  # one prefill chunk
 # 19.1 ms at 3.35 TB/s)
 MOE_WEIGHT_GB_PREDICTED = 64.9
 # the phase and its worker run MOE_LAYERS of the 32 layers (at 32 the two
-# took 74-134 s and 24-58 s of the script's 1,200 by machine): every
-# check holds at any depth, and the step's bound is read from the weights
-MOE_LAYERS = 16
+# took 74-134 s and 24-58 s of the script's 1,200 by machine; the phase
+# 65-74 s at 16 and 49 s at 8 on an H100; phase 19c's ep serving pair
+# runs at the same depth): every check holds at any depth, and the
+# step's bound is read from the weights
+MOE_LAYERS = 8
 # In bf16 two valid computations of the MoE model route differently: one
 # 1,500-token prompt prefilled in 64-token chunks and whole differs in
 # 2,642 of its 48,000 top-2 decisions (the router logits' median
@@ -7174,6 +7176,668 @@ def phase_sp_train_worker(card: str, extra=()) -> dict:
     return line
 
 
+# --------------------------------------------------------------- phase 19
+
+EPP_WORLD = 2
+# 19a: a gang of EPP_WORLD ranks sharing the card over gloo trains
+# llama_400m's widths two ways on the tokens every rank holds: the MoE
+# variant (each FFN replaced by EPP_MOE's experts) with the experts over
+# ep, and the dense trunk in EPP_WORLD stages of EPP_N_MICRO microbatches
+# over pp. Each in bf16 at full depth (a warm-up and EPP_BF16_STEPS timed
+# steps), then in fp32 at EPP_FP32_LAYERS layers, held in rank 0 to one
+# process of the port on the same weights and tokens (MoE: moe_apply_local
+# over the whole batch; pipeline: the dense forward of the whole batch)
+# with 18a's bounds: the first step's loss within EPP_LOSS_RTOL, its
+# gradient (every leaf gathered whole) within EPP_GRAD_TOL of each
+# leaf's largest with cosine >= EPP_GRAD_COSINE, and after
+# EPP_FP32_STEPS steps the update by cosine >= EPP_UPDATE_COSINE; on
+# every rank the replicated leaves bitwise equal. Bounds written before
+# the first card run (PERF.md section 6)
+EPP_EXPERTS = 8
+EPP_MOE = {"num_experts": EPP_EXPERTS, "capacity_factor": 2.0,
+           "routing": "top2"}
+EPP_N_MICRO = 4
+EPP_SEQ = 512                           # llama_400m's max_seq
+EPP_ROWS = {"moe": 4, "pipe": 2 * EPP_N_MICRO}
+EPP_BF16_STEPS = 2
+EPP_FP32_LAYERS, EPP_FP32_STEPS = 2, 2
+EPP_LOSS_RTOL, EPP_GRAD_TOL, EPP_GRAD_COSINE = (SPT_LOSS_RTOL, SPT_GRAD_TOL,
+                                                SPT_GRAD_COSINE)
+EPP_UPDATE_COSINE = SPT_UPDATE_COSINE
+EPP_TIMEOUT_S = 900
+# the card's sizes; a CPU rehearsal passes a smaller spec
+EPP_SPEC = {"preset": "llama_400m", "cfg": {}, "seq": EPP_SEQ,
+            "rows": EPP_ROWS, "fp32_layers": EPP_FP32_LAYERS}
+EPP_KINDS = (("moe", "ep"), ("pipe", "pp"))
+# 19b: the worker's llama-train --ep 2 and --pp 2 at its defaults on
+# gangs of 2: --ep 2 through, then once preempted (SIGTERM to both ranks
+# when both have checkpointed EPW_PREEMPT_AT; --ckpt-every 1) and
+# relaunched, which must resume every rank at one step and end at the
+# through run's loss bit for bit; --pp 2 through beside them
+EPW_ARGS = {"ep": ("llama-train", "--ep", "2"),
+            "pp": ("llama-train", "--pp", "2")}
+EPW_STEPS, EPW_PREEMPT_AT = 20, 10      # the worker's default --steps
+EPW_MESH = {"ep": {"dp": 1, "ep": 2, "experts": 4, "routing": "top2"},
+            "pp": {"pp": 2, "microbatches": 2}}
+# 19c: MoE serving on an ep gang of EPP_WORLD ranks. In process, fp32 at
+# MOE_FP32_LAYERS layers of the 8B widths (dense decode attention: the
+# kernels take bf16), phase 3's requests drained as phase 3 drains them:
+# every stream token-equal to the one-device engine on the same weights
+# (drained in rank 0's process after the gang's). Then dist/moe.yml's
+# worker (WORKER_MOE_ARGS) as a gang of two at MOE_LAYERS layers
+# (CUT_WORKER): the workers' 8 requests, each reply equal to phase 10's
+# in-process engine's stream or held by phase 10's bf16 rule
+# (moe_stream_share); kernel 1 launched on every rank while the gang
+# served
+EPS_TIMEOUT_S = 900
+
+
+def epp_collectives_per_step(kind: str, layers: int, world: int = EPP_WORLD,
+                             n_micro: int = EPP_N_MICRO) -> int:
+    """The collectives of one ep or pp train step, from the code. MoE: a
+    layer's two all-to-alls and its auxiliary loss's mean over ep, each
+    way. Pipeline: ``n_micro + world - 2`` hops and the outputs' sum
+    forward, the hops back and the input's "f" backward. Then the
+    replicated leaves' reduction and the clip's norm (dp=1: no reduction
+    of the sharded leaves)."""
+    if kind == "moe":
+        return 6 * layers + 2
+    return 2 * (n_micro + world - 2) + 2 + 2
+
+
+def epp_train_rank(device: str = "cuda", spec=EPP_SPEC) -> dict:
+    """One rank of phase 19a (run by ``launch_local`` in a process of its
+    own): for the MoE model over ``MeshSpec(ep=world)`` and the pipelined
+    one over ``MeshSpec(pp=world)``, the bf16 steps at full depth (step
+    ms, collectives and their host ms, peak memory, digests of the
+    replicated leaves), and the fp32 steps with the first step's gradient
+    (read from its first moment) and the final parameters gathered whole;
+    in rank 0 one process's fp32 loss, gradients and steps on the same
+    weights, and each model's agreement with them. ``device`` ``"cpu"``
+    rehearses it on the CPU."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, train
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+    from dcos_commons_tpu_torch.parallel.moe import MoEConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    preset = getattr(llama.LlamaConfig, spec["preset"])
+    moe_cfg = MoEConfig(**EPP_MOE)
+    out = {"part_s": {}, "bf16": {}, "fp32": {}}
+    for kind, axis in EPP_KINDS:
+        mesh = MeshSpec(**{axis: world}).build(device)
+        dev = mesh.device
+        cuda = dev.type == "cuda"
+        out.update(rank=mesh.rank, device=str(dev), backend=mesh.backend)
+        toks = torch.from_numpy(np.random.default_rng(SEED + 19).integers(
+            0, preset(**spec["cfg"]).vocab_size,
+            (spec["rows"][kind], spec["seq"] + 1)).astype(np.int32)).to(dev)
+        specs_of = (llama.moe_param_specs if kind == "moe"
+                    else llama.pipeline_param_specs)
+        # the dimension a sharded leaf is split on: the experts, the stages
+        cut = 1 if kind == "moe" else 0
+
+        def sharded(name):
+            return (name.split("/")[-1] in ("w_in", "w_out") if kind == "moe"
+                    else name.startswith("layers/"))
+
+        def build(cfg, seed, one_process=False):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            if kind == "moe":
+                return llama.init_moe_params(
+                    cfg, EPP_EXPERTS, gen, device=dev,
+                    mesh=None if one_process else mesh)
+            params = llama.init_params(cfg, gen, device=dev)
+            if one_process:
+                return params
+            return llama.shard_params(llama.stack_pipeline_params(
+                params, world), mesh, cfg, specs_of(cfg))
+
+        def loss_of(cfg, one_process=False):
+            if kind == "moe":
+                return lambda p, b: llama.loss_fn_moe(
+                    cfg, p, b, None if one_process else mesh, moe_cfg)
+            if one_process:
+                return lambda p, b: llama.loss_fn(cfg, p, b)
+            return lambda p, b: llama.loss_fn_pipelined(cfg, p, b, mesh,
+                                                        EPP_N_MICRO)
+
+        def whole(name, t):
+            """The leaf whole, on every rank (a collective for a shard),
+            in the one-process layout."""
+            if not sharded(name):
+                return t
+            t = mesh.all_gather(t.contiguous(), axis, dim=cut)
+            return t.flatten(0, 1) if kind == "pipe" else t
+
+        def digest(trees) -> str:
+            h = hashlib.sha1()
+            for tree in trees:
+                for name, t in sorted(_named(tree)):
+                    if not sharded(name):
+                        h.update(t.detach().float().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        def run(cfg, seed, n_steps, after_step=None, **opt_kw):
+            params = build(cfg, seed)
+            opt = train.make_optimizer(**opt_kw)
+            step = train.make_train_step(
+                loss_of(cfg), opt, mesh=mesh, batch_spec=None,
+                param_spec_tree=specs_of(cfg))
+            state = train.init_opt_state(opt, params)
+            losses, secs, counts, coll_s = [], [], [], []
+            for i in range(n_steps):
+                _sync(dev)
+                c0, s0, t0 = mesh.collectives, mesh.collective_s, \
+                    time.perf_counter()
+                params, state, o = step(params, state, toks)
+                losses.append(float(o["loss"]))
+                secs.append(time.perf_counter() - t0)
+                counts.append(mesh.collectives - c0)
+                coll_s.append(mesh.collective_s - s0)
+                if after_step is not None:
+                    after_step(i, state, o)
+            return params, state, losses, secs, counts, coll_s
+
+        def clear():
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        cfg = preset(max_seq=spec["seq"] + 1, remat=False, attn_impl="dense",
+                     **spec["cfg"])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        params, state, losses, secs, counts, coll_s = run(
+            cfg, SEED, 1 + EPP_BF16_STEPS, lr=3e-4, warmup=10,
+            decay_steps=1000)
+        timed = slice(1, None)
+        out["bf16"][kind] = {
+            "layers": cfg.n_layers, "rows": spec["rows"][kind],
+            "losses": losses, "warmup_s": secs[0],
+            "step_ms": float(np.mean(secs[timed])) * 1e3,
+            "collectives_per_step": counts,
+            "collective_ms_per_step": float(np.mean(coll_s[timed])) * 1e3,
+            "collective_share": sum(coll_s[timed]) / sum(secs[timed]),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if cuda else None),
+            "replicated": digest((params, state.mu, state.nu))}
+        del params, state
+        clear()
+        out["part_s"][f"bf16 {kind}"] = time.perf_counter() - t0
+
+        # fp32: the clip is above the gradient's norm, so the first
+        # update's mu is (1 - b1) times the gradient
+        t0 = time.perf_counter()
+        seed32 = SEED + 19
+        opt32 = dict(lr=3e-4, warmup=10, decay_steps=1000, grad_clip=1e9)
+        cfg32 = preset(max_seq=spec["seq"] + 1, remat=False,
+                       attn_impl="dense", dtype=torch.float32,
+                       **{**spec["cfg"], "n_layers": spec["fp32_layers"]})
+        first = {}
+
+        def keep_first(i, state, o):
+            if i == 0:
+                first["grads"] = {n: whole(n, mu / (1 - train.B1))
+                                  for n, mu in _named(state.mu)}
+                first["loss"], first["acc"] = (float(o["loss"]),
+                                               float(o["metric"]))
+
+        params, state, losses, _, counts, _ = run(
+            cfg32, seed32, EPP_FP32_STEPS, after_step=keep_first, **opt32)
+        final = {n: whole(n, t) for n, t in _named(params)}
+        out["fp32"][kind] = {"loss": first["loss"], "acc": first["acc"],
+                             "losses": losses, "collectives_per_step": counts,
+                             "replicated": digest((params, state.mu,
+                                                   state.nu))}
+        del params, state
+        clear()
+        if mesh.rank == 0:
+            one = build(cfg32, seed32, one_process=True)
+            init = {n: t.clone() for n, t in _named(one)}
+            leaves = train._leaves(one)
+            for t in leaves:
+                t.requires_grad_(True)
+            w_loss, w_acc = loss_of(cfg32, True)(one, toks)
+            w_grads = dict(zip([n for n, _ in _named(one)],
+                               torch.autograd.grad(w_loss, leaves)))
+            w_loss = float(w_loss.detach())
+            for t in leaves:
+                t.requires_grad_(False)
+            step = train.make_train_step(loss_of(cfg32, True),
+                                         train.make_optimizer(**opt32))
+            state = train.init_opt_state(None, one)
+            one_losses = []
+            for _ in range(EPP_FP32_STEPS):
+                one, state, o = step(one, state, toks)
+                one_losses.append(float(o["loss"]))
+            err = {"loss_rel_err": abs(first["loss"] / w_loss - 1),
+                   "one_process_loss": w_loss,
+                   "one_process_acc": float(w_acc),
+                   "one_process_losses": one_losses}
+            for n, g in w_grads.items():
+                err[f"grad_err {n}"] = _rel_max(first["grads"][n], g)
+                err[f"grad_cosine {n}"] = _cos(first["grads"][n], g)
+            d = update_agreement({"final": [final[n] for n in init]},
+                                 {"init": list(init.values()),
+                                  "final": [t for _, t in _named(one)]})
+            err.update({"update_" + k: v for k, v in d.items()})
+            out["fp32"][kind]["vs_one_process"] = err
+            del one, state, init, w_grads
+        del first, final
+        clear()
+        out["part_s"][f"fp32 {kind}"] = time.perf_counter() - t0
+    return out
+
+
+def phase_ep_pp_train(card: str, dev="cuda", spec=EPP_SPEC) -> dict:
+    """Phase 19a: a gang of ``EPP_WORLD`` ranks sharing the card
+    (:func:`epp_train_rank`): for each model the replicated leaves
+    bitwise equal on every rank, one loss stream, the collectives a step
+    against :func:`epp_collectives_per_step`, finite bf16 losses, and
+    rank 0's fp32 agreement with one process within the bounds. The
+    ``ep_pp_train`` line."""
+    import math
+    import torch
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    ranks = launch_local(epp_train_rank, EPP_WORLD, dev.type, spec,
+                         timeout_s=EPP_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    head = ranks[0]
+    problems, cases = [], {}
+    for kind, axis in EPP_KINDS:
+        b, f = head["bf16"][kind], head["fp32"][kind]
+        want_b = epp_collectives_per_step(kind, b["layers"])
+        want_f = epp_collectives_per_step(kind, spec["fp32_layers"])
+        for r in ranks:
+            rb, rf = r["bf16"][kind], r["fp32"][kind]
+            if rb["collectives_per_step"] != [want_b] * (1 + EPP_BF16_STEPS):
+                problems.append(f"{kind} rank {r['rank']} bf16 collectives "
+                                f"{rb['collectives_per_step']}, want "
+                                f"{want_b}")
+            if rf["collectives_per_step"] != [want_f] * EPP_FP32_STEPS:
+                problems.append(f"{kind} rank {r['rank']} fp32 collectives "
+                                f"{rf['collectives_per_step']}, want "
+                                f"{want_f}")
+            if not all(math.isfinite(x) for x in rb["losses"]):
+                problems.append(f"{kind} rank {r['rank']} bf16 losses "
+                                f"{rb['losses']}")
+            for part, got in (("bf16", rb), ("fp32", rf)):
+                if got["replicated"] != head[part][kind]["replicated"]:
+                    problems.append(f"{kind} {part}: rank {r['rank']}'s "
+                                    "replicated leaves differ from rank "
+                                    "0's")
+                if got["losses"] != head[part][kind]["losses"]:
+                    problems.append(f"{kind} {part}: the ranks' losses "
+                                    "differ")
+        agree = f["vs_one_process"]
+        grad_err = max(v for k, v in agree.items()
+                       if k.startswith("grad_err"))
+        grad_cos = min(v for k, v in agree.items()
+                       if k.startswith("grad_cosine"))
+        if agree["loss_rel_err"] > EPP_LOSS_RTOL:
+            problems.append(f"{kind} fp32 loss off by "
+                            f"{agree['loss_rel_err']}")
+        if grad_err > EPP_GRAD_TOL or grad_cos < EPP_GRAD_COSINE:
+            problems.append(f"{kind} fp32 gradients: largest error "
+                            f"{grad_err}, least cosine {grad_cos}")
+        if agree["update_cosine"] < EPP_UPDATE_COSINE:
+            problems.append(f"{kind} fp32 update cosine "
+                            f"{agree['update_cosine']}")
+        cases[kind] = {
+            "axis": axis,
+            "bf16": {**{k: [r["bf16"][kind][k] for r in ranks] for k in (
+                "step_ms", "warmup_s", "collective_ms_per_step",
+                "collective_share", "peak_mem_gb")},
+                "layers": b["layers"], "rows": b["rows"],
+                "losses": b["losses"],
+                "collectives_per_step": b["collectives_per_step"],
+                "collectives_predicted": want_b},
+            "fp32": {"loss": f["loss"], "acc": f["acc"],
+                     "losses": f["losses"],
+                     "collectives_per_step": f["collectives_per_step"],
+                     "collectives_predicted": want_f,
+                     "vs_one_process": {
+                         **{k: v for k, v in agree.items()
+                            if not k.startswith("grad_")},
+                         "grad_err_max": grad_err,
+                         "grad_cosine_min": grad_cos}}}
+    if problems:
+        raise RuntimeError("ep/pp train phase: " + "; ".join(problems))
+    line = {"ep_pp_train": {
+        "world": len(ranks), "backend": head["backend"],
+        "devices": [r["device"] for r in ranks], "gang_s": gang_s,
+        "rank_part_s": [r["part_s"] for r in ranks], "card": card,
+        "model": spec["preset"], "seq": spec["seq"],
+        "moe": EPP_MOE, "n_micro": EPP_N_MICRO,
+        "fp32_layers": spec["fp32_layers"], "cases": cases,
+        "bounds": {"loss_rtol": EPP_LOSS_RTOL, "grad": EPP_GRAD_TOL,
+                   "grad_cosine": EPP_GRAD_COSINE,
+                   "update_cosine": EPP_UPDATE_COSINE},
+        "replicated_bitwise_equal": True,
+        "label": "two ranks on one card over gloo; not an EP or PP speed"}}
+    log(f"[ep_pp_train] {json.dumps(line)}")
+    return line
+
+
+def phase_ep_pp_worker(card: str, extra=(), steps=EPW_STEPS,
+                       preempt_at=EPW_PREEMPT_AT) -> dict:
+    """Phase 19b (module constants above), each run's ranks in
+    ``build/ep_pp_worker``: ``--ep 2`` through, preempted and relaunched;
+    ``--pp 2`` through beside them. Every run: every rank exits 0 with one
+    ``final_loss`` and the reference's ``mesh``. Preempted: every rank
+    exits, a rank with 143 having flushed its step, at least one such;
+    the relaunch resumes every rank at one step at or past
+    ``preempt_at`` and ends at the through run's loss bit for bit.
+    ``extra`` goes last on every command line (a CPU rehearsal:
+    ``--device cpu``). The ``worker_ep_pp`` line."""
+    import math
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "ep_pp_worker"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0_phase = time.perf_counter()
+    runs, problems = {}, []
+
+    def record(name, res, wall, mesh):
+        dones = []
+        for r, (rc, events) in enumerate(res):
+            done = [e for e in events if e.get("event") == "done"]
+            if rc != 0 or not done:
+                problems.append(f"{name} rank {r}: exit {rc}, {events[-2:]}")
+                continue
+            dones.append(done[0])
+        runs[name] = {"wall_s": wall, "exit": [rc for rc, _ in res],
+                      "resumed": [[e["step"] for e in ev
+                                   if e.get("event") == "resumed"]
+                                  for _, ev in res],
+                      **{k: [d.get(k) for d in dones] for k in (
+                          "final_loss", "mesh", "steps_run",
+                          "tokens_per_sec", "collectives", "collective_s",
+                          "peak_mem_gb")}}
+        if len(dones) != len(res):
+            return dones
+        if any(d["mesh"] != mesh for d in dones):
+            problems.append(f"{name}: mesh {dones[0]['mesh']}, want {mesh}")
+        if len({d.get("final_loss") for d in dones}) != 1:
+            problems.append(f"{name}: final losses "
+                            f"{[d.get('final_loss') for d in dones]}")
+        return dones
+
+    def args_of(kind, *more):
+        return [*EPW_ARGS[kind], "--steps", str(steps), *more, *extra]
+
+    def chain():
+        t0 = time.perf_counter()
+        res = _gang_worker_run(args_of("ep"), base / "ep_full", EPP_WORLD)
+        full = record("ep_full", res, time.perf_counter() - t0,
+                      EPW_MESH["ep"])
+        t0 = time.perf_counter()
+        res = _sp_worker_launch(args_of("ep", "--ckpt-every", "1"),
+                                base / "ep_pre", EPP_WORLD,
+                                preempt_at=preempt_at)
+        flushed = [[e["flushed_step"] for e in ev
+                    if e.get("event") == "preempted"] for _, ev in res]
+        runs["ep_preempted"] = {"wall_s": time.perf_counter() - t0,
+                                "exit": [rc for rc, _ in res],
+                                "flushed_step": flushed}
+        if any(rc not in (143, 1) for rc, _ in res) or not any(
+                rc == 143 and f for (rc, _), f in zip(res, flushed)):
+            problems.append(f"ep_preempted: exits "
+                            f"{runs['ep_preempted']['exit']}, flushed "
+                            f"{flushed}")
+        t0 = time.perf_counter()
+        res = _gang_worker_run(args_of("ep", "--ckpt-every", "1"),
+                               base / "ep_pre", EPP_WORLD)
+        resumed = record("ep_resumed", res, time.perf_counter() - t0,
+                         EPW_MESH["ep"])
+        at = runs["ep_resumed"]["resumed"]
+        if len({tuple(s) for s in at}) != 1 or len(at[0]) != 1 \
+                or at[0][0] < preempt_at:
+            problems.append(f"ep resumed at {at}, want one step >= "
+                            f"{preempt_at} on every rank")
+        if full and resumed and (
+                full[0]["final_loss"] != resumed[0]["final_loss"]
+                or not math.isfinite(full[0]["final_loss"] or math.nan)):
+            problems.append(f"the ep relaunch ends at "
+                            f"{resumed[0]['final_loss']}, the run through "
+                            f"at {full[0]['final_loss']}")
+
+    def pipe():
+        t0 = time.perf_counter()
+        res = _gang_worker_run(args_of("pp"), base / "pp_full", EPP_WORLD)
+        record("pp_full", res, time.perf_counter() - t0, EPW_MESH["pp"])
+
+    _side_by_side(chain, pipe)
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("ep/pp worker phase: " + "; ".join(problems))
+    line = {"worker_ep_pp": {
+        "command": "python -m dcos_commons_tpu_torch.frameworks.worker "
+                   "llama-train --ep 2 | --pp 2 --out VOL on 2 processes "
+                   "under JAX_COORDINATOR_ADDRESS/JAX_PROCESS_ID/"
+                   "JAX_NUM_PROCESSES: --ep 2 through, then preempted "
+                   f"(SIGTERM at step {preempt_at}, --ckpt-every 1) and "
+                   "relaunched; --pp 2 through beside them",
+        "steps": steps, "runs": runs,
+        "wall_s": time.perf_counter() - t0_phase,
+        "label": "ranks sharing one card; not an EP or PP speed",
+        "card": card}}
+    log(f"[worker_ep_pp] {json.dumps(line)}")
+    return line
+
+
+def ep_serve_rank(device: str = "cuda", queue=None, cfg_kw=None) -> dict:
+    """One rank of phase 19c's in-process gang: ``MeshSpec(ep=world)``,
+    the rank's experts of ``init_moe_params`` from the seed at
+    ``cfg_kw`` (by default the 8B widths in fp32 at ``MOE_FP32_LAYERS``
+    layers, dense decode attention), a dropless ``PagedServer`` over the
+    mesh draining ``queue`` as phase 3 drains it: the streams, the
+    rank's weight and peak GB, its collectives. Rank 0 then frees its
+    shard and drains the same queue through the one-device engine on the
+    whole weights (``one_device``), in this process of its own: the main
+    process may be capturing CUDA graphs meanwhile."""
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+    from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MeshSpec(ep=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cfg = llama.LlamaConfig.llama3_8b(**(cfg_kw or dict(
+        max_seq=2048, n_layers=MOE_FP32_LAYERS, dtype=torch.float32,
+        decode_attn="dense")))
+    moe = dropless(MoEConfig(MOE_EXPERTS))
+
+    def drain(m):
+        params = llama.init_moe_params(
+            cfg, MOE_EXPERTS, torch.Generator(device=dev).manual_seed(SEED),
+            device=dev, mesh=m)
+        srv = serving.PagedServer(cfg, params, slots=8, page_size=64,
+                                  prefill_chunk=64, moe=moe, device=dev,
+                                  mesh=m)
+        wall, _ = drain_timed(srv, queue)
+        return params, srv, wall
+
+    params, srv, wall = drain(mesh)
+    stats = srv.page_stats()
+    out = {"rank": mesh.rank, "streams": {r["request_id"]: srv.finished[
+        r["request_id"]] for r in queue}, "wall_s": wall,
+        "weight_gb": _tree_gb(params), "collectives": mesh.collectives,
+        "collective_s": mesh.collective_s,
+        "w_in_shape": list(params["layers"]["w_in"].shape),
+        "ep": stats["ep"], "graphs_off": stats["graphs_off"],
+        "ledger_violations": len(srv.ledger_violations()),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None)}
+    del params, srv
+    gc.collect()
+    if mesh.rank == 0:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _, one, out["one_device_wall_s"] = drain(None)
+        out["one_device"] = {r["request_id"]: one.finished[r["request_id"]]
+                             for r in queue}
+    return out
+
+
+def phase_ep_serve_fp32(card: str, dev="cuda", cfg_kw=None,
+                        vocab=WORKER_VOCAB) -> dict:
+    """Phase 19c, in process (:func:`ep_serve_rank`): every rank's fp32
+    stream of phase 3's requests equal to the one-device engine's on the
+    same weights; the ``ep_serve_fp32`` line. Its card work is in the
+    gang's processes, so it may run beside this process's phases."""
+    import torch
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    t0 = time.perf_counter()
+    queue = serve_queue(vocab)
+    ranks = launch_local(ep_serve_rank, EPP_WORLD, torch.device(dev).type,
+                         queue, cfg_kw, timeout_s=EPS_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    want, problems = ranks[0]["one_device"], []
+    for r in ranks:
+        differ = {rid: next((i for i, (a, b) in enumerate(zip(got, want[
+            rid])) if a != b), None) for rid, got in r["streams"].items()
+            if got != want[rid]}
+        if differ:
+            problems.append(f"fp32 rank {r['rank']}: streams leave the "
+                            f"one-device engine at {differ}")
+        if r["ep"] != EPP_WORLD or r["graphs_off"] != "ep" \
+                or r["ledger_violations"]:
+            problems.append(f"fp32 rank {r['rank']}: ep {r['ep']}, graphs "
+                            f"off {r['graphs_off']}, ledger "
+                            f"{r['ledger_violations']}")
+    if problems:
+        raise RuntimeError("ep serve phase: " + "; ".join(problems))
+    line = {"ep_serve_fp32": {
+        "layers": (cfg_kw or {}).get("n_layers", MOE_FP32_LAYERS),
+        "experts": MOE_EXPERTS, "ep": EPP_WORLD,
+        "streams_equal": len(queue), "of": len(queue), "gang_s": gang_s,
+        "one_device_wall_s": ranks[0]["one_device_wall_s"],
+        **{k: [r[k] for r in ranks] for k in (
+            "wall_s", "weight_gb", "peak_mem_gb", "collectives",
+            "collective_s", "w_in_shape")},
+        "label": "two ranks on one card over gloo; not an EP speed",
+        "card": card}}
+    log(f"[ep_serve_fp32] {json.dumps(line)}")
+    return line
+
+
+def phase_ep_serve_worker(card: str, worker_want: dict,
+                          dev="cuda") -> tuple:
+    """Phase 19c, the workers: dist/moe.yml's replica as a gang of two
+    (``WORKER_MOE_ARGS`` at ``MOE_LAYERS`` layers through ``CUT_WORKER``),
+    the workers' 8 requests, each reply equal to ``worker_want`` (phase
+    10's in-process streams on the same weights) or held by phase 10's
+    bf16 rule (:func:`moe_stream_share`); kernel 1 launched on every rank
+    while the gang served. Returns (the ``ep_serve_worker`` line,
+    {kernel 1: launches over the ranks})."""
+    import shutil
+    import signal
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    from dcos_commons_tpu_torch.parallel.moe import MoEConfig, dropless
+
+    base = Path(__file__).resolve().parent / "build" / "ep_serve_worker"
+    shutil.rmtree(base, ignore_errors=True)
+    bodies = worker_bodies()
+    args = (*WORKER_ARGS, *WORKER_MOE_ARGS)
+    t0 = time.perf_counter()
+    gang = _tp_worker_procs(base, args, MOE_LAYERS)
+    try:
+        serving_ev = [event("serving", WORKER_BOOT_S)
+                      for _, _, event in gang]
+        boot_s = time.perf_counter() - t0
+        port = serving_ev[0]["port"]
+        replies, errors, wall = _serve_over_http(port, bodies,
+                                                 WORKER_STREAMED)
+        stats = _http_get(port, "/v1/stats")
+        beats = [gang[0][2]("heartbeat", 60,
+                            lambda e: e.get("requests", 0) >= len(bodies))]
+        it0 = stats.get("gang_iterations", 0)
+        beats.append(gang[1][2]("heartbeat", 60,
+                                lambda e: e.get("gang_iterations", 0)
+                                >= it0))
+    finally:
+        rcs = [_sigterm(proc) for proc, _, _ in gang]
+    problems = list(errors)
+    launches = []
+    paged = serving_ev[0].get("paged") or {}
+    if paged.get("ep") != EPP_WORLD or paged.get("graphs_off") != "ep" \
+            or (paged.get("moe") or {}).get("experts") != MOE_EXPERTS:
+        problems.append(f"rank 0 page stats {paged}")
+    for rank, (ev, beat) in enumerate(zip(serving_ev, beats)):
+        if not (ev.get("gang") and ev.get("process_id") == rank):
+            problems.append(f"rank {rank} serving event {ev}")
+        if not beat.get("gang_iterations") or beat.get("gang_errors"):
+            problems.append(f"rank {rank} heartbeat {beat}")
+        launches.append(beat.get("launches", {}).get(
+            "flash_decode_paged", 0) - ev.get("launches", {}).get(
+            "flash_decode_paged", 0))
+        if launches[-1] < 1 and torch.device(dev).type == "cuda":
+            problems.append(f"rank {rank}: flash_decode_paged never "
+                            "launched while the gang served")
+    if any(rc != -signal.SIGTERM for rc in rcs):
+        problems.append(f"exits {rcs}")
+    got = {f"w{i}": (r or {}).get("tokens") for i, r in enumerate(replies)}
+    if any(t is None or len(t) != 32 for t in got.values()):
+        problems.append(f"replies {[len(t or []) for t in got.values()]}")
+    shutil.rmtree(base, ignore_errors=True)
+    if problems:
+        raise RuntimeError("ep serve worker phase: " + "; ".join(problems))
+    differ = [rid for rid in worker_want if got[rid] != worker_want[rid]]
+    hold = None
+    if differ:
+        d = torch.device(dev)
+        cfg = _moe_cfg(llama)
+        params = llama.init_moe_params(
+            cfg, MOE_EXPERTS, torch.Generator(device=d).manual_seed(SEED),
+            device=d)
+        prompts = {f"w{i}": b["prompt"] for i, b in enumerate(bodies)}
+        hold = moe_stream_share(
+            "MoE ep gang worker vs the in-process engine",
+            {rid: got[rid] for rid in differ},
+            {rid: worker_want[rid] for rid in differ}, prompts, cfg, params,
+            llama.make_moe_ffn(cfg, dropless(MoEConfig(MOE_EXPERTS))))
+        del params
+        gc.collect()
+        if d.type == "cuda":
+            torch.cuda.empty_cache()
+    n_tok = sum(len(t) for t in got.values())
+    line = {"ep_serve_worker": {
+        "command": "JAX_COORDINATOR_ADDRESS=127.0.0.1:P JAX_PROCESS_ID=r "
+                   f"JAX_NUM_PROCESSES={EPP_WORLD} python -m "
+                   "dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(args),
+        "model": f"llama3_8b widths, {MOE_LAYERS} of 32 layers, "
+                 f"{MOE_EXPERTS} experts top-2 dropless",
+        "ep": EPP_WORLD, "boot_to_serving_s": boot_s,
+        "weight_gb_per_rank": [e.get("weight_gb") for e in serving_ev],
+        "requests": len(bodies), "tokens_out": n_tok, "wall_s": wall,
+        "output_tok_s": n_tok / wall,
+        "ttft_p50_ms": stats["ttft_ms"]["p50"],
+        "tpot_p50_ms": stats["tpot_ms"]["p50"],
+        "gang_iterations": [b["gang_iterations"] for b in beats],
+        "collectives_per_rank": [b.get("collectives") for b in beats],
+        "launches_flash_decode_paged_per_rank": launches,
+        "peak_mem_gb_per_rank": [b.get("peak_mem_gb") for b in beats],
+        "streams_equal_in_process": len(worker_want) - len(differ),
+        "bf16_vs_in_process": hold,
+        "label": "two ranks on one card over gloo; not an EP speed",
+        "card": card}}
+    log(f"[ep_serve_worker] {json.dumps(line)}")
+    return line, {"flash_decode_paged": sum(launches)}
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -7227,8 +7891,20 @@ def main() -> int:
     artifact = save_spec_draft(params)
     gc.collect()
     torch.cuda.empty_cache()
+    # 19a, then 19c's fp32 gang, beside 19b, all beside 11: their card
+    # work is in their gangs' processes (peaks 19 GB, then 33, beside 11's
+    # 22), mostly waiting on the host for gloo, and done before 11's worker
+    ep_pp = {}
+    ep_pp_done = _in_background(lambda: _side_by_side(
+        lambda: ep_pp.update(
+            train=phase_ep_pp_train(card),
+            serve_fp32=phase_ep_serve_fp32(card)),
+        lambda: ep_pp.update(worker=phase_ep_pp_worker(card))))
     kv_line, kv_launches, kv_rounds, kv_want = timed_phase(
         "11_kv_tiers", phase_kv_tiers, card, params)
+    timed_phase("19a_19b_19c_fp32_after_11", ep_pp_done)
+    ep_pp_train_line, ep_pp_worker_line = ep_pp["train"], ep_pp["worker"]
+    ep_serve_fp32_line = ep_pp["serve_fp32"]
     gc.collect()
     torch.cuda.empty_cache()
     kv_worker_line, kv_worker_launches = timed_phase(
@@ -7330,9 +8006,15 @@ def main() -> int:
     # launches a kernel of this process that another phase counts
     moe_worker_done = _in_background(
         lambda: phase_moe_worker(card, moe_worker_want))
+    # 19c's worker pair beside them (2 x 12 GB at 8 layers): processes
+    # of their own, mostly waiting on the host for their all-to-alls
+    ep_serve_done = _in_background(
+        lambda: phase_ep_serve_worker(card, moe_worker_want))
     resnet_line = timed_phase("14_resnet", phase_resnet, card)
     moe_worker_line, moe_worker_launches = timed_phase(
         "10_worker_moe_after_14", moe_worker_done)
+    ep_serve_worker_line, ep_serve_launches = timed_phase(
+        "19c_worker_ep_serve_after_14", ep_serve_done)
     gc.collect()
     torch.cuda.empty_cache()
     # 17a beside 18a: both gangs wait on the host for their collectives
@@ -7409,7 +8091,9 @@ def main() -> int:
                        "migrate": migrate_launches,
                        "fleet": fleet_launches,
                        "worker_peer": peer_launches["flash_decode_paged"],
-                       "tp": tp_launches["flash_decode_paged"]},
+                       "tp": tp_launches["flash_decode_paged"],
+                       "worker_ep_serve":
+                           ep_serve_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -7507,6 +8191,10 @@ def main() -> int:
     print(json.dumps(tp_worker_line), flush=True)
     print(json.dumps(sp_train_line), flush=True)
     print(json.dumps(sp_worker_line), flush=True)
+    print(json.dumps(ep_pp_train_line), flush=True)
+    print(json.dumps(ep_pp_worker_line), flush=True)
+    print(json.dumps(ep_serve_fp32_line), flush=True)
+    print(json.dumps(ep_serve_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

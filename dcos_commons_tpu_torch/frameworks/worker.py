@@ -125,7 +125,13 @@ loop (``models.serving_gang``): rank 0 owns the front door
 (``serving.ready``, ``/v1/stats`` with the gang counters), every rank
 runs the lock-step loop and its heartbeats. ``--serve-role
 prefill|decode`` on a gang emits ``disagg_fallback`` and serves
-co-located; ``--moe-experts`` (item 9) and ``WEIGHT_FETCH_PEERS`` /
+co-located. ``--moe-experts E`` on a gang serves over ``MeshSpec(ep=N)``
+instead, as the reference's ``_serving_arithmetic`` does when N divides
+E: every rank holds the whole weights but only its E/N experts
+(``llama.init_moe_params(..., mesh=)``), and the paged engine's MoE
+layer dispatches over ep (``parallel.moe.moe_apply``). A gang that does
+not divide the experts (``moe_ep_indivisible``: the reference's path for
+it cannot build its mesh) and ``WEIGHT_FETCH_PEERS`` /
 ``WEIGHT_SERVE_PORT`` (``peer_weights_not_ported``, item 10e) on a gang
 are refused before any process group forms.
 
@@ -140,15 +146,17 @@ newest step every process holds and saving the whole state to its own
 over the reference's clamped axes as ``MeshSpec(dp, sp, tp)``
 (``dist/longctx.yml``'s ``worker`` pods: ring or Ulysses attention over
 ``sp``, its default 2 on an even gang), each rank holding its Megatron
-shards and its sequence shard; ``mnist`` trains alone in each process,
-as in the reference.
+shards and its sequence shard; with ``--pp N`` (checked first) or ``--ep
+N`` the reference's pipelined and MoE variants over ``MeshSpec(dp=n //
+pp, pp=pp)`` and ``MeshSpec(dp=n // ep, ep=ep)``, every rank computing
+the whole batch and holding its stage or its experts; ``mnist`` trains
+alone in each process, as in the reference.
 The ranks' collectives (``parallel.mesh``) run over gloo when ranks
 share a card.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (expert-parallel MoE training, pipelines and ring
-prefill: item 9; live resharding: item 10).
+ROADMAP Queue 1 item (ring prefill: item 9; live resharding: item 10).
 """
 
 from __future__ import annotations
@@ -203,16 +211,17 @@ def _divisor_at_most(limit: int, total: int) -> int:
 
 
 def _train_mesh(device: str, dp: int, tp: int = 1, dcn: int = 1,
-                sp: int = 1):
+                sp: int = 1, ep: int = 1, pp: int = 1):
     """The process group from the rank contract and this rank's
-    ``MeshSpec(dp=dp, sp=sp, tp=tp, dcn=dcn)`` mesh on ``device``:
-    ``(contract, mesh)``. A gang the mesh does not fit raises
+    ``MeshSpec(dp=dp, pp=pp, sp=sp, tp=tp, ep=ep, dcn=dcn)`` mesh on
+    ``device``: ``(contract, mesh)``. A gang the mesh does not fit raises
     (ValueError), as the reference's mesh does; a gang never trains
     alone."""
     from ..parallel import distributed
     from ..parallel.mesh import MeshSpec
     contract = distributed.initialize()
-    return contract, MeshSpec(dp=dp, sp=sp, tp=tp, dcn=dcn).build(device)
+    return contract, MeshSpec(dp=dp, pp=pp, sp=sp, tp=tp, ep=ep,
+                              dcn=dcn).build(device)
 
 
 def _mesh_report(mesh) -> dict:
@@ -223,7 +232,8 @@ def _mesh_report(mesh) -> dict:
     if mesh.size == 1:
         return {}
     return {"dp": mesh.shape["dp"],
-            **{a: mesh.shape[a] for a in ("sp", "tp") if mesh.shape[a] > 1},
+            **{a: mesh.shape[a] for a in ("pp", "sp", "tp", "ep")
+               if mesh.shape[a] > 1},
             "collectives": mesh.collectives,
             "collective_s": round(mesh.collective_s, 6),
             "backend": mesh.backend}
@@ -574,10 +584,14 @@ def run_llama(args) -> dict:
     n = _gang_size()
     if n > 1:
         # refused before the process group forms
-        if moe_cfg is not None:
-            raise NotImplementedError(
-                f"--moe-experts on a gang of {n}: expert-parallel MoE "
-                "serving is not ported yet (ROADMAP Queue 1 item 9)")
+        if moe_cfg is not None and moe_cfg.num_experts % n:
+            raise NotPorted(
+                "moe_ep_indivisible",
+                f"--moe-experts {moe_cfg.num_experts} on a gang of {n}: "
+                f"expert parallelism shards the experts over ep={n}, which "
+                "must divide them (the reference's moe_note path builds "
+                "MeshSpec(ep=1) on the gang and fails: ROADMAP Queue 3; "
+                "item 9)")
         if os.environ.get("WEIGHT_FETCH_PEERS", "").strip() or (
                 os.environ.get("WEIGHT_SERVE_PORT")
                 or os.environ.get("PORT_WEIGHTS")) is not None:
@@ -586,8 +600,13 @@ def run_llama(args) -> dict:
                             "weights (GANGSTATE) are not ported yet "
                             "(ROADMAP Queue 1 item 10e)")
     contract = distributed.initialize()
-    gang = (MeshSpec(tp=contract["num_processes"]).build(args.device)
-            if contract["num_processes"] > 1 else None)
+    # one replica mesh carries one inner axis, as in the reference: ep
+    # for MoE, tp otherwise
+    gang = None
+    if contract["num_processes"] > 1:
+        axis = "ep" if moe_cfg is not None else "tp"
+        gang = MeshSpec(**{axis: contract["num_processes"]}).build(
+            args.device)
     dev = gang.device if gang is not None else resolve_device(args.device)
     kv_quant = args.kv_quant
     cfg = _target_config(args)
@@ -604,7 +623,7 @@ def run_llama(args) -> dict:
         t0 = time.perf_counter()
         if moe_cfg is not None:
             toks = llama.generate_stepwise_moe(cfg, params, prompt, gen_len,
-                                               moe_cfg)
+                                               moe_cfg, mesh=gang)
         elif chunked:
             toks = llama.generate_chunked(cfg, params, prompt, gen_len,
                                           chunk=16, mesh=gang)
@@ -618,7 +637,8 @@ def run_llama(args) -> dict:
             # raw bf16 expert banks, drawn slab by slab on the device
             return llama.init_moe_params(
                 cfg, moe_cfg.num_experts,
-                torch.Generator(device=dev).manual_seed(0), device=dev)
+                torch.Generator(device=dev).manual_seed(0), device=dev,
+                mesh=gang)
         return _init_target(cfg, dev, args.quant, gang)
 
     registry = None
@@ -674,7 +694,8 @@ def run_llama(args) -> dict:
                              "single-process replica; serving "
                              "co-located"})
     if args.slots > 0 and gang is not None:
-        _serve_gang(args, contract, cfg, params, gang, registry, result)
+        _serve_gang(args, contract, cfg, params, gang, registry, result,
+                    moe_cfg)
     if args.slots > 0:
         _serve_slots(args, cfg, params, dev, registry, boot_report, result,
                      moe_cfg)
@@ -787,7 +808,8 @@ def _serve_front_door(args, server, page_stats, registry, boot_report,
             _emit({"event": "heartbeat_error", "n": i, "error": str(e)})
 
 
-def _serve_gang(args, contract, cfg, params, mesh, registry, result) -> None:
+def _serve_gang(args, contract, cfg, params, mesh, registry, result,
+                moe_cfg=None) -> None:
     """Serving on a gang of processes: rank 0 runs the HTTP front door
     with ``drive=False``, and every rank runs the lock-step broadcast /
     submit / step loop (``models.serving_gang``) over an engine built
@@ -796,10 +818,11 @@ def _serve_gang(args, contract, cfg, params, mesh, registry, result) -> None:
     from ..models.serving_gang import GangServingDriver
     rank = contract["process_id"]
     server, page_stats = _make_serving_engine(args, cfg, params, mesh.device,
-                                              registry, mesh=mesh)
+                                              registry, moe=moe_cfg,
+                                              mesh=mesh)
     warmup = getattr(server, "warmup", None)
     if warmup is not None:
-        # under tp the warm-up runs eagerly, the same calls on every rank
+        # on a gang the warm-up runs eagerly, the same calls on every rank
         warmup()
     frontend = None
     if rank == 0:
@@ -982,12 +1005,13 @@ def _train_tree(params, opt_state) -> dict:
 
 
 def _train_specs(params, specs, mesh) -> dict:
-    """The gang checkpoint's layout of a tp train tree: ``specs`` (the
-    live tree's) and ``disk_specs`` (the reference's, whose optimizer
-    state is placed by shape: ``train.opt_state_specs``). Without tp,
-    nothing: every leaf whole."""
+    """The gang checkpoint's layout of a sharded train tree (over tp, ep
+    or pp): ``specs`` (the live tree's) and ``disk_specs`` (the
+    reference's, whose optimizer state is placed by shape:
+    ``train.opt_state_specs``). With no leaf sharded, nothing: every
+    leaf whole."""
     from ..models import train
-    if mesh is None or mesh.shape["tp"] == 1:
+    if mesh is None or all(mesh.shape[a] == 1 for a in ("tp", "ep", "pp")):
         return {}
     return {"mesh": mesh,
             "specs": {"params": specs,
@@ -1217,22 +1241,18 @@ def run_llama_train(args) -> dict:
     reference's report, ``{"dp", "sp", "tp"}`` and ``ring_layout`` under
     the ring."""
     from ..models import llama, train
-    from ..parallel import checkpoint as ckpt
-    from . import sentinel as sentinel_mod
 
-    if args.pp > 1:
-        raise NotPorted("pipeline_not_ported", "--pp > 1: pipeline-parallel "
-                        "training is not ported yet (ROADMAP Queue 1 item 9)")
-    if args.ep > 1:
-        raise NotPorted("moe_not_ported", "--ep > 1: expert-parallel (MoE) "
-                        "training needs the device mesh, not ported yet "
-                        "(ROADMAP Queue 1 item 9)")
     if str(os.environ.get("RESHARD_ENABLE", "0")).strip().lower() \
             not in ("", "0", "false", "no"):
         raise NotPorted("reshard_not_ported", "RESHARD_ENABLE: restart-free "
                         "resharding is not ported yet (ROADMAP Queue 1 item "
                         "10)")
     n = _gang_size()
+    # --pp is checked first, as in the reference
+    if args.pp > 1:
+        return _llama_train_pipelined(args, n)
+    if args.ep > 1:
+        return _llama_train_moe(args, n)
     sp = (_divisor_at_most(args.sp, n) if args.sp > 0
           else (2 if n % 2 == 0 else 1))
     tp = _divisor_at_most(args.tp, n // sp) if args.tp > 0 else 1
@@ -1249,30 +1269,117 @@ def run_llama_train(args) -> dict:
     cfg = llama.LlamaConfig.tiny(
         attn_impl="dense" if attn == "auto" else attn, max_seq=seq + 1,
         ring_layout=ring_layout, fused_ce=_fused_ce(args))
-    specs = llama.param_specs(cfg)
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
         mesh=mesh)
     # every rank holds the whole batch (the reference's batch_spec=None);
     # the step takes this rank's rows
-    toks = torch.randint(0, cfg.vocab_size, (max(2 * dp, 1), seq + 1),
+    toks = _train_tokens(cfg, max(2 * dp, 1), seq, dev)
+    mesh_report = {"dp": dp, "sp": sp, "tp": tp}
+    if attn == "ring":
+        mesh_report["ring_layout"] = ring_layout
+    return _llama_train_loop(
+        args, contract, mesh, cfg, lambda p, b: llama.loss_fn(cfg, p, b, mesh),
+        llama.param_specs(cfg), params, toks, mesh_report, attn,
+        train.dp_rows(toks.shape[0], mesh)[1])
+
+
+def _train_tokens(cfg, rows: int, seq: int, dev: torch.device
+                  ) -> torch.Tensor:
+    """The fixed training batch, ``rows`` x ``seq + 1`` tokens from a
+    torch generator seeded 1 on the rank's device (every rank draws the
+    same)."""
+    return torch.randint(0, cfg.vocab_size, (rows, seq + 1),
                          generator=torch.Generator(device=dev).manual_seed(1),
                          dtype=torch.int32, device=dev)
 
+
+def _llama_train_pipelined(args, n: int) -> dict:
+    """Pipeline-parallel LM training, the reference's
+    ``_llama_train_pipelined``: ``pp`` (``--pp`` clamped to a divisor of
+    the gang) stages of the tiny Llama's trunk at ``max(4, 2 pp)``
+    layers over ``MeshSpec(dp=n // pp, pp=pp)``, ``max(2, pp)``
+    microbatches of two rows each through the GPipe schedule
+    (``llama.loss_fn_pipelined``), every rank computing the whole batch;
+    each rank holds its stage of the ``[pp, L/pp, ...]`` stacks."""
+    from ..models import llama
+
+    pp = _divisor_at_most(args.pp, n)
+    contract, mesh = _train_mesh(args.device, n // pp, pp=pp)
+    dev = mesh.device
+    seq = args.seq
+    cfg = llama.LlamaConfig.tiny(attn_impl="dense", max_seq=seq + 1,
+                                 n_layers=max(4, pp * 2),
+                                 fused_ce=_fused_ce(args))
+    n_micro = max(2, pp)
+    specs = llama.pipeline_param_specs(cfg)
+    params = llama.shard_params(llama.stack_pipeline_params(
+        llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev), pp), mesh, cfg, specs)
+    toks = _train_tokens(cfg, n_micro * 2, seq, dev)
+    return _llama_train_loop(
+        args, contract, mesh, cfg,
+        lambda p, b: llama.loss_fn_pipelined(cfg, p, b, mesh, n_micro),
+        specs, params, toks, {"pp": pp, "microbatches": n_micro}, "dense",
+        toks.shape[0])
+
+
+def _llama_train_moe(args, n: int) -> dict:
+    """Expert-parallel LM training, the reference's ``_llama_train_moe``:
+    the tiny Llama's FFNs replaced by ``ep * max(1, ceil(4 / ep))``
+    experts (``--moe-routing``) sharded over ``ep`` (``--ep`` clamped to
+    a divisor of the gang) in ``MeshSpec(dp=n // ep, ep=ep)``, 4 rows
+    that every rank computes whole (``llama.loss_fn_moe``)."""
+    from ..models import llama
+    from ..parallel.moe import MoEConfig
+
+    ep = _divisor_at_most(args.ep, n)
+    contract, mesh = _train_mesh(args.device, n // ep, ep=ep)
+    dev = mesh.device
+    seq = args.seq
+    # the experts must divide over ep
+    num_experts = ep * max(1, -(-4 // ep))
+    cfg = llama.LlamaConfig.tiny(attn_impl="dense", max_seq=seq + 1,
+                                 fused_ce=_fused_ce(args))
+    moe_cfg = MoEConfig(num_experts=num_experts, routing=args.moe_routing)
+    params = llama.init_moe_params(
+        cfg, num_experts, torch.Generator(device=dev).manual_seed(0),
+        device=dev, mesh=mesh)
+    toks = _train_tokens(cfg, 4, seq, dev)
+    return _llama_train_loop(
+        args, contract, mesh, cfg,
+        lambda p, b: llama.loss_fn_moe(cfg, p, b, mesh, moe_cfg),
+        llama.moe_param_specs(cfg), params, toks,
+        {"dp": n // ep, "ep": ep, "experts": num_experts,
+         "routing": args.moe_routing}, "dense", toks.shape[0])
+
+
+def _llama_train_loop(args, contract, mesh, cfg, loss_fn, specs, params,
+                      toks, mesh_report, attn, rows: int) -> dict:
+    """What every llama-train variant shares, as the reference's
+    ``_llama_train_loop``: the optimizer, the warm-up step, the resume
+    from the gang checkpoint under ``--out``, the guarded loop under the
+    fault sentinel, and the report. ``rows`` is what a rank's step
+    splits for ``--grad-accum`` (its dp rows, or the whole batch)."""
+    from ..models import train
+    from ..parallel import checkpoint as ckpt
+    from . import sentinel as sentinel_mod
+
+    dev = mesh.device
+    seq = toks.shape[1] - 1
     grad_accum = max(1, args.grad_accum)
-    rows = train.dp_rows(toks.shape[0], mesh)[1]
     if grad_accum > 1 and (toks.shape[0] % grad_accum or rows % grad_accum):
         # degrade, don't crash-loop the gang, as the reference; here
         # each rank splits its own rows
         _emit({"event": "grad_accum_fallback",
                "requested": grad_accum, "batch": int(toks.shape[0]),
-               **({"rows_per_rank": rows} if dp > 1 else {})})
+               **({"rows_per_rank": rows} if rows != toks.shape[0]
+                  else {})})
         grad_accum = 1
     opt = train.make_optimizer(lr=1e-3, warmup=5,
                                decay_steps=max(args.steps, 10))
     step = train.make_train_step(
-        lambda p, b: llama.loss_fn(cfg, p, b, mesh), opt,
-        grad_accum=grad_accum, mesh=mesh, batch_spec=None,
+        loss_fn, opt, grad_accum=grad_accum, mesh=mesh, batch_spec=None,
         param_spec_tree=specs)
     opt_state = train.init_opt_state(opt, params)
     layout = _train_specs(params, specs, mesh)
@@ -1333,9 +1440,6 @@ def run_llama_train(args) -> dict:
         sent.uninstall()
     _sync(dev)
     dt = time.perf_counter() - t0
-    mesh_report = {"dp": dp, "sp": sp, "tp": tp}
-    if attn == "ring":
-        mesh_report["ring_layout"] = ring_layout
     if stopped == "preempted":
         # flushed by guarded_loop; main() exits 143
         return {"workload": "llama-train", "attn": attn, "seq": seq,
@@ -1565,8 +1669,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="llama --serve --pages: experts in the routed MLP "
                         "(0 = dense). Raw bf16 expert banks "
                         "(init_moe_params), every decode step and prefill "
-                        "chunk routed through parallel/moe.py on the local "
-                        "path (dist/moe.yml). Without --pages, or with "
+                        "chunk routed through parallel/moe.py (dist/moe.yml;"
+                        " over ep on a gang). Without --pages, or with "
                         "--quant/--kv-quant, serves dense (moe_fallback)")
     p.add_argument("--moe-capacity-factor", type=float,
                    default=float(os.environ.get("MOE_CAPACITY_FACTOR",
@@ -1702,11 +1806,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="llama-train: tensor-parallel mesh size (0=auto; "
                         "1 on one device)")
     p.add_argument("--pp", type=int, default=0,
-                   help="llama-train: pipeline stages (not ported, item 9: "
-                        "> 1 exits 2)")
+                   help="llama-train: pipeline stages (> 1: the pipelined "
+                        "variant, checked before --ep)")
     p.add_argument("--ep", type=int, default=0,
-                   help="llama-train: expert-parallel size (not ported, "
-                        "item 9: > 1 exits 2)")
+                   help="llama-train: expert-parallel size (> 1: the MoE "
+                        "variant)")
     p.add_argument("--lr", type=float, default=0.0,
                    help="resnet: learning-rate override (0 = default "
                         "0.1)")

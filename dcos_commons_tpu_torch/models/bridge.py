@@ -45,18 +45,22 @@ def _convert(tree: Any, device: torch.device) -> Any:
 
 
 def params_from_jax(tree: Any, device: DeviceLike = "cuda", mesh=None,
-                    cfg=None) -> Any:
+                    cfg=None, specs=None) -> Any:
     """The JAX Llama parameter pytree (as numpy) as the port's dict, with
-    the same keys and the stacked ``[L, ...]`` ``x @ W`` layout. With a
-    ``mesh`` (and the model's ``cfg``) this rank's shard of it
-    (``llama.shard_params``): each leaf is sliced on the host before it
-    moves, so the device holds the shard only."""
+    the same keys and layout: the stacked ``[L, ...]`` ``x @ W`` layer
+    weights, a MoE tree's ``router``, ``w_in`` and ``w_out``, or the
+    pipelined ``[pp, L/pp, ...]`` stacks (``stack_pipeline_params``).
+    With a ``mesh`` (and the model's ``cfg``) this rank's shard of it
+    under ``specs`` (``llama.shard_params``' default when None; the
+    pipelined tree passes ``llama.pipeline_param_specs``): each leaf is
+    sliced on the host before it moves, so the device holds the shard
+    only."""
     dev = resolve_device(device)
     if mesh is None or mesh.size == 1:
         return _convert(tree, dev)
     from .llama import shard_params
     return _move(shard_params(_convert(tree, torch.device("cpu")), mesh,
-                              cfg), dev)
+                              cfg, specs), dev)
 
 
 def _move(tree: Any, device: torch.device) -> Any:

@@ -54,7 +54,21 @@ sums the ranks' partial input gradients) and its ``wo``/``w_down``
 output through ``Mesh.reduce_from`` ("g"), the embedding's lookup
 through "g" too, and the vocabulary-parallel loss sums the final hidden
 state's gradient itself; so the residual stream and its gradient, and
-the norms' gradients, hold the same bits on every rank. Parameters are a plain dict of tensors with the JAX pytree's
+the norms' gradients, hold the same bits on every rank.
+
+Expert and pipeline parallelism (training): ``moe_param_specs``,
+``forward_moe`` and ``loss_fn_moe`` (every rank computes the whole
+batch; the FFN is ``parallel.moe.make_moe`` over ``ep``, the rank's
+experts of the bank, plus 0.01 times the auxiliary loss), and
+``stack_pipeline_params``, ``pipeline_param_specs``,
+``forward_pipelined`` and ``loss_fn_pipelined`` (the trunk's
+``[pp, L/pp, ...]`` stacks, a rank its stage, through
+``parallel.pipeline``'s GPipe schedule; the embedding, final norm and
+head replicated outside it). Both attend densely, as the reference's do.
+``shard_params(..., specs=)`` slices any of these layouts, and
+``make_moe_ffn(mesh=)`` serves MoE over an ep mesh.
+
+Parameters are a plain dict of tensors with the JAX pytree's
 keys and its stacked ``[L, ...]`` ``x @ W`` layout; the reference's
 ``lax.scan`` over layers is a Python loop. bf16 weights and
 activations, fp32 softmax, norms and logits, with the casts where the
@@ -192,8 +206,9 @@ def param_template(cfg: LlamaConfig, device: DeviceLike = "cuda",
     template, with no random draws. With ``num_experts`` the tree of
     :func:`init_moe_params`: the dense FFN (never allocated) replaced by
     ``router`` [L, D, E] fp32, ``w_in`` [L, E, D, F] and ``w_out``
-    [L, E, F, D]. With a ``mesh``, this rank's shard shapes."""
-    if tp_size(mesh) > 1:
+    [L, E, F, D]. With a ``mesh``, this rank's shard shapes under
+    :func:`shard_params`' default specs."""
+    if mesh is not None and mesh.size > 1:
         dev = resolve_device(device)
         full = shard_params(param_template(cfg, "meta", num_experts), mesh,
                             cfg)
@@ -309,26 +324,33 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 def init_moe_params(cfg: LlamaConfig, num_experts: int,
                     generator: torch.Generator,
-                    device: DeviceLike = "cuda") -> Params:
+                    device: DeviceLike = "cuda",
+                    mesh: Optional[Mesh] = None) -> Params:
     """:func:`init_params` with the dense FFN replaced by a routed expert
     bank, the reference's tree and scales: ``router`` [L, D, E] fp32
     (scale D ** -0.5), ``w_in`` [L, E, D, F] (D ** -0.5) and ``w_out``
     [L, E, F, D] (F ** -0.5 / sqrt(2L)) in ``cfg.dtype``. The banks are
     drawn one [D, F] (or [F, D]) slab at a time into the final tensors,
     and the dense FFN is never allocated. ``generator`` must live on
-    ``device``."""
-    params = param_template(cfg, device, num_experts)
+    ``device``. With an ep ``mesh`` every slab is drawn in the same order
+    and only the rank's experts are kept: bitwise ``shard_params`` of the
+    whole tree, with the rank's banks alone on the device."""
+    params = param_template(cfg, device, num_experts, mesh)
     layers = params["layers"]
     d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
     _init_attention(cfg, params, generator)
     _normal_(params["lm_head"], generator)
     _normal_(layers["router"], generator, d ** -0.5)
     out_scale = (f ** -0.5) / (2 * L) ** 0.5
+    mine = layers["w_in"].shape[1]
+    first = mine * (mesh.coords["ep"] if mesh is not None else 0)
     for bank, scale in ((layers["w_in"], d ** -0.5),
                         (layers["w_out"], out_scale)):
+        other = torch.empty_like(bank[0, 0])
         for i in range(L):
             for e in range(num_experts):
-                _normal_(bank[i, e], generator, scale)
+                _normal_(bank[i, e - first] if 0 <= e - first < mine
+                         else other, generator, scale)
     for norm in (layers["attn_norm"], layers["ffn_norm"], params["norm"]):
         norm.fill_(1)
     return params
@@ -449,21 +471,27 @@ def shard_leaf(leaf: QArray, spec: Spec, mesh: Mesh) -> QArray:
 
 
 def shard_params(params: Params, mesh: Optional[Mesh],
-                 cfg: LlamaConfig) -> Params:
-    """This rank's shard of every leaf under :func:`param_specs`,
-    ``QTensor``s included. Each whole leaf is dropped from the returned
-    tree as soon as it is sliced (the caller's references keep theirs);
-    a mesh of one returns ``params``. MoE trees are refused: their expert
-    banks shard over ``ep`` (ROADMAP Queue 1 item 9)."""
-    tp = tp_size(mesh)
-    if tp == 1:
+                 cfg: LlamaConfig, specs: Optional[Params] = None
+                 ) -> Params:
+    """This rank's shard of every leaf under ``specs``, ``QTensor``s
+    included. By default the dense tree's :func:`param_specs` (tp) and
+    a MoE tree's :func:`moe_param_specs` (ep; refused under tp, whose
+    ``moe=`` is not ported yet); the pipelined tree passes
+    :func:`pipeline_param_specs`. Each whole leaf is dropped from the
+    returned tree as soon as it is sliced (the caller's references keep
+    theirs); a mesh of one returns ``params``."""
+    if mesh is None or mesh.size == 1:
         return params
-    if "router" in params["layers"]:
-        raise NotImplementedError(
-            "MoE trees shard over the ep axis, which is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
-    _check_tp(cfg, tp)
-    specs = param_specs(cfg)
+    moe = "router" in params["layers"]
+    if specs is None:
+        if moe and tp_size(mesh) > 1:
+            raise NotImplementedError(
+                "a MoE tree under tensor parallelism (tp="
+                f"{tp_size(mesh)}) is not ported yet (ROADMAP Queue 1 item "
+                "7b); MoE trees shard their experts over ep")
+        specs = moe_param_specs(cfg) if moe else param_specs(cfg)
+    if tp_size(mesh) > 1:
+        _check_tp(cfg, tp_size(mesh))
     out = {"embed": None, "layers": dict.fromkeys(params["layers"]),
            "norm": None, "lm_head": None}
     for key in ("embed", "norm", "lm_head"):
@@ -649,21 +677,24 @@ def _use_flash_decode(cfg: LlamaConfig, device: torch.device,
     the CUDA kernel on a CUDA device and the dense read on the CPU;
     ``flash`` forces the kernel wrapper; ``dense`` the dense read. The
     reference's lane-128 conditions do not carry over; its mesh rule
-    does: the kernel serves no mesh, a mesh of one, or a tp-only mesh
-    whose axis divides the KV heads (each rank runs it on its heads), and
-    a forced ``flash`` on any other mesh raises."""
+    does, widened to ep: the kernel serves no mesh, a mesh of one, or a
+    mesh over tp (whose axis divides the KV heads: each rank runs it on
+    its heads) and ep (attention is replicated over ep: each rank runs it
+    on every head), and a forced ``flash`` on any other mesh raises."""
     mode = cfg.decode_attn
     if mode not in ("auto", "dense", "flash"):
         # a typo'd mode must not silently measure the dense path
         raise ValueError(f"decode_attn={mode!r}: expected one of 'auto', "
                          "'dense', 'flash'")
     mesh_ok = (mesh is None or mesh.size == 1
-               or (all(n == 1 for ax, n in mesh.shape.items() if ax != "tp")
+               or (all(n == 1 for ax, n in mesh.shape.items()
+                       if ax not in ("tp", "ep"))
                    and cfg.n_kv_heads % mesh.shape["tp"] == 0))
     if mode == "flash" and not mesh_ok:
         raise ValueError(
             f"decode_attn='flash' needs an unsharded or tp-only mesh whose "
-            f"axis divides the KV heads; got {dict(mesh.shape)}")
+            f"axis divides the KV heads, beside ep (over which attention is "
+            f"replicated); got {dict(mesh.shape)}")
     if mode == "dense":
         return False
     return mode == "flash" or (device.type == "cuda" and mesh_ok)
@@ -1175,12 +1206,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens, mesh)
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                apply_layer, cfg, x, lp, rope, attn_fn, mesh,
-                use_reentrant=False)
-        else:
-            x = apply_layer(cfg, x, lp, rope, attn_fn, mesh)
+        x = _remat(cfg, apply_layer, cfg, x, lp, rope, attn_fn, mesh)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     if return_hidden:
         return x
@@ -1238,6 +1264,182 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     if sp > 1:
         loss, acc = mesh.all_reduce_mean(torch.stack([loss, acc]),
                                          "sp").unbind(0)
+    return loss, acc.detach()
+
+
+# ---------------------------------------------------------------------------
+# expert- and pipeline-parallel training
+
+
+def _dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                ) -> torch.Tensor:
+    """The causal dense attention that the reference's MoE and pipelined
+    forwards hard-code."""
+    return gqa_attention(q, k, v, causal=True)
+
+
+def _remat(cfg: LlamaConfig, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward when ``cfg.remat``
+    (non-reentrant: collectives inside are recomputed in one order on
+    every rank)."""
+    if cfg.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def moe_param_specs(cfg: LlamaConfig) -> Params:
+    """The reference's MoE sharding: the expert banks over ``ep``,
+    everything else replicated."""
+    del cfg
+    return {"embed": (),
+            "layers": {"attn_norm": (), "wq": (), "wk": (), "wv": (),
+                       "wo": (), "ffn_norm": (), "router": (),
+                       "w_in": (None, "ep"), "w_out": (None, "ep")},
+            "norm": (),
+            "lm_head": ()}
+
+
+def forward_moe(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                mesh: Optional[Mesh], moe_cfg: MoEConfig,
+                return_hidden: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE decoder forward: dense causal attention, the FFN replaced
+    by the routed expert layer, all B*S tokens one group
+    (``parallel.moe.make_moe`` over ``ep``; without an ``ep`` axis
+    larger than 1, ``moe_apply_local``). Returns (logits [B, S, V] fp32,
+    or with ``return_hidden`` the final-norm hidden states; the mean
+    auxiliary loss over the layers, fp32). ``tokens`` are the whole batch
+    on every rank; ``params`` the rank's shards under
+    :func:`moe_param_specs`."""
+    from ..parallel.moe import make_moe
+
+    b, s = tokens.shape
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=tokens.device)
+    if mesh is not None and mesh.shape["ep"] > 1:
+        moe_fn = make_moe(mesh, moe_cfg)
+    else:
+        def moe_fn(flat, rw, wi, wo):
+            return moe_apply_local(flat, rw, wi, wo, moe_cfg)
+
+    def layer(x, lp):
+        x = attention_block(cfg, x, lp, rope, _dense_attn)
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        out, aux = moe_fn(h.reshape(b * s, -1), lp["router"], lp["w_in"],
+                          lp["w_out"])
+        return x + out.reshape(b, s, -1).to(cfg.dtype), aux.float()
+
+    x = _embed(cfg, params, tokens, None)
+    aux_sum = torch.zeros((), device=tokens.device)
+    for i in range(cfg.n_layers):
+        x, aux = _remat(cfg, layer, x,
+                        {k: w[i] for k, w in params["layers"].items()})
+        aux_sum = aux_sum + aux
+    x = rms_norm(x, params["norm"], cfg.norm_eps)
+    aux = aux_sum / cfg.n_layers
+    if return_hidden:
+        return x, aux
+    return (x @ params["lm_head"]).float(), aux
+
+
+def loss_fn_moe(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                mesh: Optional[Mesh], moe_cfg: MoEConfig,
+                aux_weight: float = 0.01
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token loss (z-loss 1e-4, fused unless ``cfg.fused_ce`` is
+    off) plus ``aux_weight`` times the auxiliary load-balance loss ->
+    (loss, accuracy). Every rank computes the whole objective."""
+    if cfg.fused_ce:
+        x, aux = forward_moe(cfg, params, tokens[:, :-1], mesh, moe_cfg,
+                             return_hidden=True)
+        loss, acc = fused_linear_cross_entropy(
+            x, params["lm_head"], tokens[:, 1:], z_loss=1e-4,
+            block_size=cfg.fused_ce_block)
+    else:
+        logits, aux = forward_moe(cfg, params, tokens[:, :-1], mesh,
+                                  moe_cfg)
+        loss, acc = softmax_cross_entropy(logits, tokens[:, 1:], z_loss=1e-4)
+    return loss + aux_weight * aux, acc.detach()
+
+
+def stack_pipeline_params(params: Params, pp: int) -> Params:
+    """The layer stacks [L, ...] as [pp, L/pp, ...] (views), the
+    pipeline's stage axis first; the embedding, final norm and lm_head
+    stay as they are."""
+    layers = {k: w.reshape(pp, w.shape[0] // pp, *w.shape[1:])
+              for k, w in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
+def pipeline_param_specs(cfg: LlamaConfig) -> Params:
+    """The pipelined layout's sharding: every layer stack over ``pp``,
+    the rest replicated."""
+    return {"embed": (),
+            "layers": {k: ("pp",) for k in param_specs(cfg)["layers"]},
+            "norm": (),
+            "lm_head": ()}
+
+
+def forward_pipelined(cfg: LlamaConfig, params: Params,
+                      tokens: torch.Tensor, mesh: Optional[Mesh],
+                      n_micro: int, return_hidden: bool = False
+                      ) -> torch.Tensor:
+    """The pipeline-parallel forward: the decoder trunk stage-sharded
+    over ``pp`` (``params`` in the :func:`stack_pipeline_params` layout,
+    this rank's ``[1, L/pp, ...]`` stage under
+    :func:`pipeline_param_specs`), ``n_micro`` microbatches of the whole
+    batch ``tokens`` streaming through the GPipe schedule
+    (``parallel.pipeline``), dense causal attention; the embedding, final
+    norm and lm_head run replicated outside the pipe. Returns the logits
+    [B, S, V] fp32, or with ``return_hidden`` the final-norm hidden
+    states."""
+    from ..parallel.pipeline import make_pipeline
+
+    b, s = tokens.shape
+    if b % n_micro:
+        raise ValueError(f"batch {b} does not divide into {n_micro} "
+                         "microbatches")
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=tokens.device)
+    x = _embed(cfg, params, tokens, None)
+    xm = x.reshape(n_micro, b // n_micro, s, -1)
+
+    def stage_fn(stage_layers, x_mb):
+        for i in range(next(iter(stage_layers.values())).shape[0]):
+            lp = {k: w[i] for k, w in stage_layers.items()}
+            x_mb = _remat(cfg, apply_layer, cfg, x_mb, lp, rope,
+                          _dense_attn)
+        return x_mb
+
+    if mesh is not None and mesh.shape["pp"] > 1:
+        x = make_pipeline(mesh, stage_fn)(params["layers"], xm)
+    else:
+        x = torch.stack([stage_fn({k: w.flatten(0, 1) for k, w in
+                                   params["layers"].items()}, mb)
+                         for mb in xm])
+    x = rms_norm(x.reshape(b, s, -1), params["norm"], cfg.norm_eps)
+    if return_hidden:
+        return x
+    return (x @ params["lm_head"]).float()
+
+
+def loss_fn_pipelined(cfg: LlamaConfig, params: Params,
+                      tokens: torch.Tensor, mesh: Optional[Mesh],
+                      n_micro: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token loss of :func:`forward_pipelined` (z-loss 1e-4, fused
+    unless ``cfg.fused_ce`` is off) -> (loss, accuracy). Every rank
+    computes the whole objective."""
+    if cfg.fused_ce:
+        x = forward_pipelined(cfg, params, tokens[:, :-1], mesh, n_micro,
+                              return_hidden=True)
+        loss, acc = fused_linear_cross_entropy(
+            x, params["lm_head"], tokens[:, 1:], z_loss=1e-4,
+            block_size=cfg.fused_ce_block)
+    else:
+        logits = forward_pipelined(cfg, params, tokens[:, :-1], mesh,
+                                   n_micro)
+        loss, acc = softmax_cross_entropy(logits, tokens[:, 1:], z_loss=1e-4)
     return loss, acc.detach()
 
 
@@ -1345,23 +1547,37 @@ generate_stepwise = generate
 
 
 def make_moe_ffn(cfg: LlamaConfig, moe_cfg: MoEConfig,
-                 mesh: Any = None) -> FfnOverride:
+                 mesh: Optional[Mesh] = None) -> FfnOverride:
     """The ``ffn_override`` that routes :func:`_decode_body`'s FFN step
-    through :func:`~dcos_commons_tpu_torch.parallel.moe.moe_apply_local`:
-    every token of the call (all B*S rows, padded and masked ones
-    included) is one dispatch group. The auxiliary loss is dead weight at
-    inference and is dropped. Only the local path is ported: the
-    expert-parallel mesh form is ROADMAP Queue 1 item 9."""
-    if mesh is not None:
+    through the MoE layer: every token of the call (all B*S rows, padded
+    and masked ones included) is one dispatch group. On a mesh whose
+    ``ep`` axis is larger than 1 (``lp``'s banks the rank's experts) it
+    is :func:`~dcos_commons_tpu_torch.parallel.moe.moe_apply`, whose two
+    all-to-alls carry the [E, C, D] buffers; without one,
+    :func:`~dcos_commons_tpu_torch.parallel.moe.moe_apply_local`, the
+    same products expert by expert. The auxiliary loss is dead weight at
+    inference and is dropped. Under tp it is not ported yet (ROADMAP
+    Queue 1 item 7b)."""
+    from ..parallel.moe import moe_apply
+
+    ep = mesh.shape["ep"] if mesh is not None else 1
+    if tp_size(mesh) > 1:
         raise NotImplementedError(
-            "expert-parallel MoE over a device mesh is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+            f"MoE under tensor parallelism (tp={tp_size(mesh)}) is not "
+            "ported yet (ROADMAP Queue 1 item 7b)")
+    if moe_cfg.num_experts % ep:
+        raise ValueError(f"num_experts={moe_cfg.num_experts} not divisible "
+                         f"by ep={ep}")
 
     def ffn(x: torch.Tensor, lp: Params) -> torch.Tensor:
         b, s, d = x.shape
         h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        out, _ = moe_apply_local(h.reshape(b * s, d), lp["router"],
-                                 lp["w_in"], lp["w_out"], moe_cfg)
+        if ep > 1:
+            out, _ = moe_apply(h.reshape(b * s, d), lp["router"],
+                               lp["w_in"], lp["w_out"], moe_cfg, mesh)
+        else:
+            out, _ = moe_apply_local(h.reshape(b * s, d), lp["router"],
+                                     lp["w_in"], lp["w_out"], moe_cfg)
         return x + out.reshape(b, s, d).to(cfg.dtype)
 
     return ffn
@@ -1369,11 +1585,14 @@ def make_moe_ffn(cfg: LlamaConfig, moe_cfg: MoEConfig,
 
 def generate_stepwise_moe(cfg: LlamaConfig, params: Params,
                           prompt: torch.Tensor, steps: int,
-                          moe_cfg: MoEConfig) -> torch.Tensor:
+                          moe_cfg: MoEConfig,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Greedy MoE generation, the serving parity reference: the whole
     prompt in one :func:`extend_step`, then one :func:`decode_step` per
     token (on a CUDA device through the slot-cache decode kernel), both
-    with the :func:`make_moe_ffn` override. Returns [B, steps]. The paged
+    with the :func:`make_moe_ffn` override (over ``mesh``'s ep axis,
+    ``params`` the rank's experts; the attention whole on every rank).
+    Returns [B, steps]. The paged
     engine routes each prefill chunk and decode batch as its own group,
     this reference the whole prompt and then one token at a time: the
     two agree token for token only under dropless capacity
@@ -1382,7 +1601,7 @@ def generate_stepwise_moe(cfg: LlamaConfig, params: Params,
     _check_capacity(cfg, s, steps)
     cache = init_kv_cache(cfg, b, cfg.max_seq, device=prompt.device)
     rope = _rope_table(cfg, None, prompt.device)
-    ffn = make_moe_ffn(cfg, moe_cfg)
+    ffn = make_moe_ffn(cfg, moe_cfg, mesh)
     logits, cache = extend_step(cfg, params, cache, prompt, 0, rope=rope,
                                 ffn_override=ffn)
     logits = logits[:, -1]           # extend_step returns every position

@@ -43,8 +43,9 @@ Differences from the reference, all mechanical:
   cache in place, since graphs bind it;
 * MoE (``PagedServer(moe=...)``, the paged engine only, as in the
   reference): every decode step, prefill chunk and warm-up runs its FFN
-  through ``llama.make_moe_ffn``, on the local path (every expert on the
-  engine's device); each captured window holds the routing;
+  through ``llama.make_moe_ffn``: on one device the local path, every
+  expert there (each captured window holds the routing), and over an
+  ``ep`` mesh the expert-parallel one (below);
 * the KV hierarchy (``PagedServer(tiers=..., directory=...,
   peer_fetch=...)``): an evicted radix page is gathered to the host (one
   device-to-host copy per side, ordered after every write in flight)
@@ -76,8 +77,15 @@ Differences from the reference, all mechanical:
   ``tp``). The paged engine refuses what it cannot take under tp > 1
   yet: a draft, ``moe=``, the KV hierarchy, disaggregation and
   migration (ROADMAP Queue 1 item 7). A mesh of one is no mesh;
+* expert parallelism (``PagedServer(moe=..., mesh=...)``, a mesh whose
+  ``ep`` axis spans the gang): every rank holds the whole weights and
+  the whole pool but only its E/ep experts (``llama.shard_params``
+  under ``llama.moe_param_specs``), runs the decode kernel over every
+  head, and the MoE layer's two all-to-alls (``parallel.moe.moe_apply``)
+  carry the experts' rows; windows run eagerly (reason ``ep``), and the
+  engine refuses under ep what it refuses under tp, naming the axis;
 * not ported yet, and refused by the constructors (no such parameter):
-  ring prefill and expert-parallel meshes for the paged engine.
+  ring prefill.
 """
 
 from __future__ import annotations
@@ -184,13 +192,16 @@ def _engine_mesh(mesh: Optional[Mesh], device: torch.device
     return mesh
 
 
-def _refuse_tp(engine, what: str) -> None:
-    """Raise for what a paged engine does not take under tp > 1 yet."""
-    if engine.mesh is not None:
-        raise ValueError(
-            f"{what} under tensor parallelism (tp="
-            f"{engine.mesh.shape['tp']}) is not ported yet (ROADMAP Queue "
-            "1 item 7)")
+def _refuse_mesh(engine, what: str, ep_ok: bool = False) -> None:
+    """Raise for what a paged engine does not take on a mesh yet, naming
+    the mesh's axes: nothing of it under tp > 1, and under ep (MoE
+    serving, ``ep_ok`` for ``moe=`` itself) nothing but the MoE layer."""
+    mesh = engine.mesh
+    if mesh is None or (ep_ok and tp_size(mesh) == 1):
+        return
+    axes = ", ".join(f"{a}={n}" for a, n in mesh.shape.items() if n > 1)
+    raise ValueError(f"{what} on a mesh over {axes} is not ported yet "
+                     "(ROADMAP Queue 1 item 7)")
 
 
 class _Engine:
@@ -219,8 +230,11 @@ class _Engine:
         self._graph_pool = None
         self._capture_stream = None
         self.capture_s = 0.0              # seconds spent capturing
-        # why windows run eagerly on CUDA (None: they replay graphs)
-        self.graphs_off = "tp" if tp_size(self.mesh) > 1 else None
+        # why windows run eagerly on CUDA (None: they replay graphs): a
+        # window's collectives (tp, or ep's all-to-alls) cannot be
+        # captured over gloo
+        self.graphs_off = next((a for a, n in self.mesh.shape.items()
+                                if n > 1), None) if self.mesh else None
 
     def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
                      mp: Optional[int]) -> torch.Tensor:
@@ -687,11 +701,12 @@ class PagedServer(_Engine):
                  device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.mesh = _engine_mesh(mesh, self.device)
-        for name, value in (("moe=", moe), ("tiers=", tiers),
-                            ("directory=", directory),
+        if moe is not None:
+            _refuse_mesh(self, "moe=", ep_ok=True)
+        for name, value in (("tiers=", tiers), ("directory=", directory),
                             ("peer_fetch=", peer_fetch)):
             if value is not None:
-                _refuse_tp(self, name)
+                _refuse_mesh(self, name)
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(
                 f"page_size {page_size} must divide max_seq "
@@ -711,7 +726,7 @@ class PagedServer(_Engine):
                 "params carry a router but no moe config; pass "
                 "moe=MoEConfig(...) so routing is explicit")
         self.moe = moe
-        self._ffn = (llama.make_moe_ffn(cfg, moe)
+        self._ffn = (llama.make_moe_ffn(cfg, moe, mesh=self.mesh)
                      if moe is not None else None)
         llama.check_params_device(params, self.device, "engine")
         self.cfg = cfg
@@ -1194,7 +1209,7 @@ class PagedServer(_Engine):
         ValueError for a prompt this engine can never prefill. ``trace``
         (an incoming ``tracing.TraceContext``) gets one
         ``engine.prefill_span`` span."""
-        _refuse_tp(self, "prefill_span")
+        _refuse_mesh(self, "prefill_span")
         t_pre0 = time.perf_counter()
         prompt = list(prompt)
         n = len(prompt)
@@ -1269,7 +1284,7 @@ class PagedServer(_Engine):
         never admit, raised before any reservation; a failure after the
         reservation gives every reference back before re-raising. As in
         the reference, an armed draft's cache is not prefilled here."""
-        _refuse_tp(self, "adopt_pages")
+        _refuse_mesh(self, "adopt_pages")
         t_adopt0 = time.perf_counter()
         prompt = list(span["prompt"])
         n = len(prompt)
@@ -1370,7 +1385,7 @@ class PagedServer(_Engine):
         (the last token's K/V is written by the destination's next decode
         step, as it would be here), so that, not the reserved span, is
         what ships; the last page may be partial."""
-        _refuse_tp(self, "export_stream")
+        _refuse_mesh(self, "export_stream")
         self._flush_pending()           # a window boundary, never mid-flush
         if not (0 <= slot < self.slots):
             return None
@@ -1422,7 +1437,7 @@ class PagedServer(_Engine):
         ``lengths`` and ``cur_tok``. ``adopt_rng`` sets the engine's own
         generator to the shipped state (engine-global, so only sensible
         when the destination carries no other sampled stream)."""
-        _refuse_tp(self, "import_stream")
+        _refuse_mesh(self, "import_stream")
         t_mig0 = time.perf_counter()
         prompt = list(state["prompt"])
         tokens = [int(t) for t in state["tokens"]]
@@ -1727,7 +1742,7 @@ class PagedServer(_Engine):
         time. Greedy engines only. The draft's cache stays unquantized
         whatever the pool does, and its execution policy follows the
         engine's. ``params_d`` must live on the engine's device."""
-        _refuse_tp(self, "arm_draft")
+        _refuse_mesh(self, "arm_draft")
         from .speculative import DraftIncompatible
         if self.sampler is not None:
             raise DraftIncompatible(
@@ -2019,6 +2034,7 @@ class PagedServer(_Engine):
                 "routing": self.moe.routing,
             } if self.moe is not None else None),
             "tp": tp_size(self.mesh),
+            "ep": self.mesh.shape["ep"] if self.mesh is not None else 1,
             "graphs": self.device.type == "cuda" and self.graphs_off is None,
             "graphs_off": self.graphs_off,
         }

@@ -29,6 +29,18 @@ the parameters and their moments are replicated over ``sp`` as over
 ``dp``: each rank backpropagates its own sequence shard's loss, and the
 one reduction runs over ``dp`` and ``sp`` together, so the clip's norm
 is unchanged.
+With ``ep > 1`` or ``pp > 1`` (beside ``dp``; ``param_spec_tree`` the
+reference's ``llama.moe_param_specs`` or ``pipeline_param_specs``) every
+rank computes the loss of the WHOLE batch, as the reference's replicas
+do, and backpropagates it with cotangent 1; each leaf's gradient is
+then averaged over the ranks that hold the same slice of it (a
+replicated leaf over the whole mesh, a stage or expert bank over
+``dp``), and an ep-sharded leaf is divided by ``ep`` as well: every ep
+rank routes the whole token group, so an expert's owner receives each
+token's cotangent once from each ep rank. The model places the rest
+(``parallel.pipeline`` hands the embedding's stage-0 gradient to every
+stage). The clip's norm sums the sharded leaves' squares over their
+axis and counts each replicated leaf once.
 :func:`opt_state_specs` gives the specs the reference places the
 optimizer state under, which the gang checkpoint writes.
 ``has_aux_state`` is the ResNet batch-norm pattern: the loss
@@ -215,28 +227,35 @@ def moment_specs(specs: Params) -> tuple:
                            ScaleByScheduleState(())))
 
 
-def _global_norm(grads: List[torch.Tensor], sharded: Optional[List[bool]],
-                 mesh) -> torch.Tensor:
-    """The gradient's global norm: with ``sharded`` (tp), the sharded
-    leaves' sums of squares summed over ``tp`` in one collective, and the
+def _global_norm(grads: List[torch.Tensor],
+                 sharded: Optional[List[Optional[str]]], mesh
+                 ) -> torch.Tensor:
+    """The gradient's global norm: with ``sharded`` (one entry a leaf:
+    the mesh axis it is sharded over, or None), the sharded leaves' sums
+    of squares summed over their axis in one collective an axis, and the
     replicated leaves' (whole on every rank) added once."""
     squares = [g.float().square().sum() for g in grads]
     if sharded is None:
         return torch.sqrt(sum(squares))
     zero = torch.zeros((), device=grads[0].device)
-    split = sum((q for q, sh in zip(squares, sharded) if sh), zero)
-    whole = sum((q for q, sh in zip(squares, sharded) if not sh), zero)
-    return torch.sqrt(mesh.all_reduce(split.reshape(1), "tp")[0] + whole)
+    total = sum((q for q, ax in zip(squares, sharded) if ax is None), zero)
+    for axis in sorted({ax for ax in sharded if ax is not None}):
+        part = sum((q for q, ax in zip(squares, sharded) if ax == axis),
+                   zero)
+        total = total + mesh.all_reduce(part.reshape(1), axis)[0]
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(optimizer: AdamW, params: Params, grads: List[torch.Tensor],
-                  state: OptState, sharded: Optional[List[bool]] = None,
+                  state: OptState,
+                  sharded: Optional[List[Optional[str]]] = None,
                   mesh=None) -> None:
     """One optimizer update of ``params`` from ``grads`` (in the order of
-    the parameter leaves), in place. ``sharded`` (one flag a leaf) and
-    ``mesh``: the leaves are a tp rank's, and the clip's norm is the
-    whole model's (:func:`_global_norm`)."""
+    the parameter leaves), in place. ``sharded`` (one entry a leaf: the
+    axis it is sharded over, or None) and ``mesh``: the leaves are a
+    rank's shards, and the clip's norm is the whole model's
+    (:func:`_global_norm`)."""
     leaves, mus, nus = _leaves(params), _leaves(state.mu), _leaves(state.nu)
     o = optimizer
     g_norm = _global_norm(grads, sharded, mesh)
@@ -333,7 +352,15 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     sequence-parallel forward; each rank's gradients are its own shard's
     share); the gradients, loss and metric are reduced over ``dp`` and
     ``sp`` in the one collective, each rank weighted by its dp share over
-    ``sp``."""
+    ``sp``.
+
+    ``mesh`` with ``ep > 1`` or ``pp > 1`` (beside ``dp`` only) needs
+    ``param_spec_tree`` and ``batch_spec=None``: every rank computes the
+    loss of the whole batch (module doc), and two collectives reduce the
+    gradients: the replicated leaves (with the loss and the metric) over
+    the whole mesh, weighted ``1 / n``, and the sharded ones over
+    ``dp``, weighted ``1 / (dp ep)`` for an expert bank and ``1 / dp``
+    for a stage."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if grad_accum > 1 and has_aux_state:
@@ -341,22 +368,30 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         # loss; the reference refuses the combination too
         raise NotImplementedError(
             "grad_accum > 1 with has_aux_state is not supported")
-    dp = mesh.shape["dp"] if mesh is not None else 1
-    sp = mesh.shape["sp"] if mesh is not None else 1
-    tp = mesh.shape["tp"] if mesh is not None else 1
-    if mesh is not None and mesh.size != dp * sp * tp:
+    shape = dict(mesh.shape) if mesh is not None else {}
+    dp, sp, tp, ep, pp = (shape.get(a, 1) for a in ("dp", "sp", "tp", "ep",
+                                                     "pp"))
+    # the axis beside dp over which every rank computes the whole batch
+    whole = "ep" if ep > 1 else "pp" if pp > 1 else None
+    if whole is not None and mesh.size != dp * shape[whole]:
         raise NotImplementedError(
-            f"training on mesh {mesh.shape}: only the dp, sp and tp axes "
-            "are ported (pp and ep are ROADMAP Queue 1 item 9)")
+            f"training on mesh {shape}: ep and pp train beside dp only "
+            "(no other axis, and not both)")
     # the axes the gradients are reduced over, and the group's name
     grad_axis = {(True, True): GRAD_AXES, (True, False): "dp",
                  (False, True): "sp"}.get((dp > 1, sp > 1))
-    if tp > 1 and param_spec_tree is None:
-        raise ValueError("a tp mesh needs param_spec_tree (the parameters' "
-                         "sharding specs) for the clip's global norm")
+    if (tp > 1 or whole) and param_spec_tree is None:
+        raise ValueError(f"a mesh over {'tp' if tp > 1 else whole} needs "
+                         "param_spec_tree (the parameters' sharding specs)")
     if batch_spec not in ("dp", None):
         raise ValueError(f"batch_spec must be 'dp' or None, got "
                          f"{batch_spec!r}")
+    if whole and batch_spec is not None:
+        raise ValueError(f"on a mesh over {whole} every rank computes the "
+                         "whole batch: batch_spec must be None")
+    n = dp * shape.get(whole, 1)
+    # a replicated leaf's group: the whole mesh
+    whole_group = (("dp", whole) if dp > 1 else whole) if whole else None
 
     def grads_of(params, leaves, batch):
         loss, metric = loss_fn(params, batch)
@@ -383,12 +418,31 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                  for acc, t in zip(sums, leaves)]
         return loss / grad_accum, metric / grad_accum, grads, None
 
+    def reduce_whole(grads, loss, metric, axes):
+        """The ep/pp reduction (the method doc): the replicated leaves
+        with the loss and the metric over the whole mesh, the sharded
+        ones over dp."""
+        grads = list(grads)
+        rep = [i for i, ax in enumerate(axes) if ax is None]
+        shd = [i for i, ax in enumerate(axes) if ax is not None]
+        g_rep, (loss, metric) = mesh.reduce_grads(
+            [grads[i] for i in rep], (loss.float(), metric.float()),
+            1.0 / n, whole_group)
+        g_shd, _ = mesh.reduce_grads([grads[i] for i in shd], (),
+                                     1.0 / (n if whole == "ep" else dp),
+                                     "dp")
+        for i, g in zip(rep + shd, g_rep + g_shd):
+            grads[i] = g
+        return grads, loss, metric
+
     def step(params, opt_state, batch):
         leaves = _leaves(params)
-        sharded = None if tp == 1 else [
-            "tp" in spec for spec in _leaf_specs(params, param_spec_tree)]
+        # the axis each leaf is sharded over (None: replicated)
+        sharded = None if tp == 1 and not whole else [
+            next((a for a in spec if a is not None), None)
+            for spec in _leaf_specs(params, param_spec_tree)]
         weight, empty = 1.0 / (dp * sp), False
-        if dp > 1 and batch_spec is None:
+        if dp > 1 and batch_spec is None and not whole:
             start, rows = dp_rows(batch.shape[0], mesh)
             weight, empty = rows / batch.shape[0] / sp, rows == 0
             batch = batch[start:start + rows]
@@ -405,7 +459,11 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        if grad_axis is not None:
+        if whole:
+            with record_function("train_step.grad_all_reduce"):
+                grads, loss, metric = reduce_whole(grads, loss, metric,
+                                                   sharded)
+        elif grad_axis is not None:
             with record_function("train_step.grad_all_reduce"):
                 grads, (loss, metric) = mesh.reduce_grads(
                     grads, (loss.float(), metric.float()), weight, grad_axis)

@@ -1,5 +1,6 @@
-"""The process mesh of tensor-parallel serving and data-, tensor- and
-sequence-parallel training (port of ``dcos_commons_tpu/parallel/mesh.py``).
+"""The process mesh of tensor- and expert-parallel serving and data-,
+tensor-, sequence-, expert- and pipeline-parallel training (port of
+``dcos_commons_tpu/parallel/mesh.py``).
 
 The reference's mesh is a grid of devices with named axes, and XLA
 inserts the collectives from the shardings. Here one process drives one
@@ -25,10 +26,10 @@ retried with gloo.
 A rank's coordinates are its rank in row-major order over :data:`AXES`
 (``dcn`` folded into ``dp``, slice-major), as the reference lays out its
 device grid, and each axis larger than 1 gets its own group over the
-ranks that share the other coordinates (with ``dp`` and ``sp`` both
-larger than 1, also one group over the two, where the gradients are
-reduced). ``dp``, ``sp`` and ``tp`` may be larger than 1; ``pp`` and
-``ep`` raise :class:`NotImplementedError` naming their item.
+ranks that share the other coordinates; with ``dp`` and one of ``sp``,
+``ep`` or ``pp`` both larger than 1, also one group over the two
+(:data:`PAIRS`), where the gradients of the leaves replicated over both
+are reduced. Every axis may be larger than 1.
 
 Data parallelism needs two collectives that autograd sees, and they live
 here: :meth:`Mesh.all_reduce_mean` (its backward is the all-reduce-mean
@@ -54,6 +55,12 @@ tiled=True)``: the backward is the inverse all-to-all) and
 :meth:`Mesh.gather_seq` (the all-gather forward; the backward sums the
 cotangents over the axis and narrows to the rank's slice, a
 reduce-scatter: every rank's queries read every rank's keys).
+
+Expert parallelism (``parallel.moe``) dispatches over ``ep`` with
+``all_to_all(x, "ep", 0, 1)`` and returns with ``all_to_all(x, "ep", 1,
+0)``; the pipeline (``parallel.pipeline``) hops with ``ppermute(x, "pp",
+1)``, feeds stage 0 through :meth:`Mesh.copy_to` over ``pp`` and sums
+the last stage's outputs with :meth:`Mesh.reduce_from` over ``pp``.
 """
 
 from __future__ import annotations
@@ -72,14 +79,13 @@ from .._device import DeviceLike, resolve_device
 #: canonical mesh axes, outermost first
 AXES: Tuple[str, ...] = ("dp", "pp", "sp", "tp", "ep")
 
-# the axes the port cannot shard yet, and the ROADMAP Queue 1 item each
-# waits for
-_NOT_PORTED = {"pp": "item 9 (pipelines)",
-               "ep": "item 9 (expert-parallel MoE)"}
-
 #: the axes a step reduces its gradients over: the parameters are
 #: replicated over both
 GRAD_AXES: Tuple[str, ...] = ("dp", "sp")
+
+#: the pairs of axes that get one group over both when both are larger
+#: than 1: a leaf replicated over both reduces its gradient there
+PAIRS: Tuple[Tuple[str, str], ...] = (GRAD_AXES, ("dp", "pp"), ("dp", "ep"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,12 +131,6 @@ class MeshSpec:
         import torch.distributed as dist
 
         shape = dict(zip(AXES, self.axis_sizes()))
-        for axis, n in shape.items():
-            if axis in _NOT_PORTED and n > 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={n} is not ported yet (ROADMAP Queue "
-                    f"1 {_NOT_PORTED[axis]}); the port shards over dp, sp "
-                    "and tp only")
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if dist.is_initialized() else 0
         if self.size != world:
@@ -150,8 +150,7 @@ class MeshSpec:
         backend = choose_backend(layout)
         groups, lanes = {}, {}
         keys: List = [axis for axis, n in shape.items() if n > 1]
-        if all(shape[a] > 1 for a in GRAD_AXES):
-            keys.append(GRAD_AXES)
+        keys += [pair for pair in PAIRS if all(shape[a] > 1 for a in pair)]
         for key in keys:
             # every rank forms every group of the axis, in one order
             for ranks in axis_groups(shape, key):
@@ -230,8 +229,8 @@ class Mesh:
     drives; ``backend`` the device collectives' (``nccl``, ``gloo``, or
     ``local`` for a mesh of one); ``groups`` each axis's process group
     (an axis of size 1 has none) and ``lanes`` its ranks in order (the
-    ring's neighbours). An axis argument is a name, or :data:`GRAD_AXES`
-    for the group over ``dp`` and ``sp``. The collectives count their
+    ring's neighbours). An axis argument is a name, or a pair of
+    :data:`PAIRS` for the group over both. The collectives count their
     calls and host seconds in ``collectives`` and ``collective_s``."""
 
     def __init__(self, shape: Dict[str, int], coords: Dict[str, int],

@@ -1,5 +1,6 @@
 """Mixture-of-experts routing (port of ``dcos_commons_tpu/parallel/
-moe.py``): the local form, every expert on one device.
+moe.py``): the local form, every expert on one device, and the
+expert-parallel form over the ``ep`` axis of a process mesh.
 
 Token-to-expert routing is dense one-hot dispatch and combine tensors
 [G, E, C] (C the capacity of each expert's buffer), so the layer is
@@ -25,9 +26,23 @@ into dispatch calls, which is what lets chunked prefill, batched decode
 and the whole-sequence reference agree token for token (in bf16 up to
 roundings, which can flip a route whose gates are near a tie).
 
-The reference's sharded forms (``moe_apply`` and ``make_moe``, the two
-``all_to_all`` collectives over the ``ep`` mesh axis) need that axis,
-which is not ported yet (ROADMAP Queue 1 item 9).
+:func:`moe_apply` shards the experts over ``ep``: every ep rank routes
+the WHOLE token group (the reference's ``x_spec=P()`` replicates it over
+the mesh, so the capacity and the top-2 drops are those of the global
+group), builds the [E, C, D] dispatch buffer, sends each rank its
+experts' rows (``Mesh.all_to_all(x, "ep", 0, 1)``: [E/ep, ep*C, D]),
+runs its own E/ep experts, and sends the rows back (``all_to_all(x,
+"ep", 1, 0)``) for the combine. Both all-to-alls move rows without
+arithmetic, so for the same group it computes what
+:func:`moe_apply_local` does, expert by expert. :func:`make_moe` is the
+reference's test wrapper: the auxiliary loss averaged over ``ep``.
+
+Gradients. Each rank backpropagates its own copy of the objective with
+cotangent 1 (the tp convention of ``models.llama``): the replicated
+inputs (the tokens, the router) get their whole gradient on every rank,
+and an expert's owner receives its tokens' cotangents once from each of
+the ``ep`` ranks, so the expert weights' gradients come out ``ep`` times
+over. ``models.train`` divides the ep-sharded leaves by ``ep``.
 """
 
 from __future__ import annotations
@@ -134,15 +149,7 @@ def moe_apply_local(x: torch.Tensor, router_w: torch.Tensor,
     gate weights are rounded before they are applied, as in the
     reference. The expert products are batched matmuls over [E, C]
     buffers."""
-    g = x.shape[0]
-    cap = cfg.capacity(g)
-    gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
-    if cfg.routing == "expert_choice":
-        combine, dispatch = expert_choice_dispatch(gates, cap)
-    elif cfg.routing == "top2":
-        combine, dispatch = top2_dispatch(gates, cap)
-    else:
-        raise ValueError(f"unknown MoE routing {cfg.routing!r}")
+    gates, combine, dispatch = _route(x, router_w, cfg)
     expert_in = torch.einsum("gec,gd->ecd", dispatch.to(x.dtype), x)
     h = torch.bmm(expert_in, w_in)                            # [E, C, F]
     # jax.nn.silu is x * sigmoid(x), each rounded to the dtype
@@ -153,6 +160,66 @@ def moe_apply_local(x: torch.Tensor, router_w: torch.Tensor,
            if cfg.routing == "expert_choice"
            else aux_load_balance_loss(gates).to(x.dtype))
     return out, aux
+
+
+def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gates [G, E] fp32, combine [G, E, C], dispatch [G, E, C]) of the
+    whole group ``x``."""
+    cap = cfg.capacity(x.shape[0])
+    gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    if cfg.routing == "expert_choice":
+        combine, dispatch = expert_choice_dispatch(gates, cap)
+    elif cfg.routing == "top2":
+        combine, dispatch = top2_dispatch(gates, cap)
+    else:
+        raise ValueError(f"unknown MoE routing {cfg.routing!r}")
+    return gates, combine, dispatch
+
+
+def moe_apply(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
+              w_out: torch.Tensor, cfg: MoEConfig, mesh,
+              axis: str = "ep") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN with the experts sharded over ``axis`` of ``mesh``.
+    Returns (output [G, D], auxiliary loss scalar), both the same on
+    every rank.
+
+    x: [G, D], the whole group, the same on every rank; router_w [D, E]
+    (replicated); w_in [E/ep, D, F] and w_out [E/ep, F, D], this rank's
+    experts (rank r holds experts ``r E/ep`` to ``(r + 1) E/ep - 1``).
+    The products are :func:`moe_apply_local`'s."""
+    ep = mesh.shape[axis]
+    if cfg.num_experts % ep:
+        raise ValueError(
+            f"num_experts={cfg.num_experts} not divisible by {axis}={ep}")
+    if w_in.shape[0] * ep != cfg.num_experts:
+        raise ValueError(f"w_in holds {w_in.shape[0]} experts; a rank of "
+                         f"{axis}={ep} holds {cfg.num_experts // ep}")
+    gates, combine, dispatch = _route(x, router_w, cfg)
+    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(x.dtype), x)
+    # all experts x this rank's copy -> this rank's experts x every copy
+    expert_in = mesh.all_to_all(expert_in, axis, 0, 1)      # [E/ep, ep*C, D]
+    h = torch.bmm(expert_in, w_in)
+    h = h * torch.sigmoid(h)
+    expert_out = torch.bmm(h, w_out)
+    expert_out = mesh.all_to_all(expert_out, axis, 1, 0)    # [E, C, D]
+    out = torch.einsum("gec,ecd->gd", combine.to(x.dtype), expert_out)
+    aux = (torch.zeros((), dtype=x.dtype, device=x.device)
+           if cfg.routing == "expert_choice"
+           else aux_load_balance_loss(gates).to(x.dtype))
+    return out, aux
+
+
+def make_moe(mesh, cfg: MoEConfig, axis: str = "ep"):
+    """The reference's ``make_moe``: ``fn(x, router_w, w_in, w_out) ->
+    (output, auxiliary loss averaged over ep)``, ``x`` the whole group on
+    every rank and the expert banks this rank's (the reference's
+    ``P("ep")`` shards)."""
+    def fn(x, router_w, w_in, w_out):
+        out, aux = moe_apply(x, router_w, w_in, w_out, cfg, mesh, axis)
+        return out, mesh.all_reduce_mean(aux, axis)
+
+    return fn
 
 
 def dropless(cfg: MoEConfig) -> MoEConfig:

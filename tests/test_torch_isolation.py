@@ -61,7 +61,7 @@ def test_every_module_imports_with_jax_blocked():
                  "frameworks.worker", "models.disagg", "models.resnet",
                  "models.mlp", "models.weights", "parallel.mesh",
                  "models.serving_gang", "parallel.ring_attention",
-                 "parallel.ulysses"):
+                 "parallel.ulysses", "parallel.pipeline", "parallel.moe"):
         assert f"dcos_commons_tpu_torch.{name}" in mods
 
 
@@ -70,13 +70,15 @@ def test_no_source_names_jax_or_the_jax_package():
     inside functions (triton and the kernel build load lazily), of the
     port, ``chip_smoke.py``, the port's tools (``tools/torch_*.py``) and
     the rank functions its CPU gangs run (``tests/_torch_tp_ranks.py``,
-    ``tests/_torch_dp_ranks.py``, ``tests/_torch_tp_train_ranks.py``)."""
+    ``tests/_torch_dp_ranks.py``, ``tests/_torch_tp_train_ranks.py``,
+    ``tests/_torch_ep_pp_ranks.py``)."""
     offenders = []
     for path in (list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                  + sorted((ROOT / "tools").glob("torch_*.py"))
                  + [ROOT / "tests" / "_torch_tp_ranks.py",
                     ROOT / "tests" / "_torch_dp_ranks.py",
-                    ROOT / "tests" / "_torch_tp_train_ranks.py"]):
+                    ROOT / "tests" / "_torch_tp_train_ranks.py",
+                    ROOT / "tests" / "_torch_ep_pp_ranks.py"]):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

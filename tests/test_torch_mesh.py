@@ -98,17 +98,12 @@ def test_backend_follows_the_layout(layout, want):
 
 @pytest.mark.parametrize("axis", ["dp", "pp", "sp", "ep"])
 def test_build_refuses_axes_other_than_tp(axis):
-    """pp and ep still raise naming their item; dp (with dcn folded into
-    it) and sp are ported, and one process is too few for them."""
-    if axis in ("dp", "sp"):
-        for kw in ({axis: 2}, {"dcn": 2}):
-            with pytest.raises(ValueError, match="needs 2 processes"):
-                tmesh.MeshSpec(**kw).build("cpu")
-    else:
-        with pytest.raises(NotImplementedError, match=r"item 9"):
-            tmesh.MeshSpec(**{axis: 2}).build("cpu")
-        with pytest.raises(NotImplementedError, match=r"item 9"):
-            tmesh.MeshSpec(dp=2, **{axis: 2}).build("cpu")
+    """Every axis is ported (dp with dcn folded into it, sp, and since
+    the ep and pp axes pp and ep): one process is too few for any of
+    them, alone or beside dp."""
+    for kw in ({axis: 2}, {"dcn": 2}, {"dp": 2, axis: 2}):
+        with pytest.raises(ValueError, match="processes"):
+            tmesh.MeshSpec(**kw).build("cpu")
 
 
 @pytest.mark.parametrize("kw", [{"dp": 2, "tp": 2}, {"dp": 2, "dcn": 2},
@@ -359,9 +354,11 @@ def test_tp_must_divide_every_sharded_dimension(field, value, tp):
 
 
 def test_moe_trees_are_not_sharded():
+    """Not over tp: MoE under tensor parallelism is item 7b (a MoE tree
+    shards its experts over ep, ``tests/test_torch_ep_pp.py``)."""
     cfg = tl.LlamaConfig.tiny(n_layers=1)
     tree = tl.param_template(cfg, "cpu", num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         tl.shard_params(tree, _rank(2, 0), cfg)
 
 

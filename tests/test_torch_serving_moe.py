@@ -242,6 +242,17 @@ def test_init_moe_params_has_the_reference_tree_and_scales():
 
 
 def test_make_moe_ffn_refuses_a_mesh():
+    """A tp mesh (MoE under tp is item 7b) and an ep axis that does not
+    divide the experts; an ep mesh is served (``tests/
+    test_torch_worker_ep_pp.py``)."""
     _, tcfg, _, _ = _model()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tl.make_moe_ffn(tcfg, _moe()[1], mesh=object())
+
+    class _Mesh:
+        def __init__(self, **axes):
+            self.shape = {"dp": 1, "pp": 1, "sp": 1, "tp": 1, "ep": 1,
+                          **axes}
+
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tl.make_moe_ffn(tcfg, _moe()[1], mesh=_Mesh(tp=2))
+    with pytest.raises(ValueError, match="ep=3"):
+        tl.make_moe_ffn(tcfg, _moe()[1], mesh=_Mesh(ep=3))

@@ -284,22 +284,18 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 # (index, workload, args, env, code): the index keeps each case's id as
 # it was while speculative decoding, the checkpoint restore, profiling,
 # MoE serving, the disaggregated roles (3, 4), the router role (5) and the
-# peer weight fetch (9) were refused (MoE training stays refused: it
-# needs the mesh; a gang serves since the process mesh, and 13 is now MoE
-# on a gang, refused before the process group forms; ResNet across
-# slices (14) trains since the dp axis, and 15, tensor-parallel
-# training on a gang, trains since the tp axis: 15 is now a pipeline on
-# such a gang)
+# peer weight fetch (9) were refused (a gang serves since the process
+# mesh; ResNet across slices (14) trains since the dp axis, and 15,
+# tensor-parallel training on a gang, since the tp axis; MoE training
+# (1), the pipeline on a gang (15) and MoE on a gang (13) since the ep
+# and pp axes: 13 is now a gang that does not divide the experts,
+# refused before the process group forms)
 REFUSALS = [
-    (1, "llama-train", ["--ep", "2"], {}, "moe_not_ported"),
     (2, "llama", ["--prefill-seq-parallel", "true"], {},
      "longctx_not_ported"),
-    (13, "llama", ["--pages", "64", "--moe-experts", "4"],
+    (13, "llama", ["--pages", "64", "--moe-experts", "3"],
      {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
-      "JAX_NUM_PROCESSES": "2"}, "not_ported"),
-    (15, "llama-train", ["--sp", "1", "--tp", "2", "--pp", "2"],
-     {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
-      "JAX_NUM_PROCESSES": "2"}, "pipeline_not_ported"),
+      "JAX_NUM_PROCESSES": "2"}, "moe_ep_indivisible"),
 ]
 
 

@@ -242,9 +242,7 @@ def test_llama_train_on_a_gang_trains_dp_only(gang2, tmp_path):
 @pytest.mark.parametrize("workload,args,env,code", [
     ("llama-train", [], {"RESHARD_ENABLE": "1"}, "reshard_not_ported"),
     ("llama-train", ["--sp", "1", "--tp", "2"], {"RESHARD_ENABLE": "1"},
-     "reshard_not_ported"),
-    ("llama-train", ["--sp", "2", "--tp", "1", "--ep", "2"], {},
-     "moe_not_ported")])
+     "reshard_not_ported")])
 def test_llama_train_gang_refusals_come_before_the_process_group(
         workload, args, env, code, tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)

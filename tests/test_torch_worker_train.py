@@ -66,19 +66,16 @@ def test_a_run_past_its_target_reports_nothing_ran(tmp_path, capsys):
     assert got["tokens_per_sec"] == 0.0
 
 
-# (args, env, code, the ROADMAP Queue 1 item the refusal names)
+# (index, args, env, code, the ROADMAP Queue 1 item the refusal names):
+# the index keeps each case's id as it was while --pp and --ep (0-3) were
+# refused; tests/test_torch_worker_ep_pp.py trains them
 REFUSALS = [
-    (["--pp", "2"], {}, "pipeline_not_ported", 9),
-    (["--ep", "2"], {}, "moe_not_ported", 9),
-    (["--attn", "ring", "--pp", "2"], {}, "pipeline_not_ported", 9),
-    (["--attn", "ulysses", "--ep", "2"], {}, "moe_not_ported", 9),
-    ([], {"RESHARD_ENABLE": "1"}, "reshard_not_ported", 10),
+    (4, [], {"RESHARD_ENABLE": "1"}, "reshard_not_ported", 10),
 ]
 
 
-@pytest.mark.parametrize("args,env,code,item", REFUSALS,
-                         ids=[f"{c}-{i}" for i, (_, _, c, _) in
-                              enumerate(REFUSALS)])
+@pytest.mark.parametrize("args,env,code,item", [r[1:] for r in REFUSALS],
+                         ids=[f"{r[3]}-{r[0]}" for r in REFUSALS])
 def test_unported_train_knob_exits_2_with_its_code(args, env, code, item,
                                                    tmp_path, capsys,
                                                    monkeypatch):

@@ -41,9 +41,9 @@ FAULTS = {
     "p1": (MESH, "        return ctx.mesh.all_reduce(g.clone(), ctx.axis), "
                  "None, None\n",
            "        return g, None, None\n"),
-    "p2": (TRAIN, "    return torch.sqrt(mesh.all_reduce(split.reshape(1), "
-                  "\"tp\")[0] + whole)",
-           "    return torch.sqrt(split + whole)"),
+    "p2": (TRAIN, "        total = total + mesh.all_reduce(part.reshape(1), "
+                  "axis)[0]",
+           "        total = total + part"),
     "p3": (LOSSES, "            lz = top + torch.log(sums[0])",
            "            lz = top + torch.log(parts[0])"),
 }
