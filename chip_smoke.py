@@ -314,6 +314,29 @@ Phases (any failure exits non-zero):
    ``worker_sp_train`` line. Phase 2 also holds kernels 3-5 at the
    flash case's geometry (B=1, 4,096 queries over 8,192 keys at offsets
    4,096 and 0, H=12, KV=6, D=128).
+20. Ring prefill on a sequence-parallel serving gang (``dist/longctx.yml``'s
+   ``server`` pod), on a thread beside phases 10 and 4 (its checks
+   after): two ranks sharing the card over gloo (not an SP speed). 20a:
+   Llama-3-8B width at max_seq 8,192, page 64, chunk 64, ``PagedServer(
+   longctx_ring=2)`` over ``MeshSpec(sp=2)`` serving three prompts (8,160
+   tokens, which pad to max_seq exactly; 3,000; 100, under the ring
+   threshold, in chunks), 32 new each: in fp32 at 4 layers every rank's
+   streams equal the one-device chunked engine's on the same weights and
+   the long prompt's ring K/V is within ``RING_KV_RTOL`` of its chunked
+   K/V; then bf16 at 8 layers, streams equal or held by the near-tie
+   rule; in both, two ring prefills and no fallback, the ranks' written
+   pages bitwise equal, and the ring's seconds for the long prompt
+   beside the one-device chunked prefill's; kernel 1 counted on each
+   rank in bf16; the ``ring_serve`` line. 20b: two ``worker llama
+   --preset 8b --serve --slots 8 --pages -1 --max-seq 8192
+   --prefill-seq-parallel true`` processes under the rank contract, cut
+   to 8 of 32 layers: the long prompt over HTTP gets 20a's bf16 stream
+   (or one held by the near-tie rule), each rank's heartbeat shows
+   ``pages.longctx`` with a ring prefill and no fallback, kernel 1
+   counted on each rank while it served; the ``ring_worker`` line.
+   Phase 2 also holds kernel 1 at 20's decode shape (bf16 pages of 64
+   over an 8,192-position span, streams up to 8,192 long, so a partial
+   covers up to 1,024 positions).
 
 Each phase's wall seconds go to stderr as it ends and into the
 ``phase_s`` line. Output: the ``serving``, ``serving_slots``,
@@ -322,8 +345,10 @@ Each phase's wall seconds go to stderr as it ends and into the
 ``worker_moe``, ``kv_tiers``, ``worker_kv_tiers``, ``disagg``,
 ``worker_disagg``, ``migrate``, ``fleet``, ``worker_peer``, ``tp``,
 ``worker_tp``, ``resnet``, ``worker_resnet``, ``dp``, ``worker_dp``,
-``tp_train``, ``worker_tp_train``, ``sp_train``, ``worker_sp_train``
-and ``phase_s`` lines,
+``tp_train``, ``worker_tp_train``, ``sp_train``, ``worker_sp_train``,
+``ep_pp_train``, ``worker_ep_pp``, ``ep_serve_fp32``,
+``ep_serve_worker``, ``ring_serve``, ``ring_worker`` and ``phase_s``
+lines,
 the ``kernels`` line, the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the repository
@@ -450,17 +475,18 @@ HEADS_8B, HEADS_TP2 = (32, 8), (16, 4)
 
 
 def decode_inputs(kind: str, int8: bool, lens, seed: int, ps: int = 64,
-                  heads=HEADS_8B):
+                  heads=HEADS_8B, span: int = 2048):
     """Kernel inputs at the 8B decode shape (H=32, KV=8, D=128, B=8; or
     ``heads`` (H, KV)): paged, (q, k, v, table, kv_len) over a shuffled
-    table of a 2048-position span; slots, (q, k, v, kv_len) over a
+    table of a ``span``-position span; slots, (q, k, v, kv_len) over a
     2048-position cache read in place."""
     import torch
     from dcos_commons_tpu_torch.ops.quant import quantize
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    (h, kv), b, d, span = heads, 8, 128, 2048
+    (h, kv), b, d = heads, 8, 128
+    span = span if kind == "paged" else 2048
     q = torch.randn((b, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
     if kind == "paged":
         mp = span // ps
@@ -496,14 +522,15 @@ def decode_check(name: str, got, want, lens) -> float:
     return float(err.max())
 
 
-def decode_repeat_check(name: str, run, args, other_args, plain) -> None:
+def decode_repeat_check(name: str, run, args, other_args, plain,
+                        other_lens=OTHER_LENS) -> None:
     """The second-call and determinism checks: a call on other inputs
     (other lengths, one stream empty) is right, the next call on the first
     inputs gives the first call's bits, and so do REPEATS more."""
     first = run(*args)
     other = run(*other_args)
     decode_check(f"{name} second call", other, plain(*other_args),
-                 OTHER_LENS)
+                 other_lens)
     for i in range(REPEATS + 1):
         if not bool((run(*args) == first).all()):
             raise RuntimeError(f"{name}: launch {i + 2} on the same inputs "
@@ -511,11 +538,13 @@ def decode_repeat_check(name: str, run, args, other_args, plain) -> None:
 
 
 def flash_decode_case(ps: int, int8: bool, flush, run=None,
-                      plain: bool = True, heads=HEADS_8B) -> dict:
+                      plain: bool = True, heads=HEADS_8B, span: int = 2048,
+                      lens=KV_LENS, other_lens=OTHER_LENS) -> dict:
     """Kernel 1 vs its plain version at the 8B decode shape (or
-    ``heads``): ragged streams over a shuffled page table; ``run(q, k, v,
-    table, kv_len)`` defaults to the wrapper's launch (another version of
-    the source can stand in), ``plain`` False skips timing the plain
+    ``heads``): ragged streams of ``lens`` (then ``other_lens``) over a
+    shuffled page table of ``span`` positions; ``run(q, k, v, table,
+    kv_len)`` defaults to the wrapper's launch (another version of the
+    source can stand in), ``plain`` False skips timing the plain
     version."""
     import torch
     import torch.nn.functional as F
@@ -523,20 +552,20 @@ def flash_decode_case(ps: int, int8: bool, flush, run=None,
     from dcos_commons_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device("cuda")
-    (h, kv), b, d, mp = heads, 8, 128, 2048 // ps
-    q, k, v, table, kv_len = decode_inputs("paged", int8, KV_LENS,
-                                           SEED + ps + int8, ps, heads)
+    (h, kv), b, d, mp = heads, 8, 128, span // ps
+    q, k, v, table, kv_len = decode_inputs("paged", int8, lens,
+                                           SEED + ps + int8, ps, heads, span)
     run = run or (lambda *a: fd._launch_paged(*a, d ** -0.5))
-    name = f"flash_decode_paged ps={ps} int8={int8} heads={heads}"
+    name = f"flash_decode_paged ps={ps} int8={int8} heads={heads} span={span}"
     got = run(q, k, v, table, kv_len)
     want = fd.flash_decode_paged_reference(q, k, v, table, kv_len)
     torch.cuda.synchronize()
-    max_err = decode_check(name, got, want, KV_LENS)
+    max_err = decode_check(name, got, want, lens)
     decode_repeat_check(
         name, run, (q, k, v, table, kv_len),
-        decode_inputs("paged", int8, OTHER_LENS, SEED + 100 + ps, ps,
-                      heads),
-        fd.flash_decode_paged_reference)
+        decode_inputs("paged", int8, other_lens, SEED + 100 + ps, ps,
+                      heads, span),
+        fd.flash_decode_paged_reference, other_lens)
 
     # yardstick: SDPA over pre-gathered (dequantized) pages, masked at
     # kv_len; timed here only, never called by the port
@@ -559,12 +588,12 @@ def flash_decode_case(ps: int, int8: bool, flush, run=None,
         q, k, v, table, kv_len), 10, flush) if plain else None
     library_ms = timed_ms(library, iters, flush)
 
-    live = sum(min(n, span) for n in KV_LENS)
+    live = sum(min(n, span) for n in lens)
     elem = 1 if int8 else 2
     kv_bytes = 2 * live * kv * d * elem + (2 * live * kv * 2 if int8 else 0)
     io_bytes = 2 * b * h * d * 2 + b * mp * 4 + b * 4
     out = {"page_size": ps, "pages": "int8" if int8 else "bf16",
-           "heads": list(heads), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "heads": list(heads), "span": span, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_max_abs_err": lib_err,
            "bitwise_equal_launches": REPEATS + 2, "second_call": "ok",
            **bound(kv_bytes + io_bytes, 4 * live * h * d)}
@@ -638,6 +667,12 @@ SLOT_CASES = ((False, KV_LENS), (True, KV_LENS), (True, EDGE_LENS),
               (False, EDGE_LENS))
 # one rank's heads under tp=2 (phase 15), bf16 and int8
 TP_PAGED_CASES = ((64, False), (64, True))
+# phase 20's decode: bf16 pages of 64 over an 8,192-position span, streams
+# of the ring's prompts (8,160 / 3,000 / 100 tokens plus up to 32 new) and
+# the span's edges; each of the 8 partials covers up to 1,024 positions
+RING_SPAN = 8192
+RING_KV_LENS = (8191, 3031, 99, 8192, 8160, 131, 1, 4097)
+RING_OTHER_LENS = (3000, 8192, 0, 100, 6000, 65, 8100, 2049)
 TP_SLOT_CASES = ((False, KV_LENS), (True, KV_LENS))
 
 
@@ -863,6 +898,9 @@ def phase_kernels(flush):
     cases = [flash_decode_case(ps, int8, flush) for ps, int8 in PAGED_CASES]
     cases += [flash_decode_case(ps, int8, flush, heads=HEADS_TP2)
               for ps, int8 in TP_PAGED_CASES]
+    cases.append(flash_decode_case(64, False, flush, span=RING_SPAN,
+                                   lens=RING_KV_LENS,
+                                   other_lens=RING_OTHER_LENS))
     for c in cases:
         log(f"[kernel] flash_decode_paged {json.dumps(c)}")
     slot_cases = [slot_decode_case(int8, lens, flush)
@@ -7838,6 +7876,422 @@ def phase_ep_serve_worker(card: str, worker_want: dict,
     return line, {"flash_decode_paged": sum(launches)}
 
 
+# --------------------------------------------------------------- phase 20
+
+RING_WORLD = 2
+RING_MAX_SEQ = 8192                     # dist/longctx.yml's SEQ_LEN
+RING_ENGINE = dict(slots=8, page_size=64, prefill_chunk=64)
+# request -> prompt tokens: one that pads to max_seq exactly (8,160 + 32
+# new fill the table), one of about 3,000, one under the ring threshold
+# (2 x 64), which prefills in chunks
+RING_LENS = (("long", 8160), ("mid", 3000), ("short", 100))
+RING_NEW = 32
+RING_FP32_LAYERS = 4
+RING_BF16_LAYERS = 8
+# the fp32 ring's K/V of the long prompt against the one-device chunked
+# engine's, as a share of the chunked pages' largest |value|
+RING_KV_RTOL = 1e-4
+RING_TIMEOUT_S = 900
+RING_WORKER_ARGS = ("--pages", "-1", "--max-seq", str(RING_MAX_SEQ),
+                    "--prefill-seq-parallel", "true")
+RING_LABEL = "two ranks on one card over gloo; not an SP speed"
+
+
+def ring_queue(v: int) -> list:
+    """Phase 20's three requests from the seed (``RING_LENS``)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 20)
+    return [{"prompt": _prompt(rng, n, v), "max_new": RING_NEW,
+             "request_id": rid} for rid, n in RING_LENS]
+
+
+def _written_digest(srv) -> tuple:
+    """blake2s of every pool page but scratch that holds a nonzero byte
+    (the pages the drain wrote), with their count: the pool is zeroed at
+    construction, so two ranks that wrote the same pages alike agree."""
+    import hashlib
+    import torch
+    h = hashlib.blake2s()
+    k, v = srv.pool["k"][:, :-1], srv.pool["v"][:, :-1]
+    written = ((k != 0).flatten(2).any(dim=(0, 2))
+               | (v != 0).flatten(2).any(dim=(0, 2)))
+    pages = torch.nonzero(written)[:, 0]
+    for side in (k, v):
+        h.update(side[:, pages].contiguous().view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest(), int(pages.numel())
+
+
+def _prompt_kv(srv, slot: int):
+    """The K/V of ``slot``'s prompt positions, [2, L, n, KV, D], cloned
+    on the device."""
+    import torch
+    n, ps = len(srv._prompts[slot]), srv.page_size
+    pages = torch.tensor(srv._stream_pages[slot][:-(-n // ps)],
+                         device=srv.device)
+    kv = torch.stack([srv.pool["k"][:, pages], srv.pool["v"][:, pages]])
+    return kv.flatten(2, 3)[:, :, :n].clone()
+
+
+def ring_drain(srv, queue, long_id: str) -> dict:
+    """Drain ``queue`` through the ring engine ``srv``, each ring prefill
+    timed (synchronised) and the long prompt's K/V kept as the ring
+    installed it, kernel 1's count zeroed just before and read just
+    after."""
+    from dcos_commons_tpu_torch.ops.flash_decode import flash_decode_paged
+    dev = srv.device
+    real, ring_s, kept = srv._ring_prefill, {}, {}
+
+    def timed(slot):
+        _sync(dev)
+        t0 = time.perf_counter()
+        ok = real(slot)
+        _sync(dev)
+        rid = srv.requests[slot].request_id
+        ring_s[rid] = time.perf_counter() - t0
+        if ok and rid == long_id:
+            kept["kv"] = _prompt_kv(srv, slot)
+        return ok
+
+    srv._ring_prefill = timed
+    flash_decode_paged.launches = 0
+    c0 = srv.mesh.collectives
+    t0 = time.perf_counter()
+    got = srv.drain([dict(r) for r in queue], decode_window=8)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    digest, pages = _written_digest(srv)
+    stats = srv.page_stats()
+    return {"streams": {r["request_id"]: got[r["request_id"]]
+                        for r in queue},
+            "wall_s": wall, "ring_s": ring_s,
+            "launches": flash_decode_paged.launches,
+            "collectives": srv.mesh.collectives - c0,
+            "longctx": stats["longctx"], "sp": stats["sp"],
+            "graphs_off": stats["graphs_off"],
+            "graphs": srv.graph_stats()["graphs"],
+            "ledger": len(srv.ledger_violations()), "digest": digest,
+            "written_pages": pages, "kv": kept.get("kv")}
+
+
+def one_device_chunked(cfg, params, queue, long_id: str, dev) -> dict:
+    """The one-device chunked engine on the same weights: its streams,
+    then, reset, the long prompt alone prefilled chunk by chunk
+    (synchronised seconds) and its K/V."""
+    from dcos_commons_tpu_torch.models import serving
+    one = serving.PagedServer(cfg, params, device=dev, **RING_ENGINE)
+    got = one.drain([dict(r) for r in queue], decode_window=8)
+    one.reset()
+    long = next(r for r in queue if r["request_id"] == long_id)
+    slot = one.submit(long["prompt"], long["max_new"], long_id)
+    _sync(dev)
+    t0 = time.perf_counter()
+    while one._prefill_q:
+        one._prefill_tick()
+    _sync(dev)
+    return {"streams": {r["request_id"]: got[r["request_id"]]
+                        for r in queue},
+            "chunked_prefill_s": time.perf_counter() - t0,
+            "kv": _prompt_kv(one, slot)}
+
+
+def ring_serve_rank(device: str = "cuda", queue=None, stages=None,
+                    long_id: str = "long") -> dict:
+    """One rank of phase 20a's gang: ``MeshSpec(sp=world)``, the whole
+    Llama weights from the seed at each stage's config (``stages``:
+    {name: ``llama3_8b`` kwargs}; by default fp32 at
+    ``RING_FP32_LAYERS`` layers with dense decode attention, then bf16 at
+    ``RING_BF16_LAYERS``), a ``PagedServer(longctx_ring=world)`` draining
+    ``queue`` (:func:`ring_drain`). Rank 0 then drains the same queue
+    through the one-device chunked engine on the same weights
+    (:func:`one_device_chunked`), in this process of its own: its
+    streams, the long prompt's chunked prefill seconds and the largest
+    K/V difference from the ring's pages."""
+    import torch
+    import torch.distributed as dist
+    from dcos_commons_tpu_torch.models import llama, serving
+    from dcos_commons_tpu_torch.parallel.mesh import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MeshSpec(sp=dist.get_world_size()).build(device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    stages = stages or {
+        "fp32": dict(max_seq=RING_MAX_SEQ, n_layers=RING_FP32_LAYERS,
+                     dtype=torch.float32, decode_attn="dense"),
+        "bf16": dict(max_seq=RING_MAX_SEQ, n_layers=RING_BF16_LAYERS)}
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    for name, kw in stages.items():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        cfg = llama.LlamaConfig.llama3_8b(**kw)
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        srv = serving.PagedServer(cfg, params, device=dev, mesh=mesh,
+                                  longctx_ring=mesh.shape["sp"],
+                                  **RING_ENGINE)
+        res = ring_drain(srv, queue, long_id)
+        ring_kv = res.pop("kv")
+        res["weight_gb"] = _tree_gb(params)
+        res["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if cuda else None)
+        del srv
+        gc.collect()
+        if mesh.rank == 0:
+            if cuda:
+                torch.cuda.empty_cache()
+            one = one_device_chunked(cfg, params, queue, long_id, dev)
+            want = one.pop("kv")
+            res["one_device"] = one
+            res["kv_max_abs"] = float((ring_kv.float() - want.float())
+                                      .abs().max())
+            res["kv_scale"] = float(want.float().abs().max())
+            del want
+        out[name] = res
+        del params, ring_kv
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def ring_gang(dev="cuda", stages=None, vocab=WORKER_VOCAB) -> dict:
+    """Phase 20a's gang (:func:`ring_serve_rank`, two ranks sharing the
+    card): its queue, its ranks' results and its seconds. It only waits
+    on its processes here, so it runs beside phases of this process whose
+    engines capture CUDA graphs; :func:`phase_ring_serve` checks it after."""
+    import torch
+    from dcos_commons_tpu_torch.parallel.distributed import launch_local
+    t0 = time.perf_counter()
+    queue = ring_queue(vocab)
+    ranks = launch_local(ring_serve_rank, RING_WORLD,
+                         torch.device(dev).type, queue, stages,
+                         timeout_s=RING_TIMEOUT_S)
+    return {"queue": queue, "ranks": ranks,
+            "gang_s": time.perf_counter() - t0,
+            "prompts": {r["request_id"]: r["prompt"] for r in queue},
+            "bf16_streams": ranks[0]["bf16"]["streams"]}
+
+
+def phase_ring_serve(card: str, gang: dict, dev="cuda", stages=None,
+                     cfg=None) -> tuple:
+    """Phase 20a's checks on :func:`ring_gang`'s results: in fp32 every
+    rank's streams equal the one-device chunked engine's, the ranks'
+    written pages bitwise equal, two ring prefills and no fallback, the
+    long prompt's ring K/V within ``RING_KV_RTOL`` of the chunked
+    engine's; in bf16 the same counters and pages, kernel 1 launched on
+    each rank, and streams equal or held by phase 15's near-tie rule
+    (teacher-forced here on the same weights, ``cfg`` the bf16 stage's
+    config). Returns (the ``ring_serve`` line, {kernel 1: launches over
+    the ranks})."""
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+    queue, ranks, gang_s = gang["queue"], gang["ranks"], gang["gang_s"]
+    problems = []
+    lead = ranks[0]
+    for stage in lead:
+        if stage in ("rank", "backend"):
+            continue
+        want = lead[stage]["one_device"]["streams"]
+        for r in ranks:
+            got = r[stage]
+            ls = got["longctx"]
+            if (ls["ring_prefills"] != 2 or ls["fallbacks"]
+                    or ls["ring"] != RING_WORLD or got["ledger"]
+                    or got["sp"] != RING_WORLD or got["graphs_off"]):
+                problems.append(f"{stage} rank {r['rank']}: longctx {ls}, "
+                                f"ledger {got['ledger']}, sp {got['sp']}, "
+                                f"graphs off {got['graphs_off']}")
+            if (got["digest"], got["written_pages"]) != (
+                    lead[stage]["digest"], lead[stage]["written_pages"]):
+                problems.append(f"{stage} rank {r['rank']}: written pages "
+                                "differ from rank 0's")
+            if stage == "fp32" and got["streams"] != want:
+                problems.append(f"fp32 rank {r['rank']}: streams leave the "
+                                "one-device engine at " + str({
+                                    rid: next(i for i, (a, b) in enumerate(
+                                        zip(t, want[rid])) if a != b)
+                                    for rid, t in got["streams"].items()
+                                    if t != want[rid]}))
+            if (torch.device(dev).type == "cuda" and stage == "bf16"
+                    and got["launches"] < 1):
+                problems.append(f"bf16 rank {r['rank']}: flash_decode_paged "
+                                "never launched")
+            if any(t != lead[stage]["streams"][rid]
+                   for rid, t in got["streams"].items()):
+                problems.append(f"{stage} rank {r['rank']}: streams differ "
+                                "from rank 0's")
+    fp32 = lead.get("fp32")
+    if fp32 is not None and not (
+            fp32["kv_max_abs"] <= RING_KV_RTOL * fp32["kv_scale"]):
+        problems.append(f"fp32 ring K/V {fp32['kv_max_abs']} from the "
+                        f"chunked engine's, over {RING_KV_RTOL} of "
+                        f"{fp32['kv_scale']}")
+    if problems:
+        raise RuntimeError("ring serve phase: " + "; ".join(problems))
+    bf16 = lead["bf16"]
+    want = bf16["one_device"]["streams"]
+    divergences = []
+    differ = {rid for rid, t in bf16["streams"].items() if t != want[rid]}
+    if differ:
+        d = torch.device(dev)
+        cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=RING_MAX_SEQ,
+                                                 n_layers=RING_BF16_LAYERS)
+        params = llama.init_params(
+            cfg, torch.Generator(device=d).manual_seed(SEED), device=d)
+        prompts = {r["request_id"]: r["prompt"] for r in queue}
+        divergences = stream_check(
+            "bf16 ring gang vs the one-device chunked engine",
+            {rid: bf16["streams"][rid] for rid in differ},
+            {rid: want[rid] for rid in differ}, prompts, cfg, params)
+        del params
+        gc.collect()
+        if d.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def stage_line(name):
+        s = lead[name]
+        return {"layers": (stages or {}).get(name, {}).get(
+                    "n_layers", {"fp32": RING_FP32_LAYERS,
+                                 "bf16": RING_BF16_LAYERS}[name]),
+                "streams_equal_one_device": sum(
+                    t == s["one_device"]["streams"][rid]
+                    for rid, t in s["streams"].items()),
+                "ring_prefill_s_long_per_rank": [
+                    r[name]["ring_s"]["long"] for r in ranks],
+                "one_device_chunked_prefill_s_long":
+                    s["one_device"]["chunked_prefill_s"],
+                "ring_prefills": s["longctx"]["ring_prefills"],
+                "ring_prefilled_tokens": s["longctx"]["ring_prefilled_tokens"],
+                "fallbacks": s["longctx"]["fallbacks"],
+                "written_pages_equal": s["written_pages"],
+                "kv_max_abs": s["kv_max_abs"], "kv_scale": s["kv_scale"],
+                **{k: [r[name][k] for r in ranks] for k in (
+                    "wall_s", "weight_gb", "peak_mem_gb", "collectives",
+                    "launches", "graphs")}}
+
+    line = {"ring_serve": {
+        "model": "llama3_8b widths", "max_seq": RING_MAX_SEQ,
+        "prompts": dict(RING_LENS), "max_new": RING_NEW, "sp": RING_WORLD,
+        "gang_s": gang_s,
+        **{name: stage_line(name) for name in lead
+           if name not in ("rank", "backend")},
+        "bf16_divergences": divergences,
+        "kv_rtol": RING_KV_RTOL, "label": RING_LABEL, "card": card}}
+    log(f"[ring_serve] {json.dumps(line)}")
+    return line, {"flash_decode_paged": sum(r["bf16"]["launches"]
+                                            for r in ranks)}
+
+
+def ring_worker_run(prompts: dict, worker_args=WORKER_ARGS,
+                    layers=RING_BF16_LAYERS) -> dict:
+    """Phase 20b's run: ``dist/longctx.yml``'s ``server`` pod as a gang of
+    two (``worker_args`` + ``RING_WORKER_ARGS`` at ``layers`` layers
+    through ``CUT_WORKER``) answering the long prompt over HTTP, each
+    rank's heartbeat after it; no card work in this process, so it runs
+    beside phases that capture CUDA graphs."""
+    import shutil
+    base = Path(__file__).resolve().parent / "build" / "ring_worker"
+    shutil.rmtree(base, ignore_errors=True)
+    args = (*worker_args, *RING_WORKER_ARGS)
+    t0 = time.perf_counter()
+    gang = _tp_worker_procs(base, args, layers)
+    try:
+        serving_ev = [event("serving", WORKER_BOOT_S)
+                      for _, _, event in gang]
+        boot_s = time.perf_counter() - t0
+        port = serving_ev[0]["port"]
+        t1 = time.perf_counter()
+        reply = _http_generate(port, {"prompt": prompts["long"],
+                                      "max_new": RING_NEW})
+        wall = time.perf_counter() - t1
+        stats = _http_get(port, "/v1/stats")
+        beats = [event("heartbeat", 60, lambda e: (
+            (e.get("pages") or {}).get("longctx", {}).get(
+                "ring_prefills", 0) >= 1)) for _, _, event in gang]
+    finally:
+        rcs = [_sigterm(proc) for proc, _, _ in gang]
+    shutil.rmtree(base, ignore_errors=True)
+    return {"args": args, "layers": layers, "boot_s": boot_s,
+            "serving": serving_ev, "events": [ev for _, ev, _ in gang],
+            "reply": reply, "wall_s": wall, "stats": stats,
+            "beats": beats, "rcs": rcs}
+
+
+def phase_ring_worker(card: str, run: dict, prompts: dict, want: dict,
+                      dev="cuda", cfg=None) -> tuple:
+    """Phase 20b's checks on :func:`ring_worker_run`: the long request's
+    reply is 20a's bf16 gang stream on the same weights (``want``), or one
+    held by the near-tie rule; every rank's heartbeat shows
+    ``pages.longctx`` with a ring prefill and no fallback, and kernel 1
+    launched on each rank while the gang served. Returns (the
+    ``ring_worker`` line, {kernel 1: launches over the ranks})."""
+    import signal
+    import torch
+    from dcos_commons_tpu_torch.models import llama
+
+    serving_ev, beats = run["serving"], run["beats"]
+    problems, launches = [], []
+    paged = serving_ev[0].get("paged") or {}
+    if paged.get("sp") != RING_WORLD or paged.get("graphs_off") is not None \
+            or (paged.get("longctx") or {}).get("ring") != RING_WORLD:
+        problems.append(f"rank 0 page stats {paged}")
+    for rank, (events, ev, beat) in enumerate(
+            zip(run["events"], serving_ev, beats)):
+        if not (ev.get("gang") and ev.get("process_id") == rank):
+            problems.append(f"rank {rank} serving event {ev}")
+        if any(e.get("event") == "longctx_fallback" for e in events):
+            problems.append(f"rank {rank}: longctx_fallback")
+        lc = beat["pages"]["longctx"]
+        if lc["fallbacks"] or beat.get("gang_errors"):
+            problems.append(f"rank {rank} heartbeat {lc}, errors "
+                            f"{beat.get('gang_errors')}")
+        launches.append(beat.get("launches", {}).get(
+            "flash_decode_paged", 0) - ev.get("launches", {}).get(
+            "flash_decode_paged", 0))
+        if launches[-1] < 1 and torch.device(dev).type == "cuda":
+            problems.append(f"rank {rank}: flash_decode_paged never "
+                            "launched while the gang served")
+    if any(rc != -signal.SIGTERM for rc in run["rcs"]):
+        problems.append(f"exits {run['rcs']}")
+    got = (run["reply"] or {}).get("tokens")
+    if got is None or len(got) != RING_NEW:
+        problems.append(f"reply {run['reply']}")
+    if problems:
+        raise RuntimeError("ring worker phase: " + "; ".join(problems))
+    divergences = []
+    if got != want["long"]:
+        d = torch.device(dev)
+        cfg = cfg or llama.LlamaConfig.llama3_8b(max_seq=RING_MAX_SEQ,
+                                                 n_layers=run["layers"])
+        params = llama.init_params(
+            cfg, torch.Generator(device=d).manual_seed(SEED), device=d)
+        divergences = stream_check(
+            "ring worker gang vs 20a's gang", {"long": got},
+            {"long": want["long"]}, prompts, cfg, params)
+        del params
+        gc.collect()
+        if d.type == "cuda":
+            torch.cuda.empty_cache()
+    line = {"ring_worker": {
+        "command": "JAX_COORDINATOR_ADDRESS=127.0.0.1:P JAX_PROCESS_ID=r "
+                   f"JAX_NUM_PROCESSES={RING_WORLD} python -m "
+                   "dcos_commons_tpu_torch.frameworks.worker "
+                   + " ".join(run["args"]),
+        "model": f"llama3_8b widths, {run['layers']} of 32 layers",
+        "sp": RING_WORLD, "boot_to_serving_s": run["boot_s"],
+        "prompt_tokens": len(prompts["long"]), "reply_s": run["wall_s"],
+        "ttft_p50_ms": run["stats"]["ttft_ms"]["p50"],
+        "equal_to_20a": got == want["long"], "divergences": divergences,
+        "longctx_per_rank": [b["pages"]["longctx"] for b in beats],
+        "launches_flash_decode_paged_per_rank": launches,
+        "peak_mem_gb_per_rank": [b.get("peak_mem_gb") for b in beats],
+        "weight_gb_per_rank": [e.get("weight_gb") for e in serving_ev],
+        "label": RING_LABEL, "card": card}}
+    log(f"[ring_worker] {json.dumps(line)}")
+    return line, {"flash_decode_paged": sum(launches)}
+
+
 def _kernel_entry(name, source, replaces, launches, cases, tolerance):
     """``launches``: {main path: count}; the entry's count is their sum."""
     head = cases[0]                        # the main path's shape
@@ -7994,11 +8448,32 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 20's gang, then its worker pair, beside 10 and 4, once phase
+    # 3's weights are freed (beside 13b the card ran out of memory): its
+    # card work is in its own processes (peaks 17-19 GB a rank), mostly
+    # waiting on the host for gloo; its checks, which may teacher-force on
+    # the card, run here after
+    def ring_chain():
+        gang = ring_gang()
+        return gang, ring_worker_run(gang["prompts"])
+
+    t_ring = time.perf_counter()
+    ring_done = _in_background(ring_chain)
     moe_line, moe_launches, moe_worker_want = timed_phase(
         "10_moe", phase_moe, card)
     gc.collect()
     torch.cuda.empty_cache()
     training_line, fa_launches = timed_phase("4_train", phase_train, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring, ring_run = timed_phase("20a_20b_ring_after_4", ring_done)
+    log(f"[phase] 20 ring {time.perf_counter() - t_ring:.1f} s from its "
+        "start beside 10")
+    ring_line, ring_launches = timed_phase("20a_checks", phase_ring_serve,
+                                           card, ring)
+    ring_worker_line, ring_worker_launches = timed_phase(
+        "20b_checks", phase_ring_worker, card, ring_run, ring["prompts"],
+        ring["bf16_streams"])
     gc.collect()
     torch.cuda.empty_cache()
     # 10's worker beside 14: the worker's run is mostly its process's
@@ -8093,7 +8568,10 @@ def main() -> int:
                        "worker_peer": peer_launches["flash_decode_paged"],
                        "tp": tp_launches["flash_decode_paged"],
                        "worker_ep_serve":
-                           ep_serve_launches["flash_decode_paged"]},
+                           ep_serve_launches["flash_decode_paged"],
+                       "ring": ring_launches["flash_decode_paged"],
+                       "worker_ring":
+                           ring_worker_launches["flash_decode_paged"]},
                       decode_cases,
                       decode_tol),
         _kernel_entry("flash_decode", csrc + "flash_decode_slots.cu",
@@ -8195,6 +8673,8 @@ def main() -> int:
     print(json.dumps(ep_pp_worker_line), flush=True)
     print(json.dumps(ep_serve_fp32_line), flush=True)
     print(json.dumps(ep_serve_worker_line), flush=True)
+    print(json.dumps(ring_line), flush=True)
+    print(json.dumps(ring_worker_line), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_main
     PHASE_S["unaccounted"] = PHASE_S["total"] - sum(
         v for k, v in PHASE_S.items() if k != "total")

@@ -53,6 +53,16 @@ timed decode through ``llama.generate_stepwise_moe``. Without
 coded ``moe_fallback`` (the reference's codes); with
 ``--prefill-seq-parallel`` MoE wins and ``longctx_fallback`` says so.
 
+``--prefill-seq-parallel true`` (with ``--pages``, ``dist/longctx.yml``'s
+``server`` pod) on a gang of N serves over ``MeshSpec(sp=N)`` with ring
+prefill armed (``PagedServer(longctx_ring=N)``): every rank holds the
+whole weights and pool, and a prompt of at least twice
+``--prefill-chunk`` tokens prefills in one sequence-parallel tick. On
+one device, with ``--kv-quant``, without ``--pages``, with a
+``--longctx-ring`` other than N or an N that does not divide
+``--max-seq``, ``longctx_fallback`` gives the reference's code and the
+replica prefills in chunks.
+
 ``--kv-tier-host-pages H``, ``--kv-tier-disk-dir D --kv-tier-disk-pages
 M`` (with ``--pages``) give the paged engine a host/disk KV tier store
 (``models.paging.PageTierStore``): evicted radix pages demote there and
@@ -126,7 +136,8 @@ loop (``models.serving_gang``): rank 0 owns the front door
 runs the lock-step loop and its heartbeats. ``--serve-role
 prefill|decode`` on a gang emits ``disagg_fallback`` and serves
 co-located. ``--moe-experts E`` on a gang serves over ``MeshSpec(ep=N)``
-instead, as the reference's ``_serving_arithmetic`` does when N divides
+instead (``--prefill-seq-parallel`` over ``MeshSpec(sp=N)``, above), as
+the reference's ``_serving_arithmetic`` does when N divides
 E: every rank holds the whole weights but only its E/N experts
 (``llama.init_moe_params(..., mesh=)``), and the paged engine's MoE
 layer dispatches over ep (``parallel.moe.moe_apply``). A gang that does
@@ -156,7 +167,7 @@ share a card.
 
 What is not ported yet refuses loudly, never runs without it: a knob of
 a module still to port exits 2 with a coded ``error`` event naming its
-ROADMAP Queue 1 item (ring prefill: item 9; live resharding: item 10).
+ROADMAP Queue 1 item (live resharding: item 10).
 """
 
 from __future__ import annotations
@@ -239,16 +250,25 @@ def _mesh_report(mesh) -> dict:
             "backend": mesh.backend}
 
 
-def _serving_arithmetic(args):
-    """The MoE config ``--moe-experts`` asks for, or None for the dense
-    stack, with the reference's coded events: MoE serves through the
-    paged engine only (``moe_fallback`` ``moe_needs_paged``), and on raw
-    bf16 expert banks (``moe_quant``), else the replica serves dense.
-    ``--prefill-seq-parallel`` with MoE emits ``longctx_fallback``
-    ``longctx_with_moe`` (MoE wins, prefill stays chunked); without MoE
-    ring prefill is refused, since it is not ported. Capacity is
-    ``--moe-capacity-factor`` (1.0 when unset), dropless when it is <= 0.
-    On one device the reference's mesh is ``ep=1``: the local path."""
+def _serving_arithmetic(args, cfg, n: int):
+    """The reference's serving arithmetic for a replica of ``n`` devices
+    (a gang of ``n`` processes, one device each): ``(moe_cfg, ring,
+    mesh_spec)``, or ``(None, 0, None)`` for the dense (tp on a gang)
+    stack, with the reference's coded events. MoE serves through the
+    paged engine only (``moe_fallback`` ``moe_needs_paged``) and on raw
+    bf16 expert banks (``moe_quant``), else the replica serves dense; its
+    capacity is ``--moe-capacity-factor`` (1.0 when unset), dropless
+    when it is <= 0; its mesh is ``MeshSpec(ep=n)`` when n divides the
+    experts, else ``ep=1`` with ``moe_note`` ``moe_local_dispatch`` (on
+    a gang the port refuses that, ``moe_ep_indivisible``).
+    ``--prefill-seq-parallel`` arms ring prefill over ``MeshSpec(sp=n)``,
+    or emits ``longctx_fallback`` and prefills in chunks: with MoE
+    (``longctx_with_moe``), without ``--pages`` (``longctx_needs_paged``),
+    with ``--kv-quant`` (``longctx_quant``), on one device or with a
+    ``--longctx-ring`` other than n (``longctx_ring_devices``), or when n
+    does not divide ``max_seq`` (``longctx_ring_max_seq``). The decision
+    is pure config, so every rank of a gang makes the same one."""
+    from ..parallel.mesh import MeshSpec
     from ..parallel.moe import MoEConfig, dropless
     moe_cfg = None
     if args.moe_experts > 0:
@@ -269,15 +289,47 @@ def _serving_arithmetic(args):
                                 routing=args.moe_routing)
             if args.moe_capacity_factor <= 0:
                 moe_cfg = dropless(moe_cfg)
+    ring = 0
     if yaml_bool(args.prefill_seq_parallel):
-        if moe_cfg is None:
-            raise NotPorted("longctx_not_ported", "--prefill-seq-parallel: "
-                            "ring prefill is not ported yet (ROADMAP Queue "
-                            "1 item 9)")
-        _emit({"event": "longctx_fallback", "code": "longctx_with_moe",
-               "error": "one replica mesh carries ep OR sp; MoE decode "
-                        "wins, prefill stays chunked"})
-    return moe_cfg
+        want = args.longctx_ring or n
+        if moe_cfg is not None:
+            _emit({"event": "longctx_fallback", "code": "longctx_with_moe",
+                   "error": "one replica mesh carries ep OR sp; MoE decode "
+                            "wins, prefill stays chunked"})
+        elif not args.pages:
+            _emit({"event": "longctx_fallback",
+                   "code": "longctx_needs_paged",
+                   "error": "ring prefill is a paged-engine path: set "
+                            "--pages/SERVE_PAGES"})
+        elif args.kv_quant:
+            _emit({"event": "longctx_fallback", "code": "longctx_quant",
+                   "error": "ring prefill installs bf16 K/V spans; drop "
+                            "--kv-quant"})
+        elif n < 2 or want != n:
+            _emit({"event": "longctx_fallback",
+                   "code": "longctx_ring_devices",
+                   "error": f"ring size {want} != device count {n}; the "
+                            "sp axis runs over the replica's whole gang"})
+        elif cfg.max_seq % n:
+            _emit({"event": "longctx_fallback",
+                   "code": "longctx_ring_max_seq",
+                   "error": f"ring {n} must divide max_seq {cfg.max_seq} "
+                            "so padded prompts stay in-table"})
+        else:
+            ring = n
+    if moe_cfg is not None:
+        ep = n if moe_cfg.num_experts % n == 0 else 1
+        if ep == 1 and n > 1:
+            _emit({"event": "moe_note", "code": "moe_local_dispatch",
+                   "experts": moe_cfg.num_experts, "devices": n,
+                   "note": "device count does not divide the expert "
+                           "count; experts stay replicated and dispatch "
+                           "runs the bitwise-equal local path (no "
+                           "all-to-all)"})
+        return moe_cfg, 0, MeshSpec(ep=ep)
+    if ring:
+        return None, ring, MeshSpec(sp=ring)
+    return None, 0, None
 
 
 def _boot_serving_weights(args, template, init, registry=None, mesh=None,
@@ -408,9 +460,10 @@ def _start_weight_server(args, params, registry=None):
 
 
 def _make_serving_engine(args, cfg, params, device, registry=None,
-                         moe=None, mesh=None):
+                         moe=None, mesh=None, longctx_ring=0):
     """``PagedServer`` with ``--pages`` (sharing the process-wide compile
-    cache; ``moe`` from :func:`_serving_arithmetic`), ``SlotServer``
+    cache; ``moe`` and ``longctx_ring`` from :func:`_serving_arithmetic`),
+    ``SlotServer``
     otherwise. A paged config the model cannot satisfy falls back to the
     slot engine with a ``paged_fallback`` event, as in the reference;
     an MoE model, which the slot engine cannot serve, raises after the
@@ -428,8 +481,9 @@ def _make_serving_engine(args, cfg, params, device, registry=None,
                 pages=None if args.pages < 0 else args.pages,
                 page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk,
-                compile_cache=aot.from_env(), moe=moe, device=device,
-                mesh=mesh, **_make_kv_tiers(args))
+                compile_cache=aot.from_env(), moe=moe,
+                longctx_ring=longctx_ring, device=device, mesh=mesh,
+                **_make_kv_tiers(args))
             if spec_wanted:
                 _arm_spec_decode(args, cfg, engine, registry)
             return engine, engine.page_stats()
@@ -580,8 +634,10 @@ def run_llama(args) -> dict:
     from ..parallel import distributed
     from ..parallel.mesh import MeshSpec
 
-    moe_cfg = _serving_arithmetic(args) if args.serve else None
     n = _gang_size()
+    cfg = _target_config(args)
+    moe_cfg, ring, arith_spec = (_serving_arithmetic(args, cfg, n)
+                                 if args.serve else (None, 0, None))
     if n > 1:
         # refused before the process group forms
         if moe_cfg is not None and moe_cfg.num_experts % n:
@@ -601,15 +657,13 @@ def run_llama(args) -> dict:
                             "(ROADMAP Queue 1 item 10e)")
     contract = distributed.initialize()
     # one replica mesh carries one inner axis, as in the reference: ep
-    # for MoE, tp otherwise
+    # for MoE, sp for ring prefill, tp otherwise
     gang = None
     if contract["num_processes"] > 1:
-        axis = "ep" if moe_cfg is not None else "tp"
-        gang = MeshSpec(**{axis: contract["num_processes"]}).build(
-            args.device)
+        gang = (arith_spec or MeshSpec(tp=contract["num_processes"])
+                ).build(args.device)
     dev = gang.device if gang is not None else resolve_device(args.device)
     kv_quant = args.kv_quant
-    cfg = _target_config(args)
     gen_len = args.gen_len
     # chunked decode for everything but tiny, as in the reference; MoE
     # decodes stepwise (the dense generate paths read the dense FFN)
@@ -695,7 +749,7 @@ def run_llama(args) -> dict:
                              "co-located"})
     if args.slots > 0 and gang is not None:
         _serve_gang(args, contract, cfg, params, gang, registry, result,
-                    moe_cfg)
+                    moe_cfg, ring)
     if args.slots > 0:
         _serve_slots(args, cfg, params, dev, registry, boot_report, result,
                      moe_cfg)
@@ -809,20 +863,23 @@ def _serve_front_door(args, server, page_stats, registry, boot_report,
 
 
 def _serve_gang(args, contract, cfg, params, mesh, registry, result,
-                moe_cfg=None) -> None:
+                moe_cfg=None, longctx_ring=0) -> None:
     """Serving on a gang of processes: rank 0 runs the HTTP front door
     with ``drive=False``, and every rank runs the lock-step broadcast /
     submit / step loop (``models.serving_gang``) over an engine built
-    the same way on every rank (greedy). Never returns while healthy."""
+    the same way on every rank (greedy; ring prefill armed over the sp
+    mesh when ``longctx_ring``). Never returns while healthy."""
     from ..models.ingress import ServingFrontend
     from ..models.serving_gang import GangServingDriver
     rank = contract["process_id"]
     server, page_stats = _make_serving_engine(args, cfg, params, mesh.device,
                                               registry, moe=moe_cfg,
-                                              mesh=mesh)
+                                              mesh=mesh,
+                                              longctx_ring=longctx_ring)
     warmup = getattr(server, "warmup", None)
     if warmup is not None:
-        # on a gang the warm-up runs eagerly, the same calls on every rank
+        # the same calls on every rank; eager under tp and ep, captured
+        # under sp, whose windows carry no collective
         warmup()
     frontend = None
     if rank == 0:
@@ -1690,12 +1747,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "group, so it is non-causal; see parallel/moe.py)")
     p.add_argument("--longctx-ring", type=int,
                    default=int(os.environ.get("LONGCTX_RING", "0") or 0),
-                   help="--prefill-seq-parallel's ring size (not ported)")
+                   help="llama --serve --prefill-seq-parallel: the sp "
+                        "axis of ring prefill; 0 = the gang's size (the "
+                        "only size accepted: another is a coded "
+                        "longctx_fallback)")
     p.add_argument("--prefill-seq-parallel",
                    default=os.environ.get("PREFILL_SEQ_PARALLEL",
                                           "false"),
-                   help="not ported (item 9): true exits 2, unless MoE "
-                        "is served (then longctx_fallback longctx_with_moe)")
+                   help="llama --serve --pages on a gang: true prefills "
+                        "prompts >= 2*prefill_chunk in ONE sequence-"
+                        "parallel tick (llama.prefill_ring over the sp "
+                        "axis, dist/longctx.yml); disqualified configs "
+                        "emit longctx_fallback and prefill in chunks")
     p.add_argument("--queue-limit", type=int, default=64,
                    help="--serve --slots: bounded ingress queue "
                         "(overflow answers 503 + Retry-After)")

@@ -16,6 +16,11 @@ Serving: the config presets, parameter init and int8 weights
 
 ``truncate_layers`` cuts a draft from the target's first layers.
 
+Sequence-parallel prefill (serving): ``prefill_ring`` is
+``prefill_trunk``'s contract on one rank of an ``sp`` mesh: every rank
+holds the whole padded prompt and computes its contiguous S/sp shard,
+attention through ``parallel.ring_attention``.
+
 Mixture of experts (serving): ``init_moe_params`` builds the routed tree
 (``router``, ``w_in``, ``w_out`` in place of the dense FFN);
 ``make_moe_ffn`` is the ``ffn_override`` that the decode steps, the
@@ -677,10 +682,11 @@ def _use_flash_decode(cfg: LlamaConfig, device: torch.device,
     the CUDA kernel on a CUDA device and the dense read on the CPU;
     ``flash`` forces the kernel wrapper; ``dense`` the dense read. The
     reference's lane-128 conditions do not carry over; its mesh rule
-    does, widened to ep: the kernel serves no mesh, a mesh of one, or a
-    mesh over tp (whose axis divides the KV heads: each rank runs it on
-    its heads) and ep (attention is replicated over ep: each rank runs it
-    on every head), and a forced ``flash`` on any other mesh raises."""
+    does, widened to ep and sp: the kernel serves no mesh, a mesh of one,
+    or a mesh over tp (whose axis divides the KV heads: each rank runs it
+    on its heads), ep and sp (decode attention is replicated over both:
+    each rank runs it on every head of its whole pool), and a forced
+    ``flash`` on any other mesh raises."""
     mode = cfg.decode_attn
     if mode not in ("auto", "dense", "flash"):
         # a typo'd mode must not silently measure the dense path
@@ -688,13 +694,13 @@ def _use_flash_decode(cfg: LlamaConfig, device: torch.device,
                          "'dense', 'flash'")
     mesh_ok = (mesh is None or mesh.size == 1
                or (all(n == 1 for ax, n in mesh.shape.items()
-                       if ax not in ("tp", "ep"))
+                       if ax not in ("tp", "ep", "sp"))
                    and cfg.n_kv_heads % mesh.shape["tp"] == 0))
     if mode == "flash" and not mesh_ok:
         raise ValueError(
             f"decode_attn='flash' needs an unsharded or tp-only mesh whose "
-            f"axis divides the KV heads, beside ep (over which attention is "
-            f"replicated); got {dict(mesh.shape)}")
+            f"axis divides the KV heads, beside ep and sp (over which "
+            f"decode attention is replicated); got {dict(mesh.shape)}")
     if mode == "dense":
         return False
     return mode == "flash" or (device.type == "cuda" and mesh_ok)
@@ -1447,8 +1453,23 @@ def loss_fn_pipelined(cfg: LlamaConfig, params: Params,
 # prefill and solo generation on the slot cache
 
 
+def _prefill_attn(cfg: LlamaConfig, device: torch.device,
+                  mesh: Optional[Mesh]) -> Callable:
+    """:func:`prefill_trunk`'s causal attention: the flash forward kernel
+    where decode takes its kernel (on the rank's heads under tp), dense
+    attention elsewhere."""
+    if not _use_flash_decode(cfg, device, mesh):
+        return lambda q, k, v: gqa_attention(q, k, v, causal=True)
+    if tp_size(mesh) > 1:
+        return lambda q, k, v: flash_attention_tp(
+            q, k, v, mesh, causal=True, kv_heads=cfg.n_kv_heads)
+    return lambda q, k, v: flash_attention(q, k, v, causal=True)
+
+
 def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
-                  rope: torch.Tensor, mesh: Optional[Mesh] = None
+                  rope: torch.Tensor, mesh: Optional[Mesh] = None,
+                  attn_fn: Optional[Callable] = None,
+                  ffn_override: Optional[FfnOverride] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The prefill forward shared by :func:`prefill` and the engine's
     bucketed slot prefill: (normed hidden states [B, S, D], ks/vs
@@ -1458,18 +1479,11 @@ def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
     device, any S, a shape outside its gate raises) and the dense path
     elsewhere; the reference's ``S % 128`` gate does not carry over.
     Under ``mesh`` the ks/vs are the rank's KV heads and each rank runs
-    the kernel on its own heads."""
-    if _use_flash_decode(cfg, prompt.device, mesh):
-        if tp_size(mesh) > 1:
-            def attn_fn(q, k, v):
-                return flash_attention_tp(q, k, v, mesh, causal=True,
-                                          kv_heads=cfg.n_kv_heads)
-        else:
-            def attn_fn(q, k, v):
-                return flash_attention(q, k, v, causal=True)
-    else:
-        def attn_fn(q, k, v):
-            return gqa_attention(q, k, v, causal=True)
+    the kernel on its own heads. ``attn_fn`` replaces that choice of
+    attention (:func:`prefill_ring` passes the ring) and
+    ``ffn_override(x, lp)`` the FFN residual step."""
+    if attn_fn is None:
+        attn_fn = _prefill_attn(cfg, prompt.device, mesh)
     layers = params["layers"]
     x = _embed(cfg, params, prompt, mesh)
     ks, vs = [], []
@@ -1477,7 +1491,8 @@ def prefill_trunk(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
         lp = {name: w[i] for name, w in layers.items()}
         x, k, v = attention_block(cfg, x, lp, rope, attn_fn, return_kv=True,
                                   mesh=mesh)
-        x = ffn_block(cfg, x, lp, mesh)
+        x = (ffn_override(x, lp) if ffn_override is not None
+             else ffn_block(cfg, x, lp, mesh))
         ks.append(k)
         vs.append(v)
     return (rms_norm(x, params["norm"], cfg.norm_eps), torch.stack(ks),
@@ -1496,6 +1511,53 @@ def prefill(cfg: LlamaConfig, params: Params, cache: Cache,
     _cache_update(cache["k"], ks, 0, 2)
     _cache_update(cache["v"], vs, 0, 2)
     return logits, cache
+
+
+def prefill_ring(cfg: LlamaConfig, params: Params, prompt: torch.Tensor,
+                 mesh: Mesh, rope: Optional[torch.Tensor] = None,
+                 ffn_override: Optional[FfnOverride] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequence-parallel prefill on one rank of a mesh whose ``sp`` axis
+    is larger than 1: :func:`prefill_trunk`'s contract for the rank's
+    contiguous shard of the sequence. Every rank passes the WHOLE padded
+    prompt [B, S] and gets back its own S/sp positions: the normed hidden
+    states [B, S/sp, D] and ks/vs [L, B, S/sp, KV, D], rope'd at their
+    global positions. Attention is :func:`~dcos_commons_tpu_torch.
+    parallel.ring_attention.ring_attention` in the contiguous layout (the
+    zigzag's permuted order would not install into a page table), so a
+    rank pays about S/sp of the attention work. Runs without autograd.
+
+    The caller pads the prompt to an sp-divisible length
+    (``ring_attention.ring_pad_len``); padded positions compute K/V that
+    the serving engine sends to scratch or never reads. Raises
+    ValueError, as the reference does, without an sp axis larger than
+    1, when sp does not divide S, or when S is over ``cfg.max_seq`` (the
+    rope table's bound); under tp, which the reference's serving worker
+    never builds with the ring, too."""
+    s = prompt.shape[1]
+    sp = sp_size(mesh)
+    if sp <= 1:
+        raise ValueError("prefill_ring needs an 'sp' mesh axis > 1; got "
+                         f"{dict(mesh.shape) if mesh is not None else None}")
+    if s % sp:
+        raise ValueError(f"ring prefill needs S ({s}) % sp ({sp}) == 0; pad "
+                         "the prompt with ring_attention.ring_pad_len")
+    if s > cfg.max_seq:
+        raise ValueError(f"padded prompt {s} exceeds max_seq {cfg.max_seq}")
+    if tp_size(mesh) > 1:
+        raise ValueError(f"ring prefill under tp={tp_size(mesh)} is not "
+                         "ported (the reference's worker never builds it)")
+    n = s // sp
+    at = mesh.coords["sp"] * n
+    rope = _rope_table(cfg, rope, prompt.device)[:, at:at + n]
+
+    def ring(q, k, v):
+        return ring_attention(q, k, v, mesh, causal=True,
+                              layout="contiguous")
+
+    with torch.no_grad():
+        return prefill_trunk(cfg, params, prompt[:, at:at + n], rope,
+                             attn_fn=ring, ffn_override=ffn_override)
 
 
 def _check_capacity(cfg: LlamaConfig, prompt_len: int, steps: int) -> None:

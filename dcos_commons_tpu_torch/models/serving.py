@@ -84,8 +84,23 @@ Differences from the reference, all mechanical:
   head, and the MoE layer's two all-to-alls (``parallel.moe.moe_apply``)
   carry the experts' rows; windows run eagerly (reason ``ep``), and the
   engine refuses under ep what it refuses under tp, naming the axis;
-* not ported yet, and refused by the constructors (no such parameter):
-  ring prefill.
+* sequence-parallel prefill (``PagedServer(longctx_ring=n, mesh=...)``,
+  a mesh whose ``sp`` axis of n spans the gang): every rank holds the
+  whole weights and the whole pool. A prompt of at least
+  ``ring_threshold`` tokens that starts at position 0 prefills in ONE
+  tick through ``llama.prefill_ring``; each rank's K/V shard is gathered
+  over sp and the whole span installs IN PLACE into every rank's pool,
+  and the logits of the last position are handed from its rank to the
+  others. Decode and chunked prefill carry no collective (the pool is
+  whole everywhere and every rank decodes the same batch), so the
+  windows replay CUDA graphs through kernel 1 as on one device. A
+  padded length over ``max_seq`` (a pure function of the broadcast
+  intake) falls back to chunks on every rank alike; a failure after the
+  first collective raises :class:`RingPrefillError`, where the
+  reference's catch-all falls back, since a rank that fell back while
+  its peers ring would hang the gang. ``moe=``, ``kv_quant`` and tp are
+  refused with the ring, and ``_refuse_mesh`` refuses under sp what it
+  refuses under tp.
 """
 
 from __future__ import annotations
@@ -106,6 +121,7 @@ from ..ops.sampling import Sampler
 from ..parallel.aot import CompileCache, engine_key
 from ..parallel.mesh import Mesh, tp_size
 from ..parallel.moe import MoEConfig
+from ..parallel.ring_attention import ring_pad_len
 from . import llama
 from .paging import (PagePool, PageTierStore, PrefixDirectory, PrefixRadix,
                      chain_keys, page_hashes)
@@ -192,6 +208,13 @@ def _engine_mesh(mesh: Optional[Mesh], device: torch.device
     return mesh
 
 
+class RingPrefillError(RuntimeError):
+    """A ring prefill that failed after its first collective. The gang's
+    ranks may now disagree on the engine's state, so the replica fails
+    (:class:`~dcos_commons_tpu_torch.models.serving_gang.
+    GangServingDriver` lets it through)."""
+
+
 def _refuse_mesh(engine, what: str, ep_ok: bool = False) -> None:
     """Raise for what a paged engine does not take on a mesh yet, naming
     the mesh's axes: nothing of it under tp > 1, and under ep (MoE
@@ -232,9 +255,11 @@ class _Engine:
         self.capture_s = 0.0              # seconds spent capturing
         # why windows run eagerly on CUDA (None: they replay graphs): a
         # window's collectives (tp, or ep's all-to-alls) cannot be
-        # captured over gloo
+        # captured over gloo; an sp window has none (each rank decodes
+        # its whole pool)
         self.graphs_off = next((a for a, n in self.mesh.shape.items()
-                                if n > 1), None) if self.mesh else None
+                                if n > 1 and a != "sp"),
+                               None) if self.mesh else None
 
     def _step_logits(self, lengths: torch.Tensor, tokens: torch.Tensor,
                      mp: Optional[int]) -> torch.Tensor:
@@ -684,6 +709,10 @@ class PagedServer(_Engine):
       window runs. Everything enters the radix through
       :meth:`_radix_adopt`, which discards the chains' tier frames, so a
       chain lives in the radix or in the tiers, never both.
+    * **Ring prefill.** ``longctx_ring=n`` over a mesh whose ``sp`` axis
+      is n prefills a long prompt in one sequence-parallel tick
+      (:meth:`_ring_prefill`; module doc); ``ring_threshold`` defaults
+      to twice ``prefill_chunk``.
 
     ``params`` must live on ``device``.
     """
@@ -698,11 +727,43 @@ class PagedServer(_Engine):
                  directory: Optional[PrefixDirectory] = None,
                  replica_id: str = "", peer_fetch=None,
                  moe: Optional[MoEConfig] = None,
+                 longctx_ring: int = 0, ring_threshold: Optional[int] = None,
                  device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.mesh = _engine_mesh(mesh, self.device)
         if moe is not None:
             _refuse_mesh(self, "moe=", ep_ok=True)
+        # sequence-parallel prefill (class doc): the reference's checks,
+        # and what the port does not build with the ring
+        self._ring_sp = int(longctx_ring)
+        if self._ring_sp > 1:
+            sp_have = self.mesh.shape["sp"] if self.mesh is not None else 1
+            if sp_have != self._ring_sp:
+                raise ValueError(
+                    f"longctx_ring={longctx_ring} needs a mesh with an 'sp' "
+                    "axis of that size; got "
+                    f"{dict(self.mesh.shape) if self.mesh else None}")
+            if cfg.max_seq % self._ring_sp:
+                raise ValueError(
+                    f"longctx_ring={longctx_ring} must divide max_seq "
+                    f"{cfg.max_seq} so padded prompts stay in-table")
+            if cfg.kv_quant:
+                raise ValueError(
+                    "ring prefill installs bf16 K/V spans; kv_quant pools "
+                    "are not supported with longctx_ring")
+            if moe is not None:
+                raise ValueError(
+                    "longctx_ring with moe= is not built: each rank would "
+                    "route its own shard of the prompt as a dispatch group "
+                    "(the reference routes the whole prompt), and the "
+                    "worker never arms both (longctx_with_moe)")
+            if tp_size(self.mesh) > 1:
+                raise ValueError(
+                    f"longctx_ring under tp={tp_size(self.mesh)} is not "
+                    "built: the reference's worker never arms it")
+        self.ring_threshold = (int(ring_threshold)
+                               if ring_threshold is not None
+                               else 2 * prefill_chunk)
         for name, value in (("tiers=", tiers), ("directory=", directory),
                             ("peer_fetch=", peer_fetch)):
             if value is not None:
@@ -774,6 +835,11 @@ class PagedServer(_Engine):
         self.directory_fallbacks = 0   # stale hints -> recompute
         self.adopted_prefix_pages = 0  # pages installed from siblings
         self.exported_prefixes = 0     # prefix spans served to siblings
+        # sequence-parallel prefill (_ring_prefill)
+        self.ring_prefills = 0         # prompts prefilled by the ring
+        self.ring_prefilled_tokens = 0
+        self.ring_prefill_s = 0.0      # cumulative ring-prefill time
+        self.longctx_fallbacks = 0     # ring prompts sent to chunks
         # disaggregation (prefill_span / adopt_pages)
         self.shipped_spans = 0         # spans this prefill tier produced
         self.adopted_spans = 0         # foreign spans installed here
@@ -1589,9 +1655,82 @@ class PagedServer(_Engine):
             mesh=self.mesh)
         return logits, end
 
+    def _ring_prefill(self, slot: int) -> bool:
+        """Prefill the WHOLE prompt of ``slot`` in one sequence-parallel
+        tick (:func:`llama.prefill_ring` over the mesh's ``sp`` axis).
+        Returns True when the stream is decode-ready; False, counting a
+        ``longctx_fallback``, when its padded length is over ``max_seq``:
+        the one disqualification, a pure function of the broadcast
+        intake, so every rank falls back alike and the caller prefills in
+        chunks.
+
+        Every rank's K/V shard is gathered over sp in rank order, and the
+        whole span lands page by page in the local pool, in place (the
+        captured windows bind the pool tensors); pad pages go to the
+        scratch page. The last prompt position lives on one rank: its
+        logits are summed over sp with zeros from the others, which
+        hands every rank the same fp32 bits, so ``_select`` (and a
+        sampler's generator) advances alike on every rank. Unlike the
+        reference, nothing from the first collective on is caught: a
+        rank that fell back while its peers ring would hang the gang, so
+        a failure raises :class:`RingPrefillError` and fails the
+        replica. Only runs from position 0: a radix-resumed stream's
+        leading pages are shared, and the ring writes the whole span."""
+        prompt = self._prompts[slot]
+        n = len(prompt)
+        ps, sp = self.page_size, self._ring_sp
+        s_pad = ring_pad_len(n, sp, ps)
+        # the reference's intake guard: unreachable while the constructor
+        # makes sp and the page size divide max_seq (a test stubs it)
+        if s_pad > self.cfg.max_seq:
+            self.longctx_fallbacks += 1
+            return False
+        n_pages = s_pad // ps
+        own = -(-n // ps)              # pages that hold prompt positions
+        phys = np.full((n_pages,), self.scratch, np.int64)
+        phys[:own] = self._tables[slot][:own]
+        padded = np.zeros((1, s_pad), np.int32)
+        padded[0, :n] = prompt
+        cfg, mesh, dev = self.cfg, self.mesh, self.device
+        t0 = time.perf_counter()
+        try:
+            hidden, ks, vs = llama.prefill_ring(
+                cfg, self.params, torch.from_numpy(padded).to(dev), mesh,
+                rope=self._rope, ffn_override=self._ffn)
+            kv = mesh.all_gather(torch.stack([ks, vs])[:, :, 0], "sp",
+                                 dim=2)          # [2, L, s_pad, KV, D]
+            kv = kv.reshape(2, cfg.n_layers, n_pages, ps, *kv.shape[3:])
+            where = torch.from_numpy(phys).to(dev)
+            _install_pages(self.pool["k"], kv[0], where)
+            _install_pages(self.pool["v"], kv[1], where)
+            del kv, ks, vs
+            shard = s_pad // sp
+            logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32,
+                                 device=dev)
+            if (n - 1) // shard == mesh.coords["sp"]:
+                logits = llama._lm_head(hidden[:, (n - 1) % shard],
+                                        self.params, None)
+            logits = mesh.all_reduce(logits, "sp")
+        except Exception as e:
+            raise RingPrefillError(
+                f"ring prefill of a {n}-token prompt over sp={sp} failed "
+                f"after its first collective: {e!r}") from e
+        toks = self._select(logits)
+        self.lengths[slot] = n
+        self.cur_tok[slot] = toks[0]
+        self._pending_first[slot] = toks[0]
+        self._prefill_pos[slot] = n
+        self.ring_prefills += 1
+        self.ring_prefilled_tokens += n
+        self.ring_prefill_s += time.perf_counter() - t0
+        return True
+
     def _prefill_tick(self) -> None:
         """Run ONE fixed-shape prefill chunk for the stream at the head
-        of the prefill queue."""
+        of the prefill queue. With ``longctx_ring`` armed, a prompt of at
+        least ``ring_threshold`` tokens starting from position 0
+        prefills WHOLE in one sequence-parallel tick instead
+        (:meth:`_ring_prefill`), or falls back to chunks."""
         while self._prefill_q and self.requests[self._prefill_q[0]] is None:
             self._prefill_q.popleft()          # aborted mid-prefill
         if not self._prefill_q:
@@ -1599,6 +1738,10 @@ class PagedServer(_Engine):
         slot = self._prefill_q[0]
         prompt = self._prompts[slot]
         n = len(prompt)
+        if (self._ring_sp > 1 and self._prefill_pos[slot] == 0
+                and n >= self.ring_threshold and self._ring_prefill(slot)):
+            self._prefill_q.popleft()
+            return
         logits, end = self._chunk(
             torch.tensor(self._tables[slot], device=self.device), prompt,
             self._prefill_pos[slot])
@@ -2033,8 +2176,17 @@ class PagedServer(_Engine):
                 "capacity_factor": self.moe.capacity_factor,
                 "routing": self.moe.routing,
             } if self.moe is not None else None),
+            "longctx": {
+                "ring": self._ring_sp,
+                "threshold": self.ring_threshold,
+                "ring_prefills": self.ring_prefills,
+                "ring_prefilled_tokens": self.ring_prefilled_tokens,
+                "ring_prefill_s": self.ring_prefill_s,
+                "fallbacks": self.longctx_fallbacks,
+            },
             "tp": tp_size(self.mesh),
             "ep": self.mesh.shape["ep"] if self.mesh is not None else 1,
+            "sp": self.mesh.shape["sp"] if self.mesh is not None else 1,
             "graphs": self.device.type == "cuda" and self.graphs_off is None,
             "graphs_off": self.graphs_off,
         }

@@ -22,8 +22,21 @@ front door cannot drive the engine directly:
 
 Determinism: greedy decoding, or a sampler with the same generator seed
 on every rank, and no engine decision taken from wall time, thread
-timing or a per-rank draw; the engines' tp refusals keep the paths that
-would (the KV tiers' staleness, a draft) out of a gang.
+timing or a per-rank draw; the engines' mesh refusals (under tp, ep and
+sp alike) keep the paths that would (the KV tiers' staleness, a draft)
+out of a gang.
+
+Ring prefill rides the loop unchanged: a ``PagedServer`` armed with
+``longctx_ring`` over an sp gang decides ring or chunks from host state
+that is the same on every rank (the prompt's length and prefill
+position), so every rank enters the same ``llama.prefill_ring`` in the
+same iteration; the sequence-parallel prefill is one more lock-step
+dispatch. Its one fallback (a padded length over ``max_seq``) is a pure
+function of the broadcast intake. A ring that fails after its first
+collective raises ``RingPrefillError``, which :meth:`GangServingDriver.
+run` does not catch: the replica fails loudly instead of meeting peers
+that may still wait inside the ring. The heartbeat's ``pages.longctx``
+shows the ring's counters, ``fallbacks`` among them.
 
 Wire format (:func:`encode_intake` / :func:`decode_intake`): int32
 ``[max_intake, 2 + max_prompt]``; a row is (prompt_len, max_new,
@@ -38,6 +51,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from .ingress import ServingFrontend, _Pending
+from .serving import RingPrefillError
 
 
 def encode_intake(items: List[Tuple[List[int], int]], max_intake: int,
@@ -207,6 +221,8 @@ class GangServingDriver:
                 return
             try:
                 worked = self.run_iteration()
+            except RingPrefillError:
+                raise                # the ranks may disagree: fail loudly
             except Exception as e:   # keep serving: a failed collective
                 # surfaces on EVERY rank, so each fails its in-flight
                 # work, resets its engine to the empty pool, and meets

@@ -71,14 +71,15 @@ def test_no_source_names_jax_or_the_jax_package():
     port, ``chip_smoke.py``, the port's tools (``tools/torch_*.py``) and
     the rank functions its CPU gangs run (``tests/_torch_tp_ranks.py``,
     ``tests/_torch_dp_ranks.py``, ``tests/_torch_tp_train_ranks.py``,
-    ``tests/_torch_ep_pp_ranks.py``)."""
+    ``tests/_torch_ep_pp_ranks.py``, ``tests/_torch_ring_ranks.py``)."""
     offenders = []
     for path in (list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                  + sorted((ROOT / "tools").glob("torch_*.py"))
                  + [ROOT / "tests" / "_torch_tp_ranks.py",
                     ROOT / "tests" / "_torch_dp_ranks.py",
                     ROOT / "tests" / "_torch_tp_train_ranks.py",
-                    ROOT / "tests" / "_torch_ep_pp_ranks.py"]):
+                    ROOT / "tests" / "_torch_ep_pp_ranks.py",
+                    ROOT / "tests" / "_torch_ring_ranks.py"]):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -262,9 +262,11 @@ def test_constructor_refuses_features_not_ported(kw):
     """No such parameter (TypeError); ``moe`` is ported, and refused with
     dense weights, which carry no router (ValueError); ``mesh`` is ported
     (``tests/test_torch_tp.py``), and refused on another device type than
-    the engine's (ValueError)."""
+    the engine's (ValueError); ``longctx_ring`` is ported
+    (``tests/test_torch_ring_prefill.py``), and refused without a mesh
+    whose sp axis is the ring's size (ValueError)."""
     _, tcfg, _, tp = _model()
-    with pytest.raises(ValueError if "moe" in kw or "mesh" in kw
+    with pytest.raises(ValueError if {"moe", "mesh", "longctx_ring"} & set(kw)
                        else TypeError):
         ts.PagedServer(tcfg, tp, device="cpu", **kw)
 

@@ -289,10 +289,9 @@ def test_weight_server_is_reported_and_serving_goes_on(tmp_path):
 # tensor-parallel training on a gang, since the tp axis; MoE training
 # (1), the pipeline on a gang (15) and MoE on a gang (13) since the ep
 # and pp axes: 13 is now a gang that does not divide the experts,
-# refused before the process group forms)
+# refused before the process group forms; ring prefill (2) since the sp
+# serving gang, tests/test_torch_ring_prefill.py)
 REFUSALS = [
-    (2, "llama", ["--prefill-seq-parallel", "true"], {},
-     "longctx_not_ported"),
     (13, "llama", ["--pages", "64", "--moe-experts", "3"],
      {"JAX_COORDINATOR_ADDRESS": "pod-0:1", "JAX_PROCESS_ID": "0",
       "JAX_NUM_PROCESSES": "2"}, "moe_ep_indivisible"),

@@ -5,8 +5,12 @@ the tokens of a port ``PagedServer(moe=...)`` built directly from the
 same seed; the serving-arithmetic resolution (``moe_fallback`` with
 ``moe_needs_paged`` / ``moe_quant``, ``longctx_fallback`` with
 ``longctx_with_moe``, the capacity factor and the routing) emits the
-reference worker's events and gives its MoE config; an MoE model that
-the paged engine refuses does not fall back to the slot engine."""
+reference worker's events and gives its MoE config; so do the ring
+prefill's (``longctx_needs_paged``, ``longctx_quant``,
+``longctx_ring_devices``, ``longctx_ring_max_seq``, or the ring armed
+over ``MeshSpec(sp=n)``), on one device and on gangs of 2 and 4; an MoE
+model that the paged engine refuses does not fall back to the slot
+engine."""
 
 import json
 import signal
@@ -66,6 +70,13 @@ ARITHMETIC = [
      "--moe-routing", "expert_choice"],
     ["--moe-experts", "2", "--pages", "-1", "--moe-capacity-factor", "-1"],
     ["--pages", "-1"],
+    ["--prefill-seq-parallel", "true"],
+    ["--pages", "-1", "--kv-quant", "--prefill-seq-parallel", "true"],
+    ["--pages", "-1", "--prefill-seq-parallel", "true"],
+    ["--pages", "-1", "--prefill-seq-parallel", "true", "--longctx-ring",
+     "2"],
+    ["--pages", "-1", "--prefill-seq-parallel", "true", "--max-seq", "66"],
+    ["--pages", "-1", "--prefill-seq-parallel", "false"],
 ]
 
 
@@ -77,28 +88,62 @@ def _outcome(capsys, moe_cfg):
     return [(e["event"], e.get("code")) for e in events], cfg
 
 
+def _arithmetic(argv, n, capsys):
+    """Port and reference ``_serving_arithmetic(args, cfg, n)`` on the same
+    flags: each side's (events, MoE config), ring and mesh axes."""
+    out = []
+    for worker, cfg_of in ((tworker, tl.LlamaConfig.tiny),
+                           (jworker, jl.LlamaConfig.tiny)):
+        args = worker.build_parser().parse_args([*SERVE, *argv])
+        cfg = cfg_of(max_seq=args.max_seq) if args.max_seq else cfg_of()
+        moe_cfg, ring, spec = worker._serving_arithmetic(args, cfg, n)
+        axes = (None if spec is None else
+                {a: getattr(spec, a) for a in ("dp", "pp", "sp", "tp", "ep",
+                                                "dcn")})
+        out.append((_outcome(capsys, moe_cfg), ring, axes))
+    return out
+
+
 @pytest.mark.parametrize("argv", ARITHMETIC,
                          ids=lambda a: "_".join(x.strip("-") for x in a))
 def test_serving_arithmetic_matches_the_reference(argv, capsys):
-    """The same flags give the reference's coded events and MoE config
-    (the reference on one device: ``MeshSpec(ep=1)``, the local path)."""
-    targs = tworker.build_parser().parse_args([*SERVE, *argv])
-    got = _outcome(capsys, tworker._serving_arithmetic(targs))
-    jargs = jworker.build_parser().parse_args([*SERVE, *argv])
-    jcfg, ring, _ = jworker._serving_arithmetic(
-        jargs, jl.LlamaConfig.tiny(), 1)
-    want = _outcome(capsys, jcfg)
-    assert got == want and ring == 0
+    """The same flags give the reference's coded events, MoE config, ring
+    and mesh on one device (MoE: ``MeshSpec(ep=1)``, the local path; the
+    ring: ``longctx_ring_devices``, chunks)."""
+    got, want = _arithmetic(argv, 1, capsys)
+    assert got == want and got[1] == 0
     if "--moe-experts" in argv:
-        assert got[1] is not None or got[0][0][0] == "moe_fallback"
+        assert got[0][1] is not None or got[0][0][0][0] == "moe_fallback"
 
 
-def test_ring_prefill_without_moe_stays_refused():
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("argv", ARITHMETIC,
+                         ids=lambda a: "_".join(x.strip("-") for x in a))
+def test_serving_arithmetic_on_a_gang_matches_the_reference(argv, n,
+                                                            capsys):
+    """On a gang of n (the reference: n devices) the same flags give the
+    same events, ring and mesh: ``MeshSpec(sp=n)`` where the ring arms,
+    ``MeshSpec(ep=n)`` (or ``ep=1`` with ``moe_note``) for MoE."""
+    got, want = _arithmetic(argv, n, capsys)
+    assert got == want
+    if got[1]:
+        assert got[1] == n and got[2]["sp"] == n
+
+
+def test_ring_prefill_without_moe_is_armed_on_a_gang(capsys):
+    """``--prefill-seq-parallel true`` with ``--pages``: ring prefill over
+    ``MeshSpec(sp=n)`` on a gang of n, no event; on one device the
+    reference's ``longctx_ring_devices`` and chunks."""
     targs = tworker.build_parser().parse_args(
         [*SERVE, "--pages", "-1", "--prefill-seq-parallel", "true"])
-    with pytest.raises(tworker.NotPorted) as ei:
-        tworker._serving_arithmetic(targs)
-    assert ei.value.code == "longctx_not_ported"
+    cfg = tl.LlamaConfig.tiny()
+    moe_cfg, ring, spec = tworker._serving_arithmetic(targs, cfg, 2)
+    assert moe_cfg is None and ring == 2 and spec.sp == 2 and spec.tp == 1
+    assert capsys.readouterr().out == ""
+    assert tworker._serving_arithmetic(targs, cfg, 1) == (None, 0, None)
+    events = [json.loads(line) for line in
+              capsys.readouterr().out.splitlines()]
+    assert [e["code"] for e in events] == ["longctx_ring_devices"]
 
 
 def test_moe_model_refused_by_the_paged_engine_does_not_serve_slots(capsys):
